@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port on one NVIDIA GPU (an H100): build, check, serve.
+"""Drive the PyTorch port on one NVIDIA GPU (an H100): build, check, serve,
+train.
 
     python3 chip_smoke.py
 
@@ -7,25 +8,38 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
 
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build every kernel under tpuframe_torch/csrc with nvcc;
-  3. hold each kernel against its plain PyTorch version at the serving
-     shapes (and, for correctness only, at every head_dim and dtype it
-     takes, with strided inputs), and time the kernel, the plain version and one PyTorch
-     library call that computes the same function (a yardstick only);
-  4. prefill + decode logits against the full forward, full width, bf16;
-  5. serve 12 requests over the three prompt buckets through run_loadgen
+  3. hold the forward kernel against its plain PyTorch version at the
+     serving shapes and at the training slice's (and, for correctness
+     only, at every head_dim and dtype it takes, with strided inputs), and
+     time the kernel, the plain version and one PyTorch library call that
+     computes the same function (a yardstick only);
+  4. the same for the two backward kernels at the training slice's shapes,
+     plus a correctness sweep (f32, key masks with fully masked rows, a
+     ragged length, every head_dim, strided inputs, an lse cotangent);
+  5. prefill + decode logits against the full forward, full width, bf16;
+  6. serve 12 requests over the three prompt buckets through run_loadgen
      -> Scheduler -> LMEngine at full width (TransformerLM defaults:
      hidden 768, 12 layers, 12 heads, vocab 32000, bf16, flash attention),
-     with every kernel's launch count read around that run.
+     with every kernel's launch count read around that run;
+  7. one training step's loss and gradients at full width in f32, flash
+     kernels against the plain einsum attention;
+  8. train lm_long through ``tpuframe_torch.train.main`` (cuts in
+     TRAIN_OVERRIDES), with every kernel's launch count read around that
+     run, then profile one more step.
 
-Prints a ``{"kernels": [...]}`` line, then ends with
+``--phases`` runs a subset after the build, for debugging.  A full run
+prints a ``{"kernels": [...]}`` line, then ends with
 ``{"ok": true, "device": {...}}`` as its last line.  Weights and token ids
 are random, drawn from fixed seeds.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
+import math
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -37,11 +51,14 @@ import torch.nn.functional as F
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 from tpuframe_torch import _build  # noqa: E402
+from tpuframe_torch import train as train_lib  # noqa: E402
+from tpuframe_torch.models import get_model  # noqa: E402
 from tpuframe_torch.models.transformer_lm import LMConfig  # noqa: E402
 from tpuframe_torch.ops import flash_attention as fa  # noqa: E402
 from tpuframe_torch.serve import kv_cache as kv  # noqa: E402
 from tpuframe_torch.serve import loadgen  # noqa: E402
 from tpuframe_torch.serve.engine import LMEngine, parity_diffs  # noqa: E402
+from tpuframe_torch.utils.config import get_config  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W).
 PEAK_BYTES_S = 3.35e12
@@ -63,12 +80,48 @@ TOL = {torch.float32: {"out": 2e-5, "lse": 2e-5},
 # of the hidden state carried through 12 layers.
 PARITY_ATOL_BF16 = 0.25
 
+# Backward kernels vs plain versions: max |diff| over max |plain|.  f32:
+# summation order only.  bf16: the kernel and the plain version round P
+# and dS to bf16 from scores summed in other orders, so an operand near a
+# rounding boundary can fall the other way, and each gradient is rounded
+# to bf16 at the end (2^-8 relative).
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+# The training slice: lm_long at its full width (hidden 768, 12 layers,
+# 12 heads of 64, intermediate 3072, vocab 32000, bf16, adamw 3e-4, wd
+# 0.1, clip 1.0, warmup+cosine, remat, fused xent, flash attention) and
+# global batch 8, cut for one card: sequence 32768 -> 4096 (the kernels
+# run on CUDA cores: attention alone would take minutes a step at 32768),
+# mesh data=2 x seq -> 1 x 1 (seq_mode ring on a seq degree of 1 is full
+# causal attention), and a few steps with one eval batch.
+TRAIN_STEPS = 4
+TRAIN_EVAL_BATCHES = 1
+TRAIN_OVERRIDES = {"mesh": {"data": 1, "seq": 1},
+                   "dataset_kwargs": {"seq_len": 4096},
+                   "total_steps": TRAIN_STEPS, "eval_every": TRAIN_STEPS,
+                   "eval_batches": TRAIN_EVAL_BATCHES, "log_every": 1}
+TRAIN_ARGS = ["--config", "lm_long"] + [
+    a for k, v in TRAIN_OVERRIDES.items() for a in ("--set", f"{k}={v!r}")]
+# The attention shape at the kernels there: batch, sequence, heads, D.
+TRAIN_ATTN_SHAPE = (8, 4096, 12, 64)
+
+# Gradient parity at full width in f32 (batch, sequence): the kernels and
+# the einsum attention differ in summation order and in the einsum's
+# -1e9 mask fill, worth ~1e-6 relative per layer.
+GRAD_PARITY_SHAPE = (2, 256)
+GRAD_PARITY_RTOL = 1e-4
+
 SERVE_REQUESTS = 12
 NEW_TOKENS = 16
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def reset_launches() -> None:
+    for name in fa.LAUNCHES:
+        fa.LAUNCHES[name] = 0
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -144,7 +197,6 @@ def _flash_check(name, q, k, v, mask, causal):
 
 def _flash_case(s, dtype, causal, masked, gen):
     b, n, d = (2, 12, 64) if masked else (1, 12, 64)
-    dev = torch.device("cuda")
     q, k, v, mask = _flash_inputs(b, s, n, d, dtype, masked, gen)
     name = (f"S={s} {str(dtype)[6:]} {'causal' if causal else 'full'}"
             f"{' masked' if masked else ''}")
@@ -167,12 +219,7 @@ def _flash_case(s, dtype, causal, masked, gen):
         lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=attn_mask, is_causal=causal), 10)) / 10
 
-    keep = torch.ones((s, s), dtype=torch.bool, device=dev)
-    if causal:
-        keep = keep.tril()
-    pairs = n * (int(keep.sum()) * b if mask is None
-                 else int((keep[None] & (mask[:, None, :] != 0)).sum()))
-    ops = 4 * d * pairs                      # QK^T and PV, 2 flops a MAC
+    ops = 4 * d * _pairs(s, s, b, n, mask, causal)  # QK^T and PV
     nbytes = (3 * q.numel() * q.element_size() + out.numel()
               * out.element_size() + lse.numel() * 4
               + (0 if mask is None else mask.numel() * 4))
@@ -217,7 +264,197 @@ def phase_kernels() -> dict:
                                             err)
     log(f"[flash] head_dims {fa.HEAD_DIMS} x f32/bf16 x causal/full, "
         f"S=77, masked, strided: worst err {worst}")
+    cases["train"] = _flash_train_case(gen)
     return cases
+
+
+def _flash_train_case(gen) -> dict:
+    """The forward kernel at the training slice's shapes, against its
+    plain version one batch row at a time."""
+    b, s, n, d = TRAIN_ATTN_SHAPE
+    dtype = torch.bfloat16
+    q, k, v, _ = _flash_inputs(b, s, n, d, dtype, False, gen)
+    out, lse = fa.flash_fwd(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = _by_row(fa.flash_mha_reference, (q, k, v), None, True)
+    err = float((out.float() - ref_out.float()).abs().max())
+    err_lse = float((lse - ref_lse).abs().max())
+    tol = TOL[dtype]
+    if not (err <= tol["out"] and err_lse <= tol["lse"]):
+        raise RuntimeError(f"flash_fwd training shape: max|out diff| "
+                           f"{err:.3e}, max|lse diff| {err_lse:.3e}")
+    launch = lambda: fa.flash_fwd(q, k, v, causal=True)  # noqa: E731
+    ms = cuda_ms(launch, 5)
+    dev_ms = sum(t for _, t, _ in device_time(launch, 3)) / 3
+    plain_ms = cuda_ms(lambda: _by_row(fa.flash_mha_reference, (q, k, v),
+                                       None, True), 1)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True), 5)
+    ops = 4 * d * _pairs(s, s, b, n, None, True)
+    nbytes = 4 * q.numel() * 2 + lse.numel() * 4
+    t_ops, t_bytes = ops / PEAK_OPS_S[dtype], nbytes / PEAK_BYTES_S
+    case = {"max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "tflops": ops / ms / 1e9}
+    log(f"[flash] B={b} S={s} N={n} D={d} bf16 causal (training shape): "
+        f"err {err:.2e}, lse err {err_lse:.2e}; kernel {ms:.3f} ms (device "
+        f"{dev_ms:.3f}, {case['tflops']:.2f} TFLOP/s), plain {plain_ms:.1f}"
+        f" ms, sdpa {lib_ms:.3f} ms, bound {case['bound_ms']:.4f} ms "
+        f"({case['bound_by']})")
+    return case
+
+
+def _pairs(s_q, s_kv, b, n, mask, causal) -> int:
+    """Query-key pairs the kernels keep, summed over batch and heads."""
+    keep = torch.ones((s_q, s_kv), dtype=torch.bool, device="cuda")
+    if causal:
+        keep = keep.tril()
+    if mask is None:
+        return n * b * int(keep.sum())
+    return n * int((keep[None] & (mask[:, None, :] != 0)).sum())
+
+
+def _bwd_inputs(b, s, n, d, dtype, masked, causal, gen, *, strided=False,
+                dlse=False):
+    """Backward inputs as training hands them to the kernels: q, k, v,
+    dO, the forward kernel's lse, delta = rowsum(dO * O) (less a random
+    lse cotangent when ``dlse``) and the key mask."""
+    q, k, v, mask = _flash_inputs(b, s, n, d, dtype, masked, gen,
+                                  strided=strided)
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+    out, lse = fa.flash_fwd(q, k, v, mask=mask, causal=causal)
+    delta = (do.float() * out.float()).sum(-1).permute(0, 2, 1)
+    if dlse:
+        delta = delta - torch.randn(lse.shape, generator=gen, device="cuda")
+    return q, k, v, do, lse, delta.contiguous(), mask
+
+
+def _by_row(fn, args, mask, causal):
+    """A plain version over one batch row at a time: its [B, N, S, S]
+    f32 score tensors for the whole batch would not fit the card at the
+    training slice's shapes.  Same inputs, same arithmetic per row."""
+    parts = []
+    for i in range(args[0].shape[0]):
+        row = [a[i:i + 1] for a in args]
+        got = fn(*row, mask=None if mask is None else mask[i:i + 1],
+                 causal=causal)
+        parts.append(got if isinstance(got, tuple) else (got,))
+    return tuple(torch.cat(p) for p in zip(*parts))
+
+
+def _bwd_check(name, args, causal):
+    """Both backward kernels against their plain versions; raises past the
+    tolerance.  Returns ``{grad: max abs error}``."""
+    *tensors, mask = args
+    dq = fa._launch_bwd("dq", *tensors, mask, causal)
+    dk, dv = fa._launch_bwd("dkv", *tensors, mask, causal)
+    torch.cuda.synchronize()
+    (ref_dq,) = _by_row(fa.flash_bwd_dq_reference, tensors, mask, causal)
+    ref_dk, ref_dv = _by_row(fa.flash_bwd_dkv_reference, tensors, mask,
+                             causal)
+    tol = BWD_TOL[tensors[0].dtype]
+    errs, bad = {}, []
+    for g, got, ref in (("dq", dq, ref_dq), ("dk", dk, ref_dk),
+                        ("dv", dv, ref_dv)):
+        errs[g] = float((got.float() - ref.float()).abs().max())
+        scale = float(ref.float().abs().max())
+        if not (torch.isfinite(got.float()).all()
+                and errs[g] <= tol * max(scale, 1e-30)):
+            bad.append(f"{g}: max|diff| {errs[g]:.3e} vs tol {tol} x "
+                       f"max|plain| {scale:.3e}")
+    if mask is not None and not mask[1:].any():
+        # rows 1.. of the batch are fully masked: exactly zero gradients
+        if dq[1:].any() or dk[1:].any() or dv[1:].any():
+            bad.append("a fully masked batch row has nonzero gradients")
+    if bad:
+        raise RuntimeError(f"flash backward {name}: " + "; ".join(bad))
+    return errs
+
+
+def phase_backward() -> dict:
+    """Both backward kernels against their plain versions at the training
+    slice's shapes (timed) and over the correctness sweep."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    b, s, n, d = TRAIN_ATTN_SHAPE
+    dtype = torch.bfloat16
+    args = _bwd_inputs(b, s, n, d, dtype, False, True, gen)
+    *tensors, mask = args
+    errs = _bwd_check("training shape", args, True)
+    pairs = _pairs(s, s, b, n, None, True)
+    elt = 2   # bf16 bytes
+    qkvo = 4 * b * s * n * d * elt
+    rows = 2 * b * n * s * 4            # lse, delta
+    res = {}
+    for which, flops_per_pair, out_bytes, fn in (
+            ("dq", 6 * d, b * s * n * d * elt, fa.flash_bwd_dq_reference),
+            ("dkv", 8 * d, 2 * b * s * n * d * elt,
+             fa.flash_bwd_dkv_reference)):
+        launch = (lambda w=which: fa._launch_bwd(w, *tensors, mask, True))
+        ms = cuda_ms(launch, 5)
+        dev = sum(t for _, t, _ in device_time(launch, 3)) / 3
+        plain = cuda_ms(lambda f=fn: _by_row(f, tensors, mask, True), 1)
+        ops = flops_per_pair * pairs
+        nbytes = qkvo + rows + out_bytes
+        t_ops, t_bytes = ops / PEAK_OPS_S[dtype], nbytes / PEAK_BYTES_S
+        res[which] = {"ms": ms, "device_ms": dev, "plain_ms": plain,
+                      "bound_ms": 1e3 * max(t_ops, t_bytes),
+                      "bound_by": "operations" if t_ops >= t_bytes
+                      else "bytes", "ops": ops, "bytes": nbytes,
+                      "tflops": ops / ms / 1e9}
+    res["dq"]["max_abs_err"] = errs["dq"]
+    res["dkv"]["max_abs_err"] = max(errs["dk"], errs["dv"])
+    # Yardstick: the backward of PyTorch's fused attention on the same
+    # tensors, timed alone (the graph is kept, so each call is only the
+    # backward).  The port never calls it.
+    q, k, v, do, _, _ = tensors
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    dot = do.transpose(1, 2)
+    lib = cuda_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                              retain_graph=True), 5)
+    for r in res.values():
+        r["library_ms"] = lib
+    del out
+    log(f"[flash-bwd] B={b} S={s} N={n} D={d} bf16 causal: err dq "
+        f"{errs['dq']:.2e} dk {errs['dk']:.2e} dv {errs['dv']:.2e} (tol "
+        f"{BWD_TOL[dtype]} x max|plain|); "
+        + "; ".join(f"{w} {r['ms']:.3f} ms (device {r['device_ms']:.3f}, "
+                    f"{r['tflops']:.2f} TFLOP/s), plain {r['plain_ms']:.1f}"
+                    f" ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
+                    for w, r in res.items())
+        + f"; sdpa backward {lib:.3f} ms")
+
+    # Correctness sweep: f32; a masked, not causal case with fully masked
+    # batch rows; and every head_dim at a ragged length, masked, strided,
+    # with an lse cotangent folded into delta.
+    sweep = [("S=1024 f32 causal dlse",
+              _bwd_inputs(2, 1024, 12, 64, torch.float32, False, True, gen,
+                          dlse=True), True),
+             ("S=512 bf16 masked full",
+              _bwd_inputs(2, 512, 12, 64, dtype, True, False, gen), False)]
+    for d_ in fa.HEAD_DIMS:
+        for dt in fa.DTYPES:
+            for causal in (False, True):
+                sweep.append((f"D={d_} {str(dt)[6:]} causal={causal} S=77 "
+                              f"masked strided dlse",
+                              _bwd_inputs(3, 77, 5, d_, dt, True, causal,
+                                          gen, strided=True, dlse=True),
+                              causal))
+    worst = {}
+    for name, args, causal in sweep:
+        e = max(_bwd_check(name, args, causal).values())
+        key = "f32" if args[0].dtype == torch.float32 else "bf16"
+        worst[key] = max(worst.get(key, 0.0), e)
+    log(f"[flash-bwd] sweep of {len(sweep)} cases (f32 S=1024 with dlse; "
+        f"bf16 masked full S=512 with fully masked rows; every head_dim x "
+        f"dtype x causal at S=77, masked, strided, dlse): worst max abs "
+        f"err {worst}")
+    return res
 
 
 def phase_parity() -> None:
@@ -260,10 +497,10 @@ def phase_serve() -> dict:
     reqs = loadgen.synthetic_requests(
         SERVE_REQUESTS, buckets=buckets, vocab_size=cfg.vocab_size,
         max_new_tokens=NEW_TOKENS, seed=0)
-    fa.LAUNCHES = 0
+    reset_launches()
     stats = loadgen.run_loadgen(engine, reqs)
     torch.cuda.synchronize()
-    launches = {"flash_fwd": fa.LAUNCHES}
+    launches = dict(fa.LAUNCHES)
 
     prefills = len(reqs)   # each request is prefilled exactly once
     hit = sorted({kv.bucket_for(len(r.prompt), buckets) for r in reqs})
@@ -302,6 +539,105 @@ def phase_serve() -> dict:
     profile_window(f"decode step ({engine.slots} slots)", engine.decode_step,
                    wall_ms(engine.decode_step, 20))
     return launches
+
+
+def phase_grad_parity() -> None:
+    """One training step's loss and gradients at full width in f32, with
+    the flash kernels (``attn_impl="pallas"``) against the plain einsum
+    attention (``"xla"``), from the same random weights and tokens."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, s = GRAD_PARITY_SHAPE
+    cfg = get_config("lm_long").with_overrides(
+        compute_dtype="float32", dataset_kwargs={"seq_len": s})
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    ids = torch.randint(0, 32000, (b, s + 1), generator=gen, device="cuda")
+    batch = {"input_ids": ids[:, :-1], "labels": ids[:, 1:]}
+    loss_fn = train_lib.make_loss_fn(cfg)
+    out = {}
+    for impl in ("pallas", "xla"):
+        model = get_model(cfg.model, dtype="float32", device="cuda", seed=0,
+                          **dict(cfg.model_kwargs, attn_impl=impl))
+        loss, _ = loss_fn(model, batch, 0)
+        loss.backward()
+        out[impl] = (float(loss.detach()), {n: p.grad for n, p in
+                                   model.named_parameters()})
+        del model
+    (lp, gp), (lx, gx) = out["pallas"], out["xla"]
+    worst, where = 0.0, ""
+    for name, g in gx.items():
+        rel = float((gp[name] - g).norm() / g.norm().clamp_min(1e-30))
+        if rel > worst:
+            worst, where = rel, name
+    log(f"[grad-parity] lm_long widths f32, B={b} S={s}: loss kernels "
+        f"{lp:.6f} plain {lx:.6f}; worst per-tensor relative grad "
+        f"difference {worst:.2e} ({where}; tol {GRAD_PARITY_RTOL})")
+    if not (abs(lp - lx) <= GRAD_PARITY_RTOL * abs(lx)
+            and worst <= GRAD_PARITY_RTOL):
+        raise RuntimeError(f"gradient parity: loss {lp} vs {lx}, worst "
+                           f"relative grad difference {worst:.3e} at {where}")
+
+
+def phase_train() -> dict:
+    """The training slice: lm_long through ``tpuframe_torch.train.main``,
+    with the cuts of TRAIN_ARGS, every kernel's launches read around it;
+    then one more step of the same harness under the profiler."""
+    b, s, n, d = TRAIN_ATTN_SHAPE
+    layers = 12
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.monotonic()
+    metrics = train_lib.main(TRAIN_ARGS)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = dict(fa.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    losses, step_ms = metrics["losses"], metrics["step_ms"]
+    steps, evals = len(losses), TRAIN_EVAL_BATCHES
+    want = {"flash_fwd": (2 * steps + evals) * layers,
+            "flash_bwd_dq": steps * layers, "flash_bwd_dkv": steps * layers}
+    problems = []
+    if not all(math.isfinite(x) for x in losses) or steps != TRAIN_STEPS:
+        problems.append(f"losses {losses}")
+    if not math.isfinite(metrics.get("eval_loss", float("nan"))):
+        problems.append("no finite eval loss")
+    if launches != want:
+        problems.append(f"launches {launches}, want {want} (forward twice "
+                        f"per layer and step under remat, once per layer "
+                        f"and eval batch; each backward kernel once per "
+                        f"layer and step)")
+    if problems:
+        raise RuntimeError("training: " + "; ".join(problems))
+    p50 = statistics.median(step_ms[1:])
+    tokens = b * s
+    cfg = get_config("lm_long")
+    h, inter, vocab = 768, 3072, 32000
+    matmul_params = layers * (4 * h * h + 2 * h * inter) + h * vocab
+    pairs = b * s * (s + 1) // 2
+    flops = 6 * matmul_params * tokens + 3 * 4 * d * pairs * n * layers
+    mfu = flops / (p50 / 1e3) / PEAK_OPS_S[torch.bfloat16]
+    log(f"[train] {cfg.name} cut to S={s}, mesh 1x1, {steps} steps + "
+        f"{evals} eval batch in {wall:.1f} s: losses "
+        f"{[round(x, 4) for x in losses]}, eval loss "
+        f"{metrics['eval_loss']:.4f}; step ms {[round(x, 1) for x in step_ms]}"
+        f" (p50 after the first {p50:.1f}); {tokens / p50 * 1e3:.0f} "
+        f"tokens/s; model FLOPs {flops:.3e} a step, MFU {mfu:.4f} of "
+        f"989 TFLOP/s; peak memory {peak / 2**30:.2f} GiB; launches "
+        f"{launches}")
+
+    # One more step of the same path under the profiler: where it goes.
+    cfg = get_config("lm_long").with_overrides(**TRAIN_OVERRIDES)
+    harness = train_lib.build_harness(cfg)
+    batch = next(iter(harness.train_loader))
+    step = lambda: float(harness.train_step(harness.state, batch)["loss"])  # noqa: E731
+    wall_step = wall_ms(step, 1)
+    kernels = device_time(step)
+    busy = sum(ms for _, ms, _ in kernels)
+    log(f"[profile] training step: wall {wall_step:.1f} ms, "
+        f"{sum(c for *_, c in kernels)} kernels, device {busy:.1f} ms, idle "
+        f"share {1 - busy / wall_step:.3f}; top: "
+        + "; ".join(f"{k[:60]} {ms:.1f} ms x{c}" for k, ms, c in kernels[:8]))
+    return {"launches": launches, "step_ms_p50": p50, "mfu": mfu,
+            "peak_bytes": peak}
 
 
 def wall_ms(fn, calls: int) -> float:
@@ -344,32 +680,57 @@ def profile_window(name: str, fn, wall: float) -> None:
                     for k, ms, c in kernels[:4]))
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--phases", default=None,
+                    help="comma-separated subset of "
+                         f"{','.join(PHASES)} (debugging: a partial run "
+                         "prints neither the kernels line nor the ok line)")
+    args = ap.parse_args(argv)
     phase_card()
     t0 = time.monotonic()
     phase_build()
+    if args.phases is not None:
+        for name in args.phases.split(","):
+            PHASES[name]()
+        log(f"[done] partial run in {time.monotonic() - t0:.1f} s")
+        return 0
     cases = phase_kernels()
+    bwd = phase_backward()
     phase_parity()
-    launches = phase_serve()
+    serve_launches = phase_serve()
+    phase_grad_parity()
+    train = phase_train()
 
-    main_case = cases[(512, torch.bfloat16, True, False)]
+    by_path = {name: {"serve": serve_launches[name],
+                      "train": train["launches"][name]}
+               for name in fa.LAUNCHES}
+    fwd = cases["train"]
+    rows = [("flash_fwd", "flash_fwd.cu", 136, fwd),
+            ("flash_bwd_dq", "flash_bwd.cu", 295, bwd["dq"]),
+            ("flash_bwd_dkv", "flash_bwd.cu", 327, bwd["dkv"])]
     kernels = [{
-        "name": "flash_fwd", "route": "cuda",
-        "source": "tpuframe_torch/csrc/flash_fwd.cu",
-        "replaces": "tpuframe/ops/flash_attention.py:136",
-        "launches": launches["flash_fwd"],
-        "max_abs_err": main_case["max_abs_err"],
-        "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
-        "bound_ms": main_case["bound_ms"],
-        "bound_by": main_case["bound_by"],
-        "library_ms": main_case["library_ms"],
-    }]
+        "name": name, "route": "cuda",
+        "source": f"tpuframe_torch/csrc/{src}",
+        "replaces": f"tpuframe/ops/flash_attention.py:{line}",
+        "launches": sum(by_path[name].values()),
+        "launches_by_path": by_path[name],
+        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        "shape": "B=8 S=4096 N=12 D=64 bf16 causal",
+    } for name, src, line, r in rows]
     log(f"[done] {time.monotonic() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+PHASES = {"kernels": phase_kernels, "backward": phase_backward,
+          "parity": phase_parity, "serve": phase_serve,
+          "grad_parity": phase_grad_parity, "train": phase_train}
 
 
 if __name__ == "__main__":

@@ -1,0 +1,188 @@
+"""Gradients of tpuframe_torch.ops.flash_attention against the JAX kernels.
+
+On the CPU the port's backward runs the plain versions of its two CUDA
+kernels (``flash_bwd_dq_reference`` / ``flash_bwd_dkv_reference``); the JAX
+side differentiates its Pallas kernels in interpret mode, as
+tests/test_flash_attention.py does.  Inputs and cotangents are drawn with
+numpy from a seed and handed to both, in f32.  The CUDA kernels themselves
+are held against the plain versions on the card by chip_smoke.py.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from tpuframe.ops import attention as jax_attention  # noqa: E402
+from tpuframe.ops import flash_attention as jax_fa  # noqa: E402
+from tpuframe_torch.ops import attention as torch_attention  # noqa: E402
+from tpuframe_torch.ops import flash_attention as fa  # noqa: E402
+
+ATOL = RTOL = 1e-5   # f32 both sides; they differ in summation order only
+
+CASES = [(causal, masked, s, d)
+         for causal in (False, True) for masked in (False, True)
+         for s in (64, 128) for d in (16, 32)]
+
+
+def _inputs(s, d, *, masked, b=2, n=3, seed=0):
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (rng.standard_normal((b, s, n, d)).astype(np.float32)
+                   for _ in range(4))
+    dlse = rng.standard_normal((b, n, s)).astype(np.float32)
+    mask = None
+    if masked:
+        # batch row 0 keeps a ragged prefix; row 1 is fully masked
+        mask = np.zeros((b, s), np.int32)
+        mask[0, : (3 * s) // 5] = 1
+    return q, k, v, do, dlse, mask
+
+
+def _torch_leaves(q, k, v):
+    return [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+
+
+def _jax_mask(mask):
+    return None if mask is None else jnp.asarray(mask)
+
+
+def _torch_mask(mask):
+    return None if mask is None else torch.from_numpy(mask)
+
+
+def _assert_close(got, want):
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.detach().numpy(), np.asarray(w),
+                                   atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("causal,masked,s,d", CASES)
+def test_flash_mha_grads_match_jax(causal, masked, s, d):
+    q, k, v, do, _, mask = _inputs(s, d, masked=masked)
+
+    def loss(q, k, v):
+        out = jax_fa.flash_mha(q, k, v, mask=_jax_mask(mask), causal=causal,
+                               interpret=True)
+        return jnp.sum(out * do)
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    tq, tk, tv = _torch_leaves(q, k, v)
+    out = fa.flash_mha(tq, tk, tv, mask=_torch_mask(mask), causal=causal)
+    got = torch.autograd.grad(out, (tq, tk, tv), torch.from_numpy(do))
+    _assert_close(got, want)
+    if masked:
+        # The fully masked batch row gets exact zeros, not exp overflow.
+        for g in got:
+            assert not g[1].any()
+
+
+@pytest.mark.parametrize("causal,masked,s,d", CASES)
+def test_flash_mha_lse_grads_match_jax(causal, masked, s, d):
+    """Cotangents on both outputs: the lse one reaches the kernels only
+    through the fold ``delta - dlse``."""
+    q, k, v, do, dlse, mask = _inputs(s, d, masked=masked, seed=1)
+
+    def loss(q, k, v):
+        out, lse = jax_fa.flash_mha_lse(q, k, v, mask=_jax_mask(mask),
+                                        causal=causal, interpret=True)
+        # a fully masked row's lse is the constant NEG_INF: no gradient
+        return jnp.sum(out * do) + jnp.sum(lse * dlse)
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    tq, tk, tv = _torch_leaves(q, k, v)
+    out, lse = fa.flash_mha_lse(tq, tk, tv, mask=_torch_mask(mask),
+                                causal=causal)
+    got = torch.autograd.grad((out, lse), (tq, tk, tv),
+                              (torch.from_numpy(do), torch.from_numpy(dlse)))
+    _assert_close(got, want)
+    # Without the fold the grads differ: the lse cotangent is not a no-op.
+    no_fold = torch.autograd.grad(
+        fa.flash_mha_lse(tq, tk, tv, mask=_torch_mask(mask),
+                         causal=causal)[0],
+        (tq, tk, tv), torch.from_numpy(do))
+    assert max(float((a - b).abs().max()) for a, b in zip(got, no_fold)) \
+        > 1e-3
+
+
+def test_lse_cotangent_alone():
+    """Only the lse output is used: the backward sees dO = None."""
+    q, k, v, _, dlse, _ = _inputs(64, 16, masked=False, seed=2)
+
+    def loss(q, k, v):
+        _, lse = jax_fa.flash_mha_lse(q, k, v, causal=True, interpret=True)
+        return jnp.sum(lse * dlse)
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    tq, tk, tv = _torch_leaves(q, k, v)
+    _, lse = fa.flash_mha_lse(tq, tk, tv, causal=True)
+    got = torch.autograd.grad(lse, (tq, tk, tv), torch.from_numpy(dlse))
+    _assert_close(got, want)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_ragged_length_grads_match_jax_xla_path(causal):
+    """S = 200 does not tile for the JAX kernel, so the JAX side is its
+    einsum path; the port's kernel path takes any S."""
+    q, k, v, do, _, _ = _inputs(200, 16, masked=False, seed=3)
+    mask = np.ones((2, 200), np.int32)
+    mask[1, 150:] = 0
+    assert not jax_fa.supported(jnp.asarray(q), jnp.asarray(k))
+
+    def loss(q, k, v):
+        out = jax_attention.multihead_attention(
+            q, k, v, mask=jnp.asarray(mask), causal=causal, impl="xla")
+        return jnp.sum(out * do)
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    tq, tk, tv = _torch_leaves(q, k, v)
+    out = torch_attention.multihead_attention(
+        tq, tk, tv, mask=torch.from_numpy(mask), causal=causal,
+        impl="pallas")
+    got = torch.autograd.grad(out, (tq, tk, tv), torch.from_numpy(do))
+    _assert_close(got, want)
+
+
+def test_cpu_backward_launches_no_kernel():
+    q, k, v, do, _, mask = _inputs(64, 16, masked=True, seed=4)
+    before = dict(fa.LAUNCHES)
+    tq, tk, tv = _torch_leaves(q, k, v)
+    out = fa.flash_mha(tq, tk, tv, mask=_torch_mask(mask), causal=True)
+    out.backward(torch.from_numpy(do))
+    assert fa.LAUNCHES == before
+    assert set(fa.LAUNCHES) == {"flash_fwd", "flash_bwd_dq",
+                                "flash_bwd_dkv"}
+    assert all(n == 0 for n in fa.LAUNCHES.values())
+
+
+def test_plain_backward_versions_round_operands_like_the_tpu_kernel():
+    """In bf16 the plain versions round P to dO's dtype and ds to q's / k's
+    before their products; computing those products on unrounded f32
+    values gives other results."""
+    q, k, v, do, _, _ = _inputs(64, 16, masked=False, seed=5)
+    tq, tk, tv, tdo = (torch.from_numpy(a).bfloat16() for a in (q, k, v, do))
+    out, lse = fa.flash_mha_reference(tq, tk, tv, causal=True)
+    delta = (tdo.float() * out.float()).sum(-1).permute(0, 2, 1)
+    dq = fa.flash_bwd_dq_reference(tq, tk, tv, tdo, lse, delta, causal=True)
+    dk, dv = fa.flash_bwd_dkv_reference(tq, tk, tv, tdo, lse, delta,
+                                        causal=True)
+    assert dq.dtype == dk.dtype == dv.dtype == torch.bfloat16
+    p = fa._recompute_p(tq, tk, lse, None, True)
+    dv_f32 = torch.einsum("bnqk,bqnd->bknd", p, tdo.float())
+    assert torch.equal(dv, torch.einsum(
+        "bnqk,bqnd->bknd", p.bfloat16().float(), tdo.float()).bfloat16())
+    assert not torch.equal(dv, dv_f32.bfloat16())
+
+
+def test_backward_launch_checks_before_the_gpu():
+    q = torch.zeros((1, 8, 2, 16))
+    lse = torch.zeros((1, 2, 8))
+    with pytest.raises(TypeError, match="flash kernel takes"):
+        fa._launch_bwd("dq", q.half(), q.half(), q.half(), q.half(), lse,
+                       lse, None, False)
+    with pytest.raises(ValueError, match="dO"):
+        fa._launch_bwd("dkv", q, q, q, q[:, :4], lse, lse, None, False)
+    with pytest.raises(ValueError, match="lse must be f32"):
+        fa._launch_bwd("dq", q, q, q, q, lse.double(), lse, None, False)

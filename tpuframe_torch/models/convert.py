@@ -1,4 +1,5 @@
-"""Carry flax ``TransformerLM`` parameters into the port's model.
+"""Carry flax ``TransformerLM`` parameters (and optax Adam moments) into
+the port's model.
 
 The flax tree (``{"embed": {"embedding"}, "block_<i>": {...},
 "final_ln": {"scale"}, "lm_head": {"kernel"}}``) arrives as nested dicts of
@@ -55,3 +56,12 @@ def _leaves(tree):
             yield from _leaves(v)
     else:
         yield tree
+
+
+def adam_state_from_jax(mu, nu, count) -> dict:
+    """optax ``ScaleByAdamState`` moments (two trees shaped like the flax
+    params, as numpy) and its count → the port optimizer's
+    ``state_dict()`` layout: ``{"count": int, "mu": {...}, "nu": {...}}``
+    keyed by the model's parameter names."""
+    return {"count": int(count), "mu": params_from_jax(mu),
+            "nu": params_from_jax(nu)}

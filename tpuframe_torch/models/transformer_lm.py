@@ -8,17 +8,19 @@ follow the flax model exactly where the two could drift:
     with ``var = E[x^2] - E[x]^2`` clipped at 0, and an f32 result.
   - GELU is the tanh approximation (``flax.linen.gelu``'s default).
   - RoPE rotates interleaved pairs ``(x[..., 0::2], x[..., 1::2])`` in f32.
-  - Dense layers cast input and kernel to the compute dtype; the
-    embedding looks up in f32 and casts; ``lm_head`` runs in f32, so the
-    logits are f32.
+  - Every parameter is stored in f32, as flax keeps them; each
+    :class:`Dense` casts its input and kernel to the compute dtype at the
+    call.  The embedding looks up in f32 and casts; ``lm_head`` runs in
+    f32, so the logits (and ``hidden_only``'s normed states) are f32.
 
-Weights that only ever enter a compute-dtype product (query, key, value,
-out, up, down) are stored in the compute dtype.  Rounding them once when
-they are loaded gives the same bits as the flax model's cast at every
-call, and a decode step then reads half the bytes.
-
-Only the dense model is ported: ``seq_mode`` must be ``"none"`` and MoE
-off (see ROADMAP.md).
+Training (``train=True``) adds residual dropout, with masks drawn inside
+each block from ``(dropout_seed, layer, site)`` so that a ``remat``
+recompute draws the same masks, and ``remat`` recomputes each block in the
+backward (``torch.utils.checkpoint``; the JAX model's ``nn.remat`` with no
+policy).  ``seq_mode`` ring or ulysses runs full causal attention: the
+port has no sequence-parallel group yet, which is what the JAX model does
+when its seq axis is unbound; the trainer refuses a seq degree above 1.
+MoE is not ported (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -26,12 +28,16 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint
 
 from tpuframe_torch import _device
 from tpuframe_torch.ops import attention as attn_ops
+
+SEQ_MODES = ("none", "ring", "ulysses")
 
 
 @dataclass(frozen=True)
@@ -106,22 +112,55 @@ class LayerNorm(nn.Module):
         return (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight)
 
 
+class Dense(nn.Module):
+    """``flax.linen.Dense(use_bias=False, dtype=dtype)``: an f32 kernel,
+    stored as ``[out, in]`` like ``nn.Linear.weight``; input and kernel
+    are cast to ``dtype`` at the call, so the output is in ``dtype``."""
+
+    def __init__(self, in_features: int, out_features: int, *,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        self.in_features = in_features
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty((out_features, in_features),
+                                               device=device))
+
+    def forward(self, x):
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype))
+
+
+def _seed_for(*parts: int) -> int:
+    """A 64-bit torch seed from integer parts (numpy's SeedSequence)."""
+    return int(np.random.SeedSequence(list(parts)).generate_state(
+        1, np.uint64)[0])
+
+
+def dropout(x, rate: float, seed: int):
+    """``flax.linen.Dropout``: keep with probability ``1 - rate`` and scale
+    kept entries by ``1 / (1 - rate)``.  The mask comes from a generator
+    seeded with ``seed`` here, so the same seed draws the same mask, in a
+    recompute too."""
+    gen = torch.Generator(device=x.device)
+    gen.manual_seed(seed)
+    keep = torch.rand(x.shape, generator=gen, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
+
+
 class CausalSelfAttention(nn.Module):
     def __init__(self, cfg: LMConfig, *, device=None):
         super().__init__()
         self.cfg = cfg
         inner = cfg.num_heads * cfg.head_dim
-        kw = dict(bias=False, device=device, dtype=cfg.torch_dtype)
-        self.query = nn.Linear(cfg.hidden_size, inner, **kw)
-        self.key = nn.Linear(cfg.hidden_size, inner, **kw)
-        self.value = nn.Linear(cfg.hidden_size, inner, **kw)
-        self.out = nn.Linear(inner, cfg.hidden_size, **kw)
+        kw = dict(dtype=cfg.torch_dtype, device=device)
+        self.query = Dense(cfg.hidden_size, inner, **kw)
+        self.key = Dense(cfg.hidden_size, inner, **kw)
+        self.value = Dense(cfg.hidden_size, inner, **kw)
+        self.out = Dense(inner, cfg.hidden_size, **kw)
 
     def forward(self, x, positions, *, kv_cache=None, cache_length=None,
                 decode: bool = False):
         c = self.cfg
         b, s, _ = x.shape
-        x = x.to(c.torch_dtype)
 
         def heads(t):
             return t.view(b, s, c.num_heads, c.head_dim)
@@ -163,27 +202,45 @@ class CausalSelfAttention(nn.Module):
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: LMConfig, *, device=None):
+    def __init__(self, cfg: LMConfig, *, layer: int = 0, device=None):
         super().__init__()
         self.cfg = cfg
-        kw = dict(bias=False, device=device, dtype=cfg.torch_dtype)
+        self.layer = layer
+        kw = dict(dtype=cfg.torch_dtype, device=device)
         self.attn_ln = LayerNorm(cfg.hidden_size, device=device)
         self.attn = CausalSelfAttention(cfg, device=device)
         self.mlp_ln = LayerNorm(cfg.hidden_size, device=device)
-        self.up = nn.Linear(cfg.hidden_size, cfg.intermediate_size, **kw)
-        self.down = nn.Linear(cfg.intermediate_size, cfg.hidden_size, **kw)
+        self.up = Dense(cfg.hidden_size, cfg.intermediate_size, **kw)
+        self.down = Dense(cfg.intermediate_size, cfg.hidden_size, **kw)
 
-    def forward(self, x, positions, *, kv_cache=None, cache_length=None,
-                decode: bool = False):
+    def _drop(self, h, dropout_seed, site: int):
+        if dropout_seed is None or self.cfg.dropout == 0.0:
+            return h
+        return dropout(h, self.cfg.dropout,
+                       _seed_for(dropout_seed, self.layer, site))
+
+    def forward(self, x, positions, dropout_seed=None, *, kv_cache=None,
+                cache_length=None, decode: bool = False):
+        """``dropout_seed`` (an int) turns residual dropout on: the
+        training forward."""
         h = self.attn(self.attn_ln(x), positions, kv_cache=kv_cache,
                       cache_length=cache_length, decode=decode)
-        x = x + h
-        h = self.up(self.mlp_ln(x).to(self.cfg.torch_dtype))
-        return x + self.down(F.gelu(h, approximate="tanh"))
+        x = x + self._drop(h, dropout_seed, 0)
+        h = self.up(self.mlp_ln(x))
+        h = self.down(F.gelu(h, approximate="tanh"))
+        return x + self._drop(h, dropout_seed, 1)
 
 
 class TransformerLM(nn.Module):
     """input_ids ``[B, S]`` → logits ``[B, S, V]`` (f32).
+
+    ``train=True`` is the training forward: residual dropout at
+    ``cfg.dropout`` with masks drawn from ``dropout_seed``, and each block
+    recomputed in the backward when ``cfg.remat``.  ``hidden_only=True``
+    returns the post-final-LayerNorm hidden states ``[B, S, H]`` (f32)
+    instead of logits: the input of the chunked fused cross-entropy
+    (:mod:`tpuframe_torch.ops.fused_xent`), which applies ``lm_head``
+    itself.
 
     Serving path: ``kv_cache`` is a per-layer sequence of ``(k, v)``
     pairs, each ``[B, capacity, N, D]``, updated in place;
@@ -201,18 +258,19 @@ class TransformerLM(nn.Module):
     def __init__(self, cfg: LMConfig = LMConfig(), *, device="cuda",
                  seed: int = 0):
         super().__init__()
-        if cfg.seq_mode != "none" or cfg.moe_experts > 0:
-            raise ValueError("the port has the dense model only: seq_mode "
-                             "must be 'none' and moe off")
+        if cfg.moe_experts > 0:
+            raise NotImplementedError(
+                "MoE is not ported yet (ROADMAP.md queue 1, item 12)")
+        if cfg.seq_mode not in SEQ_MODES:
+            raise ValueError(f"unknown seq_mode {cfg.seq_mode!r}")
         device = _device.resolve(device)
         self.cfg = cfg
         self.embed = nn.Embedding(cfg.vocab_size, cfg.hidden_size,
                                   device=device)
-        self.blocks = nn.ModuleList(Block(cfg, device=device)
-                                    for _ in range(cfg.num_layers))
+        self.blocks = nn.ModuleList(Block(cfg, layer=i, device=device)
+                                    for i in range(cfg.num_layers))
         self.final_ln = LayerNorm(cfg.hidden_size, device=device)
-        self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=False,
-                                 device=device)
+        self.lm_head = Dense(cfg.hidden_size, cfg.vocab_size, device=device)
         self._init_weights(seed)
 
     @torch.no_grad()
@@ -222,21 +280,23 @@ class TransformerLM(nn.Module):
         h = self.cfg.hidden_size
         self.embed.weight.normal_(0.0, 1.0 / math.sqrt(h), generator=gen)
         for mod in self.modules():
-            if isinstance(mod, nn.Linear):
+            if isinstance(mod, Dense):
                 # lecun_normal: truncated at 2 sigma, std rescaled so the
                 # variance is 1 / fan_in.
                 std = 1.0 / math.sqrt(mod.in_features) / .87962566103423978
-                # drawn in f32, then rounded into the weight's dtype
-                w = torch.empty(mod.weight.shape, device=mod.weight.device)
-                nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
-                                      generator=gen)
-                mod.weight.copy_(w)
+                nn.init.trunc_normal_(mod.weight, 0.0, std, -2 * std,
+                                      2 * std, generator=gen)
 
-    def forward(self, input_ids, *, kv_cache=None, cache_length=None,
-                decode: bool = False):
+    def forward(self, input_ids, *, train: bool = False,
+                hidden_only: bool = False, dropout_seed: int | None = None,
+                kv_cache=None, cache_length=None, decode: bool = False):
         c = self.cfg
         s = input_ids.shape[-1]
         if kv_cache is not None:
+            if c.seq_mode != "none" or train:
+                raise ValueError("the KV-cache path serves dense "
+                                 "batch-parallel configs only, not in "
+                                 "train mode")
             if len(kv_cache) != c.num_layers:
                 raise ValueError(f"kv_cache has {len(kv_cache)} layers; "
                                  f"model has {c.num_layers}")
@@ -247,12 +307,24 @@ class TransformerLM(nn.Module):
             positions = cache_length[:, None]
         else:
             positions = torch.arange(s, device=input_ids.device)
+        if not train:
+            dropout_seed = None
+        elif c.dropout > 0.0 and dropout_seed is None:
+            raise ValueError("train=True with dropout needs a dropout_seed")
         x = self.embed(input_ids).to(c.torch_dtype)
         for i, block in enumerate(self.blocks):
-            x = block(x, positions,
-                      kv_cache=None if kv_cache is None else kv_cache[i],
-                      cache_length=cache_length, decode=decode)
-        logits = self.lm_head(self.final_ln(x))
+            if kv_cache is not None:
+                x = block(x, positions, kv_cache=kv_cache[i],
+                          cache_length=cache_length, decode=decode)
+            elif c.remat and torch.is_grad_enabled():
+                x = checkpoint.checkpoint(block, x, positions, dropout_seed,
+                                          use_reentrant=False)
+            else:
+                x = block(x, positions, dropout_seed)
+        x = self.final_ln(x)
+        if hidden_only:
+            return x
+        logits = self.lm_head(x)
         if kv_cache is not None:
             return logits, kv_cache
         return logits

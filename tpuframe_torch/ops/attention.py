@@ -8,8 +8,11 @@
     back to ``xla``: the CUDA kernel takes every sequence length, and on a
     CUDA tensor it launches or raises.
 
-Selection: explicit ``impl=``, else the ``TPUFRAME_ATTN_IMPL`` env var,
-else ``xla``.  The port serves only, so there is no dropout.
+Both are differentiable: ``xla`` through PyTorch's autograd, ``pallas``
+through the flash kernels' backward.  Selection: explicit ``impl=``, else
+the ``TPUFRAME_ATTN_IMPL`` env var, else ``xla``.  Attention dropout is not
+ported: the LM passes none (its dropout is on the residual stream), and it
+comes with the BERT slice (ROADMAP.md).
 """
 
 from __future__ import annotations

@@ -1,19 +1,30 @@
-"""Flash attention forward: a hand-written Hopper kernel and its plain version.
+"""Flash attention: hand-written Hopper kernels and their plain versions.
 
-Replaces the TPU kernel ``tpuframe/ops/flash_attention.py:_fwd_kernel``
-(its ``pallas_call`` in ``_flash_fwd``).  The CUDA source is
-``tpuframe_torch/csrc/flash_fwd.cu``; its header note says what bounds it on
-the H100 and what its design does about that.  In short: one thread block
-per (batch * head, 32 query rows) loops over K/V tiles staged in shared
-memory, keeping the S x S scores on the SM; tiles above the diagonal are
-skipped under ``causal``, and the ragged edge is masked in the kernel, so
-every sequence length works (the TPU kernel's ``supported()`` tiling rule
-does not carry over).
+Three kernels replace the TPU kernels of ``tpuframe/ops/flash_attention.py``:
+
+  - ``flash_fwd`` (``csrc/flash_fwd.cu``) replaces ``_fwd_kernel`` (its
+    ``pallas_call`` in ``_flash_fwd``): one thread block per (batch * head,
+    32 query rows) loops over K/V tiles staged in shared memory, keeping
+    the S x S scores on the SM.
+  - ``flash_bwd_dq`` and ``flash_bwd_dkv`` (``csrc/flash_bwd.cu``) replace
+    ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` (the two ``pallas_call``s in
+    ``_flash_bwd``): the FA2 split, one kernel owning query rows and one
+    owning keys, each recomputing the probabilities from the saved
+    logsumexp, with no atomics.
+
+Each source's header note says what bounds it on the H100 and what its
+design does about that.  Tiles above the diagonal are skipped under
+``causal``, and the ragged edge is masked in the kernels, so every sequence
+length works (the TPU kernel's ``supported()`` tiling rule does not carry
+over).
 
 Public functions take the JAX package's layout, ``[batch, seq, heads,
-head_dim]``.  A tensor on the CPU goes to :func:`flash_mha_reference`; a
-CUDA tensor launches the kernel or raises.  Only the forward exists in
-this slice: serving runs no backward.
+head_dim]``, and are differentiable through :class:`_Flash`, whose backward
+is the two backward kernels; ``delta = rowsum(dO * O)`` and the fold of the
+lse cotangent into it are plain PyTorch, as in the JAX package.  A tensor on
+the CPU goes to the plain versions (:func:`flash_mha_reference`,
+:func:`flash_bwd_dq_reference`, :func:`flash_bwd_dkv_reference`); a CUDA
+tensor launches the kernels or raises.
 """
 
 from __future__ import annotations
@@ -26,28 +37,39 @@ NEG_INF = -1e30  # softmax mask fill; finite so (x - x) stays 0, not nan
 HEAD_DIMS = (16, 32, 64, 128, 256)
 DTYPES = (torch.float32, torch.bfloat16)
 
-# Launches of the CUDA kernel in this process: the count a run reads to
-# show that its path went through the kernel.
-LAUNCHES = 0
+# Launches of each CUDA kernel in this process: the counts a run reads to
+# show that its path went through the kernels.
+LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 
-_fn = None
+_fns: dict = {}
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
+def _kernel(name: str):
+    """The ctypes functions of ``csrc/<name>.cu``, built on first use."""
+    if name not in _fns:
         from tpuframe_torch import _build
 
-        lib = _build.load("flash_fwd")
-        fn = lib.tf_flash_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-                       + [ctypes.c_int64] * 9
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        lib.tf_flash_error_string.argtypes = [ctypes.c_int]
-        lib.tf_flash_error_string.restype = ctypes.c_char_p
-        _fn = (fn, lib.tf_flash_error_string)
-    return _fn
+        lib = _build.load(name)
+        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        if name == "flash_fwd":
+            fns = [lib.tf_flash_fwd]
+            fns[0].argtypes = ([ptr] * 6 + [i32] * 6 + [i64] * 9
+                               + [ctypes.c_float, i32, ptr])
+            err = lib.tf_flash_error_string
+        else:
+            fns = [lib.tf_flash_bwd_dq, lib.tf_flash_bwd_dkv]
+            strides = ctypes.POINTER(i64)
+            fns[0].argtypes = ([ptr] * 8 + [i32] * 6
+                               + [strides, ctypes.c_float, i32, ptr])
+            fns[1].argtypes = ([ptr] * 9 + [i32] * 6
+                               + [strides, ctypes.c_float, i32, ptr])
+            err = lib.tf_flash_bwd_error_string
+        for fn in fns:
+            fn.restype = ctypes.c_int
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        _fns[name] = (*fns, err)
+    return _fns[name]
 
 
 def _check(q, k, v, mask):
@@ -69,22 +91,29 @@ def _check(q, k, v, mask):
                          f"{(b, k.shape[1])}")
 
 
+def _keep(q, k, mask, causal):
+    """``[B or 1, 1, S_q, S_kv]`` bool: which query-key pairs attend."""
+    keep = torch.ones((1, 1, q.shape[1], k.shape[1]), dtype=torch.bool,
+                      device=q.device)
+    if causal:
+        keep = keep.tril()
+    if mask is not None:
+        keep = keep & (mask != 0)[:, None, None, :]
+    return keep
+
+
 def flash_mha_reference(q, k, v, *, mask=None, causal=False):
-    """The plain PyTorch version of the kernel: same semantics, no tiling.
+    """The plain PyTorch version of the forward kernel: same semantics, no
+    tiling.
 
     Returns ``(out [B, S, N, D] in q's dtype, lse [B, N, S] f32)``.  Scores
     in f32 scaled by ``D**-0.5``; masked entries give ``p = 0`` exactly; P
     is rounded to V's dtype before the PV product; a fully masked row
     gives a zero output and ``lse = NEG_INF``."""
     _check(q, k, v, mask)
-    s_q, d = q.shape[1], q.shape[-1]
-    s_kv = k.shape[1]
+    d = q.shape[-1]
     s = torch.einsum("bqnd,bknd->bnqk", q.float(), k.float()) * d ** -0.5
-    keep = torch.ones((1, 1, s_q, s_kv), dtype=torch.bool, device=q.device)
-    if causal:
-        keep = keep.tril()
-    if mask is not None:
-        keep = keep & (mask != 0)[:, None, None, :]
+    keep = _keep(q, k, mask, causal)
     s = torch.where(keep, s, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(keep, torch.exp(s - m), 0.0)
@@ -96,24 +125,78 @@ def flash_mha_reference(q, k, v, *, mask=None, causal=False):
     return out.to(q.dtype), lse
 
 
-def _launch(q, k, v, mask, causal):
-    global LAUNCHES
+def _recompute_p(q, k, lse, mask, causal):
+    """``tpuframe/ops/flash_attention.py:_recompute_p`` over the whole
+    sequence: f32 ``[B, N, S_q, S_kv]`` probabilities from the saved
+    logsumexp, an explicit zero on masked pairs (the ``where`` comes
+    before the exponential, so a fully masked row never overflows)."""
+    s = (torch.einsum("bqnd,bknd->bnqk", q.float(), k.float())
+         * q.shape[-1] ** -0.5)
+    keep = _keep(q, k, mask, causal)
+    p = torch.exp(torch.where(keep, s, NEG_INF) - lse[..., None])
+    return torch.where(keep, p, 0.0)
+
+
+def _ds(p, do, v, delta):
+    """``ds = p * (dO.v^T - delta)`` in f32, ``[B, N, S_q, S_kv]``."""
+    dp = torch.einsum("bqnd,bknd->bnqk", do.float(), v.float())
+    return p * (dp - delta[..., None])
+
+
+def flash_bwd_dq_reference(q, k, v, do, lse, delta, *, mask=None,
+                           causal=False):
+    """The plain version of the dq kernel.  ``lse`` and ``delta`` are
+    ``[B, N, S_q]`` f32 (``delta = rowsum(dO * O)``, less the lse
+    cotangent).  Returns dq ``[B, S_q, N, D]`` in q's dtype: ``scale *
+    ds.k`` with ds rounded to k's dtype first."""
+    _check(q, k, v, mask)
+    ds = _ds(_recompute_p(q, k, lse, mask, causal), do, v, delta)
+    dq = torch.einsum("bnqk,bknd->bqnd", ds.to(k.dtype).float(), k.float())
+    return (dq * q.shape[-1] ** -0.5).to(q.dtype)
+
+
+def flash_bwd_dkv_reference(q, k, v, do, lse, delta, *, mask=None,
+                            causal=False):
+    """The plain version of the dkv kernel.  Returns ``(dk, dv)``, each
+    ``[B, S_kv, N, D]``: ``dv = p^T.dO`` with p rounded to dO's dtype and
+    ``dk = scale * ds^T.q`` with ds rounded to q's dtype."""
+    _check(q, k, v, mask)
+    p = _recompute_p(q, k, lse, mask, causal)
+    dv = torch.einsum("bnqk,bqnd->bknd", p.to(do.dtype).float(), do.float())
+    ds = _ds(p, do, v, delta)
+    dk = torch.einsum("bnqk,bqnd->bknd", ds.to(q.dtype).float(), q.float())
+    return (dk * q.shape[-1] ** -0.5).to(k.dtype), dv.to(v.dtype)
+
+
+def _launch_checks(q, k, v, mask):
     if q.dtype not in DTYPES:
         raise TypeError(f"flash kernel takes {DTYPES}; got {q.dtype}")
-    b, s_q, n, d = q.shape
-    s_kv = k.shape[1]
+    d = q.shape[-1]
     if d not in HEAD_DIMS:
         raise ValueError(f"flash kernel takes head_dim in {HEAD_DIMS}; "
                          f"got {d}")
     if min(t.stride(-1) for t in (q, k, v)) != 1:
         raise ValueError("flash kernel needs unit stride on head_dim")
-    if mask is not None:
-        if mask.device != q.device:
-            raise ValueError("mask lies on another device than q")
-        mask = mask.to(torch.int32).contiguous()
+    if mask is None:
+        return None
+    if mask.device != q.device:
+        raise ValueError("mask lies on another device than q")
+    return mask.to(torch.int32).contiguous()
+
+
+def _raise_on(name, err, err_str):
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: "
+                           f"{err_str(err).decode()} ({err})")
+
+
+def _launch(q, k, v, mask, causal):
+    mask = _launch_checks(q, k, v, mask)
+    b, s_q, n, d = q.shape
+    s_kv = k.shape[1]
     out = torch.empty((b, s_q, n, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, n, s_q), dtype=torch.float32, device=q.device)
-    fn, err_str = _kernel()
+    fn, err_str = _kernel("flash_fwd")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -124,29 +207,125 @@ def _launch(q, k, v, mask, causal):
                  k.stride(0), k.stride(1), k.stride(2),
                  v.stride(0), v.stride(1), v.stride(2),
                  d ** -0.5, int(causal), stream)
-    if err != 0:
-        raise RuntimeError(f"flash_fwd kernel launch failed: "
-                           f"{err_str(err).decode()} ({err})")
-    LAUNCHES += 1
+    _raise_on("flash_fwd", err, err_str)
+    LAUNCHES["flash_fwd"] += 1
     return out, lse
+
+
+def _launch_bwd(which, q, k, v, do, lse, delta, mask, causal):
+    """One backward kernel: ``which`` is ``"dq"`` (returns dq) or ``"dkv"``
+    (returns dk, dv)."""
+    mask = _launch_checks(q, k, v, mask)
+    if do.shape != q.shape or do.dtype != q.dtype or do.stride(-1) != 1:
+        raise ValueError(f"dO {tuple(do.shape)} {do.dtype} must match q "
+                         f"{tuple(q.shape)} {q.dtype} with unit stride on "
+                         f"head_dim")
+    b, s_q, n, d = q.shape
+    s_kv = k.shape[1]
+    rows = (b, n, s_q)
+    for name, t in (("lse", lse), ("delta", delta)):
+        if (tuple(t.shape) != rows or t.dtype != torch.float32
+                or t.device != q.device):
+            raise ValueError(f"{name} must be f32 {rows} on {q.device}")
+    lse, delta = lse.contiguous(), delta.contiguous()
+    if which == "dq":
+        outs = (torch.empty((b, s_q, n, d), dtype=q.dtype, device=q.device),)
+    else:
+        outs = (torch.empty((b, s_kv, n, d), dtype=k.dtype, device=q.device),
+                torch.empty((b, s_kv, n, d), dtype=v.dtype, device=q.device))
+    strides = (ctypes.c_int64 * 12)(*(t.stride(i) for t in (q, k, v, do)
+                                      for i in range(3)))
+    fn_dq, fn_dkv, err_str = _kernel("flash_bwd")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = (fn_dq if which == "dq" else fn_dkv)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(),
+            None if mask is None else mask.data_ptr(),
+            *(t.data_ptr() for t in outs),
+            b, n, s_q, s_kv, d, int(q.dtype == torch.bfloat16), strides,
+            d ** -0.5, int(causal), stream)
+    name = f"flash_bwd_{which}"
+    _raise_on(name, err, err_str)
+    LAUNCHES[name] += 1
+    return outs[0] if which == "dq" else outs
+
+
+def _on_device(q):
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash attention runs on cuda or cpu, not "
+                         f"{q.device}")
+    return q.device.type == "cuda"
+
+
+def flash_fwd(q, k, v, *, mask=None, causal=False):
+    """The forward kernel (CUDA) or its plain version (CPU), no autograd.
+    Returns ``(out, lse)``."""
+    _check(q, k, v, mask)
+    if _on_device(q):
+        return _launch(q, k, v, mask, causal)
+    return flash_mha_reference(q, k, v, mask=mask, causal=causal)
+
+
+def flash_bwd(q, k, v, do, lse, delta, *, mask=None, causal=False):
+    """The two backward kernels (CUDA) or their plain versions (CPU).
+    Returns ``(dq, dk, dv)``."""
+    _check(q, k, v, mask)
+    if _on_device(q):
+        return (_launch_bwd("dq", q, k, v, do, lse, delta, mask, causal),
+                *_launch_bwd("dkv", q, k, v, do, lse, delta, mask, causal))
+    dq = flash_bwd_dq_reference(q, k, v, do, lse, delta, mask=mask,
+                                causal=causal)
+    return (dq, *flash_bwd_dkv_reference(q, k, v, do, lse, delta, mask=mask,
+                                         causal=causal))
+
+
+class _Flash(torch.autograd.Function):
+    """``(out, lse)`` with the JAX package's custom VJP
+    (``_flash_lse_vjp_fwd`` / ``_bwd``): both outputs are differentiable,
+    and the lse cotangent folds into delta (``delta - dlse``), so both
+    backward kernels run unchanged."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, causal):
+        out, lse = flash_fwd(q, k, v, mask=mask, causal=causal)
+        ctx.save_for_backward(q, k, v, mask, out, lse)
+        ctx.causal = causal
+        ctx.set_materialize_grads(False)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        q, k, v, mask, out, lse = ctx.saved_tensors
+        if do is None:
+            do = torch.zeros_like(out)
+        elif do.stride(-1) != 1:
+            do = do.contiguous()
+        do = do.to(out.dtype)
+        delta = (do.float() * out.float()).sum(dim=-1).permute(0, 2, 1)
+        if dlse is not None:
+            # lse = logsumexp(s) is an output: d lse / d s_j = p_j adds
+            # dlse * p_j to ds, i.e. ds = p * (dp - (delta - dlse)).
+            delta = delta - dlse.float()
+        dq, dk, dv = flash_bwd(q, k, v, do, lse, delta, mask=mask,
+                               causal=ctx.causal)
+        return dq, dk, dv, None, None
 
 
 def flash_mha_lse(q, k, v, *, mask=None, causal=False):
     """:func:`flash_mha` that also returns the logsumexp rows.
 
     Returns ``(out [B, S, N, D], lse [B, N, S] f32)``; fully masked rows
-    report ``lse = NEG_INF`` and a zero output."""
-    if q.device.type == "cpu":
-        return flash_mha_reference(q, k, v, mask=mask, causal=causal)
+    report ``lse = NEG_INF`` and a zero output.  Both outputs carry
+    gradient (the lse's folds into the backward's delta), which is what
+    lets ring attention merge per-stage results exactly."""
     _check(q, k, v, mask)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash attention runs on cuda or cpu, not "
-                         f"{q.device}")
-    return _launch(q, k, v, mask, causal)
+    _on_device(q)
+    return _Flash.apply(q, k, v, mask, causal)
 
 
 def flash_mha(q, k, v, *, mask=None, causal=False):
-    """Flash multi-head attention forward.
+    """Flash multi-head attention.
 
     Args:
       q, k, v: ``[batch, seq, heads, head_dim]``, float32 or bfloat16.
@@ -154,5 +333,6 @@ def flash_mha(q, k, v, *, mask=None, causal=False):
       causal: query ``i`` attends keys ``j <= i``; key tiles wholly above
         the diagonal are skipped.
 
-    Returns ``[batch, seq, heads, head_dim]`` in q's dtype."""
+    Returns ``[batch, seq, heads, head_dim]`` in q's dtype; differentiable
+    in q, k and v."""
     return flash_mha_lse(q, k, v, mask=mask, causal=causal)[0]

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from tpuframe_torch import _device
-from tpuframe_torch.models.transformer_lm import TransformerLM
+from tpuframe_torch.models.transformer_lm import Dense, TransformerLM
 from tpuframe_torch.serve import kv_cache as kv
 
 
@@ -62,6 +62,13 @@ class LMEngine:
         if params is not None:
             self.model.load_state_dict(params)
         self.model.eval().requires_grad_(False)
+        # The model keeps f32 weights and casts each Dense kernel to the
+        # compute dtype at every call, as flax does.  The engine never
+        # trains, so it keeps a compute-dtype copy instead: the same bits
+        # as that cast, made once, and a decode step reads half the bytes.
+        for mod in self.model.modules():
+            if isinstance(mod, Dense):
+                mod.weight.data = mod.weight.data.to(mod.dtype)
         self.reset()
 
     def reset(self) -> None:

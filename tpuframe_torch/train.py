@@ -1,0 +1,321 @@
+"""Training harness (counterpart of ``tpuframe/train.py``), LM slice.
+
+    python -m tpuframe_torch.train --config lm_long \\
+        --set 'mesh={"data": 1, "seq": 1}' --set dataset_kwargs='{"seq_len": 4096}'
+    python -m tpuframe_torch.train --config lm_smoke --device cpu \\
+        --set 'mesh={"data": 1, "seq": 1}'
+
+Config → model (random weights from ``seed``) → data → optimizer → the
+replicated data-parallel step → a host loop that feeds batches, logs and
+evaluates, printing the JAX harness's ``[tpuframe] ...``, ``[train N]`` and
+``[eval N]`` lines.  It runs on the GPU unless ``--device cpu`` is given;
+with no GPU visible it raises instead of falling back.  Several ranks come
+from ``torch.distributed`` (initialise the default group before
+:func:`main`, e.g. through ``torchrun``); the data degree of the config's
+mesh must equal the world size.
+
+The LM workloads (``lm_text`` data, ``transformer-lm``) train here.  What
+the JAX harness has and the port does not yet refuses loudly, naming its
+ROADMAP.md item: checkpoints, the observability plane (events, TensorBoard,
+traces, metrics exporter), pipeline, fsdp, tensor and expert parallelism,
+ZeRO-1, quantized or hierarchical collectives, bucketed fusion, adasum,
+sequence parallelism (a seq degree above 1), fault injection and elastic
+resizing.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ast
+import math
+import os
+import time
+from dataclasses import dataclass
+
+import torch
+
+from tpuframe_torch import _device
+from tpuframe_torch import models
+from tpuframe_torch.data import datasets
+from tpuframe_torch.data.pipeline import ShardedLoader
+from tpuframe_torch.models import losses
+from tpuframe_torch.ops import fused_xent as fx
+from tpuframe_torch.parallel import collectives
+from tpuframe_torch.parallel import step as step_lib
+from tpuframe_torch.utils.config import TrainConfig, get_config
+from tpuframe_torch.utils.optim import build_optimizer
+
+ITEM_11 = "ROADMAP.md queue 1, item 11 (run plumbing: obs, resilience)"
+ITEM_12 = "ROADMAP.md queue 1, item 12 (beyond-DP parallelism)"
+
+# Environment knobs of the JAX harness that select what the port lacks,
+# with the value that means "off".
+_UNPORTED_ENV = {
+    "TPUFRAME_SPEC": (None, f"declarative parallelism specs, {ITEM_12}"),
+    "TPUFRAME_WEIGHT_UPDATE": ("replicated", f"ZeRO-1, {ITEM_12}"),
+    "TPUFRAME_WIRE_FORMAT": ("fp", f"quantized collectives, {ITEM_12}"),
+    "TPUFRAME_WIRE_FORMAT_DCN": ("fp", f"quantized collectives, {ITEM_12}"),
+    "TPUFRAME_HIER": ("flat", f"hierarchical collectives, {ITEM_12}"),
+    "TPUFRAME_FUSION_THRESHOLD": (None, f"bucketed fusion, {ITEM_12}"),
+    "TPUFRAME_EVENTS_DIR": (None, f"run events, {ITEM_11}"),
+    "TPUFRAME_TB_DIR": (None, f"TensorBoard, {ITEM_11}"),
+    "TPUFRAME_TRACE_STEPS": (None, f"profiler traces, {ITEM_11}"),
+    "TPUFRAME_METRICS_PORT": (None, f"the metrics exporter, {ITEM_11}"),
+    "TPUFRAME_FAULTS": (None, f"fault injection, {ITEM_11}"),
+    "TPUFRAME_ELASTIC": (None, "elastic resizing, ROADMAP.md queue 1, "
+                               "item 14"),
+}
+
+
+def _refuse_unported(cfg: TrainConfig, world: int) -> dict:
+    """Raise ``NotImplementedError`` for anything the port cannot run;
+    returns the mesh degrees on ``world`` ranks."""
+    for var, (off, what) in _UNPORTED_ENV.items():
+        val = os.environ.get(var, "").strip()
+        if val and val != off:
+            raise NotImplementedError(f"{var}={val!r}: {what} is not "
+                                      f"ported yet")
+    if cfg.ckpt_dir is not None or cfg.track_best:
+        raise NotImplementedError(
+            "checkpointing is not ported yet (ROADMAP.md queue 1, item 7)")
+    if cfg.tb_dir is not None:
+        raise NotImplementedError(f"TensorBoard logging is not ported yet "
+                                  f"({ITEM_11})")
+    if cfg.grad_reduce != "mean":
+        raise NotImplementedError(f"grad_reduce={cfg.grad_reduce!r} is not "
+                                  f"ported yet (ROADMAP.md queue 1, item 6)")
+    if cfg.dataset != "lm_text":
+        raise NotImplementedError(
+            f"dataset {cfg.dataset!r}: the port trains the LM workloads "
+            f"only (ResNet: ROADMAP.md slice 3; BERT/GLUE: slice 4)")
+    sizes = cfg.mesh.sizes(world)
+    if sizes["pipe"] > 1 or cfg.model == "transformer-lm-pp":
+        raise NotImplementedError(f"pipeline parallelism is not ported yet "
+                                  f"({ITEM_12})")
+    for axis in ("fsdp", "model", "expert", "slices"):
+        if sizes[axis] > 1:
+            raise NotImplementedError(f"mesh {axis}={sizes[axis]}: sharded "
+                                      f"state and multi-slice meshes are not"
+                                      f" ported yet ({ITEM_12})")
+    if sizes["seq"] > 1:
+        raise NotImplementedError(
+            f"mesh seq={sizes['seq']}: sequence parallelism is not ported "
+            f"yet ({ITEM_12}); run with a seq degree of 1, e.g. --set "
+            f"'mesh={{\"data\": {world}, \"seq\": 1}}'")
+    return sizes
+
+
+@dataclass
+class Harness:
+    """Everything the loop needs, built once from a config."""
+
+    cfg: TrainConfig
+    device: torch.device
+    state: step_lib.TrainState
+    train_step: object
+    eval_step: object
+    train_loader: ShardedLoader
+    eval_loader: ShardedLoader
+    world: int
+
+
+def _lm_reduce(cfg: TrainConfig):
+    """The group of the global valid-token mean (``losses.masked_mean``).
+    Gradient accumulation differentiates a local loss per microbatch, and
+    a per-rank valid-token mean would be biased by unequal padding, so
+    that pairing is refused, as in the JAX harness."""
+    if cfg.accum_steps > 1:
+        if cfg.distributed and cfg.dataset_kwargs.get("padded_docs"):
+            raise ValueError(
+                "padded_docs with accum_steps>1: that path needs a local "
+                "loss, and a per-rank valid-token mean would be biased by "
+                "unequal padding across ranks")
+        return None
+    return collectives.group()
+
+
+def make_loss_fn(cfg: TrainConfig):
+    """``loss_fn(model, batch, dropout_seed) -> (loss, {"accuracy"})``:
+    next-token cross-entropy over valid tokens (labels -100 ignored),
+    through the fused chunked head when ``cfg.fused_xent``."""
+    reduce = _lm_reduce(cfg)
+
+    def loss_fn(model, batch, dropout_seed):
+        ids, labels = batch["input_ids"], batch["labels"]
+        if cfg.fused_xent:
+            hidden = model(ids, train=True, hidden_only=True,
+                           dropout_seed=dropout_seed)
+            loss, acc = fx.mean_xent_and_accuracy(
+                hidden, model.lm_head.weight.T, labels, ignore_index=-100,
+                reduce=reduce)
+        else:
+            logits = model(ids, train=True, dropout_seed=dropout_seed)
+            loss = losses.softmax_cross_entropy(logits, labels,
+                                                ignore_index=-100,
+                                                reduce=reduce)
+            acc = losses.accuracy(logits.detach(), labels,
+                                  ignore_index=-100, reduce=reduce)
+        return loss, {"accuracy": acc.detach()}
+
+    return loss_fn
+
+
+def make_metric_fn(cfg: TrainConfig):
+    """Eval metrics: loss, perplexity and token accuracy over valid
+    tokens, global over the world."""
+
+    def metric_fn(model, batch):
+        ids, labels = batch["input_ids"], batch["labels"]
+        reduce = collectives.group()
+        if cfg.fused_xent:
+            hidden = model(ids, hidden_only=True)
+            loss, acc = fx.mean_xent_and_accuracy(
+                hidden, model.lm_head.weight.T, labels, ignore_index=-100,
+                reduce=reduce)
+        else:
+            logits = model(ids)
+            loss = losses.softmax_cross_entropy(logits, labels,
+                                                ignore_index=-100,
+                                                reduce=reduce)
+            acc = losses.accuracy(logits, labels, ignore_index=-100,
+                                  reduce=reduce)
+        return {"loss": loss, "perplexity": torch.exp(loss), "accuracy": acc}
+
+    return metric_fn
+
+
+def build_harness(cfg: TrainConfig, device="cuda") -> Harness:
+    world, _ = collectives.world()
+    _refuse_unported(cfg, world)
+    dev = _device.resolve(device)
+    model = models.get_model(cfg.model, dtype=cfg.compute_dtype, device=dev,
+                             seed=cfg.seed, **cfg.model_kwargs)
+    step_lib.broadcast_parameters(model)
+    train_ds, eval_ds = datasets.build(cfg.dataset, cfg.data_dir,
+                                       **cfg.dataset_kwargs)
+    train_loader = ShardedLoader(train_ds, cfg.global_batch, device=dev,
+                                 seed=cfg.seed)
+    eval_loader = ShardedLoader(eval_ds, cfg.global_batch, device=dev,
+                                shuffle=False)
+    state = step_lib.TrainState(model=model,
+                                opt=build_optimizer(cfg, model),
+                                seed=cfg.seed + 1)
+    return Harness(
+        cfg=cfg, device=dev, state=state,
+        train_step=step_lib.make_train_step(make_loss_fn(cfg),
+                                            accum_steps=cfg.accum_steps,
+                                            grad_reduce=cfg.grad_reduce),
+        eval_step=step_lib.make_eval_step(make_metric_fn(cfg)),
+        train_loader=train_loader, eval_loader=eval_loader, world=world)
+
+
+def evaluate(h: Harness, max_batches: int) -> dict:
+    """Mean of the per-batch eval metrics over the first ``max_batches``
+    batches of the (unshuffled) eval set."""
+    agg, n = None, 0
+    for i, batch in enumerate(h.eval_loader.epoch(0)):
+        if i >= max_batches:
+            break
+        m = h.eval_step(h.state, batch)
+        agg = m if agg is None else {k: agg[k] + m[k] for k in agg}
+        n += 1
+    return {} if agg is None else {k: float(v) / n for k, v in agg.items()}
+
+
+def _log(prefix: str, step: int, metrics: dict) -> None:
+    body = " ".join(f"{k}={v:.5g}" if isinstance(v, float) else f"{k}={v}"
+                    for k, v in metrics.items())
+    print(f"[{prefix} {step}] {body}", flush=True)
+
+
+def train(cfg: TrainConfig, *, device="cuda") -> dict:
+    """Run the workload; returns the final metrics, plus ``losses`` and
+    ``step_ms`` (each step's loss and host wall time, synchronised by
+    reading the loss)."""
+    h = build_harness(cfg, device)
+    primary = collectives.world()[1] == 0
+    if primary:
+        n_params = sum(p.numel() for p in h.state.model.parameters())
+        print(f"[tpuframe] {cfg.name}: model={cfg.model} "
+              f"params={n_params / 1e6:.2f}M devices={h.world} "
+              f"global_batch={cfg.global_batch} steps={cfg.total_steps}",
+              flush=True)
+    data_iter = h.train_loader.from_step(h.state.step)
+    final: dict = {}
+    step_ms, step_losses, window = [], [], []
+    while h.state.step < cfg.total_steps:
+        batch = next(data_iter)
+        t0 = time.perf_counter()
+        metrics = h.train_step(h.state, batch)
+        loss = float(metrics["loss"])        # waits for the step
+        dt = time.perf_counter() - t0
+        step = h.state.step
+        step_ms.append(1e3 * dt)
+        step_losses.append(loss)
+        window.append(dt)
+        if step % cfg.log_every == 0 or step == cfg.total_steps:
+            final = {k: float(v) for k, v in metrics.items()}
+            rate = cfg.global_batch * len(window) / sum(window)
+            final["examples_per_sec"] = rate
+            final["examples_per_sec_per_chip"] = rate / h.world
+            window = []
+            if primary:
+                _log("train", step, final)
+        if step % cfg.eval_every == 0 or step == cfg.total_steps:
+            eval_metrics = evaluate(h, cfg.eval_batches)
+            if primary:
+                _log("eval", step, eval_metrics)
+            final.update({f"eval_{k}": v for k, v in eval_metrics.items()})
+    final["step"] = h.state.step
+    final["losses"] = step_losses
+    final["step_ms"] = step_ms
+    if not all(math.isfinite(x) for x in step_losses):
+        raise FloatingPointError(f"non-finite training loss: {step_losses}")
+    return final
+
+
+def _parse_set(values: list[str]) -> dict:
+    out: dict = {}
+    for item in values:
+        key, _, raw = item.partition("=")
+        if not raw:
+            raise ValueError(f"--set needs key=value, got {item!r}")
+        try:
+            out[key] = ast.literal_eval(raw)
+        except (ValueError, SyntaxError):
+            out[key] = raw
+    return out
+
+
+def main(argv: list[str] | None = None) -> dict:
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--config", required=True,
+                   help="workload name (tpuframe_torch.utils.config"
+                        ".WORKLOADS)")
+    p.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
+                   help="override any TrainConfig field")
+    p.add_argument("--data-dir", default=None)
+    p.add_argument("--ckpt-dir", default=None)
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu; never chosen for you")
+    args = p.parse_args(argv)
+    cfg = get_config(args.config)
+    overrides = _parse_set(args.set)
+    if args.data_dir:
+        overrides["data_dir"] = args.data_dir
+    if args.ckpt_dir:
+        overrides["ckpt_dir"] = args.ckpt_dir
+    cfg = cfg.with_overrides(**overrides)
+    t0 = time.time()
+    metrics = train(cfg, device=args.device)
+    if collectives.world()[1] == 0:
+        shown = {k: round(v, 5) if isinstance(v, float) else v
+                 for k, v in metrics.items()
+                 if k not in ("losses", "step_ms")}
+        print(f"[tpuframe] done in {time.time() - t0:.1f}s: {shown}",
+              flush=True)
+    return metrics
+
+
+if __name__ == "__main__":
+    main()

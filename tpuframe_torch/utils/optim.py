@@ -1,0 +1,167 @@
+"""Optimizer and learning-rate schedules (counterpart of
+``tpuframe/utils/optim.py``).
+
+The JAX package builds an optax chain; this module applies the same chain
+in place on the model's f32 parameters, written out in optax's order and
+arithmetic rather than through ``torch.optim``, whose habits differ where
+parity is at stake:
+
+  - the schedule is read at the update count *before* it is incremented,
+    so with warmup the first update runs at lr 0;
+  - clipping is optax's ``clip_by_global_norm``: grads are scaled by
+    ``max / norm`` only when ``norm > max`` (``clip_grad_norm_`` divides by
+    ``norm + 1e-6`` instead);
+  - AdamW is ``scale_by_adam`` (b1 0.9, b2 0.999, eps 1e-8 outside the
+    square root, bias corrections from the incremented count), then the
+    decoupled decay ``+ wd * p`` on masked leaves, then ``-lr``;
+  - nesterov SGD is ``trace(nesterov=True)`` then ``-lr``, with the decay
+    added to the gradient before it when ``weight_decay > 0``.
+
+No decay on norm scales and biases (``_decay_mask`` in the JAX package
+skips leaves named ``bias``, ``scale`` or ``b``): here by module type,
+since a LayerNorm's scale is called ``weight``.  Embedding and
+``lm_head`` are decayed.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from tpuframe_torch.models.transformer_lm import LayerNorm
+from tpuframe_torch.utils.config import TrainConfig
+
+F32 = np.float32
+_NORMS = (LayerNorm, nn.LayerNorm, nn.GroupNorm, nn.modules.batchnorm._NormBase)
+
+
+def lr_schedule(cfg: TrainConfig, world_batch_scale: float):
+    """``count -> lr`` as optax computes it (in f32): cosine, linear or
+    constant decay after an optional linear warmup from 0."""
+    peak = cfg.base_lr * (world_batch_scale if cfg.scale_lr_by_batch else 1.0)
+    decay_steps = max(cfg.total_steps - cfg.warmup_steps, 1)
+
+    def linear(init, end, steps, count):
+        frac = F32(1) - F32(min(max(count, 0), steps)) / F32(steps)
+        return F32(init - end) * frac + F32(end)
+
+    if cfg.schedule == "cosine":
+        def sched(count):
+            c = F32(min(count, decay_steps))
+            return F32(peak) * (F32(0.5) * (F32(1) + np.cos(
+                F32(np.pi) * c / F32(decay_steps))))
+    elif cfg.schedule == "linear":
+        def sched(count):
+            return linear(peak, 0.0, decay_steps, count)
+    elif cfg.schedule == "constant":
+        def sched(count):
+            return F32(peak)
+    else:
+        raise ValueError(f"unknown schedule {cfg.schedule!r}")
+    if cfg.warmup_steps <= 0:
+        return lambda count: float(sched(count))
+    w = cfg.warmup_steps
+    return lambda count: float(linear(0.0, peak, w, count) if count < w
+                               else sched(count - w))
+
+
+def decay_mask(model: nn.Module) -> dict[str, bool]:
+    """``{parameter name: decayed}``: False for norm scales and biases."""
+    mask = {}
+    for mod_name, mod in model.named_modules():
+        for name, _ in mod.named_parameters(recurse=False):
+            full = f"{mod_name}.{name}" if mod_name else name
+            mask[full] = not (isinstance(mod, _NORMS) or name == "bias")
+    return mask
+
+
+class Optimizer:
+    """The optax chain of :func:`build_optimizer`, applied in place.
+
+    :meth:`step` reads each parameter's ``.grad`` (already reduced over
+    the data-parallel world), updates the parameters and returns the
+    gradients' global norm before clipping."""
+
+    def __init__(self, cfg: TrainConfig, model: nn.Module, schedule):
+        named = [(n, p) for n, p in model.named_parameters()]
+        mask = decay_mask(model)
+        self.cfg = cfg
+        self.names = [n for n, _ in named]
+        self.params = [p for _, p in named]
+        self.decay = [mask[n] for n in self.names]
+        self.schedule = schedule
+        self.count = 0
+        zeros = lambda: [torch.zeros_like(p) for p in self.params]  # noqa: E731
+        self.moments = ({"mu": zeros(), "nu": zeros()}
+                        if cfg.optimizer == "adamw" else {"trace": zeros()})
+
+    def state_dict(self) -> dict:
+        """``{"count": int, <moment>: {parameter name: tensor}}``; the
+        moments are ``mu``/``nu`` (adamw) or ``trace`` (sgd)."""
+        out = {"count": self.count}
+        for key, ts in self.moments.items():
+            out[key] = dict(zip(self.names, ts))
+        return out
+
+    @torch.no_grad()
+    def step(self) -> torch.Tensor:
+        cfg = self.cfg
+        ps = self.params
+        gs = [torch.zeros_like(p) if p.grad is None else p.grad for p in ps]
+        norm = torch.stack([g.float().square().sum() for g in gs]).sum() \
+            .sqrt()
+        if cfg.grad_clip_norm is not None:
+            # (g / norm) * max when norm >= max, else g unchanged, in
+            # optax's arithmetic and without a host sync
+            keep = norm < cfg.grad_clip_norm
+            div = torch.where(keep, 1.0, norm)
+            mul = torch.where(keep, 1.0, cfg.grad_clip_norm)
+            gs = [g / div * mul for g in gs]
+        lr = self.schedule(self.count)
+        dec = [i for i, d in enumerate(self.decay) if d]
+        wd = cfg.weight_decay
+        if cfg.optimizer == "adamw":
+            b1, b2, eps = 0.9, 0.999, 1e-8
+            mu, nu = self.moments["mu"], self.moments["nu"]
+            torch._foreach_mul_(mu, b1)
+            torch._foreach_add_(mu, gs, alpha=1 - b1)
+            torch._foreach_mul_(nu, b2)
+            torch._foreach_addcmul_(nu, gs, gs, value=1 - b2)
+            n = F32(self.count + 1)
+            bc1 = float(F32(1) - F32(b1) ** n)
+            bc2 = float(F32(1) - F32(b2) ** n)
+            denom = torch._foreach_sqrt(torch._foreach_div(nu, bc2))
+            torch._foreach_add_(denom, eps)
+            upd = torch._foreach_div(torch._foreach_div(mu, bc1), denom)
+            if dec:
+                torch._foreach_add_([upd[i] for i in dec],
+                                    [ps[i] for i in dec], alpha=wd)
+        elif cfg.optimizer == "sgd":
+            if wd > 0.0 and dec:
+                gs = list(gs)
+                for i in dec:
+                    gs[i] = gs[i] + wd * ps[i]
+            trace = self.moments["trace"]
+            torch._foreach_mul_(trace, cfg.momentum)
+            torch._foreach_add_(trace, gs)
+            upd = torch._foreach_add(gs, torch._foreach_mul(
+                trace, cfg.momentum))
+        else:
+            raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
+        torch._foreach_add_(ps, upd, alpha=-lr)
+        self.count += 1
+        return norm
+
+
+def build_optimizer(cfg: TrainConfig, model: nn.Module) -> Optimizer:
+    """``[clip] → optimizer(+wd) → schedule`` over ``model``'s parameters.
+    LR linear-scaling rule: peak = base_lr * global_batch / 256 when
+    ``scale_lr_by_batch``."""
+    if cfg.optimizer == "lars":
+        raise NotImplementedError(
+            "lars is not ported yet: it comes with ResNet data-parallel "
+            "training (ROADMAP.md slice 3)")
+    if cfg.optimizer not in ("adamw", "sgd"):
+        raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
+    return Optimizer(cfg, model, lr_schedule(cfg, cfg.global_batch / 256.0))

@@ -25,7 +25,19 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
      kernels against the plain einsum attention;
   8. train lm_long through ``tpuframe_torch.train.main`` (cuts in
      TRAIN_OVERRIDES), with every kernel's launch count read around that
-     run, then profile one more step.
+     run, then profile one more step;
+  9. hold the fused 1x1-conv+BN backward kernel against its plain version
+     at the 15 shapes a ResNet-50 training step gives it (bf16, batch
+     256), time it, its plain version and a yardstick (the autograd
+     backward of cuDNN's unfused 1x1 conv + batch norm), then a
+     correctness sweep (f32, ragged M/K/C, a strided downsample);
+ 10. one ResNet-50 training step's loss, gradients and running statistics
+     at full width in f32, ``bn="fused"`` (the kernel) against
+     ``bn="flax"`` (cuDNN), from the same weights;
+ 11. train imagenet_resnet50 with ``bn="fused"`` through
+     ``tpuframe_torch.train.main`` (cuts in RESNET_CUTS), with every
+     kernel's launch count read around that run, then profile one more
+     step.
 
 ``--phases`` runs a subset after the build, for debugging.  A full run
 prints a ``{"kernels": [...]}`` line, then ends with
@@ -54,7 +66,9 @@ from tpuframe_torch import _build  # noqa: E402
 from tpuframe_torch import train as train_lib  # noqa: E402
 from tpuframe_torch.models import get_model  # noqa: E402
 from tpuframe_torch.models.transformer_lm import LMConfig  # noqa: E402
+from tpuframe_torch.models import resnet as resnet_lib  # noqa: E402
 from tpuframe_torch.ops import flash_attention as fa  # noqa: E402
+from tpuframe_torch.ops import fused_conv_bn as fcb  # noqa: E402
 from tpuframe_torch.serve import kv_cache as kv  # noqa: E402
 from tpuframe_torch.serve import loadgen  # noqa: E402
 from tpuframe_torch.serve.engine import LMEngine, parity_diffs  # noqa: E402
@@ -114,14 +128,66 @@ GRAD_PARITY_RTOL = 1e-4
 SERVE_REQUESTS = 12
 NEW_TOKENS = 16
 
+# The ResNet slice: imagenet_resnet50 (ResNet-50 v1.5 at full width, 224 x
+# 224, 1000 classes, bf16 compute with f32 params and BN statistics,
+# nesterov SGD 0.9, wd 1e-4 under the decay mask, label smoothing 0.1,
+# warmup + cosine, augment "flip") with bn="fused", cut for one card.
+# Each cut and its reason:
+RESNET_CUTS = {
+    # the config's own per-chip model: its mesh is data-parallel, one card
+    "model_kwargs": {"bn": "fused"},
+    "mesh": {"data": 1},
+    # 2048 over 8 chips in the recipe: one chip's share; the LR follows
+    # the config's own rule (base_lr x global_batch / 256)
+    "global_batch": 256,
+    # no ImageNet on the machine: synthetic images, enough for 8 batches;
+    # the eval split is an eighth (256) and must hold one batch
+    "dataset_kwargs": {"synthetic_size": 2048},
+    # a few steps and one eval batch, for the time limit
+    "total_steps": 4, "eval_every": 4, "eval_batches": 1, "log_every": 1,
+}
+RESNET_ARGS = ["--config", "imagenet_resnet50"] + [
+    a for k, v in RESNET_CUTS.items() for a in ("--set", f"{k}={v!r}")]
+RESNET_BATCH = 256
+
+# Fused conv+BN kernel vs plain version: max |diff| over max |plain|.
+# Both compute g bit-equal (the kernel rounds each f32 operation on its
+# own, as PyTorch does) and its products are exact in f32 for bf16
+# operands; they differ in summation order only.  da is then rounded to
+# its dtype (bf16: a 2^-8 step of the largest entries); dW is an f32 sum
+# over up to 802,816 rows taken in another order.
+CONV_BN_TOL = {torch.float32: {"da": 1e-4, "dw": 1e-4},
+               torch.bfloat16: {"da": 1e-2, "dw": 1e-3}}
+# The fused op against autograd through the plain composition (a strided
+# downsample): max |diff| over max |plain|, the JAX package's own
+# tolerances for the same comparison (tests/test_fused_conv_bn.py).  In
+# bf16 autograd differentiates the bf16-rounded affine while the fused
+# backward uses the exact closed form.
+STRIDED_TOL = {torch.float32: 2e-4, torch.bfloat16: 3e-2}
+
+# ResNet-50 gradient parity at full width in f32, batch 8 at 224: the
+# fused op and cuDNN's conv + BN differ in summation order, in f32 with
+# TF32 off, compounded through 53 BN layers.  Measured on the H100, the
+# plain route alone moves its gradients by up to ~2.5% when the batch is
+# reversed, so each tensor may differ by 3x that noise floor, or 1e-3.
+RESNET_PARITY_BATCH = 8
+RESNET_PARITY_RTOL = 1e-3
+RESNET_NOISE_FACTOR = 3.0
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
 def reset_launches() -> None:
-    for name in fa.LAUNCHES:
-        fa.LAUNCHES[name] = 0
+    for counts in (fa.LAUNCHES, fcb.LAUNCHES):
+        for name in counts:
+            counts[name] = 0
+
+
+def launch_counts() -> dict:
+    """Every kernel's launches since the last :func:`reset_launches`."""
+    return {**fa.LAUNCHES, **fcb.LAUNCHES}
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -500,7 +566,7 @@ def phase_serve() -> dict:
     reset_launches()
     stats = loadgen.run_loadgen(engine, reqs)
     torch.cuda.synchronize()
-    launches = dict(fa.LAUNCHES)
+    launches = launch_counts()
 
     prefills = len(reqs)   # each request is prefilled exactly once
     hit = sorted({kv.bucket_for(len(r.prompt), buckets) for r in reqs})
@@ -589,12 +655,13 @@ def phase_train() -> dict:
     metrics = train_lib.main(TRAIN_ARGS)
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
-    launches = dict(fa.LAUNCHES)
+    launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     losses, step_ms = metrics["losses"], metrics["step_ms"]
     steps, evals = len(losses), TRAIN_EVAL_BATCHES
     want = {"flash_fwd": (2 * steps + evals) * layers,
-            "flash_bwd_dq": steps * layers, "flash_bwd_dkv": steps * layers}
+            "flash_bwd_dq": steps * layers, "flash_bwd_dkv": steps * layers,
+            "fused_conv_bn_bwd": 0}
     problems = []
     if not all(math.isfinite(x) for x in losses) or steps != TRAIN_STEPS:
         problems.append(f"losses {losses}")
@@ -638,6 +705,364 @@ def phase_train() -> dict:
         + "; ".join(f"{k[:60]} {ms:.1f} ms x{c}" for k, ms, c in kernels[:8]))
     return {"launches": launches, "step_ms_p50": p50, "mfu": mfu,
             "peak_bytes": peak}
+
+
+def resnet_conv_bn_shapes(batch: int = RESNET_BATCH, size: int = 224):
+    """The fused op's calls in one ResNet-50 training step: ``{(n, h, w,
+    k, c): calls}`` from the port's own Bottleneck layout (conv1, conv3
+    and the downsample of each block; the downsample after its stride)."""
+    calls = {}
+    hw = size // 4                       # after the stem and the max pool
+    cin = 64
+    for i, n_blocks in enumerate((3, 4, 6, 3)):
+        f = 64 * 2 ** i
+        for j in range(n_blocks):
+            stride = 2 if i > 0 and j == 0 else 1
+            out_hw = hw // stride
+            for key in [(batch, hw, hw, cin, f),
+                        (batch, out_hw, out_hw, f, 4 * f)] + (
+                    [(batch, out_hw, out_hw, cin, 4 * f)] if j == 0 else []):
+                calls[key] = calls.get(key, 0) + 1
+            cin, hw = 4 * f, out_hw
+    return calls
+
+
+def _conv_bn_inputs(m, k, c, dtype, gen):
+    """Kernel operands: activations ~N(0, 1), a conv-scaled W, and the
+    folded coefficients of a BN with gamma in [0.5, 1.5]."""
+    dev = torch.device("cuda")
+    a = torch.randn((m, k), generator=gen, device=dev).to(dtype)
+    w = (torch.randn((k, c), generator=gen, device=dev)
+         * (2.0 / c) ** 0.5).to(dtype)
+    x = torch.randn((m, c), generator=gen, device=dev).to(dtype)
+    dy = torch.randn((m, c), generator=gen, device=dev).to(dtype)
+    coef = torch.stack([
+        torch.rand(c, generator=gen, device=dev) + 0.5,
+        torch.randn(c, generator=gen, device=dev) * 0.1,
+        torch.randn(c, generator=gen, device=dev) * 0.1])
+    return a, w, x, dy, coef
+
+
+def _conv_bn_check(name, args):
+    """Kernel against plain version; raises past the tolerance.  Returns
+    ``{"da": err, "dw": err}`` (max abs)."""
+    da, dw = fcb.fused_bwd(*args)
+    torch.cuda.synchronize()
+    ref_da, ref_dw = fcb.fused_bwd_reference(*args)
+    tol = CONV_BN_TOL[args[0].dtype]
+    errs, bad = {}, []
+    for g, got, ref in (("da", da, ref_da), ("dw", dw, ref_dw)):
+        errs[g] = float((got.float() - ref.float()).abs().max())
+        scale = float(ref.float().abs().max())
+        if not (torch.isfinite(got.float()).all()
+                and errs[g] <= tol[g] * max(scale, 1e-30)):
+            bad.append(f"{g}: max|diff| {errs[g]:.3e} vs tol {tol[g]} x "
+                       f"max|plain| {scale:.3e}")
+    if bad:
+        raise RuntimeError(f"fused_conv_bn {name}: " + "; ".join(bad))
+    return errs
+
+
+def _conv_bn_library_ms(n, h, w, args, iters):
+    """The yardstick: the autograd backward of the unfused composition
+    PyTorch offers, cuDNN's 1x1 ``F.conv2d`` + training-mode
+    ``F.batch_norm``, on the same tensors (channels_last), timed alone
+    (the graph is kept, so each call is only the backward).  The port
+    never calls it."""
+    a, w2, x, dy, coef = args
+    k, c = w2.shape
+    a4 = a.view(n, h, w, k).permute(0, 3, 1, 2).detach().requires_grad_()
+    wt = w2.T.reshape(c, k, 1, 1).contiguous().detach().requires_grad_()
+    gamma = coef[0].clone().requires_grad_()
+    beta = coef[2].clone().requires_grad_()
+    y = F.batch_norm(F.conv2d(a4, wt), None, None, gamma, beta,
+                     training=True, eps=1e-5)
+    dy4 = dy.view(n, h, w, c).permute(0, 3, 1, 2)
+    lib = cuda_ms(lambda: torch.autograd.grad(
+        y, (a4, wt, gamma, beta), dy4, retain_graph=True), iters)
+    dev = sum(t for _, t, _ in device_time(lambda: torch.autograd.grad(
+        y, (a4, wt, gamma, beta), dy4, retain_graph=True), 2)) / 2
+    return lib, dev
+
+
+def phase_conv_bn() -> dict:
+    """The fused conv+BN backward kernel at every shape of a ResNet-50
+    training step (bf16, batch 256), timed, then a correctness sweep."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    dtype = torch.bfloat16
+    cases, tot = [], {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0,
+                      "library_ms": 0.0, "library_device_ms": 0.0,
+                      "bound_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0,
+                      "flops": 0.0, "bytes": 0.0}
+    worst = {"da": 0.0, "dw": 0.0}
+    for (n, h, w, k, c), calls in resnet_conv_bn_shapes().items():
+        m = n * h * w
+        args = _conv_bn_inputs(m, k, c, dtype, gen)
+        errs = _conv_bn_check(f"M={m} K={k} C={c}", args)
+        launch = lambda: fcb.fused_bwd(*args)  # noqa: E731
+        ms = cuda_ms(launch, 10)
+        dev = sum(t for _, t, _ in device_time(launch, 3)) / 3
+        plain = cuda_ms(lambda: fcb.fused_bwd_reference(*args), 3)
+        lib, lib_dev = _conv_bn_library_ms(n, h, w, args, 10)
+        flops = 4 * m * k * c
+        nbytes = (2 * (m * k + 2 * m * c + k * c + m * k) + 4 * 3 * c
+                  + 4 * k * c)
+        t_ops = 1e3 * flops / PEAK_OPS_S[dtype]
+        t_bytes = 1e3 * nbytes / PEAK_BYTES_S
+        case = {"m": m, "k": k, "c": c, "calls": calls, "ms": ms,
+                "device_ms": dev, "plain_ms": plain, "library_ms": lib,
+                "library_device_ms": lib_dev,
+                "bound_ms": max(t_ops, t_bytes),
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                "max_abs_err_da": errs["da"], "max_abs_err_dw": errs["dw"],
+                "tflops": flops / ms / 1e9,
+                "splits": fcb.dw_splits(m, k, c)[0]}
+        cases.append(case)
+        for key, val in (("ms", ms), ("device_ms", dev), ("plain_ms", plain),
+                         ("library_ms", lib), ("library_device_ms", lib_dev),
+                         ("bound_ms", case["bound_ms"]), ("ops_ms", t_ops),
+                         ("bytes_ms", t_bytes), ("flops", flops),
+                         ("bytes", nbytes)):
+            tot[key] += calls * val
+        for g in worst:
+            worst[g] = max(worst[g], errs[g])
+        log(f"[conv-bn] M={m} K={k} C={c} x{calls}: err da {errs['da']:.2e}"
+            f" dw {errs['dw']:.2e}; kernel {ms:.3f} ms (device {dev:.3f}, "
+            f"{case['tflops']:.2f} TFLOP/s, {case['splits']} dW splits), "
+            f"plain {plain:.3f} ms, cuDNN conv+BN backward {lib:.3f} ms "
+            f"(device {lib_dev:.3f}), bound {case['bound_ms']:.4f} ms "
+            f"({case['bound_by']})")
+        del args
+    log(json.dumps({"fused_conv_bn_cases": cases}))
+    tot["bound_by"] = ("operations" if tot["ops_ms"] >= tot["bytes_ms"]
+                       else "bytes")
+    tot["max_abs_err"] = max(worst.values())
+    log(f"[conv-bn] one ResNet-50 step's 36 calls ({len(cases)} shapes, "
+        f"{tot['flops']:.3e} FLOPs, {tot['bytes'] / 1e9:.2f} GB): kernel "
+        f"{tot['ms']:.2f} ms (device {tot['device_ms']:.2f}), plain "
+        f"{tot['plain_ms']:.2f} ms, cuDNN conv+BN backward "
+        f"{tot['library_ms']:.2f} ms (device "
+        f"{tot['library_device_ms']:.2f}), bound {tot['bound_ms']:.3f} ms "
+        f"(operations {tot['ops_ms']:.3f}, bytes {tot['bytes_ms']:.3f}); "
+        f"worst err {worst}")
+
+    # Correctness sweep: f32 at path widths; ragged M, K and C in both
+    # dtypes; and the autograd op over a strided downsample.
+    sweep = [(12544, 64, 256, torch.float32), (12544, 1024, 2048,
+                                                torch.float32),
+             (12544, 2048, 512, torch.float32)]
+    for dt in fcb.DTYPES:
+        sweep += [(1000, 12, 20, dt), (4099, 100, 300, dt), (33, 7, 130, dt),
+                  (17, 65, 129, dt)]
+    sworst = {}
+    for m, k, c, dt in sweep:
+        errs = _conv_bn_check(f"sweep M={m} K={k} C={c} {dt}",
+                              _conv_bn_inputs(m, k, c, dt, gen))
+        key = str(dt)[6:]
+        sworst[key] = max(sworst.get(key, 0.0), *errs.values())
+    for dt in fcb.DTYPES:
+        sworst[f"strided {str(dt)[6:]}"] = _strided_downsample_check(dt, gen)
+    log(f"[conv-bn] sweep of {len(sweep)} kernel cases (f32 at path widths;"
+        f" ragged M, K, C in f32 and bf16) and a stride-2 downsample "
+        f"through autograd: worst max abs err {sworst}")
+    return tot
+
+
+def _strided_downsample_check(dtype, gen) -> float:
+    """``conv1x1_bn_train`` over ``a[:, ::2, ::2, :]`` (a ResNet
+    downsample) against the plain composition through autograd: y and
+    the gradients of a, w, gamma, beta."""
+    dev = torch.device("cuda")
+    a4 = torch.randn((8, 14, 14, 64), generator=gen, device=dev).to(dtype)
+    w = torch.randn((64, 256), generator=gen, device=dev) * 0.2
+    gamma = torch.rand(256, generator=gen, device=dev) + 0.5
+    beta = torch.randn(256, generator=gen, device=dev)
+    t = torch.randn((8, 7, 7, 256), generator=gen, device=dev)
+    out = []
+    for fn in (fcb.conv1x1_bn_train, fcb.conv1x1_bn_reference):
+        leaves = [v.detach().clone().requires_grad_()
+                  for v in (a4, w, gamma, beta)]
+        y, _, _ = fn(leaves[0][:, ::2, ::2, :].contiguous(), *leaves[1:],
+                     eps=1e-5)
+        (y.float() * t).sum().backward()
+        out.append([y.detach()] + [v.grad for v in leaves])
+    tol = STRIDED_TOL[dtype]
+    worst = 0.0
+    for name, got, ref in zip(("y", "da", "dw", "dgamma", "dbeta"), *out):
+        err = float((got.float() - ref.float()).abs().max())
+        scale = float(ref.float().abs().max())
+        if not err <= tol * max(scale, 1e-30):
+            raise RuntimeError(f"strided downsample {dtype} {name}: max|diff|"
+                               f" {err:.3e} vs tol {tol} x {scale:.3e}")
+        worst = max(worst, err)
+    return worst
+
+
+def _random_bn_scales(model, seed):
+    """BN scales in [0.5, 1.5] (the init zeroes the last of each block,
+    which would leave conv3's gradients at exactly 0 on both routes)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, resnet_lib.BatchNorm):
+                mod.weight.copy_(torch.rand(mod.weight.shape, generator=gen,
+                                            device="cuda") + 0.5)
+
+
+def phase_resnet_grad_parity() -> None:
+    """One training step's loss, gradients and running statistics of
+    ResNet-50 at full width in f32: ``bn="fused"`` (the kernel) against
+    ``bn="flax"`` (cuDNN conv + the plain BatchNorm), same weights.
+
+    The gradients of a random-init ResNet-50 at batch 8 are sensitive to
+    f32 rounding: the plain route on the same batch in reverse order (the
+    same function, its sums taken in another order) moves some tensors by
+    a few percent.  So each tensor is held to the larger of
+    RESNET_PARITY_RTOL and RESNET_NOISE_FACTOR times that measured noise
+    floor."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    b = RESNET_PARITY_BATCH
+    cfg = get_config("imagenet_resnet50").with_overrides(
+        compute_dtype="float32", augment="none")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    batch = {"image": torch.randn((b, 224, 224, 3), generator=gen,
+                                  device="cuda") * 0.3 + 0.5,
+             "label": torch.randint(0, 1000, (b,), generator=gen,
+                                    device="cuda")}
+    rev = {k: v.flip(0) for k, v in batch.items()}
+    loss_fn = train_lib.make_loss_fn(cfg)
+    out, state = {}, None
+    reset_launches()
+    for route, bn, data in (("plain", "flax", batch), ("kernel", "fused", batch),
+                            ("plain reversed", "flax", rev)):
+        model = get_model("resnet50", dtype="float32", device="cuda", seed=0,
+                          num_classes=1000, bn=bn)
+        if state is None:
+            _random_bn_scales(model, 8)
+            state = {k: v.clone() for k, v in model.state_dict().items()}
+        else:
+            model.load_state_dict(state)
+        loss, _ = loss_fn(model, data, 0)
+        loss.backward()
+        out[route] = (float(loss.detach()),
+                      {n: p.grad for n, p in model.named_parameters()},
+                      {n: v.clone() for n, v in model.named_buffers()})
+        del model
+    launches = fcb.LAUNCHES["fused_conv_bn_bwd"]
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+    (lp, gp, sp), (lk, gk, sk), (_, gr, _) = (
+        out["plain"], out["kernel"], out["plain reversed"])
+    worst, noise, where, bad = 0.0, 0.0, "", []
+    for name, g in gp.items():
+        got, floor = rel(gk[name], g), rel(gr[name], g)
+        noise = max(noise, floor)
+        if got > worst:
+            worst, where = got, name
+        if got > max(RESNET_PARITY_RTOL, RESNET_NOISE_FACTOR * floor):
+            bad.append(f"{name}: {got:.2e} (noise floor {floor:.2e})")
+    stat = max(rel(sk[n], v) for n, v in sp.items())
+    log(f"[resnet-grad-parity] ResNet-50 f32, B={b} 224x224: loss kernel "
+        f"{lk:.6f} plain {lp:.6f}; worst per-tensor relative grad "
+        f"difference {worst:.2e} ({where}), against a noise floor (plain "
+        f"route, batch reversed) of up to {noise:.2e}; running stats "
+        f"{stat:.2e}; fused_conv_bn_bwd launches {launches}")
+    if abs(lk - lp) > RESNET_PARITY_RTOL * abs(lp):
+        bad.append(f"loss {lk} vs {lp}")
+    if stat > RESNET_PARITY_RTOL:
+        bad.append(f"running stats {stat:.3e}")
+    if launches != 36:
+        bad.append(f"launches {launches} (want 36)")
+    if bad:
+        raise RuntimeError("ResNet gradient parity: " + "; ".join(bad[:8]))
+
+
+def resnet_forward_flops(model, size: int = 224) -> int:
+    """Forward FLOPs of one image: 2 x multiply-adds of every convolution
+    and the Dense, counted from the outputs of one forward pass."""
+    flops = []
+
+    def conv_hook(mod, _inp, out):
+        o, i, kh, kw = mod.weight.shape
+        flops.append(2 * out[0].numel() * i * kh * kw)
+
+    hooks = [m.register_forward_hook(conv_hook) for m in model.modules()
+             if isinstance(m, resnet_lib.Conv)]
+    try:
+        with torch.no_grad():
+            model(torch.zeros((1, size, size, 3), device="cuda"))
+    finally:
+        for h in hooks:
+            h.remove()
+    return sum(flops) + 2 * model.fc.weight.numel()
+
+
+def phase_resnet_train() -> dict:
+    """The ResNet slice: imagenet_resnet50 (bn="fused") through
+    ``tpuframe_torch.train.main`` with the cuts of RESNET_CUTS, every
+    kernel's launches read around it; then one more step of the same
+    harness under the profiler."""
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.monotonic()
+    metrics = train_lib.main(RESNET_ARGS)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses, step_ms = metrics["losses"], metrics["step_ms"]
+    steps = len(losses)
+    want = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+            "fused_conv_bn_bwd": 36 * steps}
+    problems = []
+    if not all(math.isfinite(x) for x in losses) or steps != 4:
+        problems.append(f"losses {losses}")
+    for key in ("eval_loss", "eval_accuracy", "eval_top5"):
+        if not math.isfinite(metrics.get(key, float("nan"))):
+            problems.append(f"no finite {key}")
+    if launches != want:
+        problems.append(f"launches {launches}, want {want} (the fused op "
+                        f"once per Bottleneck 1x1 pair and step, none in "
+                        f"eval)")
+    if problems:
+        raise RuntimeError("ResNet training: " + "; ".join(problems))
+    p50 = statistics.median(step_ms[1:])
+    cfg = get_config("imagenet_resnet50").with_overrides(**RESNET_CUTS)
+    harness = train_lib.build_harness(cfg)
+    fwd = resnet_forward_flops(harness.state.model)
+    flops = 3 * fwd * RESNET_BATCH
+    mfu = flops / (p50 / 1e3) / PEAK_OPS_S[torch.bfloat16]
+    log(f"[resnet-train] imagenet_resnet50 bn=fused, batch {RESNET_BATCH}, "
+        f"mesh 1, {steps} steps + 1 eval batch in {wall:.1f} s: losses "
+        f"{[round(x, 4) for x in losses]}, eval loss "
+        f"{metrics['eval_loss']:.4f} top5 {metrics['eval_top5']:.4f}; step "
+        f"ms {[round(x, 1) for x in step_ms]} (p50 after the first "
+        f"{p50:.1f}); {RESNET_BATCH / p50 * 1e3:.1f} images/s; model FLOPs "
+        f"{flops:.3e} a step (3 x {fwd:.4e} a forward image), MFU "
+        f"{mfu:.4f} of 989 TFLOP/s; peak memory {peak / 2**30:.2f} GiB; "
+        f"launches {launches}")
+
+    batch = next(iter(harness.train_loader))
+    step = lambda: float(harness.train_step(harness.state, batch)["loss"])  # noqa: E731
+    wall_step = wall_ms(step, 1)
+    kernels = device_time(step)
+    busy = sum(ms for _, ms, _ in kernels)
+    conv_bn = sum(ms for k, ms, _ in kernels
+                  if "dw_kernel" in k or "da_kernel" in k
+                  or "dw_reduce" in k)
+    log(f"[profile] ResNet-50 training step: wall {wall_step:.1f} ms, "
+        f"{sum(c for *_, c in kernels)} kernels, device {busy:.1f} ms, idle "
+        f"share {1 - busy / wall_step:.3f}; fused conv+BN kernels "
+        f"{conv_bn:.1f} ms; top: "
+        + "; ".join(f"{k[:60]} {ms:.1f} ms x{c}" for k, ms, c in kernels[:10]))
+    return {"launches": launches, "step_ms_p50": p50, "mfu": mfu,
+            "peak_bytes": peak}
+
 
 
 def wall_ms(fn, calls: int) -> float:
@@ -701,25 +1126,35 @@ def main(argv=None) -> int:
     serve_launches = phase_serve()
     phase_grad_parity()
     train = phase_train()
+    conv_bn = phase_conv_bn()
+    phase_resnet_grad_parity()
+    resnet = phase_resnet_train()
 
     by_path = {name: {"serve": serve_launches[name],
-                      "train": train["launches"][name]}
-               for name in fa.LAUNCHES}
-    fwd = cases["train"]
-    rows = [("flash_fwd", "flash_fwd.cu", 136, fwd),
-            ("flash_bwd_dq", "flash_bwd.cu", 295, bwd["dq"]),
-            ("flash_bwd_dkv", "flash_bwd.cu", 327, bwd["dkv"])]
+                      "lm_train": train["launches"][name],
+                      "resnet_train": resnet["launches"][name]}
+               for name in launch_counts()}
+    attn = "B=8 S=4096 N=12 D=64 bf16 causal"
+    rows = [("flash_fwd", "flash_fwd.cu", "flash_attention.py:136",
+             cases["train"], attn),
+            ("flash_bwd_dq", "flash_bwd.cu", "flash_attention.py:295",
+             bwd["dq"], attn),
+            ("flash_bwd_dkv", "flash_bwd.cu", "flash_attention.py:327",
+             bwd["dkv"], attn),
+            ("fused_conv_bn_bwd", "fused_conv_bn.cu", "fused_conv_bn.py:150",
+             conv_bn, "ResNet-50 batch 256 bf16: the 36 calls of one "
+                      "training step over 15 shapes, times summed")]
     kernels = [{
         "name": name, "route": "cuda",
         "source": f"tpuframe_torch/csrc/{src}",
-        "replaces": f"tpuframe/ops/flash_attention.py:{line}",
+        "replaces": f"tpuframe/ops/{line}",
         "launches": sum(by_path[name].values()),
         "launches_by_path": by_path[name],
         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-        "shape": "B=8 S=4096 N=12 D=64 bf16 causal",
-    } for name, src, line, r in rows]
+        "shape": shape,
+    } for name, src, line, r, shape in rows]
     log(f"[done] {time.monotonic() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -730,7 +1165,10 @@ def main(argv=None) -> int:
 
 PHASES = {"kernels": phase_kernels, "backward": phase_backward,
           "parity": phase_parity, "serve": phase_serve,
-          "grad_parity": phase_grad_parity, "train": phase_train}
+          "grad_parity": phase_grad_parity, "train": phase_train,
+          "conv_bn": phase_conv_bn,
+          "resnet_grad_parity": phase_resnet_grad_parity,
+          "resnet_train": phase_resnet_train}
 
 
 if __name__ == "__main__":

@@ -169,5 +169,5 @@ def test_decay_mask_matches_flax_names(flax_params):
 
 def test_lars_is_not_ported_yet(flax_params):
     kw = dict(BASE, optimizer="lars")
-    with pytest.raises(NotImplementedError, match="slice 3"):
+    with pytest.raises(NotImplementedError, match="item 5"):
         optim.build_optimizer(TrainConfig(**kw), _port_model(flax_params))

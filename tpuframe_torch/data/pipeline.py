@@ -2,11 +2,15 @@
 (counterpart of ``tpuframe/data/pipeline.py``).
 
 Each rank of the data-parallel world takes its contiguous shard of the
-dataset and iterates it in an epoch-shuffled order drawn from
-``default_rng(SeedSequence([seed, epoch]))``, the JAX package's per-host
-split with one host per rank.  Batches are assembled and copied to the
-device one step ahead of the consumer on a background thread, through
-pinned host memory when the device is a GPU.
+dataset (unless the builder already loaded only this rank's files and
+marked it ``host_presharded``) and iterates it in an epoch-shuffled order
+drawn from ``default_rng(SeedSequence([seed, epoch]))``, the JAX package's
+per-host split with one host per rank.  Batches are assembled, float
+image columns cast to the compute dtype on the host (``cast_floats``, as
+the JAX loader does: half the bytes over the link, the same rounding the
+model's first cast would do), and copied to the device one step ahead of
+the consumer on a background thread, through pinned host memory when the
+device is a GPU.
 """
 
 from __future__ import annotations
@@ -31,11 +35,13 @@ class ShardedLoader:
     takes its shard); ``global_batch`` is across all ranks, each feeding
     ``global_batch / world`` rows.  ``world`` and ``rank`` default to the
     ``torch.distributed`` group.  The remainder partial batch of an epoch
-    is dropped."""
+    is dropped.  ``cast_floats`` (a torch dtype) casts the float model
+    inputs (the ``image`` column) on the host."""
 
     def __init__(self, dataset: ArrayDataset, global_batch: int, *,
                  device="cpu", shuffle: bool = True, seed: int = 0,
-                 world: int | None = None, rank: int | None = None):
+                 world: int | None = None, rank: int | None = None,
+                 cast_floats: torch.dtype | None = None):
         if world is None:
             world, rank = collectives.world()
         self.global_batch = global_batch
@@ -46,7 +52,10 @@ class ShardedLoader:
             raise ValueError(f"global batch {global_batch} not divisible by "
                              f"{world} ranks")
         self.host_batch = global_batch // world
-        self.dataset = dataset.shard(world, rank) if world > 1 else dataset
+        self.cast_floats = cast_floats
+        presharded = getattr(dataset, "host_presharded", False)
+        self.dataset = (dataset.shard(world, rank)
+                        if world > 1 and not presharded else dataset)
         if len(self.dataset) < self.host_batch:
             raise ValueError(f"rank shard has {len(self.dataset)} examples "
                              f"< per-rank batch {self.host_batch}")
@@ -120,6 +129,9 @@ class ShardedLoader:
         out = {}
         for k, v in batch.items():
             t = torch.from_numpy(np.ascontiguousarray(v))
+            if (self.cast_floats is not None and k == "image"
+                    and t.is_floating_point()):
+                t = t.to(self.cast_floats)
             if self.device.type == "cuda":
                 t = t.pin_memory().to(self.device, non_blocking=True)
             out[k] = t

@@ -2,17 +2,18 @@
 
 from __future__ import annotations
 
+from tpuframe_torch.models.resnet import (ResNet, ResNet18, ResNet34,
+                                          ResNet50, ResNet101, ResNet152)
 from tpuframe_torch.models.transformer_lm import LMConfig, TransformerLM
 
+_RESNETS = {"resnet18": ResNet18, "resnet34": ResNet34,
+            "resnet50": ResNet50, "resnet101": ResNet101,
+            "resnet152": ResNet152}
+
 # Registry names of the JAX package that the port does not build yet, and
-# the ROADMAP.md slice that brings each.
+# the ROADMAP.md item that brings each.
 _LATER = {
-    "convnet": "slice 3 (ResNet data-parallel training)",
-    "resnet18": "slice 3 (ResNet data-parallel training)",
-    "resnet34": "slice 3 (ResNet data-parallel training)",
-    "resnet50": "slice 3 (ResNet data-parallel training)",
-    "resnet101": "slice 3 (ResNet data-parallel training)",
-    "resnet152": "slice 3 (ResNet data-parallel training)",
+    "convnet": "queue 1, item 3 (the MNIST ConvNet)",
     "bert-base": "slice 4 (BERT/GLUE training)",
     "transformer-lm-pp": "queue 1, item 12 (pipeline parallelism)",
 }
@@ -28,10 +29,15 @@ def get_model(name: str, *, dtype=None, tiny: bool = False, device="cuda",
             kwargs.setdefault("dtype", str(dtype).replace("torch.", ""))
         cfg = LMConfig.tiny(**kwargs) if tiny else LMConfig(**kwargs)
         return TransformerLM(cfg, device=device, seed=seed)
+    if name in _RESNETS:
+        if dtype is not None:
+            kwargs.setdefault("dtype", dtype)
+        return _RESNETS[name](device=device, seed=seed, **kwargs)
     if name in _LATER:
         raise NotImplementedError(f"model {name!r} is not ported yet: "
                                   f"ROADMAP.md {_LATER[name]}")
     raise ValueError(f"unknown model {name!r}")
 
 
-__all__ = ["LMConfig", "TransformerLM", "get_model"]
+__all__ = ["LMConfig", "ResNet", "ResNet18", "ResNet34", "ResNet50",
+           "ResNet101", "ResNet152", "TransformerLM", "get_model"]

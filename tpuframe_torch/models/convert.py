@@ -1,5 +1,5 @@
-"""Carry flax ``TransformerLM`` parameters (and optax Adam moments) into
-the port's model.
+"""Carry flax ``TransformerLM`` parameters (and optax Adam moments), and
+flax ResNet parameters and batch statistics, into the port's models.
 
 The flax tree (``{"embed": {"embedding"}, "block_<i>": {...},
 "final_ln": {"scale"}, "lm_head": {"kernel"}}``) arrives as nested dicts of
@@ -65,3 +65,82 @@ def adam_state_from_jax(mu, nu, count) -> dict:
     keyed by the model's parameter names."""
     return {"count": int(count), "mu": params_from_jax(mu),
             "nu": params_from_jax(nu)}
+
+
+def _conv(k):
+    """flax conv kernel ``HWIO`` → ``OIHW``."""
+    return np.asarray(k).transpose(3, 2, 0, 1)
+
+
+def resnet_from_jax(params, batch_stats) -> dict:
+    """A flax ``tpuframe.models.resnet.ResNet``'s ``params`` and
+    ``batch_stats`` (nested dicts of numpy arrays), built with ``bn="flax"``
+    or ``bn="fused"`` → the port ResNet's ``state_dict`` (f32 CPU tensors,
+    torchvision's names).
+
+    Flax names its blocks ``<Block>_<n>`` with one running index across
+    stages; a stage opens at block 0 and at each later block that has a
+    downsample.  In a block, flax's ``Conv_j``/``BatchNorm_j`` are the
+    ``conv{j+1}``/``bn{j+1}`` pairs in order; under ``bn="fused"`` the
+    Bottleneck's 1x1 pairs are ``FusedConvBN_0`` (conv1, bn1) and
+    ``FusedConvBN_1`` (conv3, bn3), its 3x3 pair ``Conv_0``/``BatchNorm_0``
+    (conv2, bn2), and the downsample ``downsample_fused``.  Raises on a
+    tree that leaves a leaf unmapped."""
+    sd = {}
+    used = set()
+
+    def get(tree, path):
+        node = tree
+        for p in path:
+            node = node[p]
+        used.add((id(tree), path))
+        return node
+
+    def bn(dst, src):
+        sd[f"{dst}.weight"] = get(params, (*src, "scale"))
+        sd[f"{dst}.bias"] = get(params, (*src, "bias"))
+        sd[f"{dst}.running_mean"] = get(batch_stats, (*src, "mean"))
+        sd[f"{dst}.running_var"] = get(batch_stats, (*src, "var"))
+
+    def pair(conv_dst, bn_dst, conv_src, bn_src):
+        sd[f"{conv_dst}.weight"] = _conv(get(params, (*conv_src, "kernel")))
+        bn(bn_dst, bn_src)
+
+    pair("conv1", "bn1", ("stem_conv",), ("stem_bn",))
+    block = next(p for p in ("Bottleneck", "BasicBlock")
+                 if f"{p}_0" in params)
+    layer, i, n = 1, 0, 0
+    while f"{block}_{n}" in params:
+        b = f"{block}_{n}"
+        blk = params[b]
+        has_ds = "downsample_conv" in blk or "downsample_fused" in blk
+        if n > 0 and has_ds:
+            layer, i = layer + 1, 0
+        pre = f"layer{layer}.{i}."
+        if "FusedConvBN_0" in blk:
+            for dst, src in (("1", "FusedConvBN_0"), ("3", "FusedConvBN_1")):
+                pair(pre + f"conv{dst}", pre + f"bn{dst}", (b, src), (b, src))
+            pair(pre + "conv2", pre + "bn2", (b, "Conv_0"), (b, "BatchNorm_0"))
+            if has_ds:
+                pair(pre + "downsample.0", pre + "downsample.1",
+                     (b, "downsample_fused"), (b, "downsample_fused"))
+        else:
+            j = 0
+            while f"Conv_{j}" in blk:
+                pair(pre + f"conv{j + 1}", pre + f"bn{j + 1}",
+                     (b, f"Conv_{j}"), (b, f"BatchNorm_{j}"))
+                j += 1
+            if has_ds:
+                pair(pre + "downsample.0", pre + "downsample.1",
+                     (b, "downsample_conv"), (b, "downsample_bn"))
+        i += 1
+        n += 1
+    sd["fc.weight"] = np.asarray(get(params, ("Dense_0", "kernel"))).T
+    sd["fc.bias"] = get(params, ("Dense_0", "bias"))
+    total = (sum(1 for _ in _leaves(params))
+             + sum(1 for _ in _leaves(batch_stats)))
+    if len(used) != total:
+        raise ValueError(f"the flax tree holds {total} leaves, "
+                         f"{len(used)} were mapped: not a tpuframe ResNet")
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32))
+            for k, v in sd.items()}

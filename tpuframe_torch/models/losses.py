@@ -57,3 +57,9 @@ def accuracy(logits, labels, ignore_index: int | None = None, reduce=None):
     if ignore_index is None:
         return hit.mean()
     return masked_mean(hit, labels, ignore_index, reduce)
+
+
+def topk_accuracy(logits, labels, k: int = 5):
+    """Share of rows whose label is among the ``k`` largest logits."""
+    topk = logits.topk(k, dim=-1).indices
+    return (topk == labels[:, None]).any(dim=-1).float().mean()

@@ -14,7 +14,11 @@ group is initialised), then the optimizer.  The same contract holds:
     and one update per step), as the JAX step does, not Horovod's
     aggregation of loader batches;
   - the reported loss and metrics are means over the world, and
-    ``grad_norm`` is the reduced gradients' global norm before clipping.
+    ``grad_norm`` is the reduced gradients' global norm before clipping;
+  - BatchNorm running statistics (the model's float buffers) update in
+    each replica's forward from its own batch, once per microbatch in
+    order, and are then averaged over the world, which keeps them
+    single-valued as the JAX step's ``pmean`` of ``model_state`` does.
 """
 
 from __future__ import annotations
@@ -87,9 +91,10 @@ def make_train_step(loss_fn: LossFn, *, accum_steps: int = 1,
             for k, v in metrics.items():
                 metric_sums[k] = metric_sums.get(k, 0.0) + v.detach()
         grads = [p.grad for p in model.parameters() if p.grad is not None]
+        stats = [b for b in model.buffers() if b.is_floating_point()]
         out = {k: v / accum_steps for k, v in metric_sums.items()}
         out["loss"] = loss_sum / accum_steps
-        collectives.mean_(grads + list(out.values()), grp)
+        collectives.mean_(grads + stats + list(out.values()), grp)
         out["grad_norm"] = state.opt.step()
         state.step += 1
         return out

@@ -1,7 +1,11 @@
-"""Training harness (counterpart of ``tpuframe/train.py``), LM slice.
+"""Training harness (counterpart of ``tpuframe/train.py``): the LM and
+ImageNet ResNet workloads.
 
     python -m tpuframe_torch.train --config lm_long \\
         --set 'mesh={"data": 1, "seq": 1}' --set dataset_kwargs='{"seq_len": 4096}'
+    python -m tpuframe_torch.train --config imagenet_resnet50 \\
+        --set 'model_kwargs={"bn": "fused"}' --set 'mesh={"data": 1}' \\
+        --set global_batch=256
     python -m tpuframe_torch.train --config lm_smoke --device cpu \\
         --set 'mesh={"data": 1, "seq": 1}'
 
@@ -14,9 +18,11 @@ from ``torch.distributed`` (initialise the default group before
 :func:`main`, e.g. through ``torchrun``); the data degree of the config's
 mesh must equal the world size.
 
-The LM workloads (``lm_text`` data, ``transformer-lm``) train here.  What
-the JAX harness has and the port does not yet refuses loudly, naming its
-ROADMAP.md item: checkpoints, the observability plane (events, TensorBoard,
+The LM workloads (``lm_text`` data, ``transformer-lm``) and the ImageNet
+ResNets (``imagenet`` data, ``resnet*``; on-device augmentation, label
+smoothing, top-5 eval) train here.  What the JAX harness has and the port
+does not yet refuses loudly, naming its ROADMAP.md item: the MNIST,
+CIFAR-10 and GLUE data, checkpoints, the observability plane (events, TensorBoard,
 traces, metrics exporter), pipeline, fsdp, tensor and expert parallelism,
 ZeRO-1, quantized or hierarchical collectives, bucketed fusion, adasum,
 sequence parallelism (a seq degree above 1), fault injection and elastic
@@ -32,10 +38,12 @@ import os
 import time
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from tpuframe_torch import _device
 from tpuframe_torch import models
+from tpuframe_torch.data import augment as augment_lib
 from tpuframe_torch.data import datasets
 from tpuframe_torch.data.pipeline import ShardedLoader
 from tpuframe_torch.models import losses
@@ -84,10 +92,7 @@ def _refuse_unported(cfg: TrainConfig, world: int) -> dict:
     if cfg.grad_reduce != "mean":
         raise NotImplementedError(f"grad_reduce={cfg.grad_reduce!r} is not "
                                   f"ported yet (ROADMAP.md queue 1, item 6)")
-    if cfg.dataset != "lm_text":
-        raise NotImplementedError(
-            f"dataset {cfg.dataset!r}: the port trains the LM workloads "
-            f"only (ResNet: ROADMAP.md slice 3; BERT/GLUE: slice 4)")
+    datasets.check(cfg.dataset)
     sizes = cfg.mesh.sizes(world)
     if sizes["pipe"] > 1 or cfg.model == "transformer-lm-pp":
         raise NotImplementedError(f"pipeline parallelism is not ported yet "
@@ -134,10 +139,67 @@ def _lm_reduce(cfg: TrainConfig):
     return collectives.group()
 
 
+def _is_lm_task(cfg: TrainConfig) -> bool:
+    return cfg.dataset == "lm_text"
+
+
+def _maybe_normalize(cfg: TrainConfig, x):
+    """Normalise a uint8 image batch on the device (datasets built with
+    ``keep_u8``): ``(x / 255 - mean) / std`` in f32, with ImageNet's mean
+    and std for real ImageNet data and (0, 1) for synthetic data, which is
+    quantised [0, 1] data.  Float batches pass through: they were
+    normalised on the host."""
+    if x.dtype != torch.uint8:
+        return x
+    mean, std = np.float32(0.0), np.float32(1.0)
+    if cfg.data_dir is not None and cfg.dataset == "imagenet":
+        mean, std = datasets.IMAGENET_MEAN, datasets.IMAGENET_STD
+    mean = torch.as_tensor(mean, device=x.device)
+    std = torch.as_tensor(std, device=x.device)
+    return (x.float() / 255.0 - mean) / std
+
+
+def _check_labels(cfg: TrainConfig, splits) -> None:
+    """Labels beyond the head's range would train on a nonsense loss
+    without an error: refuse them at build time, as the JAX harness
+    does."""
+    n_cls = cfg.model_kwargs.get("num_classes")
+    if n_cls is None or n_cls <= 1 or _is_lm_task(cfg):
+        return
+    for name, ds in splits:
+        labels = ds.columns.get("label")
+        if (labels is not None and np.issubdtype(labels.dtype, np.integer)
+                and len(labels) and int(labels.max()) >= n_cls):
+            raise ValueError(
+                f"{name} labels reach {int(labels.max())} but the model "
+                f"head has num_classes={n_cls} — label range and head size "
+                f"must match (check model_kwargs/dataset)")
+
+
 def make_loss_fn(cfg: TrainConfig):
-    """``loss_fn(model, batch, dropout_seed) -> (loss, {"accuracy"})``:
-    next-token cross-entropy over valid tokens (labels -100 ignored),
-    through the fused chunked head when ``cfg.fused_xent``."""
+    """``loss_fn(model, batch, seed) -> (loss, {"accuracy"})``.
+
+    LM: next-token cross-entropy over valid tokens (labels -100 ignored),
+    through the fused chunked head when ``cfg.fused_xent``; ``seed``
+    seeds dropout.  Images: ``cfg.augment`` on the device from a generator
+    seeded with ``seed``, normalisation, the training forward (BN batch
+    statistics, running statistics updated) and cross-entropy with
+    ``cfg.label_smoothing``."""
+    if not _is_lm_task(cfg):
+        def image_loss_fn(model, batch, seed):
+            images = batch["image"]
+            if cfg.augment != "none":
+                gen = torch.Generator(device=images.device)
+                gen.manual_seed(seed)
+                images = augment_lib.apply(cfg.augment, images, gen,
+                                           crop_size=cfg.augment_crop)
+            logits = model(_maybe_normalize(cfg, images), train=True)
+            loss = losses.softmax_cross_entropy(logits, batch["label"],
+                                                cfg.label_smoothing)
+            acc = losses.accuracy(logits.detach(), batch["label"])
+            return loss, {"accuracy": acc}
+
+        return image_loss_fn
     reduce = _lm_reduce(cfg)
 
     def loss_fn(model, batch, dropout_seed):
@@ -161,8 +223,24 @@ def make_loss_fn(cfg: TrainConfig):
 
 
 def make_metric_fn(cfg: TrainConfig):
-    """Eval metrics: loss, perplexity and token accuracy over valid
-    tokens, global over the world."""
+    """Eval metrics.  LM: loss, perplexity and token accuracy over valid
+    tokens, global over the world.  Images: accuracy and cross-entropy
+    (no smoothing) with running statistics, plus ``top5`` for ImageNet;
+    ``crop_flip`` training pairs with a center crop here."""
+    if not _is_lm_task(cfg):
+        def image_metric_fn(model, batch):
+            images = batch["image"]
+            if cfg.augment == "crop_flip" and cfg.augment_crop:
+                images = augment_lib.center_crop(images, cfg.augment_crop)
+            logits = model(_maybe_normalize(cfg, images))
+            labels = batch["label"]
+            out = {"accuracy": losses.accuracy(logits, labels),
+                   "loss": losses.softmax_cross_entropy(logits, labels)}
+            if cfg.dataset == "imagenet":
+                out["top5"] = losses.topk_accuracy(logits, labels, 5)
+            return out
+
+        return image_metric_fn
 
     def metric_fn(model, batch):
         ids, labels = batch["input_ids"], batch["labels"]
@@ -193,10 +271,15 @@ def build_harness(cfg: TrainConfig, device="cuda") -> Harness:
     step_lib.broadcast_parameters(model)
     train_ds, eval_ds = datasets.build(cfg.dataset, cfg.data_dir,
                                        **cfg.dataset_kwargs)
+    _check_labels(cfg, (("train", train_ds), ("eval", eval_ds)))
+    # Float inputs are cast to the compute dtype on the host, as the JAX
+    # loader does.
+    cast = (None if cfg.compute_dtype == "float32"
+            else getattr(torch, cfg.compute_dtype))
     train_loader = ShardedLoader(train_ds, cfg.global_batch, device=dev,
-                                 seed=cfg.seed)
+                                 seed=cfg.seed, cast_floats=cast)
     eval_loader = ShardedLoader(eval_ds, cfg.global_batch, device=dev,
-                                shuffle=False)
+                                shuffle=False, cast_floats=cast)
     state = step_lib.TrainState(model=model,
                                 opt=build_optimizer(cfg, model),
                                 seed=cfg.seed + 1)

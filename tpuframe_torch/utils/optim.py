@@ -19,8 +19,8 @@ parity is at stake:
 
 No decay on norm scales and biases (``_decay_mask`` in the JAX package
 skips leaves named ``bias``, ``scale`` or ``b``): here by module type,
-since a LayerNorm's scale is called ``weight``.  Embedding and
-``lm_head`` are decayed.
+since a LayerNorm's or BatchNorm's scale is called ``weight``.  Embedding,
+``lm_head`` and the convolution and Dense kernels are decayed.
 """
 
 from __future__ import annotations
@@ -29,11 +29,13 @@ import numpy as np
 import torch
 from torch import nn
 
+from tpuframe_torch.models.resnet import BatchNorm
 from tpuframe_torch.models.transformer_lm import LayerNorm
 from tpuframe_torch.utils.config import TrainConfig
 
 F32 = np.float32
-_NORMS = (LayerNorm, nn.LayerNorm, nn.GroupNorm, nn.modules.batchnorm._NormBase)
+_NORMS = (LayerNorm, BatchNorm, nn.LayerNorm, nn.GroupNorm,
+          nn.modules.batchnorm._NormBase)
 
 
 def lr_schedule(cfg: TrainConfig, world_batch_scale: float):
@@ -160,8 +162,7 @@ def build_optimizer(cfg: TrainConfig, model: nn.Module) -> Optimizer:
     ``scale_lr_by_batch``."""
     if cfg.optimizer == "lars":
         raise NotImplementedError(
-            "lars is not ported yet: it comes with ResNet data-parallel "
-            "training (ROADMAP.md slice 3)")
+            "lars is not ported yet (ROADMAP.md queue 1, item 5)")
     if cfg.optimizer not in ("adamw", "sgd"):
         raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
     return Optimizer(cfg, model, lr_schedule(cfg, cfg.global_batch / 256.0))

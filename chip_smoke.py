@@ -13,28 +13,35 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
      only, at every head_dim and dtype it takes, with strided inputs), and
      time the kernel, the plain version and one PyTorch library call that
      computes the same function (a yardstick only);
-  4. the same for the two backward kernels at the training slice's shapes,
-     plus a correctness sweep (f32, key masks with fully masked rows, a
-     ragged length, every head_dim, strided inputs, an lse cotangent);
-  5. prefill + decode logits against the full forward, full width, bf16;
-  6. serve 12 requests over the three prompt buckets through run_loadgen
+  4. the same for the two backward kernels at the training slice's shapes
+     on both routes (bf16 on the tensor cores, f32 on the CUDA cores),
+     with their shared memory and blocks an SM, plus a correctness sweep
+     (f32, key masks with fully masked rows, ragged lengths, every
+     head_dim, strided inputs, an lse cotangent), each case asserting the
+     route it took;
+  5. the precision probe: its three modes through ``precision_probe.probe``
+     (launches read around that run), each mode's error against float64,
+     and each kernel mode against its plain version, timed;
+  6. prefill + decode logits against the full forward, full width, bf16;
+  7. serve 12 requests over the three prompt buckets through run_loadgen
      -> Scheduler -> LMEngine at full width (TransformerLM defaults:
      hidden 768, 12 layers, 12 heads, vocab 32000, bf16, flash attention),
      with every kernel's launch count read around that run;
-  7. one training step's loss and gradients at full width in f32, flash
-     kernels against the plain einsum attention;
-  8. train lm_long through ``tpuframe_torch.train.main`` (cuts in
-     TRAIN_OVERRIDES), with every kernel's launch count read around that
-     run, then profile one more step;
-  9. hold the fused 1x1-conv+BN backward kernel against its plain version
+  8. one training step's loss and gradients at full width in f32, flash
+     kernels against the plain einsum attention; then the same in bf16
+     (the tensor-core route), both routes held to the f32 gradients;
+  9. train lm_long through ``tpuframe_torch.train.main`` (cuts in
+     TRAIN_OVERRIDES), with every kernel's launch count and the backward
+     routes read around that run, then profile one more step;
+ 10. hold the fused 1x1-conv+BN backward kernel against its plain version
      at the 15 shapes a ResNet-50 training step gives it (bf16, batch
      256), time it, its plain version and a yardstick (the autograd
      backward of cuDNN's unfused 1x1 conv + batch norm), then a
      correctness sweep (f32, ragged M/K/C, a strided downsample);
- 10. one ResNet-50 training step's loss, gradients and running statistics
+ 11. one ResNet-50 training step's loss, gradients and running statistics
      at full width in f32, ``bn="fused"`` (the kernel) against
      ``bn="flax"`` (cuDNN), from the same weights;
- 11. train imagenet_resnet50 with ``bn="fused"`` through
+ 12. train imagenet_resnet50 with ``bn="fused"`` through
      ``tpuframe_torch.train.main`` (cuts in RESNET_CUTS), with every
      kernel's launch count read around that run, then profile one more
      step.
@@ -69,6 +76,7 @@ from tpuframe_torch.models.transformer_lm import LMConfig  # noqa: E402
 from tpuframe_torch.models import resnet as resnet_lib  # noqa: E402
 from tpuframe_torch.ops import flash_attention as fa  # noqa: E402
 from tpuframe_torch.ops import fused_conv_bn as fcb  # noqa: E402
+from tpuframe_torch.ops import precision_probe as pp  # noqa: E402
 from tpuframe_torch.serve import kv_cache as kv  # noqa: E402
 from tpuframe_torch.serve import loadgen  # noqa: E402
 from tpuframe_torch.serve.engine import LMEngine, parity_diffs  # noqa: E402
@@ -78,6 +86,7 @@ from tpuframe_torch.utils.config import get_config  # noqa: E402
 PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = {torch.bfloat16: 989e12,   # tensor cores
               torch.float32: 67e12}     # CUDA cores, outside tensor cores
+PEAK_TF32_S = 495e12                    # tensor cores, TF32
 
 # Kernel vs plain tolerances (max |diff|).  f32: the two differ only in
 # summation order.  bf16: the kernel rounds P to bf16 against the running
@@ -104,10 +113,11 @@ BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 # The training slice: lm_long at its full width (hidden 768, 12 layers,
 # 12 heads of 64, intermediate 3072, vocab 32000, bf16, adamw 3e-4, wd
 # 0.1, clip 1.0, warmup+cosine, remat, fused xent, flash attention) and
-# global batch 8, cut for one card: sequence 32768 -> 4096 (the kernels
-# run on CUDA cores: attention alone would take minutes a step at 32768),
-# mesh data=2 x seq -> 1 x 1 (seq_mode ring on a seq degree of 1 is full
-# causal attention), and a few steps with one eval batch.
+# global batch 8, cut for one card: sequence 32768 -> 4096 (the forward
+# kernel runs on the CUDA cores: attention alone would take many seconds a
+# step at 32768), mesh data=2 x seq -> 1 x 1 (seq_mode ring on a seq
+# degree of 1 is full causal attention), and a few steps with one eval
+# batch.
 TRAIN_STEPS = 4
 TRAIN_EVAL_BATCHES = 1
 TRAIN_OVERRIDES = {"mesh": {"data": 1, "seq": 1},
@@ -124,6 +134,32 @@ TRAIN_ATTN_SHAPE = (8, 4096, 12, 64)
 # -1e9 mask fill, worth ~1e-6 relative per layer.
 GRAD_PARITY_SHAPE = (2, 256)
 GRAD_PARITY_RTOL = 1e-4
+
+# The same at full width in bf16, where the backward runs on the tensor
+# cores.  Both routes carry bf16's own rounding, at different places, so
+# each is held to the f32 einsum route's gradients from the same weights
+# and batch: the kernels' relative error on each tensor may be at most
+# BF16_NOISE_FACTOR times the bf16 einsum route's own error on it (its
+# noise floor, measured in the same run).  The loss likewise, or within
+# 1e-3 of the f32 loss.
+BF16_PARITY_SHAPE = (2, 1024)
+BF16_NOISE_FACTOR = 3.0
+
+# Precision probe kernel vs its plain version (max |diff| over the probe's
+# 256 x 256 product, entries up to ~75): both sum the same f32 products
+# (a product of two TF32 values is exact in f32; "highest" rounds each
+# product once either way) in other orders.  The tensor cores do not
+# round each accumulation to nearest but truncate, so their error grows
+# with the mma steps (32 in "medium", 96 in "high"), up to an ulp of the
+# running sum (~8e-6 at |sum| ~ 64) each: below 1e-3.
+PROBE_TOL = 1e-3
+# Each mode's max |err| against float64 must fall in the band its
+# precision gives: f32 keeps ~24 bits (a few 1e-5 over 256 terms), 3xTF32
+# about as many less the tensor cores' truncation (above), one TF32 pass
+# 11 bits (~1e-2).  The lower bound of "medium" shows that the tensor
+# cores really ran in TF32.
+PROBE_F64_BAND = {"highest": (0.0, 2e-4), "high": (0.0, 1e-3),
+                  "medium": (1e-3, 0.1)}
 
 SERVE_REQUESTS = 12
 NEW_TOKENS = 16
@@ -180,14 +216,15 @@ def log(msg: str) -> None:
 
 
 def reset_launches() -> None:
-    for counts in (fa.LAUNCHES, fcb.LAUNCHES):
+    for counts in (fa.LAUNCHES, fcb.LAUNCHES, pp.LAUNCHES, fa.BWD_ROUTES):
         for name in counts:
             counts[name] = 0
 
 
 def launch_counts() -> dict:
-    """Every kernel's launches since the last :func:`reset_launches`."""
-    return {**fa.LAUNCHES, **fcb.LAUNCHES}
+    """Every kernel's launches since the last :func:`reset_launches` (the
+    backward's routes are read from ``fa.BWD_ROUTES``)."""
+    return {**fa.LAUNCHES, **fcb.LAUNCHES, **pp.LAUNCHES}
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -225,6 +262,29 @@ def phase_build() -> None:
         spills = sum(map(int, re.findall(r"(\d+) bytes spill stores", text)))
         log(f"[build] {src.stem}: registers per instantiation {regs}, "
             f"spill stores {spills} B")
+        # ptxas's lines for each entry function: registers, spills
+        for name, body in re.findall(
+                r"Compiling entry function '(\w+)'(.*?)(?=Compiling entry|"
+                r"\Z)", text, re.S):
+            used = re.search(r"Used (\d+) registers", body)
+            spill = re.search(r"(\d+) bytes spill stores", body)
+            log(f"[build]   {_kernel_label(name)}: "
+                f"{used.group(1) if used else '?'} registers, "
+                f"{spill.group(1) if spill else '?'} B spill stores")
+
+
+def _kernel_label(mangled: str) -> str:
+    """``flash_bwd_dq_tc_kernel<64>`` from a mangled kernel name: the
+    first all-letter identifier ending in ``_kernel``, with its dtype and
+    integer template arguments."""
+    m = re.search(r"[a-z][a-z_]*_kernel", mangled)
+    if m is None:
+        return mangled[:60]
+    args = mangled[m.end():].split("EEv")[0]
+    dtype = (["bf16"] if "__nv_bfloat16" in args
+             else ["f32"] if args.startswith("If") else [])
+    ints = re.findall(r"Li(\d+)E", args)
+    return f"{m.group(0)}<{','.join(dtype + ints)}>"
 
 
 def _flash_inputs(b, s, n, d, dtype, masked, gen, strided=False):
@@ -413,16 +473,22 @@ def _by_row(fn, args, mask, causal):
 
 def _bwd_check(name, args, causal):
     """Both backward kernels against their plain versions; raises past the
-    tolerance.  Returns ``{grad: max abs error}``."""
+    tolerance, or if the kernels ran on another route than
+    ``fa.bwd_route`` names.  Returns ``({grad: max abs error}, route)``."""
     *tensors, mask = args
+    route = fa.bwd_route(tensors[0].dtype, tensors[0].shape[-1])
+    before = dict(fa.BWD_ROUTES)
     dq = fa._launch_bwd("dq", *tensors, mask, causal)
     dk, dv = fa._launch_bwd("dkv", *tensors, mask, causal)
     torch.cuda.synchronize()
+    ran = {r: fa.BWD_ROUTES[r] - before[r] for r in before}
     (ref_dq,) = _by_row(fa.flash_bwd_dq_reference, tensors, mask, causal)
     ref_dk, ref_dv = _by_row(fa.flash_bwd_dkv_reference, tensors, mask,
                              causal)
     tol = BWD_TOL[tensors[0].dtype]
     errs, bad = {}, []
+    if ran != {r: 2 * (r == route) for r in ran}:
+        bad.append(f"launches by route {ran}, want both on {route}")
     for g, got, ref in (("dq", dq, ref_dq), ("dk", dk, ref_dk),
                         ("dv", dv, ref_dv)):
         errs[g] = float((got.float() - ref.float()).abs().max())
@@ -437,67 +503,94 @@ def _bwd_check(name, args, causal):
             bad.append("a fully masked batch row has nonzero gradients")
     if bad:
         raise RuntimeError(f"flash backward {name}: " + "; ".join(bad))
-    return errs
+    return errs, route
 
 
-def phase_backward() -> dict:
-    """Both backward kernels against their plain versions at the training
-    slice's shapes (timed) and over the correctness sweep."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    gen = torch.Generator(device="cuda").manual_seed(1)
+def _sdpa_backward_ms(tensors, causal):
+    """The yardstick: the backward of PyTorch's fused attention on the same
+    tensors, timed alone (the graph is kept, so each call is only the
+    backward), by CUDA events and by profiler device time.  The port never
+    calls it."""
+    q, k, v, do, _, _ = tensors
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+    dot = do.transpose(1, 2)
+    call = lambda: torch.autograd.grad(out, (qt, kt, vt), dot,  # noqa: E731
+                                       retain_graph=True)
+    ms = cuda_ms(call, 10)
+    dev = sum(t for _, t, _ in device_time(call, 3)) / 3
+    return ms, dev
+
+
+def _bwd_train_shape(dtype, gen) -> dict:
+    """Both backward kernels at the training slice's shapes in ``dtype``:
+    checked against the plain versions and timed beside their bound, the
+    plain versions and SDPA's backward."""
     b, s, n, d = TRAIN_ATTN_SHAPE
-    dtype = torch.bfloat16
     args = _bwd_inputs(b, s, n, d, dtype, False, True, gen)
     *tensors, mask = args
-    errs = _bwd_check("training shape", args, True)
+    errs, route = _bwd_check(f"training shape {str(dtype)[6:]}", args, True)
     pairs = _pairs(s, s, b, n, None, True)
-    elt = 2   # bf16 bytes
+    elt = tensors[0].element_size()
     qkvo = 4 * b * s * n * d * elt
     rows = 2 * b * n * s * 4            # lse, delta
+    lib, lib_dev = _sdpa_backward_ms(tensors, True)
     res = {}
     for which, flops_per_pair, out_bytes, fn in (
             ("dq", 6 * d, b * s * n * d * elt, fa.flash_bwd_dq_reference),
             ("dkv", 8 * d, 2 * b * s * n * d * elt,
              fa.flash_bwd_dkv_reference)):
         launch = (lambda w=which: fa._launch_bwd(w, *tensors, mask, True))
-        ms = cuda_ms(launch, 5)
+        ms = cuda_ms(launch, 10)
         dev = sum(t for _, t, _ in device_time(launch, 3)) / 3
         plain = cuda_ms(lambda f=fn: _by_row(f, tensors, mask, True), 1)
         ops = flops_per_pair * pairs
         nbytes = qkvo + rows + out_bytes
         t_ops, t_bytes = ops / PEAK_OPS_S[dtype], nbytes / PEAK_BYTES_S
-        res[which] = {"ms": ms, "device_ms": dev, "plain_ms": plain,
+        smem, blocks = fa.bwd_kernel_info(which, dtype, d, route)
+        res[which] = {"route": route, "ms": ms, "device_ms": dev,
+                      "plain_ms": plain, "library_ms": lib,
+                      "library_device_ms": lib_dev,
                       "bound_ms": 1e3 * max(t_ops, t_bytes),
                       "bound_by": "operations" if t_ops >= t_bytes
                       else "bytes", "ops": ops, "bytes": nbytes,
-                      "tflops": ops / ms / 1e9}
+                      "tflops": ops / ms / 1e9, "smem_bytes": smem,
+                      "blocks_per_sm": blocks}
     res["dq"]["max_abs_err"] = errs["dq"]
     res["dkv"]["max_abs_err"] = max(errs["dk"], errs["dv"])
-    # Yardstick: the backward of PyTorch's fused attention on the same
-    # tensors, timed alone (the graph is kept, so each call is only the
-    # backward).  The port never calls it.
-    q, k, v, do, _, _ = tensors
-    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
-                  for t in (q, k, v))
-    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-    dot = do.transpose(1, 2)
-    lib = cuda_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
-                                              retain_graph=True), 5)
-    for r in res.values():
-        r["library_ms"] = lib
-    del out
-    log(f"[flash-bwd] B={b} S={s} N={n} D={d} bf16 causal: err dq "
-        f"{errs['dq']:.2e} dk {errs['dk']:.2e} dv {errs['dv']:.2e} (tol "
-        f"{BWD_TOL[dtype]} x max|plain|); "
+    pair = res["dq"]["ms"] + res["dkv"]["ms"]
+    log(f"[flash-bwd] B={b} S={s} N={n} D={d} {str(dtype)[6:]} causal, "
+        f"route {route}: err dq {errs['dq']:.2e} dk {errs['dk']:.2e} dv "
+        f"{errs['dv']:.2e} (tol {BWD_TOL[dtype]} x max|plain|); "
         + "; ".join(f"{w} {r['ms']:.3f} ms (device {r['device_ms']:.3f}, "
-                    f"{r['tflops']:.2f} TFLOP/s), plain {r['plain_ms']:.1f}"
-                    f" ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
+                    f"{r['tflops']:.2f} TFLOP/s, {r['smem_bytes']} B smem, "
+                    f"{r['blocks_per_sm']} blocks/SM), plain "
+                    f"{r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms "
+                    f"({r['bound_by']})"
                     for w, r in res.items())
-        + f"; sdpa backward {lib:.3f} ms")
+        + f"; pair {pair:.3f} ms; sdpa backward {lib:.3f} ms (device "
+          f"{lib_dev:.3f}), pair / sdpa {pair / lib:.2f}")
+    return res
+
+
+def phase_backward() -> dict:
+    """Both backward kernels against their plain versions at the training
+    slice's shapes on both routes (timed) and over the correctness
+    sweep."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    res = _bwd_train_shape(torch.bfloat16, gen)
+    if res["dq"]["route"] != "tensor_core":
+        raise RuntimeError("the training shape did not take the tensor-core "
+                           "route")
+    res["cuda_core_f32"] = _bwd_train_shape(torch.float32, gen)
 
     # Correctness sweep: f32; a masked, not causal case with fully masked
-    # batch rows; and every head_dim at a ragged length, masked, strided,
-    # with an lse cotangent folded into delta.
+    # batch rows; every head_dim at a ragged length, masked, strided, with
+    # an lse cotangent folded into delta; and the tensor-core route's head
+    # dims at a longer ragged length (not a multiple of any tile).
+    dtype = torch.bfloat16
     sweep = [("S=1024 f32 causal dlse",
               _bwd_inputs(2, 1024, 12, 64, torch.float32, False, True, gen,
                           dlse=True), True),
@@ -511,16 +604,92 @@ def phase_backward() -> dict:
                               _bwd_inputs(3, 77, 5, d_, dt, True, causal,
                                           gen, strided=True, dlse=True),
                               causal))
-    worst = {}
+    for d_ in fa.TC_HEAD_DIMS:
+        for causal in (False, True):
+            sweep.append((f"D={d_} bf16 causal={causal} S=1037 masked "
+                          f"strided dlse",
+                          _bwd_inputs(2, 1037, 3, d_, dtype, True, causal,
+                                      gen, strided=True, dlse=True),
+                          causal))
+    worst, cases = {}, {}
     for name, args, causal in sweep:
-        e = max(_bwd_check(name, args, causal).values())
-        key = "f32" if args[0].dtype == torch.float32 else "bf16"
-        worst[key] = max(worst.get(key, 0.0), e)
+        errs, route = _bwd_check(name, args, causal)
+        key = f"{'f32' if args[0].dtype == torch.float32 else 'bf16'} {route}"
+        worst[key] = max(worst.get(key, 0.0), *errs.values())
+        cases[key] = cases.get(key, 0) + 1
     log(f"[flash-bwd] sweep of {len(sweep)} cases (f32 S=1024 with dlse; "
         f"bf16 masked full S=512 with fully masked rows; every head_dim x "
-        f"dtype x causal at S=77, masked, strided, dlse): worst max abs "
-        f"err {worst}")
+        f"dtype x causal at S=77, masked, strided, dlse; D in "
+        f"{fa.TC_HEAD_DIMS} bf16 x causal at S=1037, masked, strided, "
+        f"dlse), cases by dtype and route {cases}: worst max abs err "
+        f"{worst}")
     return res
+
+
+def phase_probe() -> dict:
+    """The precision probe: its three modes through ``pp.probe`` (the
+    probe's path: launches read around it), each mode's error against
+    float64 held to its band; then each kernel mode against its plain
+    version, timed beside its bound and, where one exists, the PyTorch
+    call that computes the same product."""
+    reset_launches()
+    errs = {mode: pp.probe(mode, device="cuda") for mode in pp.MODES}
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    problems = []
+    if launches["precision_probe"] != len(pp.MODES):
+        problems.append(f"launches {launches}")
+    for mode, err in errs.items():
+        lo, hi = PROBE_F64_BAND[mode]
+        if not lo <= err <= hi:
+            problems.append(f"{mode}: max|err| vs f64 {err:.3e} outside "
+                            f"[{lo}, {hi}]")
+    x, y = pp.inputs(device="cuda")
+    m, k = x.shape
+    flops = 2 * m * k * y.shape[1]
+    nbytes = 4 * (x.numel() + y.numel() + m * y.shape[1])
+    modes = {}
+    prev_tf32 = torch.backends.cuda.matmul.allow_tf32
+    for mode in pp.MODES:
+        got = pp.matmul(x, y, mode)
+        plain = pp.matmul_reference(x, y, mode)
+        err = float((got - plain).abs().max())
+        if not err <= PROBE_TOL:
+            problems.append(f"{mode}: kernel vs plain {err:.3e} > "
+                            f"{PROBE_TOL}")
+        ms = cuda_ms(lambda md=mode: pp.matmul(x, y, md), 50)
+        plain_ms = cuda_ms(lambda md=mode: pp.matmul_reference(x, y, md), 5)
+        lib_ms = None   # no PyTorch call computes 3xTF32
+        if mode != "high":
+            torch.backends.cuda.matmul.allow_tf32 = mode == "medium"
+            lib_ms = cuda_ms(lambda: torch.matmul(x, y), 50)
+            torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+        ops = flops * (3 if mode == "high" else 1)
+        t_ops = 1e3 * ops / (PEAK_OPS_S[torch.float32] if mode == "highest"
+                             else PEAK_TF32_S)
+        t_bytes = 1e3 * nbytes / PEAK_BYTES_S
+        modes[mode] = {"err_vs_f64": errs[mode], "max_abs_err": err,
+                       "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                       "bound_ms": max(t_ops, t_bytes), "ops_ms": t_ops,
+                       "bytes_ms": t_bytes,
+                       "bound_by": "operations" if t_ops >= t_bytes
+                       else "bytes"}
+        log(f"[probe] {mode}: max|err| vs float64 {errs[mode]:.3e}; kernel "
+            f"vs plain {err:.2e} (tol {PROBE_TOL}); kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, torch.matmul "
+            f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
+            f"{modes[mode]['bound_ms']:.5f} ms ({modes[mode]['bound_by']})")
+    if problems:
+        raise RuntimeError("precision probe: " + "; ".join(problems))
+    tot = {key: sum(r[key] for r in modes.values())
+           for key in ("ms", "plain_ms", "bound_ms", "ops_ms", "bytes_ms")}
+    tot.update(max_abs_err=max(r["max_abs_err"] for r in modes.values()),
+               bound_by="operations" if tot["ops_ms"] >= tot["bytes_ms"]
+               else "bytes", library_ms=None, modes=modes,
+               launches=launches)
+    log(f"[probe] {len(pp.MODES)} launches on the probe's run; errors vs "
+        f"float64 {errs}")
+    return tot
 
 
 def phase_parity() -> None:
@@ -643,6 +812,61 @@ def phase_grad_parity() -> None:
                            f"relative grad difference {worst:.3e} at {where}")
 
 
+def phase_grad_parity_bf16() -> None:
+    """One training step's loss and gradients at full width in bf16, the
+    kernels (the backward on the tensor cores) against the einsum
+    attention, both held to the f32 einsum route from the same weights
+    and tokens: the kernels' error on each tensor within
+    BF16_NOISE_FACTOR times the bf16 einsum route's own."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, s = BF16_PARITY_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    ids = torch.randint(0, 32000, (b, s + 1), generator=gen, device="cuda")
+    batch = {"input_ids": ids[:, :-1], "labels": ids[:, 1:]}
+    out = {}
+    before = dict(fa.BWD_ROUTES)
+    for route, impl, dtype in (("kernels", "pallas", "bfloat16"),
+                               ("plain", "xla", "bfloat16"),
+                               ("f32", "xla", "float32")):
+        cfg = get_config("lm_long").with_overrides(
+            compute_dtype=dtype, dataset_kwargs={"seq_len": s})
+        model = get_model(cfg.model, dtype=dtype, device="cuda", seed=0,
+                          **dict(cfg.model_kwargs, attn_impl=impl))
+        loss, _ = train_lib.make_loss_fn(cfg)(model, batch, 0)
+        loss.backward()
+        out[route] = (float(loss.detach()), {n: p.grad for n, p in
+                                             model.named_parameters()})
+        del model
+    ran = {r: fa.BWD_ROUTES[r] - before[r] for r in before}
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+    (lk, gk), (lx, gx), (l32, g32) = out["kernels"], out["plain"], out["f32"]
+    worst, noise, direct, where, bad = 0.0, 0.0, 0.0, "", []
+    for name, ref in g32.items():
+        got, floor = rel(gk[name], ref), rel(gx[name], ref)
+        noise = max(noise, floor)
+        direct = max(direct, rel(gk[name], gx[name]))
+        if got > worst:
+            worst, where = got, name
+        if got > BF16_NOISE_FACTOR * floor:
+            bad.append(f"{name}: {got:.2e} (noise floor {floor:.2e})")
+    log(f"[grad-parity-bf16] lm_long widths bf16, B={b} S={s}: loss kernels "
+        f"{lk:.6f} einsum {lx:.6f} f32 {l32:.6f}; per-tensor relative grad "
+        f"error vs f32: kernels worst {worst:.2e} ({where}), einsum bf16 "
+        f"(noise floor) up to {noise:.2e}; kernels vs einsum bf16 up to "
+        f"{direct:.2e}; backward launches by route {ran}")
+    if abs(lk - l32) > max(BF16_NOISE_FACTOR * abs(lx - l32),
+                           1e-3 * abs(l32)):
+        bad.append(f"loss {lk} vs f32 {l32} (einsum bf16 {lx})")
+    if ran != {"tensor_core": 2 * 12, "cuda_core": 0}:
+        bad.append(f"backward launches by route {ran}, want 24 on the "
+                   f"tensor cores")
+    if bad:
+        raise RuntimeError("bf16 gradient parity: " + "; ".join(bad[:8]))
+
+
 def phase_train() -> dict:
     """The training slice: lm_long through ``tpuframe_torch.train.main``,
     with the cuts of TRAIN_ARGS, every kernel's launches read around it;
@@ -656,12 +880,13 @@ def phase_train() -> dict:
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     launches = launch_counts()
+    routes = dict(fa.BWD_ROUTES)
     peak = torch.cuda.max_memory_allocated()
     losses, step_ms = metrics["losses"], metrics["step_ms"]
     steps, evals = len(losses), TRAIN_EVAL_BATCHES
     want = {"flash_fwd": (2 * steps + evals) * layers,
             "flash_bwd_dq": steps * layers, "flash_bwd_dkv": steps * layers,
-            "fused_conv_bn_bwd": 0}
+            "fused_conv_bn_bwd": 0, "precision_probe": 0}
     problems = []
     if not all(math.isfinite(x) for x in losses) or steps != TRAIN_STEPS:
         problems.append(f"losses {losses}")
@@ -672,6 +897,11 @@ def phase_train() -> dict:
                         f"per layer and step under remat, once per layer "
                         f"and eval batch; each backward kernel once per "
                         f"layer and step)")
+    want_routes = {"tensor_core": 2 * steps * layers, "cuda_core": 0}
+    if routes != want_routes:
+        problems.append(f"backward launches by route {routes}, want "
+                        f"{want_routes}: every dq and dkv launch of the "
+                        f"run on the tensor cores")
     if problems:
         raise RuntimeError("training: " + "; ".join(problems))
     p50 = statistics.median(step_ms[1:])
@@ -689,7 +919,7 @@ def phase_train() -> dict:
         f" (p50 after the first {p50:.1f}); {tokens / p50 * 1e3:.0f} "
         f"tokens/s; model FLOPs {flops:.3e} a step, MFU {mfu:.4f} of "
         f"989 TFLOP/s; peak memory {peak / 2**30:.2f} GiB; launches "
-        f"{launches}")
+        f"{launches}; backward launches by route {routes}")
 
     # One more step of the same path under the profiler: where it goes.
     cfg = get_config("lm_long").with_overrides(**TRAIN_OVERRIDES)
@@ -699,12 +929,14 @@ def phase_train() -> dict:
     wall_step = wall_ms(step, 1)
     kernels = device_time(step)
     busy = sum(ms for _, ms, _ in kernels)
+    pair = sum(ms for k, ms, _ in kernels if "flash_bwd_d" in k)
     log(f"[profile] training step: wall {wall_step:.1f} ms, "
         f"{sum(c for *_, c in kernels)} kernels, device {busy:.1f} ms, idle "
-        f"share {1 - busy / wall_step:.3f}; top: "
+        f"share {1 - busy / wall_step:.3f}; flash backward pair {pair:.1f} "
+        f"ms ({pair / busy:.3f} of device time); top: "
         + "; ".join(f"{k[:60]} {ms:.1f} ms x{c}" for k, ms, c in kernels[:8]))
     return {"launches": launches, "step_ms_p50": p50, "mfu": mfu,
-            "peak_bytes": peak}
+            "peak_bytes": peak, "routes": routes}
 
 
 def resnet_conv_bn_shapes(batch: int = RESNET_BATCH, size: int = 224):
@@ -1018,7 +1250,7 @@ def phase_resnet_train() -> dict:
     losses, step_ms = metrics["losses"], metrics["step_ms"]
     steps = len(losses)
     want = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-            "fused_conv_bn_bwd": 36 * steps}
+            "fused_conv_bn_bwd": 36 * steps, "precision_probe": 0}
     problems = []
     if not all(math.isfinite(x) for x in losses) or steps != 4:
         problems.append(f"losses {losses}")
@@ -1122,9 +1354,11 @@ def main(argv=None) -> int:
         return 0
     cases = phase_kernels()
     bwd = phase_backward()
+    probe = phase_probe()
     phase_parity()
     serve_launches = phase_serve()
     phase_grad_parity()
+    phase_grad_parity_bf16()
     train = phase_train()
     conv_bn = phase_conv_bn()
     phase_resnet_grad_parity()
@@ -1132,22 +1366,28 @@ def main(argv=None) -> int:
 
     by_path = {name: {"serve": serve_launches[name],
                       "lm_train": train["launches"][name],
-                      "resnet_train": resnet["launches"][name]}
+                      "resnet_train": resnet["launches"][name],
+                      "probe": probe["launches"][name]}
                for name in launch_counts()}
     attn = "B=8 S=4096 N=12 D=64 bf16 causal"
-    rows = [("flash_fwd", "flash_fwd.cu", "flash_attention.py:136",
+    ops = "tpuframe/ops/"
+    rows = [("flash_fwd", "flash_fwd.cu", ops + "flash_attention.py:136",
              cases["train"], attn),
-            ("flash_bwd_dq", "flash_bwd.cu", "flash_attention.py:295",
+            ("flash_bwd_dq", "flash_bwd.cu", ops + "flash_attention.py:295",
              bwd["dq"], attn),
-            ("flash_bwd_dkv", "flash_bwd.cu", "flash_attention.py:327",
+            ("flash_bwd_dkv", "flash_bwd.cu", ops + "flash_attention.py:327",
              bwd["dkv"], attn),
-            ("fused_conv_bn_bwd", "fused_conv_bn.cu", "fused_conv_bn.py:150",
-             conv_bn, "ResNet-50 batch 256 bf16: the 36 calls of one "
-                      "training step over 15 shapes, times summed")]
+            ("fused_conv_bn_bwd", "fused_conv_bn.cu",
+             ops + "fused_conv_bn.py:150", conv_bn,
+             "ResNet-50 batch 256 bf16: the 36 calls of one training step "
+             "over 15 shapes, times summed"),
+            ("precision_probe", "precision_probe.cu",
+             "perf/exp_precision_probe.py:25", probe,
+             "256 x 256 x 256 f32 in the three modes, times summed")]
     kernels = [{
         "name": name, "route": "cuda",
         "source": f"tpuframe_torch/csrc/{src}",
-        "replaces": f"tpuframe/ops/{line}",
+        "replaces": line,
         "launches": sum(by_path[name].values()),
         "launches_by_path": by_path[name],
         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
@@ -1155,6 +1395,19 @@ def main(argv=None) -> int:
         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         "shape": shape,
     } for name, src, line, r, shape in rows]
+    for row in kernels:
+        if row["name"].startswith("flash_bwd_"):
+            which = row["name"][len("flash_bwd_"):]
+            f32 = bwd["cuda_core_f32"][which]
+            row["cores"] = (f"tensor cores (wgmma bf16) at this shape; "
+                            f"f32, and bf16 at D 16/32/256, on the CUDA "
+                            f"cores")
+            row["lm_train_routes"] = train["routes"]
+            row["cuda_core_f32"] = {key: f32[key] for key in (
+                "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "max_abs_err")}
+        elif row["name"] == "precision_probe":
+            row["modes"] = probe["modes"]
     log(f"[done] {time.monotonic() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -1164,8 +1417,9 @@ def main(argv=None) -> int:
 
 
 PHASES = {"kernels": phase_kernels, "backward": phase_backward,
-          "parity": phase_parity, "serve": phase_serve,
-          "grad_parity": phase_grad_parity, "train": phase_train,
+          "probe": phase_probe, "parity": phase_parity, "serve": phase_serve,
+          "grad_parity": phase_grad_parity,
+          "grad_parity_bf16": phase_grad_parity_bf16, "train": phase_train,
           "conv_bn": phase_conv_bn,
           "resnet_grad_parity": phase_resnet_grad_parity,
           "resnet_train": phase_resnet_train}

@@ -23,9 +23,10 @@ from tpuframe_torch.ops import flash_attention as fa  # noqa: E402
 
 ATOL = RTOL = 1e-5   # f32 both sides; they differ in summation order only
 
+# head_dim 64 and 128 are the tensor-core route's on the card
 CASES = [(causal, masked, s, d)
          for causal in (False, True) for masked in (False, True)
-         for s in (64, 128) for d in (16, 32)]
+         for s in (64, 128) for d in (16, 32, 64, 128)]
 
 
 def _inputs(s, d, *, masked, b=2, n=3, seed=0):
@@ -186,3 +187,58 @@ def test_backward_launch_checks_before_the_gpu():
         fa._launch_bwd("dkv", q, q, q, q[:, :4], lse, lse, None, False)
     with pytest.raises(ValueError, match="lse must be f32"):
         fa._launch_bwd("dq", q, q, q, q, lse.double(), lse, None, False)
+
+
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", fa.DTYPES)
+def test_bwd_route_for_every_dtype_and_head_dim(dtype, d):
+    want = ("tensor_core" if dtype == torch.bfloat16 and d in (64, 128)
+            else "cuda_core")
+    assert fa.bwd_route(dtype, d) == want
+
+
+def test_bwd_route_raises_for_what_no_route_takes():
+    with pytest.raises(TypeError, match="flash kernel takes"):
+        fa.bwd_route(torch.float16, 64)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.bwd_route(torch.bfloat16, 48)
+
+
+def test_cpu_backward_counts_no_route():
+    """A CPU backward at the tensor-core route's dtype and head dim runs
+    the plain versions: neither count moves."""
+    q, k, v, do, _, mask = _inputs(64, 64, masked=True, seed=7)
+    before, routes = dict(fa.LAUNCHES), dict(fa.BWD_ROUTES)
+    tq, tk, tv = (t.detach().bfloat16().requires_grad_()
+                  for t in _torch_leaves(q, k, v))
+    out = fa.flash_mha(tq, tk, tv, mask=_torch_mask(mask), causal=True)
+    out.backward(torch.from_numpy(do).bfloat16())
+    assert tq.grad.dtype == torch.bfloat16
+    assert fa.LAUNCHES == before and fa.BWD_ROUTES == routes
+    assert set(fa.BWD_ROUTES) == {"tensor_core", "cuda_core"}
+
+
+def test_backward_kernel_on_cpu_tensors_raises_before_the_gpu():
+    q = torch.zeros((1, 8, 2, 64), dtype=torch.bfloat16)
+    lse = torch.zeros((1, 2, 8))
+    routes = dict(fa.BWD_ROUTES)
+    for which in ("dq", "dkv"):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            fa._launch_bwd(which, q, q, q, q, lse, lse, None, True)
+    assert fa.BWD_ROUTES == routes
+
+
+def test_tc_operand_copies_only_what_16_byte_loads_cannot_read():
+    t = torch.zeros((2, 16, 3, 64), dtype=torch.bfloat16)
+    assert fa._tc_operand(t) is t
+    # head-major storage seen through a transpose: strides stay multiples
+    # of 8 elements, so the kernel reads it in place
+    s = torch.zeros((2, 3, 16, 64), dtype=torch.bfloat16).transpose(1, 2)
+    assert fa._tc_operand(s) is s
+    # a row stride of 3 * 68 elements, and data 2 bytes off alignment
+    for bad in (torch.zeros((2, 16, 3, 68), dtype=torch.bfloat16)[..., :64],
+                torch.zeros(2 * 16 * 3 * 64 + 1, dtype=torch.bfloat16)[1:]
+                .view(2, 16, 3, 64)):
+        got = fa._tc_operand(bad)
+        assert got is not bad and torch.equal(got, bad)
+        assert got.is_contiguous() and got.data_ptr() % 16 == 0

@@ -1,5 +1,5 @@
 // Flash-attention backward for Hopper (sm_90a), with a plain C interface:
-// two kernels, one for dq and one for dk and dv.
+// two kernels, one for dq and one for dk and dv, each in two routes.
 //
 // Replaces the TPU kernels tpuframe/ops/flash_attention.py:_bwd_dq_kernel
 // and _bwd_dkv_kernel (their pallas_calls in _flash_bwd), with the
@@ -21,26 +21,58 @@
 // scores it needs, so nothing S x S reaches device memory.  The TPU's
 // sequential grid axis becomes that loop inside one thread block.
 //
-// What bounds it on the H100: at the training slice's shapes (B=8, S=4096,
-// 12 heads of 64, bf16, causal) the work is operations, not bytes: per kept
-// query-key pair and head, dq does three products of D multiply-adds
-// (q.k, dO.v, ds.k: 6*D FLOPs) and dkv four (q.k, dO.v, p^T.dO, ds^T.q:
-// 8*D FLOPs), about 3e11 and 4e11 FLOPs a layer against some 50 MB moved.
-// This first version runs the products as FMAs on the CUDA cores (each
-// tile staged in shared memory as f32, rows padded by one word so that the
-// 16 lanes sharing a row hit 16 banks), so it is far from the tensor-core
-// bound; moving them to mma.sync/wgmma is later work.  Tiles wholly masked
-// by causality are never loaded, and the ragged edge is masked here, so
-// any S works.
+// What bounds it on the H100: operations.  Per kept query-key pair and
+// head, dq does three products of D multiply-adds (q.k, dO.v, ds.k) and
+// dkv four (k.q, v.dO, p^T.dO, ds^T.q): 7*D multiply-adds in all.  At the
+// training slice's shapes (B=8, S=4096, 12 heads of 64, bf16, causal) that
+// is 7.2e11 FLOPs a layer, 0.73 ms at the tensor cores' 989 TFLOP/s,
+// against 0.17 ms to move the 560 MB the pair reads and writes.
+//
+// Tensor-core route (bf16, D = 64 or 128): the seven products are wgmma
+// (bf16 x bf16 -> f32) issued by one warpgroup, a block of four warps
+// that owns a 64-row tile (query rows in dq, keys in dkv) against a
+// streamed tile (64 keys in dq; 64 queries in dkv at D=64, 32 at D=128,
+// so that dk and dv, 2 x D/2 f32 registers a thread, leave room for the
+// scores).  The score products read both operands from shared memory
+// through descriptors; dS and P^T then stay in registers: the
+// accumulator of a score product, rounded to bf16 in pairs, is exactly
+// the register A operand of the next product, so they never touch shared
+// memory.  That product's B (k in dq, q and dO in dkv) is the same tile
+// the score product read K-major, now read MN-major, so nothing is
+// transposed in memory.  Tiles are bf16 in wgmma's 128-byte swizzle
+// (rows of 64 values, 16-byte chunks XORed with the row within each
+// 1024-byte atom, so reads hit every bank) and loaded with 16-byte
+// cp.async in two stages (zero-filled past S): the next tile loads while
+// this one computes.  At D=64 the target is three blocks an SM (12
+// warps), so that one block's loads, exponentials and barriers overlap
+// another's products; at D=128 the dk and dv accumulators alone are 128
+// f32 a thread and two blocks fit.  Under `causal` the dq kernel's grid
+// runs its last query tiles, which have the most key tiles, first.  Each
+// product group is waited for before its result is used; overlapping one
+// tile's products with the next tile's exponentials (two warpgroups, or
+// a producer warp with TMA) is the next step.
+//
+// CUDA-core route (f32 at every head dim, bf16 at D = 16, 32, 256): the
+// products are FMAs, each tile staged in shared memory as f32, rows padded
+// by one word so that the 16 lanes sharing a row hit 16 banks.  f32 stays
+// here on purpose: a single TF32 pass keeps about 3 decimal digits, and
+// f32 gradients are held to 1e-4.
+//
+// Tiles wholly masked by causality are never loaded, and the ragged edge
+// is masked in both routes, so any S works.
 //
 // Layout: q, k, v, dout are [B, S, N, D] with unit stride on D and any
-// other strides (in elements); lse and delta are contiguous [B, N, S_q]
-// f32; dq is a fresh contiguous [B, S_q, N, D], dk and dv fresh contiguous
-// [B, S_kv, N, D].  mask, when given, is [B, S_kv] int32, nonzero = attend.
+// other strides (in elements; multiples of 8, on 16-byte aligned data, in
+// the tensor-core route); lse and delta are contiguous [B, N, S_q] f32; dq
+// is a fresh contiguous [B, S_q, N, D], dk and dv fresh contiguous
+// [B, S_kv, N, D].  mask, when given, is [B, S_kv] int32, nonzero =
+// attend.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mma.cuh"
 
 namespace {
 
@@ -356,67 +388,461 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(Params p) {
   }
 }
 
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, size_t smem, dim3 grid, const Params& p,
-                   cudaStream_t stream) {
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
+// ---------------------------------------------------------------------------
+// Tensor-core route: bf16, D = 64 or 128.
+
+
+using bf16 = __nv_bfloat16;
+
+constexpr int TC_ROWS = 64;          // rows a block owns: 16 per warp
+constexpr float LOG2E = 1.4426950408889634f;
+
+// (lo, hi) rounded to bf16 (to nearest even) in one register, lo in the
+// low half: the layout of an mma operand pair.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Rows r0 .. r0+R-1 of a [S, D] bf16 slice into shared memory by 16-byte
+// cp.async, in wgmma's 128-byte swizzle: D/64 column blocks of [R][64],
+// chunk c of row r at chunk c ^ (r % 8).  Rows at or past n are
+// zero-filled.  dst is 1024-byte aligned.
+template <int D, int R>
+__device__ __forceinline__ void tc_load_tile(bf16* dst, const bf16* src,
+                                             int64_t row_stride, int r0,
+                                             int n, int tid) {
+  constexpr int CH = D / 8;  // 16-byte chunks a row
+  static_assert((R * CH) % NT == 0 && R % 8 == 0, "tile shape");
+  char* d = reinterpret_cast<char*>(dst);
+#pragma unroll
+  for (int it = 0; it < R * CH / NT; ++it) {
+    const int i = tid + it * NT;
+    const int r = i / CH, c = i % CH;
+    const bool ok = r0 + r < n;
+    cp_async16(d + (c >> 3) * (R * 128) + r * 128 + (((c & 7) ^ (r & 7)) << 4),
+               ok ? src + static_cast<int64_t>(r0 + r) * row_stride + c * 8
+                  : src,
+               ok);
   }
-  kernel<<<grid, NT, smem, stream>>>(p);
-  return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t launch_dq(const Params& p, int bn, cudaStream_t stream) {
-  return launch(flash_bwd_dq_kernel<T, D>, dq_smem_bytes<D>(),
-                dim3(bn, (p.s_q + BR - 1) / BR), p, stream);
+// The K-major descriptor of k-step kk (16 columns) of an R-row tile.
+template <int R>
+__device__ __forceinline__ uint64_t tc_desc_k(const bf16* tile, int kk) {
+  return gmma_desc(reinterpret_cast<const char*>(tile) + (kk >> 2) * (R * 128) +
+                       (kk & 3) * 32,
+                   16, 1024);
 }
 
-template <typename T, int D>
-cudaError_t launch_dkv(const Params& p, int bn, cudaStream_t stream) {
-  return launch(flash_bwd_dkv_kernel<T, D>, dkv_smem_bytes<D>(),
-                dim3(bn, (p.s_kv + BR - 1) / BR), p, stream);
+// The MN-major descriptor of k-step j (rows 16j .. 16j+15) of an R-row
+// tile read as B = tile[k][n].
+template <int R>
+__device__ __forceinline__ uint64_t tc_desc_mn(const bf16* tile, int j) {
+  return gmma_desc(reinterpret_cast<const char*>(tile) + j * 2048, R * 128,
+                   1024);
 }
 
-template <typename T>
-cudaError_t dispatch(bool dq, const Params& p, int bn, int head_dim,
-                     cudaStream_t stream) {
+// s = rows . tile^T and dp = rows2 . tile2^T over D: the two score
+// products of the block's 64 owned rows against the NS rows of a streamed
+// tile, every operand read from shared memory.
+template <int D, int NS>
+__device__ __forceinline__ void tc_scores(float (&s)[NS / 8][4],
+                                          float (&dp)[NS / 8][4],
+                                          const bf16* rows, const bf16* rows2,
+                                          const bf16* tile,
+                                          const bf16* tile2) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    wgmma_ss(s, tc_desc_k<TC_ROWS>(rows, kk), tc_desc_k<NS>(tile, kk),
+             kk > 0);
+    wgmma_ss(dp, tc_desc_k<TC_ROWS>(rows2, kk), tc_desc_k<NS>(tile2, kk),
+             kk > 0);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+}
+
+// acc += w . tile: w is the 64 x NS accumulator of a score product
+// (rounded to bf16 here, which is where the TPU kernel rounds it), the A
+// operand from registers; tile, [NS][D] in shared memory, is B read
+// MN-major, so nothing is transposed.
+template <int D, int NS>
+__device__ __forceinline__ void tc_acc(float (&acc)[D / 8][4],
+                                       const float (&w)[NS / 8][4],
+                                       const bf16* tile) {
+  uint32_t a[NS / 16][4];
+#pragma unroll
+  for (int j = 0; j < NS / 16; ++j) {
+    a[j][0] = pack_bf16(w[2 * j][0], w[2 * j][1]);
+    a[j][1] = pack_bf16(w[2 * j][2], w[2 * j][3]);
+    a[j][2] = pack_bf16(w[2 * j + 1][0], w[2 * j + 1][1]);
+    a[j][3] = pack_bf16(w[2 * j + 1][2], w[2 * j + 1][3]);
+  }
+  wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < NS / 16; ++j) wgmma_rs(acc, a[j], tc_desc_mn<NS>(tile, j));
+  wgmma_commit();
+  wgmma_wait<0>();
+}
+
+// A warp's 16 x D accumulator, times `scale`, to rows r0 and r0+8 of a
+// fresh [B, S, N, D] output (rows at or past n are not written).
+template <int D>
+__device__ __forceinline__ void tc_store(bf16* out, const float (&acc)[D / 8][4],
+                                         float scale, int b, int h,
+                                         int n_heads, int s, int r0, int n,
+                                         int lane) {
+  const int tig = lane & 3;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = r0 + half * 8;
+    if (row >= n) continue;
+    bf16* dst = out + ((static_cast<int64_t>(b) * s + row) * n_heads + h) * D;
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt)
+      *reinterpret_cast<__nv_bfloat162*>(dst + nt * 8 + tig * 2) =
+          __floats2bfloat162_rn(acc[nt][2 * half] * scale,
+                                acc[nt][2 * half + 1] * scale);
+  }
+}
+
+// Rows of the streamed tile: keys in dq, queries in dkv.
+constexpr int TC_DQ_COLS = 64;
+template <int D>
+__host__ __device__ constexpr int tc_dkv_cols() { return D == 64 ? 64 : 32; }
+
+// The dynamic shared memory is realigned to 1024 bytes inside the kernel.
+constexpr int TC_ALIGN = 1024;
+
+template <int D>
+constexpr size_t tc_dq_smem_bytes() {
+  return sizeof(bf16) * (2 * TC_ROWS + 4 * TC_DQ_COLS) * D +
+         sizeof(int32_t) * 2 * TC_DQ_COLS + TC_ALIGN;
+}
+
+template <int D>
+constexpr size_t tc_dkv_smem_bytes() {
+  return sizeof(bf16) * (2 * TC_ROWS + 4 * tc_dkv_cols<D>()) * D +
+         sizeof(float) * 4 * tc_dkv_cols<D>() + TC_ALIGN;
+}
+
+// The kernel's dynamic shared memory, from its first 1024-byte boundary.
+__device__ __forceinline__ bf16* tc_smem_base(unsigned char* raw) {
+  return reinterpret_cast<bf16*>(
+      raw + ((TC_ALIGN - (smem_addr(raw) & (TC_ALIGN - 1))) & (TC_ALIGN - 1)));
+}
+
+// One block per (batch * head, tile of 64 query rows), warp w owning rows
+// 16w .. 16w+15; loops over tiles of 64 keys, two stages deep.
+//
+// Both tensor-core kernels ask for three blocks an SM at D=64, which caps
+// them at 168 registers a thread; at D=128 the accumulators need the
+// registers, so they take what they need and two blocks fit.
+template <int D>
+__global__ void __launch_bounds__(NT, D == 64 ? 3 : 1)
+    flash_bwd_dq_tc_kernel(Params p) {
+  constexpr int BK = TC_DQ_COLS;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* qs = tc_smem_base(tc_smem);  // [TC_ROWS][D], swizzled
+  bf16* dos = qs + TC_ROWS * D;      // [TC_ROWS][D]
+  bf16* ks = dos + TC_ROWS * D;      // [2][BK][D]
+  bf16* vs = ks + 2 * BK * D;        // [2][BK][D]
+  int32_t* mask_s = reinterpret_cast<int32_t*>(vs + 2 * BK * D);  // [2][BK]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tig = lane & 3;
+  const int bh = blockIdx.x;
+  const int b = bh / p.n_heads, h = bh % p.n_heads;
+  // Under `causal` the last query tiles see the most key tiles: launch
+  // them first.
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * TC_ROWS;
+  const bf16* q = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const bf16* k = static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const bf16* v = static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const bf16* dout =
+      static_cast<const bf16*>(p.dout) + b * p.o_sb + h * p.o_sh;
+  const int32_t* mask =
+      p.mask != nullptr ? p.mask + static_cast<int64_t>(b) * p.s_kv : nullptr;
+
+  const int kv_end = p.causal ? min(p.s_kv, q0 + TC_ROWS) : p.s_kv;
+  const int n_tiles = (kv_end + BK - 1) / BK;
+  auto load_kv = [&](int t) {
+    const int stage = t & 1;
+    tc_load_tile<D, BK>(ks + stage * BK * D, k, p.k_ss, t * BK, p.s_kv, tid);
+    tc_load_tile<D, BK>(vs + stage * BK * D, v, p.v_ss, t * BK, p.s_kv, tid);
+    if (mask != nullptr && tid < BK) {
+      const int col = t * BK + tid;
+      cp_async4(mask_s + stage * BK + tid, col < p.s_kv ? mask + col : mask,
+                col < p.s_kv);
+    }
+  };
+  tc_load_tile<D, TC_ROWS>(qs, q, p.q_ss, q0, p.s_q, tid);
+  tc_load_tile<D, TC_ROWS>(dos, dout, p.o_ss, q0, p.s_q, tid);
+  if (n_tiles > 0) load_kv(0);
+  cp_async_commit();
+
+  // This thread's two rows of the warp's 16: r_lo and r_lo + 8.
+  const int r_lo = q0 + warp * 16 + g;
+  float lse2[2], delta[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = r_lo + half * 8;
+    const int64_t at = static_cast<int64_t>(bh) * p.s_q + row;
+    lse2[half] = row < p.s_q ? p.lse[at] * LOG2E : 0.f;
+    delta[half] = row < p.s_q ? p.delta[at] : 0.f;
+  }
+  const float scale2 = p.scale * LOG2E;
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    if (t + 1 < n_tiles) {
+      load_kv(t + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    fence_proxy_async();  // the tiles that arrived are read by wgmma
+    __syncthreads();
+    const int stage = t & 1, k0 = t * BK;
+    const bf16* kt = ks + stage * BK * D;
+    const bf16* vt = vs + stage * BK * D;
+    const int32_t* mt = mask_s + stage * BK;
+
+    float s[BK / 8][4], dp[BK / 8][4];
+    tc_scores<D, BK>(s, dp, qs, dos, kt, vt);
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int half = e >> 1, c = j * 8 + tig * 2 + (e & 1);
+        const int row = r_lo + half * 8, col = k0 + c;
+        const bool keep = col < p.s_kv && (mask == nullptr || mt[c] != 0) &&
+                          (!p.causal || row >= col);
+        // Explicit zero first: exp(s - lse) overflows on a masked row.
+        const float pij =
+            keep ? exp2f(fmaf(s[j][e], scale2, -lse2[half])) : 0.f;
+        s[j][e] = pij * (dp[j][e] - delta[half]);  // ds
+      }
+    tc_acc<D, BK>(acc, s, kt);
+    __syncthreads();  // this stage is reloaded two tiles on
+  }
+  cp_async_wait<0>();
+  tc_store<D>(static_cast<bf16*>(p.dq), acc, p.scale, b, h, p.n_heads,
+              p.s_q, r_lo, p.s_q, lane);
+}
+
+// One block per (batch * head, tile of 64 keys), warp w owning keys
+// 16w .. 16w+15; loops over tiles of BQ queries (with their lse and delta
+// rows), two stages deep.
+template <int D>
+__global__ void __launch_bounds__(NT, D == 64 ? 3 : 1)
+    flash_bwd_dkv_tc_kernel(Params p) {
+  constexpr int BQ = tc_dkv_cols<D>();
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* ks = tc_smem_base(tc_smem);  // [TC_ROWS][D], swizzled
+  bf16* vs = ks + TC_ROWS * D;       // [TC_ROWS][D]
+  bf16* qs = vs + TC_ROWS * D;       // [2][BQ][D]
+  bf16* dos = qs + 2 * BQ * D;       // [2][BQ][D]
+  float* lse_s = reinterpret_cast<float*>(dos + 2 * BQ * D);  // [2][BQ]
+  float* delta_s = lse_s + 2 * BQ;                             // [2][BQ]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tig = lane & 3;
+  const int bh = blockIdx.x;
+  const int b = bh / p.n_heads, h = bh % p.n_heads;
+  const int k0 = blockIdx.y * TC_ROWS;
+  const bf16* q = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const bf16* k = static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const bf16* v = static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const bf16* dout =
+      static_cast<const bf16*>(p.dout) + b * p.o_sb + h * p.o_sh;
+  const float* lse = p.lse + static_cast<int64_t>(bh) * p.s_q;
+  const float* delta = p.delta + static_cast<int64_t>(bh) * p.s_q;
+  const int32_t* mask =
+      p.mask != nullptr ? p.mask + static_cast<int64_t>(b) * p.s_kv : nullptr;
+
+  // Under `causal`, queries before this block's first key lie wholly
+  // above the diagonal and are skipped.
+  const int q_begin = p.causal ? k0 : 0;
+  const int n_tiles = q_begin < p.s_q ? (p.s_q - q_begin + BQ - 1) / BQ : 0;
+  auto load_q = [&](int t) {
+    const int stage = t & 1, r0 = q_begin + t * BQ;
+    tc_load_tile<D, BQ>(qs + stage * BQ * D, q, p.q_ss, r0, p.s_q, tid);
+    tc_load_tile<D, BQ>(dos + stage * BQ * D, dout, p.o_ss, r0, p.s_q, tid);
+    if (tid < BQ) {
+      const bool ok = r0 + tid < p.s_q;
+      cp_async4(lse_s + stage * BQ + tid, ok ? lse + r0 + tid : lse, ok);
+      cp_async4(delta_s + stage * BQ + tid, ok ? delta + r0 + tid : delta,
+                ok);
+    }
+  };
+  tc_load_tile<D, TC_ROWS>(ks, k, p.k_ss, k0, p.s_kv, tid);
+  tc_load_tile<D, TC_ROWS>(vs, v, p.v_ss, k0, p.s_kv, tid);
+  if (n_tiles > 0) load_q(0);
+  cp_async_commit();
+
+  // This thread's two keys of the warp's 16: key_lo and key_lo + 8.
+  const int key_lo = k0 + warp * 16 + g;
+  bool key_ok[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int key = key_lo + half * 8;
+    key_ok[half] = key < p.s_kv && (mask == nullptr || mask[key] != 0);
+  }
+  const float scale2 = p.scale * LOG2E;
+
+  float dk[D / 8][4], dv[D / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[nt][e] = dv[nt][e] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    if (t + 1 < n_tiles) {
+      load_q(t + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    fence_proxy_async();  // the tiles that arrived are read by wgmma
+    __syncthreads();
+    const int stage = t & 1, qt0 = q_begin + t * BQ;
+    const bf16* qt = qs + stage * BQ * D;
+    const bf16* ot = dos + stage * BQ * D;
+    const float* lt = lse_s + stage * BQ;
+    const float* dt = delta_s + stage * BQ;
+
+    // st[j][e] = k_key . q_query, dpt[j][e] = v_key . dO_query
+    float st[BQ / 8][4], dpt[BQ / 8][4];
+    tc_scores<D, BQ>(st, dpt, ks, vs, qt, ot);
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j) {
+      const int c = j * 8 + tig * 2;
+      const float2 l2 = *reinterpret_cast<const float2*>(lt + c);
+      const float2 d2 = *reinterpret_cast<const float2*>(dt + c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int half = e >> 1;
+        const int query = qt0 + c + (e & 1), key = key_lo + half * 8;
+        const bool keep = key_ok[half] && query < p.s_q &&
+                          (!p.causal || query >= key);
+        const float lq = (e & 1) ? l2.y : l2.x;
+        const float dq_ = (e & 1) ? d2.y : d2.x;
+        // Explicit zero first: exp(s - lse) overflows on a masked row.
+        const float pij =
+            keep ? exp2f(fmaf(st[j][e], scale2, -lq * LOG2E)) : 0.f;
+        st[j][e] = pij;                       // P^T
+        dpt[j][e] = pij * (dpt[j][e] - dq_);  // dS^T
+      }
+    }
+    tc_acc<D, BQ>(dv, st, ot);
+    tc_acc<D, BQ>(dk, dpt, qt);
+    __syncthreads();  // this stage is reloaded two tiles on
+  }
+  cp_async_wait<0>();
+  tc_store<D>(static_cast<bf16*>(p.dk), dk, p.scale, b, h, p.n_heads,
+              p.s_kv, key_lo, p.s_kv, lane);
+  tc_store<D>(static_cast<bf16*>(p.dv), dv, 1.f, b, h, p.n_heads, p.s_kv,
+              key_lo, p.s_kv, lane);
+}
+
+using KernelFn = void (*)(Params);
+
+template <typename T, int D, typename F>
+cudaError_t with_cuda_core(bool dq, F&& f) {
+  return dq ? f(flash_bwd_dq_kernel<T, D>, dq_smem_bytes<D>(), BR)
+            : f(flash_bwd_dkv_kernel<T, D>, dkv_smem_bytes<D>(), BR);
+}
+
+template <int D, typename F>
+cudaError_t with_tensor_core(bool dq, F&& f) {
+  return dq ? f(flash_bwd_dq_tc_kernel<D>, tc_dq_smem_bytes<D>(), TC_ROWS)
+            : f(flash_bwd_dkv_tc_kernel<D>, tc_dkv_smem_bytes<D>(), TC_ROWS);
+}
+
+// f(kernel, its dynamic shared memory bytes, the rows a block owns) for
+// the kernel that serves (dq or dkv, head_dim, dtype, route).
+template <typename F>
+cudaError_t with_kernel(bool dq, int head_dim, bool bf16, bool tensor_core,
+                        F&& f) {
+  if (tensor_core) {
+    if (!bf16) return cudaErrorInvalidValue;
+    switch (head_dim) {
+      case 64: return with_tensor_core<64>(dq, f);
+      case 128: return with_tensor_core<128>(dq, f);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  // bf16 at 64 and 128 runs on the tensor cores only.
   switch (head_dim) {
-    case 16: return dq ? launch_dq<T, 16>(p, bn, stream)
-                       : launch_dkv<T, 16>(p, bn, stream);
-    case 32: return dq ? launch_dq<T, 32>(p, bn, stream)
-                       : launch_dkv<T, 32>(p, bn, stream);
-    case 64: return dq ? launch_dq<T, 64>(p, bn, stream)
-                       : launch_dkv<T, 64>(p, bn, stream);
-    case 128: return dq ? launch_dq<T, 128>(p, bn, stream)
-                        : launch_dkv<T, 128>(p, bn, stream);
-    case 256: return dq ? launch_dq<T, 256>(p, bn, stream)
-                        : launch_dkv<T, 256>(p, bn, stream);
+    case 16: return bf16 ? with_cuda_core<__nv_bfloat16, 16>(dq, f)
+                         : with_cuda_core<float, 16>(dq, f);
+    case 32: return bf16 ? with_cuda_core<__nv_bfloat16, 32>(dq, f)
+                         : with_cuda_core<float, 32>(dq, f);
+    case 64: return bf16 ? cudaErrorInvalidValue
+                         : with_cuda_core<float, 64>(dq, f);
+    case 128: return bf16 ? cudaErrorInvalidValue
+                          : with_cuda_core<float, 128>(dq, f);
+    case 256: return bf16 ? with_cuda_core<__nv_bfloat16, 256>(dq, f)
+                          : with_cuda_core<float, 256>(dq, f);
     default: return cudaErrorInvalidValue;
   }
+}
+
+cudaError_t allow_smem(KernelFn kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+// The tensor-core route's 16-byte copies need 16-byte aligned rows.
+bool tc_aligned(const Params& p, const int64_t* strides) {
+  const void* ptrs[4] = {p.q, p.k, p.v, p.dout};
+  for (const void* t : ptrs)
+    if (reinterpret_cast<uintptr_t>(t) % 16 != 0) return false;
+  for (int i = 0; i < 12; ++i)
+    if (strides[i] % 8 != 0) return false;
+  return true;
 }
 
 int run(bool dq, const void* q, const void* k, const void* v,
         const void* dout, const void* lse, const void* delta,
         const void* mask, void* dq_out, void* dk_out, void* dv_out,
         int batch, int n_heads, int s_q, int s_kv, int head_dim, int is_bf16,
-        const int64_t* strides, float scale, int causal, void* stream) {
+        const int64_t* strides, float scale, int causal, int tensor_core,
+        void* stream) {
   if (s_q <= 0 || s_kv <= 0 || batch <= 0 || n_heads <= 0)
     return cudaErrorInvalidValue;
-  Params p{q, k, v, dout, static_cast<const float*>(lse),
-           static_cast<const float*>(delta),
-           static_cast<const int32_t*>(mask), dq_out, dk_out, dv_out,
-           n_heads, s_q, s_kv,
-           strides[0], strides[1], strides[2], strides[3], strides[4],
-           strides[5], strides[6], strides[7], strides[8], strides[9],
-           strides[10], strides[11], scale, causal};
+  const Params p{q, k, v, dout, static_cast<const float*>(lse),
+                 static_cast<const float*>(delta),
+                 static_cast<const int32_t*>(mask), dq_out, dk_out, dv_out,
+                 n_heads, s_q, s_kv,
+                 strides[0], strides[1], strides[2], strides[3], strides[4],
+                 strides[5], strides[6], strides[7], strides[8], strides[9],
+                 strides[10], strides[11], scale, causal};
+  if (tensor_core && !tc_aligned(p, strides))
+    return cudaErrorMisalignedAddress;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int bn = batch * n_heads;
-  return is_bf16 ? dispatch<__nv_bfloat16>(dq, p, bn, head_dim, st)
-                 : dispatch<float>(dq, p, bn, head_dim, st);
+  const int rows_total = dq ? s_q : s_kv;
+  return with_kernel(
+      dq, head_dim, is_bf16 != 0, tensor_core != 0,
+      [&](KernelFn kernel, size_t smem, int rows) {
+        const cudaError_t err = allow_smem(kernel, smem);
+        if (err != cudaSuccess) return err;
+        const dim3 grid(batch * n_heads, (rows_total + rows - 1) / rows);
+        kernel<<<grid, NT, smem, st>>>(p);
+        return cudaGetLastError();
+      });
 }
 
 }  // namespace
@@ -426,16 +852,19 @@ extern "C" {
 // Each returns cudaSuccess (0) or the launch's cudaError_t.  is_bf16
 // selects __nv_bfloat16 for q, k, v, dout and the gradients; otherwise all
 // are float.  strides holds the batch, sequence and head strides (in
-// elements) of q, k, v and dout, in that order: 12 values.
+// elements) of q, k, v and dout, in that order: 12 values.  tensor_core
+// selects the tensor-core kernels (bf16, head_dim 64 or 128, strides that
+// are multiples of 8 on 16-byte aligned data); otherwise the CUDA-core
+// kernels run (f32, or bf16 at head_dim 16, 32, 256).
 int tf_flash_bwd_dq(const void* q, const void* k, const void* v,
                     const void* dout, const void* lse, const void* delta,
                     const void* mask, void* dq, int batch, int n_heads,
                     int s_q, int s_kv, int head_dim, int is_bf16,
                     const int64_t* strides, float scale, int causal,
-                    void* stream) {
+                    int tensor_core, void* stream) {
   return run(true, q, k, v, dout, lse, delta, mask, dq, nullptr, nullptr,
              batch, n_heads, s_q, s_kv, head_dim, is_bf16, strides, scale,
-             causal, stream);
+             causal, tensor_core, stream);
 }
 
 int tf_flash_bwd_dkv(const void* q, const void* k, const void* v,
@@ -443,10 +872,25 @@ int tf_flash_bwd_dkv(const void* q, const void* k, const void* v,
                      const void* mask, void* dk, void* dv, int batch,
                      int n_heads, int s_q, int s_kv, int head_dim,
                      int is_bf16, const int64_t* strides, float scale,
-                     int causal, void* stream) {
+                     int causal, int tensor_core, void* stream) {
   return run(false, q, k, v, dout, lse, delta, mask, nullptr, dk, dv, batch,
              n_heads, s_q, s_kv, head_dim, is_bf16, strides, scale, causal,
-             stream);
+             tensor_core, stream);
+}
+
+// The dynamic shared memory of the kernel that serves (dq or dkv,
+// head_dim, dtype, route) and how many of its blocks an SM holds at once.
+int tf_flash_bwd_kernel_info(int dq, int head_dim, int is_bf16,
+                             int tensor_core, int* smem_bytes,
+                             int* blocks_per_sm) {
+  return with_kernel(dq != 0, head_dim, is_bf16 != 0, tensor_core != 0,
+                     [&](KernelFn kernel, size_t smem, int) {
+                       *smem_bytes = static_cast<int>(smem);
+                       const cudaError_t err = allow_smem(kernel, smem);
+                       if (err != cudaSuccess) return err;
+                       return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                           blocks_per_sm, kernel, NT, smem);
+                     });
 }
 
 const char* tf_flash_bwd_error_string(int err) {

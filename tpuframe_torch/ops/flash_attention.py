@@ -10,7 +10,10 @@ Three kernels replace the TPU kernels of ``tpuframe/ops/flash_attention.py``:
     ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` (the two ``pallas_call``s in
     ``_flash_bwd``): the FA2 split, one kernel owning query rows and one
     owning keys, each recomputing the probabilities from the saved
-    logsumexp, with no atomics.
+    logsumexp, with no atomics.  Each has two routes, chosen by
+    :func:`bwd_route` from the dtype and head_dim alone: bf16 at head_dim
+    64 or 128 runs on the tensor cores (``wgmma``), everything else on
+    the CUDA cores; :data:`BWD_ROUTES` counts the launches of each.
 
 Each source's header note says what bounds it on the H100 and what its
 design does about that.  Tiles above the diagonal are skipped under
@@ -37,9 +40,14 @@ NEG_INF = -1e30  # softmax mask fill; finite so (x - x) stays 0, not nan
 HEAD_DIMS = (16, 32, 64, 128, 256)
 DTYPES = (torch.float32, torch.bfloat16)
 
+# The head dims the backward's tensor-core route takes (in bf16).
+TC_HEAD_DIMS = (64, 128)
+
 # Launches of each CUDA kernel in this process: the counts a run reads to
 # show that its path went through the kernels.
 LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+# Backward kernel launches by route, dq and dkv alike.
+BWD_ROUTES = {"tensor_core": 0, "cuda_core": 0}
 
 _fns: dict = {}
 
@@ -60,9 +68,13 @@ def _kernel(name: str):
             fns = [lib.tf_flash_bwd_dq, lib.tf_flash_bwd_dkv]
             strides = ctypes.POINTER(i64)
             fns[0].argtypes = ([ptr] * 8 + [i32] * 6
-                               + [strides, ctypes.c_float, i32, ptr])
+                               + [strides, ctypes.c_float, i32, i32, ptr])
             fns[1].argtypes = ([ptr] * 9 + [i32] * 6
-                               + [strides, ctypes.c_float, i32, ptr])
+                               + [strides, ctypes.c_float, i32, i32, ptr])
+            info = lib.tf_flash_bwd_kernel_info
+            info.argtypes = [i32] * 4 + [ctypes.POINTER(i32)] * 2
+            info.restype = ctypes.c_int
+            _fns["flash_bwd_info"] = info
             err = lib.tf_flash_bwd_error_string
         for fn in fns:
             fn.restype = ctypes.c_int
@@ -212,9 +224,35 @@ def _launch(q, k, v, mask, causal):
     return out, lse
 
 
+def bwd_route(dtype, head_dim) -> str:
+    """The backward kernels' route for ``(dtype, head_dim)``:
+    ``"tensor_core"`` for bf16 at :data:`TC_HEAD_DIMS` (the models' head
+    dims), else ``"cuda_core"``.  f32 stays on the CUDA cores on purpose:
+    one TF32 pass keeps about 3 decimal digits, and f32 gradients are held
+    to 1e-4.  Raises for what no route takes."""
+    if dtype not in DTYPES:
+        raise TypeError(f"flash kernel takes {DTYPES}; got {dtype}")
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"flash kernel takes head_dim in {HEAD_DIMS}; "
+                         f"got {head_dim}")
+    if dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS:
+        return "tensor_core"
+    return "cuda_core"
+
+
+def _tc_operand(t):
+    """``t`` as the tensor-core route reads it, 16 bytes at a time: its
+    data 16-byte aligned and its batch, sequence and head strides multiples
+    of 8 elements; a fresh contiguous copy where they are not."""
+    if t.data_ptr() % 16 == 0 and all(t.stride(i) % 8 == 0
+                                      for i in range(3)):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
 def _launch_bwd(which, q, k, v, do, lse, delta, mask, causal):
     """One backward kernel: ``which`` is ``"dq"`` (returns dq) or ``"dkv"``
-    (returns dk, dv)."""
+    (returns dk, dv), on the route :func:`bwd_route` picks."""
     mask = _launch_checks(q, k, v, mask)
     if do.shape != q.shape or do.dtype != q.dtype or do.stride(-1) != 1:
         raise ValueError(f"dO {tuple(do.shape)} {do.dtype} must match q "
@@ -227,6 +265,12 @@ def _launch_bwd(which, q, k, v, do, lse, delta, mask, causal):
         if (tuple(t.shape) != rows or t.dtype != torch.float32
                 or t.device != q.device):
             raise ValueError(f"{name} must be f32 {rows} on {q.device}")
+    if q.device.type != "cuda" or do.device != q.device:
+        raise ValueError(f"flash backward kernels take CUDA tensors; got q "
+                         f"on {q.device}, dO on {do.device}")
+    route = bwd_route(q.dtype, d)
+    if route == "tensor_core":
+        q, k, v, do = map(_tc_operand, (q, k, v, do))
     lse, delta = lse.contiguous(), delta.contiguous()
     if which == "dq":
         outs = (torch.empty((b, s_q, n, d), dtype=q.dtype, device=q.device),)
@@ -244,11 +288,26 @@ def _launch_bwd(which, q, k, v, do, lse, delta, mask, causal):
             None if mask is None else mask.data_ptr(),
             *(t.data_ptr() for t in outs),
             b, n, s_q, s_kv, d, int(q.dtype == torch.bfloat16), strides,
-            d ** -0.5, int(causal), stream)
+            d ** -0.5, int(causal), int(route == "tensor_core"), stream)
     name = f"flash_bwd_{which}"
     _raise_on(name, err, err_str)
     LAUNCHES[name] += 1
+    BWD_ROUTES[route] += 1
     return outs[0] if which == "dq" else outs
+
+
+def bwd_kernel_info(which, dtype, head_dim, route):
+    """``(dynamic shared memory bytes, blocks an SM holds)`` of the
+    backward kernel ``which`` (``"dq"`` or ``"dkv"``) on ``route``, from
+    the CUDA runtime's occupancy calculator."""
+    _, _, err_str = _kernel("flash_bwd")
+    smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    err = _fns["flash_bwd_info"](int(which == "dq"), head_dim,
+                                 int(dtype == torch.bfloat16),
+                                 int(route == "tensor_core"),
+                                 ctypes.byref(smem), ctypes.byref(blocks))
+    _raise_on(f"flash_bwd_{which} info", err, err_str)
+    return smem.value, blocks.value
 
 
 def _on_device(q):

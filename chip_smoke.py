@@ -9,10 +9,13 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build every kernel under tpuframe_torch/csrc with nvcc;
   3. hold the forward kernel against its plain PyTorch version at the
-     serving shapes and at the training slice's (and, for correctness
-     only, at every head_dim and dtype it takes, with strided inputs), and
-     time the kernel, the plain version and one PyTorch library call that
-     computes the same function (a yardstick only);
+     serving shapes and at the training slice's on both routes (bf16 on
+     the tensor cores, and the CUDA-core kernel on the same inputs), with
+     their shared memory and blocks an SM, and, for correctness only,
+     every head_dim and dtype it takes, ragged lengths, key masks with
+     fully masked rows and strided inputs, each case asserting the route
+     it took; time the kernel, the plain version and one PyTorch library
+     call that computes the same function (a yardstick only);
   4. the same for the two backward kernels at the training slice's shapes
      on both routes (bf16 on the tensor cores, f32 on the CUDA cores),
      with their shared memory and blocks an SM, plus a correctness sweep
@@ -26,25 +29,29 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
   7. serve 12 requests over the three prompt buckets through run_loadgen
      -> Scheduler -> LMEngine at full width (TransformerLM defaults:
      hidden 768, 12 layers, 12 heads, vocab 32000, bf16, flash attention),
-     with every kernel's launch count read around that run;
+     with every kernel's launch count and the forward's routes read
+     around that run;
   8. one training step's loss and gradients at full width in f32, flash
      kernels against the plain einsum attention; then the same in bf16
      (the tensor-core route), both routes held to the f32 gradients;
   9. train lm_long through ``tpuframe_torch.train.main`` (cuts in
-     TRAIN_OVERRIDES), with every kernel's launch count and the backward
-     routes read around that run, then profile one more step;
+     TRAIN_OVERRIDES), with every kernel's launch count and the forward's
+     and backward's routes read around that run, then profile one more
+     step;
  10. hold the fused 1x1-conv+BN backward kernel against its plain version
      at the 15 shapes a ResNet-50 training step gives it (bf16, batch
-     256), time it, its plain version and a yardstick (the autograd
-     backward of cuDNN's unfused 1x1 conv + batch norm), then a
-     correctness sweep (f32, ragged M/K/C, a strided downsample);
+     256) on both routes (the tensor cores, and the CUDA-core kernels on
+     the same inputs), time them, the plain version and a yardstick (the
+     autograd backward of cuDNN's unfused 1x1 conv + batch norm), then a
+     correctness sweep (f32, ragged M/K/C, ragged M on the tensor cores,
+     a strided downsample), each case asserting its route;
  11. one ResNet-50 training step's loss, gradients and running statistics
      at full width in f32, ``bn="fused"`` (the kernel) against
      ``bn="flax"`` (cuDNN), from the same weights;
  12. train imagenet_resnet50 with ``bn="fused"`` through
      ``tpuframe_torch.train.main`` (cuts in RESNET_CUTS), with every
-     kernel's launch count read around that run, then profile one more
-     step.
+     kernel's launch count and the fused op's routes read around that
+     run, then profile one more step.
 
 ``--phases`` runs a subset after the build, for debugging.  A full run
 prints a ``{"kernels": [...]}`` line, then ends with
@@ -113,11 +120,12 @@ BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 # The training slice: lm_long at its full width (hidden 768, 12 layers,
 # 12 heads of 64, intermediate 3072, vocab 32000, bf16, adamw 3e-4, wd
 # 0.1, clip 1.0, warmup+cosine, remat, fused xent, flash attention) and
-# global batch 8, cut for one card: sequence 32768 -> 4096 (the forward
-# kernel runs on the CUDA cores: attention alone would take many seconds a
-# step at 32768), mesh data=2 x seq -> 1 x 1 (seq_mode ring on a seq
-# degree of 1 is full causal attention), and a few steps with one eval
-# batch.
+# global batch 8, cut for one card: sequence 32768 -> 4096 (the config
+# shards its sequence over a seq mesh axis with ring attention; on one
+# card every token's activations sit on the card, 7.9 GiB at peak at 4096
+# and about 8x that at 32768, which this run does not try), mesh data=2 x
+# seq -> 1 x 1 (seq_mode ring on a seq degree of 1 is full causal
+# attention), and a few steps with one eval batch.
 TRAIN_STEPS = 4
 TRAIN_EVAL_BATCHES = 1
 TRAIN_OVERRIDES = {"mesh": {"data": 1, "seq": 1},
@@ -216,14 +224,16 @@ def log(msg: str) -> None:
 
 
 def reset_launches() -> None:
-    for counts in (fa.LAUNCHES, fcb.LAUNCHES, pp.LAUNCHES, fa.BWD_ROUTES):
+    for counts in (fa.LAUNCHES, fcb.LAUNCHES, pp.LAUNCHES, fa.FWD_ROUTES,
+                   fa.BWD_ROUTES, fcb.ROUTES):
         for name in counts:
             counts[name] = 0
 
 
 def launch_counts() -> dict:
     """Every kernel's launches since the last :func:`reset_launches` (the
-    backward's routes are read from ``fa.BWD_ROUTES``)."""
+    routes are read from ``fa.FWD_ROUTES``, ``fa.BWD_ROUTES`` and
+    ``fcb.ROUTES``)."""
     return {**fa.LAUNCHES, **fcb.LAUNCHES, **pp.LAUNCHES}
 
 
@@ -306,18 +316,31 @@ def _flash_inputs(b, s, n, d, dtype, masked, gen, strided=False):
 
 
 def _flash_check(name, q, k, v, mask, causal):
-    """Kernel against plain version; raises past the tolerance."""
+    """Kernel against plain version; raises past the tolerance, or if the
+    kernel ran on another route than ``fa.fwd_route`` names, or if a fully
+    masked batch row's output is not exactly zero."""
+    route = fa.fwd_route(q.dtype, q.shape[-1])
+    before = dict(fa.FWD_ROUTES)
     out, lse = fa.flash_mha_lse(q, k, v, mask=mask, causal=causal)
     torch.cuda.synchronize()
-    ref_out, ref_lse = fa.flash_mha_reference(q, k, v, mask=mask,
-                                              causal=causal)
+    ran = {r: fa.FWD_ROUTES[r] - before[r] for r in before}
+    ref_out, ref_lse = _by_row(fa.flash_mha_reference, (q, k, v), mask,
+                               causal)
     err = float((out.float() - ref_out.float()).abs().max())
     err_lse = float((lse - ref_lse).abs().max())
     tol = TOL[q.dtype]
+    bad = []
+    if ran != {r: int(r == route) for r in ran}:
+        bad.append(f"launches by route {ran}, want one on {route}")
     if not (err <= tol["out"] and err_lse <= tol["lse"]):
-        raise RuntimeError(f"flash_fwd {name}: max|out diff| {err:.3e} "
-                           f"(tol {tol['out']}), max|lse diff| "
-                           f"{err_lse:.3e} (tol {tol['lse']})")
+        bad.append(f"max|out diff| {err:.3e} (tol {tol['out']}), max|lse "
+                   f"diff| {err_lse:.3e} (tol {tol['lse']})")
+    if mask is not None and not mask[1:].any():
+        # rows 1.. of the batch are fully masked: zero output, lse -1e30
+        if out[1:].any() or not (lse[1:] == fa.NEG_INF).all():
+            bad.append("a fully masked batch row has a nonzero output")
+    if bad:
+        raise RuntimeError(f"flash_fwd {name}: " + "; ".join(bad))
     return out, lse, err, err_lse
 
 
@@ -376,60 +399,89 @@ def phase_kernels() -> dict:
     cases[(512, torch.bfloat16, False, True)] = _flash_case(
         512, torch.bfloat16, False, True, gen)
     log(json.dumps({"flash_fwd_cases": list(cases.values())}))
-    # Every other head_dim the kernel takes, at a ragged length, with a
-    # key mask and strided inputs: correctness only.
-    worst = {}
-    for d in fa.HEAD_DIMS:
-        for dtype in fa.DTYPES:
-            for causal in (False, True):
-                name = f"D={d} {str(dtype)[6:]} causal={causal} strided"
-                args = _flash_inputs(3, 77, 5, d, dtype, True, gen,
-                                     strided=True)
-                err = _flash_check(name, *args, causal)[2]
-                worst[str(dtype)[6:]] = max(worst.get(str(dtype)[6:], 0.0),
-                                            err)
-    log(f"[flash] head_dims {fa.HEAD_DIMS} x f32/bf16 x causal/full, "
-        f"S=77, masked, strided: worst err {worst}")
+    # Correctness only, each case asserting its route: every head_dim the
+    # kernels take at a ragged length, with a key mask (fully masked batch
+    # rows) and strided inputs; then the tensor-core route's head dims at
+    # a longer ragged length (not a multiple of any tile), masked and not.
+    worst, count = {}, {}
+    sweep = [(d, dtype, causal, 77, True) for d in fa.HEAD_DIMS
+             for dtype in fa.DTYPES for causal in (False, True)]
+    sweep += [(d, torch.bfloat16, causal, 1037, masked)
+              for d in fa.TC_HEAD_DIMS for causal in (False, True)
+              for masked in (True, False)]
+    for d, dtype, causal, s, masked in sweep:
+        name = (f"D={d} {str(dtype)[6:]} causal={causal} S={s} "
+                f"{'masked ' if masked else ''}strided")
+        args = _flash_inputs(3 if s < 1000 else 2, s, 5 if s < 1000 else 3,
+                             d, dtype, masked, gen, strided=True)
+        err = _flash_check(name, *args, causal)[2]
+        key = f"{str(dtype)[6:]} {fa.fwd_route(dtype, d)}"
+        worst[key] = max(worst.get(key, 0.0), err)
+        count[key] = count.get(key, 0) + 1
+    log(f"[flash] sweep of {len(sweep)} cases (every head_dim x dtype x "
+        f"causal at S=77, masked, strided; D in {fa.TC_HEAD_DIMS} bf16 x "
+        f"causal x masked at S=1037, strided), cases by dtype and route "
+        f"{count}: worst max abs err {worst}")
     cases["train"] = _flash_train_case(gen)
     return cases
 
 
 def _flash_train_case(gen) -> dict:
-    """The forward kernel at the training slice's shapes, against its
-    plain version one batch row at a time."""
+    """The forward kernel at the training slice's shapes on both routes
+    (bf16: the tensor cores, as the path runs it, and the CUDA-core kernel
+    on the same inputs), each against its plain version one batch row at a
+    time and timed beside its bound, the plain version and SDPA."""
     b, s, n, d = TRAIN_ATTN_SHAPE
     dtype = torch.bfloat16
     q, k, v, _ = _flash_inputs(b, s, n, d, dtype, False, gen)
-    out, lse = fa.flash_fwd(q, k, v, causal=True)
-    torch.cuda.synchronize()
     ref_out, ref_lse = _by_row(fa.flash_mha_reference, (q, k, v), None, True)
-    err = float((out.float() - ref_out.float()).abs().max())
-    err_lse = float((lse - ref_lse).abs().max())
-    tol = TOL[dtype]
-    if not (err <= tol["out"] and err_lse <= tol["lse"]):
-        raise RuntimeError(f"flash_fwd training shape: max|out diff| "
-                           f"{err:.3e}, max|lse diff| {err_lse:.3e}")
-    launch = lambda: fa.flash_fwd(q, k, v, causal=True)  # noqa: E731
-    ms = cuda_ms(launch, 5)
-    dev_ms = sum(t for _, t, _ in device_time(launch, 3)) / 3
     plain_ms = cuda_ms(lambda: _by_row(fa.flash_mha_reference, (q, k, v),
                                        None, True), 1)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True), 5)
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, is_causal=True)
+    lib_ms = cuda_ms(sdpa, 10)
+    lib_dev = sum(t for _, t, _ in device_time(sdpa, 3)) / 3
     ops = 4 * d * _pairs(s, s, b, n, None, True)
-    nbytes = 4 * q.numel() * 2 + lse.numel() * 4
+    nbytes = 4 * q.numel() * 2 + b * n * s * 4
     t_ops, t_bytes = ops / PEAK_OPS_S[dtype], nbytes / PEAK_BYTES_S
-    case = {"max_abs_err": err, "ms": ms, "device_ms": dev_ms,
-            "plain_ms": plain_ms, "library_ms": lib_ms,
-            "bound_ms": 1e3 * max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "tflops": ops / ms / 1e9}
-    log(f"[flash] B={b} S={s} N={n} D={d} bf16 causal (training shape): "
-        f"err {err:.2e}, lse err {err_lse:.2e}; kernel {ms:.3f} ms (device "
-        f"{dev_ms:.3f}, {case['tflops']:.2f} TFLOP/s), plain {plain_ms:.1f}"
-        f" ms, sdpa {lib_ms:.3f} ms, bound {case['bound_ms']:.4f} ms "
-        f"({case['bound_by']})")
+    tol = TOL[dtype]
+    res = {}
+    for route in ("tensor_core", "cuda_core"):
+        launch = lambda r=route: fa._launch(q, k, v, None, True,  # noqa: E731
+                                            route=r)
+        before = dict(fa.FWD_ROUTES)
+        out, lse = launch()
+        torch.cuda.synchronize()
+        if fa.FWD_ROUTES[route] != before[route] + 1:
+            raise RuntimeError(f"flash_fwd training shape: {route} did not "
+                               f"run")
+        err = float((out.float() - ref_out.float()).abs().max())
+        err_lse = float((lse - ref_lse).abs().max())
+        if not (err <= tol["out"] and err_lse <= tol["lse"]):
+            raise RuntimeError(f"flash_fwd training shape, {route}: "
+                               f"max|out diff| {err:.3e}, max|lse diff| "
+                               f"{err_lse:.3e}")
+        ms = cuda_ms(launch, 20 if route == "tensor_core" else 3)
+        dev_ms = sum(t for _, t, _ in device_time(launch, 3)) / 3
+        smem, blocks = fa.fwd_kernel_info(dtype, d, route)
+        res[route] = {"route": route, "max_abs_err": err,
+                      "max_abs_err_lse": err_lse, "ms": ms,
+                      "device_ms": dev_ms, "plain_ms": plain_ms,
+                      "library_ms": lib_ms, "library_device_ms": lib_dev,
+                      "bound_ms": 1e3 * max(t_ops, t_bytes),
+                      "bound_by": "operations" if t_ops >= t_bytes
+                      else "bytes", "tflops": ops / ms / 1e9,
+                      "smem_bytes": smem, "blocks_per_sm": blocks}
+        log(f"[flash] B={b} S={s} N={n} D={d} bf16 causal (training shape),"
+            f" route {route}: err {err:.2e}, lse err {err_lse:.2e}; kernel "
+            f"{ms:.4f} ms (device {dev_ms:.4f}, {ops / ms / 1e9:.2f} "
+            f"TFLOP/s, {smem} B smem, {blocks} blocks/SM), plain "
+            f"{plain_ms:.1f} ms, sdpa {lib_ms:.4f} ms (device {lib_dev:.4f})"
+            f", bound {1e3 * max(t_ops, t_bytes):.4f} ms "
+            f"({res[route]['bound_by']})")
+    case = dict(res["tensor_core"])
+    case["cuda_core"] = res["cuda_core"]
     return case
 
 
@@ -736,6 +788,7 @@ def phase_serve() -> dict:
     stats = loadgen.run_loadgen(engine, reqs)
     torch.cuda.synchronize()
     launches = launch_counts()
+    routes = dict(fa.FWD_ROUTES)
 
     prefills = len(reqs)   # each request is prefilled exactly once
     hit = sorted({kv.bucket_for(len(r.prompt), buckets) for r in reqs})
@@ -752,6 +805,9 @@ def phase_serve() -> dict:
     if launches["flash_fwd"] != cfg.num_layers * prefills:
         problems.append(f"flash_fwd launched {launches['flash_fwd']} times"
                         f", want {cfg.num_layers} x {prefills} prefills")
+    if routes != {"tensor_core": launches["flash_fwd"], "cuda_core": 0}:
+        problems.append(f"forward launches by route {routes}: every bf16 "
+                        f"prefill's attention on the tensor cores")
     if problems:
         raise RuntimeError("serving: " + "; ".join(problems))
 
@@ -763,7 +819,7 @@ def phase_serve() -> dict:
         f"TTFT p50 {_pct(ttft, .5):.2f} ms p90 {_pct(ttft, .9):.2f} ms; "
         f"TPOT p50 {_pct(tpot, .5):.2f} ms p90 {_pct(tpot, .9):.2f} ms; "
         f"flash_fwd launches {launches['flash_fwd']} = "
-        f"{cfg.num_layers} x {prefills} prefills")
+        f"{cfg.num_layers} x {prefills} prefills, by route {routes}")
 
     # Where a request's time goes: host wall per call (synchronised by
     # the tokens it returns) against the device time of one such call.
@@ -773,7 +829,7 @@ def phase_serve() -> dict:
                        wall_ms(lambda: engine.prefill(ids), 5))
     profile_window(f"decode step ({engine.slots} slots)", engine.decode_step,
                    wall_ms(engine.decode_step, 20))
-    return launches
+    return launches, routes
 
 
 def phase_grad_parity() -> None:
@@ -881,6 +937,7 @@ def phase_train() -> dict:
     wall = time.monotonic() - t0
     launches = launch_counts()
     routes = dict(fa.BWD_ROUTES)
+    fwd_routes = dict(fa.FWD_ROUTES)
     peak = torch.cuda.max_memory_allocated()
     losses, step_ms = metrics["losses"], metrics["step_ms"]
     steps, evals = len(losses), TRAIN_EVAL_BATCHES
@@ -902,6 +959,11 @@ def phase_train() -> dict:
         problems.append(f"backward launches by route {routes}, want "
                         f"{want_routes}: every dq and dkv launch of the "
                         f"run on the tensor cores")
+    want_fwd = {"tensor_core": want["flash_fwd"], "cuda_core": 0}
+    if fwd_routes != want_fwd:
+        problems.append(f"forward launches by route {fwd_routes}, want "
+                        f"{want_fwd}: every forward launch of the run on "
+                        f"the tensor cores")
     if problems:
         raise RuntimeError("training: " + "; ".join(problems))
     p50 = statistics.median(step_ms[1:])
@@ -919,7 +981,8 @@ def phase_train() -> dict:
         f" (p50 after the first {p50:.1f}); {tokens / p50 * 1e3:.0f} "
         f"tokens/s; model FLOPs {flops:.3e} a step, MFU {mfu:.4f} of "
         f"989 TFLOP/s; peak memory {peak / 2**30:.2f} GiB; launches "
-        f"{launches}; backward launches by route {routes}")
+        f"{launches}; forward launches by route {fwd_routes}; backward "
+        f"launches by route {routes}")
 
     # One more step of the same path under the profiler: where it goes.
     cfg = get_config("lm_long").with_overrides(**TRAIN_OVERRIDES)
@@ -930,13 +993,16 @@ def phase_train() -> dict:
     kernels = device_time(step)
     busy = sum(ms for _, ms, _ in kernels)
     pair = sum(ms for k, ms, _ in kernels if "flash_bwd_d" in k)
+    fwd = sum(ms for k, ms, _ in kernels if "flash_fwd" in k)
     log(f"[profile] training step: wall {wall_step:.1f} ms, "
         f"{sum(c for *_, c in kernels)} kernels, device {busy:.1f} ms, idle "
-        f"share {1 - busy / wall_step:.3f}; flash backward pair {pair:.1f} "
-        f"ms ({pair / busy:.3f} of device time); top: "
+        f"share {1 - busy / wall_step:.3f}; flash forward {fwd:.1f} ms "
+        f"({fwd / busy:.3f} of device time), backward pair {pair:.1f} ms "
+        f"({pair / busy:.3f}); top: "
         + "; ".join(f"{k[:60]} {ms:.1f} ms x{c}" for k, ms, c in kernels[:8]))
     return {"launches": launches, "step_ms_p50": p50, "mfu": mfu,
-            "peak_bytes": peak, "routes": routes}
+            "peak_bytes": peak, "routes": routes, "fwd_routes": fwd_routes,
+            "device_ms": busy, "idle_share": 1 - busy / wall_step}
 
 
 def resnet_conv_bn_shapes(batch: int = RESNET_BATCH, size: int = 224):
@@ -975,14 +1041,23 @@ def _conv_bn_inputs(m, k, c, dtype, gen):
     return a, w, x, dy, coef
 
 
-def _conv_bn_check(name, args):
-    """Kernel against plain version; raises past the tolerance.  Returns
+def _conv_bn_check(name, args, route=None):
+    """The kernel against its plain version; raises past the tolerance, or
+    if it ran on another route than ``route`` (default: the one
+    ``fcb.conv_bn_route`` names, through the public wrapper).  Returns
     ``{"da": err, "dw": err}`` (max abs)."""
-    da, dw = fcb.fused_bwd(*args)
+    a, w = args[0], args[1]
+    want = route or fcb.conv_bn_route(a.dtype, *w.shape)
+    before = dict(fcb.ROUTES)
+    da, dw = (fcb.fused_bwd(*args) if route is None
+              else fcb._launch(*args, route=route))
     torch.cuda.synchronize()
+    ran = {r: fcb.ROUTES[r] - before[r] for r in before}
     ref_da, ref_dw = fcb.fused_bwd_reference(*args)
     tol = CONV_BN_TOL[args[0].dtype]
     errs, bad = {}, []
+    if ran != {r: int(r == want) for r in ran}:
+        bad.append(f"launches by route {ran}, want one on {want}")
     for g, got, ref in (("da", da, ref_da), ("dw", dw, ref_dw)):
         errs[g] = float((got.float() - ref.float()).abs().max())
         scale = float(ref.float().abs().max())
@@ -991,7 +1066,8 @@ def _conv_bn_check(name, args):
             bad.append(f"{g}: max|diff| {errs[g]:.3e} vs tol {tol[g]} x "
                        f"max|plain| {scale:.3e}")
     if bad:
-        raise RuntimeError(f"fused_conv_bn {name}: " + "; ".join(bad))
+        raise RuntimeError(f"fused_conv_bn {name} ({want}): "
+                           + "; ".join(bad))
     return errs
 
 
@@ -1019,23 +1095,27 @@ def _conv_bn_library_ms(n, h, w, args, iters):
 
 def phase_conv_bn() -> dict:
     """The fused conv+BN backward kernel at every shape of a ResNet-50
-    training step (bf16, batch 256), timed, then a correctness sweep."""
+    training step (bf16, batch 256) on both routes (the tensor cores, as
+    the path runs it, and the CUDA-core kernels on the same inputs), each
+    checked and timed beside the cuDNN yardstick and the bound; then a
+    correctness sweep."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(5)
     dtype = torch.bfloat16
-    cases, tot = [], {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0,
-                      "library_ms": 0.0, "library_device_ms": 0.0,
-                      "bound_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0,
-                      "flops": 0.0, "bytes": 0.0}
-    worst = {"da": 0.0, "dw": 0.0}
+    routes = ("tensor_core", "cuda_core")
+    keys = ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
+            "bound_ms", "ops_ms", "bytes_ms", "flops", "bytes")
+    tots = {r: dict.fromkeys(keys, 0.0) for r in routes}
+    cases = []
+    worst = {r: {"da": 0.0, "dw": 0.0} for r in routes}
+    split = {r: {} for r in routes}   # device ms a step, by kernel
     for (n, h, w, k, c), calls in resnet_conv_bn_shapes().items():
         m = n * h * w
         args = _conv_bn_inputs(m, k, c, dtype, gen)
-        errs = _conv_bn_check(f"M={m} K={k} C={c}", args)
-        launch = lambda: fcb.fused_bwd(*args)  # noqa: E731
-        ms = cuda_ms(launch, 10)
-        dev = sum(t for _, t, _ in device_time(launch, 3)) / 3
+        if fcb.conv_bn_route(dtype, k, c) != "tensor_core":
+            raise RuntimeError(f"M={m} K={k} C={c} is not on the tensor-core"
+                               f" route")
         plain = cuda_ms(lambda: fcb.fused_bwd_reference(*args), 3)
         lib, lib_dev = _conv_bn_library_ms(n, h, w, args, 10)
         flops = 4 * m * k * c
@@ -1043,63 +1123,96 @@ def phase_conv_bn() -> dict:
                   + 4 * k * c)
         t_ops = 1e3 * flops / PEAK_OPS_S[dtype]
         t_bytes = 1e3 * nbytes / PEAK_BYTES_S
-        case = {"m": m, "k": k, "c": c, "calls": calls, "ms": ms,
-                "device_ms": dev, "plain_ms": plain, "library_ms": lib,
-                "library_device_ms": lib_dev,
+        case = {"m": m, "k": k, "c": c, "calls": calls, "plain_ms": plain,
+                "library_ms": lib, "library_device_ms": lib_dev,
                 "bound_ms": max(t_ops, t_bytes),
-                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                "max_abs_err_da": errs["da"], "max_abs_err_dw": errs["dw"],
-                "tflops": flops / ms / 1e9,
-                "splits": fcb.dw_splits(m, k, c)[0]}
-        cases.append(case)
-        for key, val in (("ms", ms), ("device_ms", dev), ("plain_ms", plain),
-                         ("library_ms", lib), ("library_device_ms", lib_dev),
-                         ("bound_ms", case["bound_ms"]), ("ops_ms", t_ops),
-                         ("bytes_ms", t_bytes), ("flops", flops),
-                         ("bytes", nbytes)):
-            tot[key] += calls * val
-        for g in worst:
-            worst[g] = max(worst[g], errs[g])
-        log(f"[conv-bn] M={m} K={k} C={c} x{calls}: err da {errs['da']:.2e}"
-            f" dw {errs['dw']:.2e}; kernel {ms:.3f} ms (device {dev:.3f}, "
-            f"{case['tflops']:.2f} TFLOP/s, {case['splits']} dW splits), "
-            f"plain {plain:.3f} ms, cuDNN conv+BN backward {lib:.3f} ms "
-            f"(device {lib_dev:.3f}), bound {case['bound_ms']:.4f} ms "
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+        for route in routes:
+            errs = _conv_bn_check(f"M={m} K={k} C={c}", args, route)
+            launch = lambda r=route: fcb._launch(*args, route=r)  # noqa: E731
+            ms = cuda_ms(launch, 10)
+            kernels = device_time(launch, 3)
+            dev = sum(t for _, t, _ in kernels) / 3
+            for name, t, _ in kernels:
+                found = re.search(r"\w+_kernel(<[^>]*>)?", name)
+                short = found.group(0) if found else name[:40]
+                split[route][short] = (split[route].get(short, 0.0)
+                                       + calls * t / 3)
+            case[route] = {"ms": ms, "device_ms": dev,
+                           "max_abs_err_da": errs["da"],
+                           "max_abs_err_dw": errs["dw"],
+                           "tflops": flops / ms / 1e9,
+                           "splits": fcb.dw_splits(m, k, c, route)[0]}
+            for key, val in (("ms", ms), ("device_ms", dev),
+                             ("plain_ms", plain), ("library_ms", lib),
+                             ("library_device_ms", lib_dev),
+                             ("bound_ms", case["bound_ms"]),
+                             ("ops_ms", t_ops), ("bytes_ms", t_bytes),
+                             ("flops", flops), ("bytes", nbytes)):
+                tots[route][key] += calls * val
+            for g in ("da", "dw"):
+                worst[route][g] = max(worst[route][g], errs[g])
+        tc, cc = case["tensor_core"], case["cuda_core"]
+        log(f"[conv-bn] M={m} K={k} C={c} x{calls}: tensor cores err da "
+            f"{tc['max_abs_err_da']:.2e} dw {tc['max_abs_err_dw']:.2e}, "
+            f"{tc['ms']:.3f} ms (device {tc['device_ms']:.3f}, "
+            f"{tc['tflops']:.2f} TFLOP/s, {tc['splits']} dW splits); CUDA "
+            f"cores {cc['ms']:.3f} ms (device {cc['device_ms']:.3f}); plain "
+            f"{plain:.3f} ms, cuDNN conv+BN backward {lib:.3f} ms (device "
+            f"{lib_dev:.3f}), bound {case['bound_ms']:.4f} ms "
             f"({case['bound_by']})")
+        cases.append(case)
         del args
     log(json.dumps({"fused_conv_bn_cases": cases}))
-    tot["bound_by"] = ("operations" if tot["ops_ms"] >= tot["bytes_ms"]
-                       else "bytes")
-    tot["max_abs_err"] = max(worst.values())
-    log(f"[conv-bn] one ResNet-50 step's 36 calls ({len(cases)} shapes, "
-        f"{tot['flops']:.3e} FLOPs, {tot['bytes'] / 1e9:.2f} GB): kernel "
-        f"{tot['ms']:.2f} ms (device {tot['device_ms']:.2f}), plain "
-        f"{tot['plain_ms']:.2f} ms, cuDNN conv+BN backward "
-        f"{tot['library_ms']:.2f} ms (device "
-        f"{tot['library_device_ms']:.2f}), bound {tot['bound_ms']:.3f} ms "
-        f"(operations {tot['ops_ms']:.3f}, bytes {tot['bytes_ms']:.3f}); "
-        f"worst err {worst}")
+    info = {f"{which} K={k} C={c}": fcb.tc_kernel_info(which, k, c)
+            for which in ("da", "dw") for k, c in ((64, 256), (2048, 512))}
+    for route in routes:
+        tot = tots[route]
+        tot["bound_by"] = ("operations" if tot["ops_ms"] >= tot["bytes_ms"]
+                           else "bytes")
+        tot["max_abs_err"] = max(worst[route].values())
+        tot["route"] = route
+        log(f"[conv-bn] one ResNet-50 step's 36 calls ({len(cases)} shapes,"
+            f" {tot['flops']:.3e} FLOPs, {tot['bytes'] / 1e9:.2f} GB), "
+            f"route {route}: kernel {tot['ms']:.2f} ms (device "
+            f"{tot['device_ms']:.2f}, {tot['flops'] / tot['ms'] / 1e9:.2f} "
+            f"TFLOP/s), plain {tot['plain_ms']:.2f} ms, cuDNN conv+BN "
+            f"backward {tot['library_ms']:.2f} ms (device "
+            f"{tot['library_device_ms']:.2f}), bound {tot['bound_ms']:.3f} "
+            f"ms (operations {tot['ops_ms']:.3f}, bytes "
+            f"{tot['bytes_ms']:.3f}); worst err {worst[route]}; device ms "
+            f"by kernel {split[route]}")
+    log(f"[conv-bn] tensor-core kernels (dynamic smem bytes, blocks an SM): "
+        f"{info}")
 
     # Correctness sweep: f32 at path widths; ragged M, K and C in both
-    # dtypes; and the autograd op over a strided downsample.
+    # dtypes (the CUDA-core route); ragged M and tile mixes on the tensor
+    # cores; and the autograd op over a strided downsample.
     sweep = [(12544, 64, 256, torch.float32), (12544, 1024, 2048,
                                                 torch.float32),
              (12544, 2048, 512, torch.float32)]
     for dt in fcb.DTYPES:
         sweep += [(1000, 12, 20, dt), (4099, 100, 300, dt), (33, 7, 130, dt),
                   (17, 65, 129, dt)]
-    sworst = {}
+    sweep += [(1000, 64, 64, dtype), (4099, 192, 320, dtype),
+              (77, 512, 128, dtype), (130001, 256, 64, dtype)]
+    sworst, scount = {}, {}
     for m, k, c, dt in sweep:
         errs = _conv_bn_check(f"sweep M={m} K={k} C={c} {dt}",
                               _conv_bn_inputs(m, k, c, dt, gen))
-        key = str(dt)[6:]
+        key = f"{str(dt)[6:]} {fcb.conv_bn_route(dt, k, c)}"
         sworst[key] = max(sworst.get(key, 0.0), *errs.values())
+        scount[key] = scount.get(key, 0) + 1
     for dt in fcb.DTYPES:
         sworst[f"strided {str(dt)[6:]}"] = _strided_downsample_check(dt, gen)
     log(f"[conv-bn] sweep of {len(sweep)} kernel cases (f32 at path widths;"
-        f" ragged M, K, C in f32 and bf16) and a stride-2 downsample "
+        f" ragged M, K, C in f32 and bf16; ragged M and mixed tiles on the "
+        f"tensor cores), cases by route {scount}, and a stride-2 downsample "
         f"through autograd: worst max abs err {sworst}")
-    return tot
+    out = dict(tots["tensor_core"])
+    out["cuda_core"] = tots["cuda_core"]
+    out["kernel_info"] = info
+    return out
 
 
 def _strided_downsample_check(dtype, gen) -> float:
@@ -1246,6 +1359,7 @@ def phase_resnet_train() -> dict:
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     launches = launch_counts()
+    conv_routes = dict(fcb.ROUTES)
     peak = torch.cuda.max_memory_allocated()
     losses, step_ms = metrics["losses"], metrics["step_ms"]
     steps = len(losses)
@@ -1261,6 +1375,11 @@ def phase_resnet_train() -> dict:
         problems.append(f"launches {launches}, want {want} (the fused op "
                         f"once per Bottleneck 1x1 pair and step, none in "
                         f"eval)")
+    want_routes = {"tensor_core": 36 * steps, "cuda_core": 0}
+    if conv_routes != want_routes:
+        problems.append(f"fused conv+BN launches by route {conv_routes}, "
+                        f"want {want_routes}: every launch of the run on "
+                        f"the tensor cores")
     if problems:
         raise RuntimeError("ResNet training: " + "; ".join(problems))
     p50 = statistics.median(step_ms[1:])
@@ -1277,7 +1396,8 @@ def phase_resnet_train() -> dict:
         f"{p50:.1f}); {RESNET_BATCH / p50 * 1e3:.1f} images/s; model FLOPs "
         f"{flops:.3e} a step (3 x {fwd:.4e} a forward image), MFU "
         f"{mfu:.4f} of 989 TFLOP/s; peak memory {peak / 2**30:.2f} GiB; "
-        f"launches {launches}")
+        f"launches {launches}; fused conv+BN launches by route "
+        f"{conv_routes}")
 
     batch = next(iter(harness.train_loader))
     step = lambda: float(harness.train_step(harness.state, batch)["loss"])  # noqa: E731
@@ -1285,16 +1405,15 @@ def phase_resnet_train() -> dict:
     kernels = device_time(step)
     busy = sum(ms for _, ms, _ in kernels)
     conv_bn = sum(ms for k, ms, _ in kernels
-                  if "dw_kernel" in k or "da_kernel" in k
-                  or "dw_reduce" in k)
+                  if re.search(r"\b(da|dw)(_tc)?_kernel|dw_reduce", k))
     log(f"[profile] ResNet-50 training step: wall {wall_step:.1f} ms, "
         f"{sum(c for *_, c in kernels)} kernels, device {busy:.1f} ms, idle "
         f"share {1 - busy / wall_step:.3f}; fused conv+BN kernels "
         f"{conv_bn:.1f} ms; top: "
         + "; ".join(f"{k[:60]} {ms:.1f} ms x{c}" for k, ms, c in kernels[:10]))
     return {"launches": launches, "step_ms_p50": p50, "mfu": mfu,
-            "peak_bytes": peak}
-
+            "peak_bytes": peak, "routes": conv_routes, "device_ms": busy,
+            "idle_share": 1 - busy / wall_step}
 
 
 def wall_ms(fn, calls: int) -> float:
@@ -1356,7 +1475,7 @@ def main(argv=None) -> int:
     bwd = phase_backward()
     probe = phase_probe()
     phase_parity()
-    serve_launches = phase_serve()
+    serve_launches, serve_routes = phase_serve()
     phase_grad_parity()
     phase_grad_parity_bf16()
     train = phase_train()
@@ -1395,8 +1514,27 @@ def main(argv=None) -> int:
         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         "shape": shape,
     } for name, src, line, r, shape in rows]
+    sub = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+           "library_ms", "max_abs_err")
     for row in kernels:
-        if row["name"].startswith("flash_bwd_"):
+        if row["name"] == "flash_fwd":
+            row["cores"] = ("tensor cores (wgmma bf16) at this shape and on "
+                            "every path's launch; f32, and bf16 at D "
+                            "16/32/256, on the CUDA cores")
+            row["device_ms"] = cases["train"]["device_ms"]
+            row["routes_by_path"] = {"serve": serve_routes,
+                                     "lm_train": train["fwd_routes"]}
+            row["cuda_core_bf16"] = {key: cases["train"]["cuda_core"][key]
+                                     for key in sub}
+        elif row["name"] == "fused_conv_bn_bwd":
+            row["cores"] = ("tensor cores (wgmma bf16) at all 15 shapes and "
+                            "on every path's launch; f32 and K or C not a "
+                            "multiple of 64 on the CUDA cores")
+            row["device_ms"] = conv_bn["device_ms"]
+            row["routes_by_path"] = {"resnet_train": resnet["routes"]}
+            row["cuda_core_bf16"] = {key: conv_bn["cuda_core"][key]
+                                     for key in sub}
+        elif row["name"].startswith("flash_bwd_"):
             which = row["name"][len("flash_bwd_"):]
             f32 = bwd["cuda_core_f32"][which]
             row["cores"] = (f"tensor cores (wgmma bf16) at this shape; "

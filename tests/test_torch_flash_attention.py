@@ -147,3 +147,47 @@ print("ok")
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", fa.DTYPES)
+def test_fwd_route_for_every_dtype_and_head_dim(dtype, d):
+    """bf16 at the models' head dims runs on the tensor cores, the rest on
+    the CUDA cores, as the backward's route does."""
+    want = ("tensor_core" if dtype == torch.bfloat16 and d in (64, 128)
+            else "cuda_core")
+    assert fa.fwd_route(dtype, d) == want == fa.bwd_route(dtype, d)
+
+
+def test_fwd_route_raises_for_what_no_route_takes():
+    with pytest.raises(TypeError, match="flash kernel takes"):
+        fa.fwd_route(torch.float16, 64)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.fwd_route(torch.bfloat16, 48)
+
+
+def test_cpu_forward_counts_no_route_and_launches_nothing():
+    """A CPU forward at the tensor-core route's dtype and head dim runs the
+    plain version: no launch and no route is counted."""
+    q, k, v, m = _inputs(64, 64, masked=True, seed=5)
+    args = [torch.from_numpy(a).bfloat16() for a in (q, k, v)]
+    before, routes = dict(fa.LAUNCHES), dict(fa.FWD_ROUTES)
+    got = fa.flash_mha_lse(*args, mask=torch.from_numpy(m), causal=True)
+    want = fa.flash_mha_reference(*args, mask=torch.from_numpy(m),
+                                  causal=True)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert fa.LAUNCHES == before and fa.FWD_ROUTES == routes
+    assert set(fa.FWD_ROUTES) == {"tensor_core", "cuda_core"}
+
+
+def test_forward_kernel_on_cpu_tensors_raises_before_the_gpu():
+    """The launch path refuses CPU tensors, and a tensor-core route asked
+    for where none exists, without touching the GPU or a count."""
+    q = torch.zeros((1, 8, 2, 64), dtype=torch.bfloat16)
+    routes = dict(fa.FWD_ROUTES)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fa._launch(q, q, q, None, True)
+    q32 = torch.zeros((1, 8, 2, 32), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="no tensor-core forward"):
+        fa._launch(q32, q32, q32, None, True, route="tensor_core")
+    assert fa.FWD_ROUTES == routes

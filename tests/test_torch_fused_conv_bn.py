@@ -234,16 +234,88 @@ def test_wrapper_runs_the_plain_version_on_the_cpu_only():
         fcb.fused_bwd(a.bfloat16(), w, x, dy, coef)
 
 
+@pytest.mark.parametrize("route", ["cuda_core", "tensor_core"])
 @pytest.mark.parametrize("m,k,c", [(802816, 64, 256), (12544, 1024, 2048),
                                    (1000, 12, 20), (33, 7, 130), (16, 4, 4),
-                                   (17, 4, 4)])
-def test_dw_row_split_covers_every_row_once(m, k, c):
-    """The dW kernel's split: slices of a multiple of 16 rows, none empty,
-    together exactly the M rows; enough slices to fill the card when M
-    allows."""
-    splits, rows = fcb.dw_splits(m, k, c)
-    assert rows % 16 == 0 and splits >= 1
+                                   (17, 4, 4), (802816, 64, 64),
+                                   (12544, 2048, 512), (77, 192, 320)])
+def test_dw_row_split_covers_every_row_once(m, k, c, route):
+    """The dW kernel's split on each route: slices of a multiple of the
+    route's row step, none empty, together exactly the M rows; enough
+    slices to fill the card when M allows; on the tensor cores no slice
+    longer than the accumulation bound."""
+    splits, rows = fcb.dw_splits(m, k, c, route)
+    tk, tc, step = fcb.dw_tile(route, k, c)
+    assert rows % step == 0 and splits >= 1
     assert (splits - 1) * rows < m <= splits * rows
-    tiles = -(-k // 64) * -(-c // 128)
-    if m >= 16 * fcb._DW_TARGET_BLOCKS:
+    tiles = -(-k // tk) * -(-c // tc)
+    if m >= step * fcb._DW_TARGET_BLOCKS:
         assert splits * tiles >= fcb._DW_TARGET_BLOCKS // 2
+    if route == "tensor_core":
+        assert rows <= fcb._TC_MAX_SPLIT_ROWS
+
+
+@pytest.mark.parametrize("k,c,tiles", [(64, 64, (64, 64)),
+                                       (128, 256, (128, 128)),
+                                       (2048, 512, (128, 128)),
+                                       (192, 320, (64, 64))])
+def test_dw_tile_follows_the_kernels_tiles(k, c, tiles):
+    """dw_tile names the tiles csrc/fused_conv_bn.cu picks: K tiles of 128
+    where K allows, C tiles of two warpgroups' 128 channels where C
+    allows; rows in steps of 64 on the tensor cores, 16 on the CUDA
+    cores."""
+    assert fcb.dw_tile("tensor_core", k, c) == (*tiles, 64)
+    assert fcb.dw_tile("cuda_core", k, c) == (64, 128, 16)
+
+
+@pytest.mark.parametrize("dtype", fcb.DTYPES)
+@pytest.mark.parametrize("k,c", [(64, 64), (64, 256), (256, 64),
+                                 (2048, 512), (192, 320), (12, 20), (7, 130),
+                                 (100, 64), (64, 100), (65, 129)])
+def test_conv_bn_route_over_dtypes_and_shapes(dtype, k, c):
+    """bf16 with K and C multiples of 64 (every ResNet-50 shape) takes the
+    tensor cores; f32 and ragged shapes the CUDA cores."""
+    aligned = k % 64 == 0 and c % 64 == 0
+    want = ("tensor_core" if dtype == torch.bfloat16 and aligned
+            else "cuda_core")
+    assert fcb.conv_bn_route(dtype, k, c) == want
+
+
+def test_every_resnet50_shape_takes_the_tensor_cores():
+    """The 36 calls of a ResNet-50 step (the port's Bottleneck layout,
+    batch 256 at 224): 15 shapes, all on the tensor-core route in bf16."""
+    shapes, hw, cin = set(), 56, 64
+    for i, n_blocks in enumerate((3, 4, 6, 3)):
+        f = 64 * 2 ** i
+        for j in range(n_blocks):
+            out_hw = hw // (2 if i > 0 and j == 0 else 1)
+            shapes |= {(256 * hw * hw, cin, f),
+                       (256 * out_hw * out_hw, f, 4 * f)}
+            if j == 0:
+                shapes.add((256 * out_hw * out_hw, cin, 4 * f))
+            cin, hw = 4 * f, out_hw
+    assert len(shapes) == 15
+    for m, k, c in shapes:
+        assert fcb.conv_bn_route(torch.bfloat16, k, c) == "tensor_core"
+
+
+def test_conv_bn_route_raises_for_what_no_route_takes():
+    with pytest.raises(TypeError, match="fused_conv_bn kernel takes"):
+        fcb.conv_bn_route(torch.float16, 64, 64)
+
+
+def test_launch_checks_before_the_gpu_and_counts_no_route():
+    """The launch path refuses CPU tensors, and a tensor-core route asked
+    for where none exists, before it touches the GPU or a count; a CPU
+    backward counts no route."""
+    a, w, x, dy, coef = (torch.from_numpy(v) for v in
+                         _kernel_operands(8, 64, 64, 64))
+    bf = [t.bfloat16() for t in (a, w, x, dy)]
+    routes = dict(fcb.ROUTES)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fcb._launch(*bf, coef)
+    with pytest.raises(ValueError, match="no tensor-core route"):
+        fcb._launch(a, w, x, dy, coef, route="tensor_core")
+    fcb.fused_bwd(*bf, coef)
+    assert fcb.ROUTES == routes
+    assert set(fcb.ROUTES) == {"tensor_core", "cuda_core"}

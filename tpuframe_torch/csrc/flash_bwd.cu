@@ -72,7 +72,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "mma.cuh"
+#include "tc_tiles.cuh"
 
 namespace {
 
@@ -391,57 +391,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(Params p) {
 // ---------------------------------------------------------------------------
 // Tensor-core route: bf16, D = 64 or 128.
 
-
-using bf16 = __nv_bfloat16;
-
 constexpr int TC_ROWS = 64;          // rows a block owns: 16 per warp
 constexpr float LOG2E = 1.4426950408889634f;
-
-// (lo, hi) rounded to bf16 (to nearest even) in one register, lo in the
-// low half: the layout of an mma operand pair.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Rows r0 .. r0+R-1 of a [S, D] bf16 slice into shared memory by 16-byte
-// cp.async, in wgmma's 128-byte swizzle: D/64 column blocks of [R][64],
-// chunk c of row r at chunk c ^ (r % 8).  Rows at or past n are
-// zero-filled.  dst is 1024-byte aligned.
-template <int D, int R>
-__device__ __forceinline__ void tc_load_tile(bf16* dst, const bf16* src,
-                                             int64_t row_stride, int r0,
-                                             int n, int tid) {
-  constexpr int CH = D / 8;  // 16-byte chunks a row
-  static_assert((R * CH) % NT == 0 && R % 8 == 0, "tile shape");
-  char* d = reinterpret_cast<char*>(dst);
-#pragma unroll
-  for (int it = 0; it < R * CH / NT; ++it) {
-    const int i = tid + it * NT;
-    const int r = i / CH, c = i % CH;
-    const bool ok = r0 + r < n;
-    cp_async16(d + (c >> 3) * (R * 128) + r * 128 + (((c & 7) ^ (r & 7)) << 4),
-               ok ? src + static_cast<int64_t>(r0 + r) * row_stride + c * 8
-                  : src,
-               ok);
-  }
-}
-
-// The K-major descriptor of k-step kk (16 columns) of an R-row tile.
-template <int R>
-__device__ __forceinline__ uint64_t tc_desc_k(const bf16* tile, int kk) {
-  return gmma_desc(reinterpret_cast<const char*>(tile) + (kk >> 2) * (R * 128) +
-                       (kk & 3) * 32,
-                   16, 1024);
-}
-
-// The MN-major descriptor of k-step j (rows 16j .. 16j+15) of an R-row
-// tile read as B = tile[k][n].
-template <int R>
-__device__ __forceinline__ uint64_t tc_desc_mn(const bf16* tile, int j) {
-  return gmma_desc(reinterpret_cast<const char*>(tile) + j * 2048, R * 128,
-                   1024);
-}
 
 // s = rows . tile^T and dp = rows2 . tile2^T over D: the two score
 // products of the block's 64 owned rows against the NS rows of a streamed
@@ -513,9 +464,6 @@ constexpr int TC_DQ_COLS = 64;
 template <int D>
 __host__ __device__ constexpr int tc_dkv_cols() { return D == 64 ? 64 : 32; }
 
-// The dynamic shared memory is realigned to 1024 bytes inside the kernel.
-constexpr int TC_ALIGN = 1024;
-
 template <int D>
 constexpr size_t tc_dq_smem_bytes() {
   return sizeof(bf16) * (2 * TC_ROWS + 4 * TC_DQ_COLS) * D +
@@ -526,12 +474,6 @@ template <int D>
 constexpr size_t tc_dkv_smem_bytes() {
   return sizeof(bf16) * (2 * TC_ROWS + 4 * tc_dkv_cols<D>()) * D +
          sizeof(float) * 4 * tc_dkv_cols<D>() + TC_ALIGN;
-}
-
-// The kernel's dynamic shared memory, from its first 1024-byte boundary.
-__device__ __forceinline__ bf16* tc_smem_base(unsigned char* raw) {
-  return reinterpret_cast<bf16*>(
-      raw + ((TC_ALIGN - (smem_addr(raw) & (TC_ALIGN - 1))) & (TC_ALIGN - 1)));
 }
 
 // One block per (batch * head, tile of 64 query rows), warp w owning rows

@@ -1,5 +1,5 @@
 // Fused 1x1-conv + BatchNorm backward (pass 2) for Hopper (sm_90a), with a
-// plain C interface.
+// plain C interface, in two routes.
 //
 // Replaces the TPU kernel tpuframe/ops/fused_conv_bn.py:_bwd_kernel (its
 // pallas_call in _fused_bwd_matmuls).  Same function: given the 1x1 conv's
@@ -10,31 +10,54 @@
 //   da = g . W^T   [M, K]       in a's dtype,
 //   dW = a^T . g   [K, C]       in f32,
 // with f32 accumulators.  g never reaches device memory: each block
-// recomputes the g tile it needs from x, dy and coef in shared memory.  The
-// three f32 operations of g are rounded one by one (no contraction into an
-// FMA), so g is bit-equal to the plain PyTorch version's.
+// recomputes the g it needs from x, dy and coef.  The three f32
+// operations of g are rounded one by one (no contraction into an FMA), so
+// g is bit-equal to the plain PyTorch version's.
 //
 // The TPU kernel carries dW in VMEM across a sequential grid.  Blocks here
-// run in parallel and in no order, so dW is split over rows instead: the
-// dW kernel gives each block one (K, C) tile and one contiguous slice of
-// rows, and it writes its f32 partial sum to a workspace [splits, K, C];
-// a second kernel adds the partials in split order.  No atomics, so the
-// result is deterministic.  With one split the dW kernel writes dW itself.
-// da needs no reduction across blocks: the da kernel owns a (rows, K) tile
-// and loops over C.
+// run in parallel and in no order, so dW is split over rows instead: each
+// dW block owns one (K, C) tile and one contiguous slice of rows and
+// writes its f32 partial sum to a workspace [splits, K, C]; a second
+// kernel adds the partials in split order.  No atomics, so the result is
+// deterministic.  With one split the dW kernel writes dW itself.  da needs
+// no reduction across blocks: a da block owns a (rows, K) tile and loops
+// over C.
 //
 // What bounds it on the H100: at ResNet-50's shapes (batch 256, M = 12,544
 // to 802,816 rows, K and C 64 to 2048) the two products are 4*M*K*C FLOPs
-// against 2*M*(K + 2C) bytes of bf16 activations moved; the per-shape bound
-// is bytes where K and C are small and operations where they are large
-// (about 5 ms a training step summed over the 36 calls).  This first
-// version runs the products as FMAs on the CUDA cores: tiles of 16
-// reduction steps staged in shared memory as f32, each thread holding an
-// 8x4 (da) or 4x8 (dW) register tile, so every shared-memory load feeds
-// eight FMAs.  It reads x and dy twice (once per product kernel) and so
-// moves more than the bound counts; tensor-core tiles (mma.sync, then
-// wgmma) are later work.  The ragged edges in M, K and C are masked here,
-// so every shape works.
+// against 2*M*(2K + 2C) bytes of bf16 activations moved; the bound is
+// bytes where K and C are small (10 of the 15 shapes) and operations where
+// they are large, about 5.2 ms summed over a training step's 36 calls.
+// Both kernels read x and dy, so the pair moves at least 2*M*C*2 bytes
+// more than that bound counts.
+//
+// Tensor-core route (bf16, K and C multiples of 64, 16-byte aligned data):
+// both products are wgmma (bf16 x bf16 -> f32) issued by warpgroups of
+// four warps, with g built in registers directly as the register A
+// operand, so it touches neither device nor shared memory.  Tiles are
+// loaded by 16-byte cp.async in two stages, in wgmma's 128-byte swizzle.
+//   da: a block (one warpgroup) owns 64 rows and NK = 64, 128 or 256
+//   columns of K (up to 128 f32 accumulators a thread), so x and dy are
+//   read K/256 times, not K/64 as before.  Per step of 64 channels it
+//   stages x, dy (64 x 64), W (NK x 64) and coef; each thread builds g for
+//   its rows g and g+8 and channel pairs 2t, 2t+8 of each 16-channel step
+//   straight into the m16n8k16 A layout, and W's [K, C] rows are B read
+//   K-major.
+//   dW: the product is taken transposed, dW^T = g^T . a, so that g^T is
+//   again a register A operand: a block (one or two warpgroups) owns 64 or
+//   128 channels and NK = 64 or 128 columns of K, and each thread's two
+//   channels (g and g+8 of its warp's 16) keep their coefficients in
+//   registers.  Per step of 64 rows it stages a (64 x NK), x and dy
+//   (64 x channels); ldmatrix.trans reads x and dy as the A fragments of
+//   their transposes, and a's tile is B read MN-major.  The tensor cores
+//   truncate rather than round as they accumulate (the precision probe),
+//   so a split is at most 2048 rows (128 wgmma steps) and the partials are
+//   added in f32 by the reduce kernel.
+//
+// CUDA-core route (f32, or K or C not a multiple of 64): the products are
+// FMAs, tiles of 16 reduction steps staged in shared memory as f32, each
+// thread holding an 8x4 (da) or 4x8 (dW) register tile.  The ragged edges
+// in M, K and C are masked, so every shape works.
 //
 // Layout: every operand is a fresh contiguous row-major array: a and da
 // [M, K], w [K, C], x and dy [M, C], coef [3, C], dw [K, C], and the
@@ -43,6 +66,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tc_tiles.cuh"
 
 namespace {
 
@@ -76,15 +101,18 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
-// g = s*dy - u*x + c in f32, each operation rounded on its own, then
-// rounded to the compute dtype T once (the TPU kernel's .astype before its
-// two dots).
+// g = s*dy - u*x + c in f32, each operation rounded on its own.
+__device__ __forceinline__ float g_f32(float x, float dy, float s, float u,
+                                       float c) {
+  return __fadd_rn(__fsub_rn(__fmul_rn(s, dy), __fmul_rn(u, x)), c);
+}
+
+// g rounded to the compute dtype T once (the TPU kernel's .astype before
+// its two dots).
 template <typename T>
 __device__ __forceinline__ float g_value(T x, T dy, float s, float u,
                                          float c) {
-  const float gf = __fadd_rn(
-      __fsub_rn(__fmul_rn(s, to_f32(dy)), __fmul_rn(u, to_f32(x))), c);
-  return to_f32(from_f32<T>(gf));
+  return to_f32(from_f32<T>(g_f32(to_f32(x), to_f32(dy), s, u, c)));
 }
 
 // da[m, k] = sum_c g[m, c] * W[k, c].  Grid: (row tiles, K tiles).
@@ -271,15 +299,342 @@ __global__ void __launch_bounds__(NT)
   dw[i] = sum;
 }
 
-template <typename T>
-cudaError_t run(const void* a, const void* w, const void* x, const void* dy,
-                const float* coef, void* da, float* dw, float* workspace,
-                int64_t m, int k, int c, int splits, cudaStream_t stream) {
-  const int64_t rows_per_split =
-      ((m + splits - 1) / splits + BKK - 1) / BKK * BKK;
-  if (splits < 1 || (splits > 1 && workspace == nullptr) ||
-      (splits - 1) * rows_per_split >= m)
+// ---------------------------------------------------------------------------
+// Tensor-core route: bf16, K and C multiples of 64.
+
+constexpr int TC_T = 128;     // threads of a warpgroup
+constexpr int TC_ROWS = 64;   // rows of a staged step (M in da, K in dW)
+constexpr int TC_C = 64;      // channels of a da step
+
+// g for two neighbouring entries (x, dy as packed bf16 pairs) and their
+// coefficients, rounded to bf16 and packed: an A operand register.
+__device__ __forceinline__ uint32_t g_pair(uint32_t x2, uint32_t dy2,
+                                           float s0, float u0, float c0,
+                                           float s1, float u1, float c1) {
+  const __nv_bfloat162 xv = *reinterpret_cast<const __nv_bfloat162*>(&x2);
+  const __nv_bfloat162 dv = *reinterpret_cast<const __nv_bfloat162*>(&dy2);
+  return pack_bf16(
+      g_f32(__bfloat162float(xv.x), __bfloat162float(dv.x), s0, u0, c0),
+      g_f32(__bfloat162float(xv.y), __bfloat162float(dv.y), s1, u1, c1));
+}
+
+template <int NK>
+constexpr size_t da_tc_smem_bytes() {
+  return 2 * (sizeof(bf16) * (2 * TC_ROWS + NK) * TC_C +
+              sizeof(float) * 3 * TC_C) +
+         TC_ALIGN;
+}
+
+// da[m, k] for a tile of 64 rows and NK columns of K.  A 1-D grid of
+// (row tile, K tile), K tile fastest, so that the blocks in flight share
+// their rows of x and dy in L2.
+template <int NK>
+__global__ void __launch_bounds__(TC_T, NK == 256 ? 1 : 2)
+    da_tc_kernel(const bf16* __restrict__ w, const bf16* __restrict__ x,
+                 const bf16* __restrict__ dy, const float* __restrict__ coef,
+                 bf16* __restrict__ da, int m, int k, int c) {
+  constexpr int BN = NK < 128 ? NK : 128;   // columns of one wgmma
+  constexpr int NB = NK / BN;               // wgmmas a k-step
+  constexpr int STAGE = (2 * TC_ROWS + NK) * TC_C;  // bf16 a stage
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* base = tc_smem_base(tc_smem);  // [2][x 64x64 | dy 64x64 | W NKx64]
+  float* coef_s = reinterpret_cast<float*>(base + 2 * STAGE);  // [2][3][64]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tig = lane & 3;
+  const int k_tiles = k / NK;
+  const int k0 = (blockIdx.x % k_tiles) * NK;
+  const int m0 = (blockIdx.x / k_tiles) * TC_ROWS;
+  const int n_steps = c / TC_C;
+
+  auto load = [&](int step) {
+    const int c0 = step * TC_C;
+    bf16* st = base + (step & 1) * STAGE;
+    tc_load_tile<TC_C, TC_ROWS>(st, x + c0, c, m0, m, tid);
+    tc_load_tile<TC_C, TC_ROWS>(st + TC_ROWS * TC_C, dy + c0, c, m0, m, tid);
+    tc_load_tile<TC_C, NK>(st + 2 * TC_ROWS * TC_C, w + c0, c, k0, k, tid);
+    if (tid < 3 * TC_C / 4) {   // coef[:, c0 .. c0+63], 16 bytes a thread
+      const int row = tid / (TC_C / 4), q = tid % (TC_C / 4);
+      cp_async16(coef_s + (step & 1) * 3 * TC_C + row * TC_C + q * 4,
+                 coef + static_cast<int64_t>(row) * c + c0 + q * 4, true);
+    }
+  };
+
+  float acc[NB][BN / 8][4];
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+    for (int nt = 0; nt < BN / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nb][nt][e] = 0.f;
+
+  // This thread's rows of the tile: r0 and r0 + 8.
+  const int r0 = warp * 16 + g;
+  load(0);
+  cp_async_commit();
+  for (int step = 0; step < n_steps; ++step) {
+    if (step + 1 < n_steps) {
+      load(step + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    fence_proxy_async();  // W's tile is read by wgmma
+    __syncthreads();
+    const bf16* st = base + (step & 1) * STAGE;
+    const char* xs = reinterpret_cast<const char*>(st);
+    const char* ds = reinterpret_cast<const char*>(st + TC_ROWS * TC_C);
+    const bf16* ws = st + 2 * TC_ROWS * TC_C;
+    const float* cf = coef_s + (step & 1) * 3 * TC_C;
+
+    uint32_t a[TC_C / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < TC_C / 16; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        // a0 = (r0, 2t..), a1 = (r0+8, 2t..), a2 = (r0, 2t+8..), a3 = ...
+        const int row = r0 + (i & 1) * 8, col = kk * 16 + (i >> 1) * 8 +
+                                                tig * 2;
+        const int off = tc_chunk<TC_ROWS>(row, col) + (col & 7) * 2;
+        const float2 sv = *reinterpret_cast<const float2*>(cf + col);
+        const float2 uv = *reinterpret_cast<const float2*>(cf + TC_C + col);
+        const float2 cv =
+            *reinterpret_cast<const float2*>(cf + 2 * TC_C + col);
+        a[kk][i] = g_pair(*reinterpret_cast<const uint32_t*>(xs + off),
+                          *reinterpret_cast<const uint32_t*>(ds + off), sv.x,
+                          uv.x, cv.x, sv.y, uv.y, cv.y);
+      }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < TC_C / 16; ++kk)
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+        wgmma_rs<K_MAJOR>(acc[nb], a[kk],
+                          tc_desc_k<NK>(ws + nb * BN * TC_C, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) fence_operand(acc[nb]);
+    fence_operand(a);
+    __syncthreads();  // this stage is reloaded two steps on
+  }
+
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = m0 + r0 + half * 8;
+    if (row >= m) continue;
+    bf16* dst = da + static_cast<int64_t>(row) * k + k0;
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int nt = 0; nt < BN / 8; ++nt)
+        *reinterpret_cast<__nv_bfloat162*>(dst + nb * BN + nt * 8 +
+                                           tig * 2) =
+            __floats2bfloat162_rn(acc[nb][nt][2 * half],
+                                  acc[nb][nt][2 * half + 1]);
+  }
+}
+
+template <int NK, int WG>
+constexpr size_t dw_tc_smem_bytes() {
+  return 2 * sizeof(bf16) * TC_ROWS * (NK + 2 * 64 * WG) + TC_ALIGN;
+}
+
+// Partial dW over one slice of rows for a tile of 64*WG channels (one
+// warpgroup each) and NK columns of K, taken as dW^T = g^T . a.  A 1-D
+// grid of (C tile, K tile, split), C tile fastest; `out` is dW itself
+// when there is one split, else the split's [K, C] slab of the workspace.
+template <int NK, int WG>
+__global__ void __launch_bounds__(TC_T * WG, 2)
+    dw_tc_kernel(const bf16* __restrict__ a, const bf16* __restrict__ x,
+                 const bf16* __restrict__ dy, const float* __restrict__ coef,
+                 float* __restrict__ out, int m, int k, int c,
+                 int rows_per_split) {
+  constexpr int CT = 64 * WG;                        // channels a block
+  constexpr int STAGE = TC_ROWS * (NK + 2 * CT);     // bf16 a stage
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* base = tc_smem_base(tc_smem);  // [2][a 64xNK | x 64xCT | dy 64xCT]
+
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3;
+  const int lane = tid & 31, g = lane >> 2, tig = lane & 3;
+  const int c_tiles = c / CT, k_tiles = k / NK;
+  const int c0 = (blockIdx.x % c_tiles) * CT;
+  const int k0 = (blockIdx.x / c_tiles % k_tiles) * NK;
+  const int split = blockIdx.x / c_tiles / k_tiles;
+  const int r_begin = split * rows_per_split;
+  const int r_end = min(m, r_begin + rows_per_split);
+  out += static_cast<int64_t>(split) * k * c;
+  const int n_steps = (r_end - r_begin + TC_ROWS - 1) / TC_ROWS;
+
+  // This thread's two channels, tile-relative, and their coefficients.
+  const int ch = wg * 64 + warp * 16 + g;
+  float cs[2], cu[2], cc[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    cs[i] = __ldg(coef + c0 + ch + 8 * i);
+    cu[i] = __ldg(coef + c + c0 + ch + 8 * i);
+    cc[i] = __ldg(coef + 2 * c + c0 + ch + 8 * i);
+  }
+
+  auto load = [&](int step) {
+    const int rr = r_begin + step * TC_ROWS;
+    bf16* st = base + (step & 1) * STAGE;
+    tc_load_tile<NK, TC_ROWS, TC_T * WG>(st, a + k0, k, rr, r_end, tid);
+    tc_load_tile<CT, TC_ROWS, TC_T * WG>(st + TC_ROWS * NK, x + c0, c, rr,
+                                         r_end, tid);
+    tc_load_tile<CT, TC_ROWS, TC_T * WG>(st + TC_ROWS * (NK + CT), dy + c0,
+                                         c, rr, r_end, tid);
+  };
+
+  float acc[NK / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < NK / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+
+  // ldmatrix row of this lane: matrix lane/8 holds rows +8 (matrices 2, 3)
+  // and channels +8 (matrices 1, 3) of the warp's 16 x 16 step.
+  const int lm_row = (lane & 7) + ((lane >> 4) << 3);
+  const int lm_ch = wg * 64 + warp * 16 + ((lane >> 3) & 1) * 8;
+  load(0);
+  cp_async_commit();
+  for (int step = 0; step < n_steps; ++step) {
+    if (step + 1 < n_steps) {
+      load(step + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    fence_proxy_async();  // a's tile is read by wgmma
+    __syncthreads();
+    const bf16* st = base + (step & 1) * STAGE;
+    const char* xs = reinterpret_cast<const char*>(st + TC_ROWS * NK);
+    const char* ds = reinterpret_cast<const char*>(st + TC_ROWS * (NK + CT));
+
+    uint32_t ga[TC_ROWS / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < TC_ROWS / 16; ++kk) {
+      const int off = tc_chunk<TC_ROWS>(kk * 16 + lm_row, lm_ch);
+      uint32_t xr[4], dr[4];
+      ldmatrix_x4_trans(xr, xs + off);
+      ldmatrix_x4_trans(dr, ds + off);
+      // registers 0, 2: channel g; 1, 3: channel g+8 (rows 2t, 2t+1)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        ga[kk][i] = g_pair(xr[i], dr[i], cs[i & 1], cu[i & 1], cc[i & 1],
+                           cs[i & 1], cu[i & 1], cc[i & 1]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < TC_ROWS / 16; ++kk)
+      wgmma_rs<MN_MAJOR>(acc, ga[kk], tc_desc_mn<TC_ROWS>(st, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operand(acc);
+    fence_operand(ga);
+    __syncthreads();  // this stage is reloaded two steps on
+  }
+
+  // acc[nt][e]: channel ch (e < 2) or ch + 8, K column nt*8 + 2t + (e & 1).
+#pragma unroll
+  for (int nt = 0; nt < NK / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int kk = k0 + nt * 8 + tig * 2 + (e & 1);
+      out[static_cast<int64_t>(kk) * c + c0 + ch + (e >> 1) * 8] =
+          acc[nt][e];
+    }
+}
+
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+// The tensor-core kernels' tiles: NK of da, (NK, channel warpgroups) of
+// dW, from K and C (multiples of 64).
+int tc_da_nk(int k) { return k % 256 == 0 ? 256 : k % 128 == 0 ? 128 : 64; }
+int tc_dw_nk(int k) { return k % 128 == 0 ? 128 : 64; }
+int tc_dw_wg(int c) { return c % 128 == 0 ? 2 : 1; }
+
+using DaFn = void (*)(const bf16*, const bf16*, const bf16*, const float*,
+                      bf16*, int, int, int);
+using DwFn = void (*)(const bf16*, const bf16*, const bf16*, const float*,
+                      float*, int, int, int, int);
+
+// f(kernel, smem bytes, threads) for the da kernel of K.
+template <typename F>
+cudaError_t with_da_tc(int k, F&& f) {
+  switch (tc_da_nk(k)) {
+    case 256: return f(DaFn(da_tc_kernel<256>), da_tc_smem_bytes<256>(), TC_T);
+    case 128: return f(DaFn(da_tc_kernel<128>), da_tc_smem_bytes<128>(), TC_T);
+    default: return f(DaFn(da_tc_kernel<64>), da_tc_smem_bytes<64>(), TC_T);
+  }
+}
+
+// f(kernel, smem bytes, threads) for the dW kernel of (K, C).
+template <typename F>
+cudaError_t with_dw_tc(int k, int c, F&& f) {
+  const int nk = tc_dw_nk(k), wg = tc_dw_wg(c);
+#define TF_DW(NK, WG)                                                      \
+  if (nk == NK && wg == WG)                                                \
+    return f(DwFn(dw_tc_kernel<NK, WG>), dw_tc_smem_bytes<NK, WG>(),       \
+             TC_T * WG);
+  TF_DW(128, 2)
+  TF_DW(128, 1)
+  TF_DW(64, 2)
+  TF_DW(64, 1)
+#undef TF_DW
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t run_tc(const bf16* a, const bf16* w, const bf16* x,
+                   const bf16* dy, const float* coef, bf16* da, float* dw,
+                   float* workspace, int m, int k, int c, int splits,
+                   int rows_per_split, cudaStream_t stream) {
+  if (k % 64 != 0 || c % 64 != 0 || rows_per_split % TC_ROWS != 0)
     return cudaErrorInvalidValue;
+  const void* ptrs[8] = {a, w, x, dy, coef, da, dw, workspace};
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0)
+      return cudaErrorMisalignedAddress;
+  const int64_t da_blocks =
+      static_cast<int64_t>((m + TC_ROWS - 1) / TC_ROWS) * (k / tc_da_nk(k));
+  const int64_t dw_blocks = static_cast<int64_t>(splits) *
+                            (k / tc_dw_nk(k)) * (c / (64 * tc_dw_wg(c)));
+  if (da_blocks > 0x7fffffff || dw_blocks > 0x7fffffff)
+    return cudaErrorInvalidValue;
+  cudaError_t err =
+      with_da_tc(k, [&](DaFn kernel, size_t smem, int threads) {
+        const cudaError_t e = allow_smem(kernel, smem);
+        if (e != cudaSuccess) return e;
+        kernel<<<static_cast<unsigned>(da_blocks), threads, smem, stream>>>(
+            w, x, dy, coef, da, m, k, c);
+        return cudaGetLastError();
+      });
+  if (err != cudaSuccess) return err;
+  float* out = splits == 1 ? dw : workspace;
+  return with_dw_tc(k, c, [&](DwFn kernel, size_t smem, int threads) {
+    const cudaError_t e = allow_smem(kernel, smem);
+    if (e != cudaSuccess) return e;
+    kernel<<<static_cast<unsigned>(dw_blocks), threads, smem, stream>>>(
+        a, x, dy, coef, out, m, k, c, rows_per_split);
+    return cudaGetLastError();
+  });
+}
+
+template <typename T>
+cudaError_t run_cuda_core(const void* a, const void* w, const void* x,
+                          const void* dy, const float* coef, void* da,
+                          float* dw, float* workspace, int64_t m, int k,
+                          int c, int splits, int64_t rows_per_split,
+                          cudaStream_t stream) {
+  if (rows_per_split % BKK != 0) return cudaErrorInvalidValue;
   const int64_t m_tiles = (m + DA_BM - 1) / DA_BM;
   if (m_tiles > 0x7fffffff) return cudaErrorInvalidValue;
 
@@ -297,12 +652,6 @@ cudaError_t run(const void* a, const void* w, const void* x, const void* dy,
                  NT, 0, stream>>>(
       static_cast<const T*>(a), static_cast<const T*>(x),
       static_cast<const T*>(dy), coef, out, m, k, c, rows_per_split);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return err;
-
-  const int64_t n = static_cast<int64_t>(k) * c;
-  dw_reduce_kernel<<<static_cast<unsigned>((n + NT - 1) / NT), NT, 0,
-                     stream>>>(workspace, dw, n, splits);
   return cudaGetLastError();
 }
 
@@ -312,23 +661,60 @@ extern "C" {
 
 // Returns cudaSuccess (0) or the first failing launch's cudaError_t.
 // is_bf16 selects __nv_bfloat16 for a, w, x, dy and da; otherwise all are
-// float.  coef, dw and the workspace are float.  splits >= 1 slices of
-// ceil(ceil(m / splits) / 16) * 16 rows each share the dW reduction;
-// workspace holds splits * k * c floats when splits > 1 (else may be
-// null), and the last slice must not be empty.
+// float.  coef, dw and the workspace are float.  tensor_core selects the
+// tensor-core kernels (bf16, k and c multiples of 64, 16-byte aligned
+// data).  splits slices of rows_per_split rows (a multiple of 16 on the
+// CUDA cores, of 64 on the tensor cores; the last slice not empty) share
+// the dW reduction; workspace holds splits * k * c floats when splits > 1
+// (else may be null).
 int tf_fused_conv_bn_bwd(const void* a, const void* w, const void* x,
                          const void* dy, const void* coef, void* da,
                          void* dw, void* workspace, int64_t m, int k, int c,
-                         int splits, int is_bf16, void* stream) {
-  if (m <= 0 || k <= 0 || c <= 0) return cudaErrorInvalidValue;
+                         int splits, int64_t rows_per_split, int is_bf16,
+                         int tensor_core, void* stream) {
+  if (m <= 0 || k <= 0 || c <= 0 || splits < 1 || rows_per_split <= 0 ||
+      (splits > 1 && workspace == nullptr) ||
+      (splits - 1) * rows_per_split >= m || splits * rows_per_split < m)
+    return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* cf = static_cast<const float*>(coef);
   float* dwf = static_cast<float*>(dw);
   float* ws = static_cast<float*>(workspace);
-  return is_bf16 ? run<__nv_bfloat16>(a, w, x, dy, cf, da, dwf, ws, m, k, c,
-                                      splits, st)
-                 : run<float>(a, w, x, dy, cf, da, dwf, ws, m, k, c, splits,
-                              st);
+  cudaError_t err;
+  if (tensor_core) {
+    if (!is_bf16 || m > 0x7fffffff) return cudaErrorInvalidValue;
+    err = run_tc(static_cast<const bf16*>(a), static_cast<const bf16*>(w),
+                 static_cast<const bf16*>(x), static_cast<const bf16*>(dy),
+                 cf, static_cast<bf16*>(da), dwf, ws, static_cast<int>(m),
+                 k, c, splits, static_cast<int>(rows_per_split), st);
+  } else {
+    err = is_bf16 ? run_cuda_core<__nv_bfloat16>(a, w, x, dy, cf, da, dwf,
+                                                 ws, m, k, c, splits,
+                                                 rows_per_split, st)
+                  : run_cuda_core<float>(a, w, x, dy, cf, da, dwf, ws, m, k,
+                                         c, splits, rows_per_split, st);
+  }
+  if (err != cudaSuccess || splits == 1) return err;
+  const int64_t n = static_cast<int64_t>(k) * c;
+  dw_reduce_kernel<<<static_cast<unsigned>((n + NT - 1) / NT), NT, 0, st>>>(
+      ws, dwf, n, splits);
+  return cudaGetLastError();
+}
+
+// The dynamic shared memory and blocks an SM of the tensor-core da
+// (which = 0) or dW (which = 1) kernel for (k, c).
+int tf_fused_conv_bn_kernel_info(int which, int k, int c, int* smem_bytes,
+                                 int* blocks_per_sm) {
+  auto info = [&](auto kernel, size_t smem, int threads) {
+    *smem_bytes = static_cast<int>(smem);
+    const cudaError_t err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm,
+                                                         kernel, threads,
+                                                         smem);
+  };
+  if (k % 64 != 0 || c % 64 != 0) return cudaErrorInvalidValue;
+  return which == 0 ? with_da_tc(k, info) : with_dw_tc(k, c, info);
 }
 
 const char* tf_fused_conv_bn_error_string(int err) {

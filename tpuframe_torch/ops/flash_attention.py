@@ -4,16 +4,18 @@ Three kernels replace the TPU kernels of ``tpuframe/ops/flash_attention.py``:
 
   - ``flash_fwd`` (``csrc/flash_fwd.cu``) replaces ``_fwd_kernel`` (its
     ``pallas_call`` in ``_flash_fwd``): one thread block per (batch * head,
-    32 query rows) loops over K/V tiles staged in shared memory, keeping
-    the S x S scores on the SM.
+    tile of query rows) loops over K/V tiles staged in shared memory,
+    keeping the S x S scores on the SM.
   - ``flash_bwd_dq`` and ``flash_bwd_dkv`` (``csrc/flash_bwd.cu``) replace
     ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` (the two ``pallas_call``s in
     ``_flash_bwd``): the FA2 split, one kernel owning query rows and one
     owning keys, each recomputing the probabilities from the saved
-    logsumexp, with no atomics.  Each has two routes, chosen by
-    :func:`bwd_route` from the dtype and head_dim alone: bf16 at head_dim
-    64 or 128 runs on the tensor cores (``wgmma``), everything else on
-    the CUDA cores; :data:`BWD_ROUTES` counts the launches of each.
+    logsumexp, with no atomics.
+
+Every kernel has two routes, chosen from the dtype and head_dim alone
+(:func:`fwd_route`, :func:`bwd_route`): bf16 at head_dim 64 or 128 runs on
+the tensor cores (``wgmma``), everything else on the CUDA cores;
+:data:`FWD_ROUTES` and :data:`BWD_ROUTES` count the launches of each.
 
 Each source's header note says what bounds it on the H100 and what its
 design does about that.  Tiles above the diagonal are skipped under
@@ -40,12 +42,14 @@ NEG_INF = -1e30  # softmax mask fill; finite so (x - x) stays 0, not nan
 HEAD_DIMS = (16, 32, 64, 128, 256)
 DTYPES = (torch.float32, torch.bfloat16)
 
-# The head dims the backward's tensor-core route takes (in bf16).
+# The head dims the tensor-core routes take (in bf16).
 TC_HEAD_DIMS = (64, 128)
 
 # Launches of each CUDA kernel in this process: the counts a run reads to
 # show that its path went through the kernels.
 LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+# Forward kernel launches by route.
+FWD_ROUTES = {"tensor_core": 0, "cuda_core": 0}
 # Backward kernel launches by route, dq and dkv alike.
 BWD_ROUTES = {"tensor_core": 0, "cuda_core": 0}
 
@@ -62,7 +66,11 @@ def _kernel(name: str):
         if name == "flash_fwd":
             fns = [lib.tf_flash_fwd]
             fns[0].argtypes = ([ptr] * 6 + [i32] * 6 + [i64] * 9
-                               + [ctypes.c_float, i32, ptr])
+                               + [ctypes.c_float, i32, i32, ptr])
+            info = lib.tf_flash_fwd_kernel_info
+            info.argtypes = [i32] * 3 + [ctypes.POINTER(i32)] * 2
+            info.restype = ctypes.c_int
+            _fns["flash_fwd_info"] = info
             err = lib.tf_flash_error_string
         else:
             fns = [lib.tf_flash_bwd_dq, lib.tf_flash_bwd_dkv]
@@ -202,10 +210,23 @@ def _raise_on(name, err, err_str):
                            f"{err_str(err).decode()} ({err})")
 
 
-def _launch(q, k, v, mask, causal):
+def _launch(q, k, v, mask, causal, route=None):
+    """The forward kernel on ``route`` (default: :func:`fwd_route`'s).
+    ``route="cuda_core"`` on a bf16 input at head_dim 64 or 128 runs the
+    CUDA-core kernel on the tensor-core route's inputs: chip_smoke.py
+    times the two routes that way."""
     mask = _launch_checks(q, k, v, mask)
     b, s_q, n, d = q.shape
     s_kv = k.shape[1]
+    route = route or fwd_route(q.dtype, d)
+    if route == "tensor_core" and fwd_route(q.dtype, d) != route:
+        raise ValueError(f"no tensor-core forward for {q.dtype} at "
+                         f"head_dim {d}")
+    if q.device.type != "cuda":
+        raise ValueError(f"flash forward kernel takes CUDA tensors; got "
+                         f"{q.device}")
+    if route == "tensor_core":
+        q, k, v = map(_tc_operand, (q, k, v))
     out = torch.empty((b, s_q, n, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, n, s_q), dtype=torch.float32, device=q.device)
     fn, err_str = _kernel("flash_fwd")
@@ -218,18 +239,27 @@ def _launch(q, k, v, mask, causal):
                  q.stride(0), q.stride(1), q.stride(2),
                  k.stride(0), k.stride(1), k.stride(2),
                  v.stride(0), v.stride(1), v.stride(2),
-                 d ** -0.5, int(causal), stream)
+                 d ** -0.5, int(causal), int(route == "tensor_core"), stream)
     _raise_on("flash_fwd", err, err_str)
     LAUNCHES["flash_fwd"] += 1
+    FWD_ROUTES[route] += 1
     return out, lse
 
 
-def bwd_route(dtype, head_dim) -> str:
-    """The backward kernels' route for ``(dtype, head_dim)``:
-    ``"tensor_core"`` for bf16 at :data:`TC_HEAD_DIMS` (the models' head
-    dims), else ``"cuda_core"``.  f32 stays on the CUDA cores on purpose:
-    one TF32 pass keeps about 3 decimal digits, and f32 gradients are held
-    to 1e-4.  Raises for what no route takes."""
+def fwd_kernel_info(dtype, head_dim, route):
+    """``(dynamic shared memory bytes, blocks an SM holds)`` of the
+    forward kernel on ``route``, from the CUDA runtime's occupancy
+    calculator."""
+    _, err_str = _kernel("flash_fwd")
+    smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    err = _fns["flash_fwd_info"](head_dim, int(dtype == torch.bfloat16),
+                                 int(route == "tensor_core"),
+                                 ctypes.byref(smem), ctypes.byref(blocks))
+    _raise_on("flash_fwd info", err, err_str)
+    return smem.value, blocks.value
+
+
+def _route(dtype, head_dim) -> str:
     if dtype not in DTYPES:
         raise TypeError(f"flash kernel takes {DTYPES}; got {dtype}")
     if head_dim not in HEAD_DIMS:
@@ -238,6 +268,24 @@ def bwd_route(dtype, head_dim) -> str:
     if dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS:
         return "tensor_core"
     return "cuda_core"
+
+
+def fwd_route(dtype, head_dim) -> str:
+    """The forward kernel's route for ``(dtype, head_dim)``:
+    ``"tensor_core"`` for bf16 at :data:`TC_HEAD_DIMS` (the models' head
+    dims), else ``"cuda_core"``.  f32 is on no training path and stays on
+    the CUDA cores, like the backward's.  Raises for what no route
+    takes."""
+    return _route(dtype, head_dim)
+
+
+def bwd_route(dtype, head_dim) -> str:
+    """The backward kernels' route for ``(dtype, head_dim)``:
+    ``"tensor_core"`` for bf16 at :data:`TC_HEAD_DIMS` (the models' head
+    dims), else ``"cuda_core"``.  f32 stays on the CUDA cores on purpose:
+    one TF32 pass keeps about 3 decimal digits, and f32 gradients are held
+    to 1e-4.  Raises for what no route takes."""
+    return _route(dtype, head_dim)
 
 
 def _tc_operand(t):

@@ -13,7 +13,10 @@ BatchNorm, as a :class:`torch.autograd.Function`:
     which replaces ``_bwd_kernel`` (the ``pallas_call`` in
     ``_fused_bwd_matmuls``): ``g = s*dy - u*x + c`` rounded once to the
     compute dtype, ``da = g.W^T`` and ``dW = a^T.g`` (f32), with ``g`` kept
-    on the SM.
+    on the SM.  Two routes, chosen by :func:`conv_bn_route` from the dtype
+    and shape alone: bf16 with K and C multiples of 64 (every ResNet-50
+    shape) runs on the tensor cores (``wgmma``), everything else on the
+    CUDA cores; :data:`ROUTES` counts the launches of each.
 
 The gradients of the returned ``mean`` and ``var`` are ignored: they exist
 for the running-statistics update, as in the JAX package.  A tensor on the
@@ -33,14 +36,28 @@ DTYPES = (torch.float32, torch.bfloat16)
 # Launches of the CUDA kernel in this process: the count a run reads to
 # show that its path went through it.
 LAUNCHES = {"fused_conv_bn_bwd": 0}
+# The same launches by route.
+ROUTES = {"tensor_core": 0, "cuda_core": 0}
 
 # The dW reduction is split over rows until about this many blocks are in
-# flight (132 SMs, a few blocks each).  The tile and step sizes are the dW
-# kernel's (csrc/fused_conv_bn.cu: DW_BM, DW_BN, BKK); the kernel checks
-# the split it is given, so a mismatch costs speed, not correctness.
+# flight (132 SMs, a few blocks each).  A split's rows are a multiple of
+# the kernel's step; the kernel checks the split it is given, so a
+# mismatch of the tiles below costs speed, not correctness.
 _DW_TARGET_BLOCKS = 132 * 6
-_DW_TILE = (64, 128)   # a dW block's (K, C) tile
-_BKK = 16              # rows staged per step
+# The tensor cores truncate as they accumulate, so their error grows with
+# the wgmma steps of one sum: a split on that route holds at most this
+# many rows (128 steps of 16), and the reduce adds the partials in f32.
+_TC_MAX_SPLIT_ROWS = 2048
+
+
+def dw_tile(route: str, k: int, c: int) -> tuple[int, int, int]:
+    """``(K tile, C tile, row step)`` of a dW block on ``route``
+    (csrc/fused_conv_bn.cu: DW_BM, DW_BN, BKK on the CUDA cores;
+    tc_dw_nk, tc_dw_wg, TC_ROWS on the tensor cores)."""
+    if route == "tensor_core":
+        return (128 if k % 128 == 0 else 64, 128 if c % 128 == 0 else 64, 64)
+    return 64, 128, 16
+
 
 _fns: dict = {}
 
@@ -54,9 +71,13 @@ def _kernel():
         lib = _build.load("fused_conv_bn")
         ptr = ctypes.c_void_p
         fn = lib.tf_fused_conv_bn_bwd
-        fn.argtypes = ([ptr] * 8 + [ctypes.c_int64] + [ctypes.c_int] * 4
-                       + [ptr])
+        fn.argtypes = ([ptr] * 8 + [ctypes.c_int64] + [ctypes.c_int] * 3
+                       + [ctypes.c_int64] + [ctypes.c_int] * 2 + [ptr])
         fn.restype = ctypes.c_int
+        info = lib.tf_fused_conv_bn_kernel_info
+        info.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2
+        info.restype = ctypes.c_int
+        _fns["info"] = info
         err = lib.tf_fused_conv_bn_error_string
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
@@ -64,13 +85,29 @@ def _kernel():
     return _fns["bwd"]
 
 
-def dw_splits(m: int, k: int, c: int) -> tuple[int, int]:
-    """``(splits, rows_per_split)`` of the dW kernel's row split: enough
-    slices that about ``_DW_TARGET_BLOCKS`` blocks run, each slice a
-    multiple of 16 rows and none empty."""
-    tiles = -(-k // _DW_TILE[0]) * -(-c // _DW_TILE[1])
-    want = max(1, min(-(-m // _BKK), -(-_DW_TARGET_BLOCKS // tiles)))
-    rows = -(-(-(-m // want)) // _BKK) * _BKK
+def conv_bn_route(dtype, k: int, c: int) -> str:
+    """The kernel's route for ``(dtype, K, C)``: ``"tensor_core"`` for
+    bf16 with K and C multiples of 64 (the tiles' width: every ResNet-50
+    shape), else ``"cuda_core"``.  f32 stays on the CUDA cores: one TF32
+    pass keeps about 3 decimal digits.  Raises for what no route takes."""
+    if dtype not in DTYPES:
+        raise TypeError(f"fused_conv_bn kernel takes {DTYPES}; got {dtype}")
+    if dtype == torch.bfloat16 and k % 64 == 0 and c % 64 == 0:
+        return "tensor_core"
+    return "cuda_core"
+
+
+def dw_splits(m: int, k: int, c: int, route: str) -> tuple[int, int]:
+    """``(splits, rows_per_split)`` of the dW kernel's row split on
+    ``route``: enough slices that about ``_DW_TARGET_BLOCKS`` blocks run,
+    each slice a multiple of the route's row step (at most
+    ``_TC_MAX_SPLIT_ROWS`` rows on the tensor cores) and none empty."""
+    tk, tc, step = dw_tile(route, k, c)
+    tiles = -(-k // tk) * -(-c // tc)
+    want = max(1, min(-(-m // step), -(-_DW_TARGET_BLOCKS // tiles)))
+    rows = -(-(-(-m // want)) // step) * step
+    if route == "tensor_core":
+        rows = min(rows, _TC_MAX_SPLIT_ROWS)
     return -(-m // rows), rows
 
 
@@ -110,14 +147,27 @@ def _check(a, w, x, dy, coef):
         raise ValueError("a, w, x, dy, coef lie on different devices")
 
 
-def _launch(a, w, x, dy, coef):
-    if a.dtype not in DTYPES:
-        raise TypeError(f"fused_conv_bn kernel takes {DTYPES}; got {a.dtype}")
-    if not all(t.is_contiguous() for t in (a, w, x, dy, coef)):
-        raise ValueError("fused_conv_bn kernel needs contiguous operands")
+def _launch(a, w, x, dy, coef, route=None):
+    """The kernel on ``route`` (default: :func:`conv_bn_route`'s).
+    ``route="cuda_core"`` on a bf16 input runs the CUDA-core kernels on
+    the tensor-core route's inputs: chip_smoke.py times the two routes
+    that way."""
     m, k = a.shape
     c = w.shape[1]
-    splits, _ = dw_splits(m, k, c)
+    route = route or conv_bn_route(a.dtype, k, c)
+    if route == "tensor_core" and conv_bn_route(a.dtype, k, c) != route:
+        raise ValueError(f"no tensor-core route for {a.dtype} K={k} C={c}")
+    if not all(t.is_contiguous() for t in (a, w, x, dy, coef)):
+        raise ValueError("fused_conv_bn kernel needs contiguous operands")
+    if a.device.type != "cuda":
+        raise ValueError(f"fused_conv_bn kernel takes CUDA tensors; got "
+                         f"{a.device}")
+    if route == "tensor_core":
+        # 16-byte loads: rows of K, C multiples of 64 are, the data may
+        # not be (a view at an odd offset)
+        a, w, x, dy, coef = (t if t.data_ptr() % 16 == 0 else t.clone()
+                             for t in (a, w, x, dy, coef))
+    splits, rows = dw_splits(m, k, c, route)
     da = torch.empty((m, k), dtype=a.dtype, device=a.device)
     dw = torch.empty((k, c), dtype=torch.float32, device=a.device)
     ws = (torch.empty((splits, k, c), dtype=torch.float32, device=a.device)
@@ -128,12 +178,28 @@ def _launch(a, w, x, dy, coef):
         err = fn(a.data_ptr(), w.data_ptr(), x.data_ptr(), dy.data_ptr(),
                  coef.data_ptr(), da.data_ptr(), dw.data_ptr(),
                  None if ws is None else ws.data_ptr(), m, k, c, splits,
-                 int(a.dtype == torch.bfloat16), stream)
+                 rows, int(a.dtype == torch.bfloat16),
+                 int(route == "tensor_core"), stream)
     if err != 0:
         raise RuntimeError(f"fused_conv_bn_bwd kernel launch failed: "
                            f"{err_str(err).decode()} ({err})")
     LAUNCHES["fused_conv_bn_bwd"] += 1
+    ROUTES[route] += 1
     return da, dw
+
+
+def tc_kernel_info(which: str, k: int, c: int) -> tuple[int, int]:
+    """``(dynamic shared memory bytes, blocks an SM holds)`` of the
+    tensor-core ``"da"`` or ``"dw"`` kernel for ``(K, C)``, from the CUDA
+    runtime's occupancy calculator."""
+    _, err_str = _kernel()
+    smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    err = _fns["info"](int(which == "dw"), k, c, ctypes.byref(smem),
+                       ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"fused_conv_bn {which} info failed: "
+                           f"{err_str(err).decode()} ({err})")
+    return smem.value, blocks.value
 
 
 def fused_bwd(a, w, x, dy, coef):

@@ -16,8 +16,9 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
      fully masked rows and strided inputs, each case asserting the route
      it took; time the kernel, the plain version and one PyTorch library
      call that computes the same function (a yardstick only);
-  4. the same for the two backward kernels at the training slice's shapes
-     on both routes (bf16 on the tensor cores, f32 on the CUDA cores),
+  4. the same for the delta pass and the two backward kernels at the
+     training slice's shapes on both routes (bf16 on the tensor cores,
+     f32 on the CUDA cores),
      with their shared memory and blocks an SM, plus a correctness sweep
      (f32, key masks with fully masked rows, ragged lengths, every
      head_dim, strided inputs, an lse cotangent), each case asserting the
@@ -51,7 +52,23 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
  12. train imagenet_resnet50 with ``bn="fused"`` through
      ``tpuframe_torch.train.main`` (cuts in RESNET_CUTS), with every
      kernel's launch count and the fused op's routes read around that
-     run, then profile one more step.
+     run, then profile one more step;
+ 13. BERT-base at full width with dropout 0 (``bert_parity``): the three
+     flash kernels against their plain versions at BERT's shapes (key
+     masked, not causal), then one GLUE step's loss and gradients through
+     the kernels against the einsum attention, in f32 and in bf16;
+ 14. serve 16 single-shot requests through ``BertClassifier`` at full
+     width in bf16 over buckets 64 and 128 (``bert_serve``), each held
+     to a classifier on the einsum path with the same weights and timed;
+     time the forward kernel at BERT's eval shape beside its bound, the
+     plain version and SDPA with the same mask;
+ 15. train glue_bert through ``tpuframe_torch.train.main`` at its own
+     recipe (cuts in BERT_CUTS: steps only), asserting the reference's
+     dispatch (dropout on the einsum in training, the forward kernel in
+     eval), profile one more step, then run glue_bert_stsb and
+     glue_bert_cola briefly (``bert_train``).
+
+Phases 13-15 run with ``TPUFRAME_ATTN_IMPL=pallas`` and restore it after.
 
 ``--phases`` runs a subset after the build, for debugging.  A full run
 prints a ``{"kernels": [...]}`` line, then ends with
@@ -62,8 +79,10 @@ are random, drawn from fixed seeds.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -71,6 +90,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -78,15 +98,19 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 from tpuframe_torch import _build  # noqa: E402
 from tpuframe_torch import train as train_lib  # noqa: E402
+from tpuframe_torch.data import datasets  # noqa: E402
 from tpuframe_torch.models import get_model  # noqa: E402
+from tpuframe_torch.models.bert import BertConfig  # noqa: E402
 from tpuframe_torch.models.transformer_lm import LMConfig  # noqa: E402
 from tpuframe_torch.models import resnet as resnet_lib  # noqa: E402
+from tpuframe_torch.ops import attention as attn  # noqa: E402
 from tpuframe_torch.ops import flash_attention as fa  # noqa: E402
 from tpuframe_torch.ops import fused_conv_bn as fcb  # noqa: E402
 from tpuframe_torch.ops import precision_probe as pp  # noqa: E402
 from tpuframe_torch.serve import kv_cache as kv  # noqa: E402
 from tpuframe_torch.serve import loadgen  # noqa: E402
-from tpuframe_torch.serve.engine import LMEngine, parity_diffs  # noqa: E402
+from tpuframe_torch.serve.engine import (BertClassifier, LMEngine,  # noqa: E402
+                                        parity_diffs)
 from tpuframe_torch.utils.config import get_config  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W).
@@ -116,6 +140,10 @@ PARITY_ATOL_BF16 = 0.25
 # rounding boundary can fall the other way, and each gradient is rounded
 # to bf16 at the end (2^-8 relative).
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+# The delta pass vs its plain version: max |diff| over max |plain|.  Both
+# sum p * dp and p in f32 from the same inputs (bf16 products are exact in
+# f32), in other orders: 1e-4 in either dtype.
+DELTA_TOL = 1e-4
 
 # The training slice: lm_long at its full width (hidden 768, 12 layers,
 # 12 heads of 64, intermediate 3072, vocab 32000, bf16, adamw 3e-4, wd
@@ -218,6 +246,42 @@ RESNET_PARITY_BATCH = 8
 RESNET_PARITY_RTOL = 1e-3
 RESNET_NOISE_FACTOR = 3.0
 
+# The BERT slice: glue_bert (BERT-base at full width: hidden 768, 12
+# layers, 12 heads of 64, FFN 3072, vocab 30522, max_position 512; adamw
+# 2e-5 with the decay mask, clip 1.0, linear schedule after 200 warmup
+# steps; global batch 32, seq 128, bf16 compute over f32 params, dropout
+# 0.1; synthetic SST-2) at its own recipe.  The only cuts are the steps:
+# a few steps and two eval batches for the time limit, on one card.
+BERT_LAYERS = 12
+BERT_BATCH, BERT_SEQ = 32, 128
+BERT_CUTS = {"mesh": {"data": 1}, "total_steps": 8, "eval_every": 8,
+             "eval_batches": 2, "log_every": 1}
+BERT_ARGS = ["--config", "glue_bert"] + [
+    a for k, v in BERT_CUTS.items() for a in ("--set", f"{k}={v!r}")]
+# STS-B (regression, Pearson at eval) and CoLA (MCC at eval), end to end.
+BERT_TASK_CUTS = {"mesh": {"data": 1}, "total_steps": 2, "eval_every": 2,
+                  "eval_batches": 1, "log_every": 1}
+# Gradient parity at full width with dropout 0 (a config override both
+# packages take), where every step runs the flash kernels key masked and
+# not causal: batch 8 of glue_mnli's synthetic pairs (ragged lengths
+# 64-128, segment ids that vary) at seq 128.  bf16 is held as the LM's is
+# (BF16_NOISE_FACTOR times the bf16 einsum route's own error to f32).
+# f32: GRAD_PARITY_RTOL on every tensor, against an f64 run of the einsum
+# rather than the f32 one.  BERT's upper layers have query and key
+# gradients ~1e-3 of the value gradients at init (dp - delta is small
+# against dp), and f32 rounding in the einsum's own softmax backward moves
+# them by up to 6.8e-5 (measured on the H100): too close to 1e-4 for the
+# f32 einsum to serve as the reference.
+BERT_PARITY_BATCH = 8
+# Served probabilities, kernels against the einsum path with the same
+# bf16 weights: the two round P to bf16 at different places (the kernel
+# against each tile's running max, the einsum after normalising), a 2^-9
+# relative step of each attention output, carried through 12 layers to
+# logits of magnitude ~1 and probabilities in (0, 1): within 1e-2.
+BERT_SERVE_ATOL = 1e-2
+BERT_SERVE_REQUESTS = 16
+BERT_BUCKETS = (64, 128)
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -225,7 +289,7 @@ def log(msg: str) -> None:
 
 def reset_launches() -> None:
     for counts in (fa.LAUNCHES, fcb.LAUNCHES, pp.LAUNCHES, fa.FWD_ROUTES,
-                   fa.BWD_ROUTES, fcb.ROUTES):
+                   fa.BWD_ROUTES, fcb.ROUTES, attn.IMPLS):
         for name in counts:
             counts[name] = 0
 
@@ -524,23 +588,33 @@ def _by_row(fn, args, mask, causal):
 
 
 def _bwd_check(name, args, causal):
-    """Both backward kernels against their plain versions; raises past the
-    tolerance, or if the kernels ran on another route than
-    ``fa.bwd_route`` names.  Returns ``({grad: max abs error}, route)``."""
+    """The delta pass and both backward kernels against their plain
+    versions; raises past the tolerance, or if the kernels ran on another
+    route than ``fa.bwd_route`` names.  Returns ``({grad: max abs
+    error}, route)``."""
     *tensors, mask = args
     route = fa.bwd_route(tensors[0].dtype, tensors[0].shape[-1])
     before = dict(fa.BWD_ROUTES)
+    delta = fa._launch_bwd("delta", *tensors, mask, causal)
     dq = fa._launch_bwd("dq", *tensors, mask, causal)
     dk, dv = fa._launch_bwd("dkv", *tensors, mask, causal)
     torch.cuda.synchronize()
     ran = {r: fa.BWD_ROUTES[r] - before[r] for r in before}
+    (ref_delta,) = _by_row(fa.flash_bwd_delta_reference, tensors[:5], mask,
+                           causal)
     (ref_dq,) = _by_row(fa.flash_bwd_dq_reference, tensors, mask, causal)
     ref_dk, ref_dv = _by_row(fa.flash_bwd_dkv_reference, tensors, mask,
                              causal)
     tol = BWD_TOL[tensors[0].dtype]
     errs, bad = {}, []
-    if ran != {r: 2 * (r == route) for r in ran}:
-        bad.append(f"launches by route {ran}, want both on {route}")
+    if ran != {r: 3 * (r == route) for r in ran}:
+        bad.append(f"launches by route {ran}, want all three on {route}")
+    errs["delta"] = float((delta - ref_delta).abs().max())
+    scale = float(ref_delta.abs().max())
+    if not (torch.isfinite(delta).all()
+            and errs["delta"] <= DELTA_TOL * max(scale, 1e-30)):
+        bad.append(f"delta: max|diff| {errs['delta']:.3e} vs tol "
+                   f"{DELTA_TOL} x max|plain| {scale:.3e}")
     for g, got, ref in (("dq", dq, ref_dq), ("dk", dk, ref_dk),
                         ("dv", dv, ref_dv)):
         errs[g] = float((got.float() - ref.float()).abs().max())
@@ -551,7 +625,7 @@ def _bwd_check(name, args, causal):
                        f"max|plain| {scale:.3e}")
     if mask is not None and not mask[1:].any():
         # rows 1.. of the batch are fully masked: exactly zero gradients
-        if dq[1:].any() or dk[1:].any() or dv[1:].any():
+        if dq[1:].any() or dk[1:].any() or dv[1:].any() or delta[1:].any():
             bad.append("a fully masked batch row has nonzero gradients")
     if bad:
         raise RuntimeError(f"flash backward {name}: " + "; ".join(bad))
@@ -589,14 +663,18 @@ def _bwd_train_shape(dtype, gen) -> dict:
     rows = 2 * b * n * s * 4            # lse, delta
     lib, lib_dev = _sdpa_backward_ms(tensors, True)
     res = {}
-    for which, flops_per_pair, out_bytes, fn in (
-            ("dq", 6 * d, b * s * n * d * elt, fa.flash_bwd_dq_reference),
+    # (which, FLOPs a kept pair, output bytes, plain version, its inputs);
+    # the delta pass reads lse and writes delta, the rows term below.
+    for which, flops_per_pair, out_bytes, fn, ins in (
+            ("delta", 4 * d, 0, fa.flash_bwd_delta_reference, tensors[:5]),
+            ("dq", 6 * d, b * s * n * d * elt, fa.flash_bwd_dq_reference,
+             tensors),
             ("dkv", 8 * d, 2 * b * s * n * d * elt,
-             fa.flash_bwd_dkv_reference)):
+             fa.flash_bwd_dkv_reference, tensors)):
         launch = (lambda w=which: fa._launch_bwd(w, *tensors, mask, True))
         ms = cuda_ms(launch, 10)
         dev = sum(t for _, t, _ in device_time(launch, 3)) / 3
-        plain = cuda_ms(lambda f=fn: _by_row(f, tensors, mask, True), 1)
+        plain = cuda_ms(lambda f=fn, a=ins: _by_row(f, a, mask, True), 1)
         ops = flops_per_pair * pairs
         nbytes = qkvo + rows + out_bytes
         t_ops, t_bytes = ops / PEAK_OPS_S[dtype], nbytes / PEAK_BYTES_S
@@ -609,11 +687,15 @@ def _bwd_train_shape(dtype, gen) -> dict:
                       else "bytes", "ops": ops, "bytes": nbytes,
                       "tflops": ops / ms / 1e9, "smem_bytes": smem,
                       "blocks_per_sm": blocks}
+    res["delta"]["max_abs_err"] = errs["delta"]
+    res["delta"]["library_ms"] = res["delta"]["library_device_ms"] = None
     res["dq"]["max_abs_err"] = errs["dq"]
     res["dkv"]["max_abs_err"] = max(errs["dk"], errs["dv"])
     pair = res["dq"]["ms"] + res["dkv"]["ms"]
+    whole = pair + res["delta"]["ms"]
     log(f"[flash-bwd] B={b} S={s} N={n} D={d} {str(dtype)[6:]} causal, "
-        f"route {route}: err dq {errs['dq']:.2e} dk {errs['dk']:.2e} dv "
+        f"route {route}: err delta {errs['delta']:.2e} (tol {DELTA_TOL} x "
+        f"max|plain|) dq {errs['dq']:.2e} dk {errs['dk']:.2e} dv "
         f"{errs['dv']:.2e} (tol {BWD_TOL[dtype]} x max|plain|); "
         + "; ".join(f"{w} {r['ms']:.3f} ms (device {r['device_ms']:.3f}, "
                     f"{r['tflops']:.2f} TFLOP/s, {r['smem_bytes']} B smem, "
@@ -621,8 +703,9 @@ def _bwd_train_shape(dtype, gen) -> dict:
                     f"{r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms "
                     f"({r['bound_by']})"
                     for w, r in res.items())
-        + f"; pair {pair:.3f} ms; sdpa backward {lib:.3f} ms (device "
-          f"{lib_dev:.3f}), pair / sdpa {pair / lib:.2f}")
+        + f"; pair {pair:.3f} ms, with the delta pass {whole:.3f} ms; sdpa "
+          f"backward {lib:.3f} ms (device {lib_dev:.3f}), pair / sdpa "
+          f"{pair / lib:.2f}, with the delta pass {whole / lib:.2f}")
     return res
 
 
@@ -916,9 +999,9 @@ def phase_grad_parity_bf16() -> None:
     if abs(lk - l32) > max(BF16_NOISE_FACTOR * abs(lx - l32),
                            1e-3 * abs(l32)):
         bad.append(f"loss {lk} vs f32 {l32} (einsum bf16 {lx})")
-    if ran != {"tensor_core": 2 * 12, "cuda_core": 0}:
-        bad.append(f"backward launches by route {ran}, want 24 on the "
-                   f"tensor cores")
+    if ran != {"tensor_core": 3 * 12, "cuda_core": 0}:
+        bad.append(f"backward launches by route {ran}, want 36 on the "
+                   f"tensor cores (delta pass, dq and dkv a layer)")
     if bad:
         raise RuntimeError("bf16 gradient parity: " + "; ".join(bad[:8]))
 
@@ -942,6 +1025,7 @@ def phase_train() -> dict:
     losses, step_ms = metrics["losses"], metrics["step_ms"]
     steps, evals = len(losses), TRAIN_EVAL_BATCHES
     want = {"flash_fwd": (2 * steps + evals) * layers,
+            "flash_bwd_delta": steps * layers,
             "flash_bwd_dq": steps * layers, "flash_bwd_dkv": steps * layers,
             "fused_conv_bn_bwd": 0, "precision_probe": 0}
     problems = []
@@ -954,11 +1038,11 @@ def phase_train() -> dict:
                         f"per layer and step under remat, once per layer "
                         f"and eval batch; each backward kernel once per "
                         f"layer and step)")
-    want_routes = {"tensor_core": 2 * steps * layers, "cuda_core": 0}
+    want_routes = {"tensor_core": 3 * steps * layers, "cuda_core": 0}
     if routes != want_routes:
         problems.append(f"backward launches by route {routes}, want "
-                        f"{want_routes}: every dq and dkv launch of the "
-                        f"run on the tensor cores")
+                        f"{want_routes}: every delta, dq and dkv launch of "
+                        f"the run on the tensor cores")
     want_fwd = {"tensor_core": want["flash_fwd"], "cuda_core": 0}
     if fwd_routes != want_fwd:
         problems.append(f"forward launches by route {fwd_routes}, want "
@@ -992,13 +1076,14 @@ def phase_train() -> dict:
     wall_step = wall_ms(step, 1)
     kernels = device_time(step)
     busy = sum(ms for _, ms, _ in kernels)
+    # the delta pass is the dq kernel in its delta mode: both match
     pair = sum(ms for k, ms, _ in kernels if "flash_bwd_d" in k)
     fwd = sum(ms for k, ms, _ in kernels if "flash_fwd" in k)
     log(f"[profile] training step: wall {wall_step:.1f} ms, "
         f"{sum(c for *_, c in kernels)} kernels, device {busy:.1f} ms, idle "
         f"share {1 - busy / wall_step:.3f}; flash forward {fwd:.1f} ms "
-        f"({fwd / busy:.3f} of device time), backward pair {pair:.1f} ms "
-        f"({pair / busy:.3f}); top: "
+        f"({fwd / busy:.3f} of device time), backward (delta pass, dq, "
+        f"dkv) {pair:.1f} ms ({pair / busy:.3f}); top: "
         + "; ".join(f"{k[:60]} {ms:.1f} ms x{c}" for k, ms, c in kernels[:8]))
     return {"launches": launches, "step_ms_p50": p50, "mfu": mfu,
             "peak_bytes": peak, "routes": routes, "fwd_routes": fwd_routes,
@@ -1363,8 +1448,9 @@ def phase_resnet_train() -> dict:
     peak = torch.cuda.max_memory_allocated()
     losses, step_ms = metrics["losses"], metrics["step_ms"]
     steps = len(losses)
-    want = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-            "fused_conv_bn_bwd": 36 * steps, "precision_probe": 0}
+    want = {"flash_fwd": 0, "flash_bwd_delta": 0, "flash_bwd_dq": 0,
+            "flash_bwd_dkv": 0, "fused_conv_bn_bwd": 36 * steps,
+            "precision_probe": 0}
     problems = []
     if not all(math.isfinite(x) for x in losses) or steps != 4:
         problems.append(f"losses {losses}")
@@ -1414,6 +1500,389 @@ def phase_resnet_train() -> dict:
     return {"launches": launches, "step_ms_p50": p50, "mfu": mfu,
             "peak_bytes": peak, "routes": conv_routes, "device_ms": busy,
             "idle_share": 1 - busy / wall_step}
+
+
+@contextlib.contextmanager
+def _attn_impl(impl: str):
+    """``TPUFRAME_ATTN_IMPL`` set to ``impl`` inside the block and
+    restored (or removed) after it."""
+    saved = os.environ.get("TPUFRAME_ATTN_IMPL")
+    os.environ["TPUFRAME_ATTN_IMPL"] = impl
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("TPUFRAME_ATTN_IMPL", None)
+        else:
+            os.environ["TPUFRAME_ATTN_IMPL"] = saved
+
+
+def _glue_batch(name: str, n: int, split: int = 0, device="cuda") -> dict:
+    """The first ``n`` rows of a GLUE builder's synthetic split (0 train,
+    1 eval) at BERT_SEQ, as device tensors."""
+    ds = datasets.build(name, None, seq_len=BERT_SEQ)[split]
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+            for k, v in ds[np.arange(n)].items()}
+
+
+def _bert_kernel_checks(gen) -> None:
+    """The three flash kernels against their plain versions at BERT's
+    shapes: key masks from glue_mnli's ragged pairs, not causal, bf16 (the
+    tensor cores) and f32 (the CUDA cores), each case asserting its
+    route."""
+    b, n, d = BERT_PARITY_BATCH, 12, 64
+    mask = _glue_batch("glue_mnli", b)["attention_mask"]
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = (torch.randn((b, BERT_SEQ, n, d), generator=gen,
+                               device="cuda").to(dtype) for _ in range(3))
+        name = f"BERT B={b} S={BERT_SEQ} {str(dtype)[6:]} key-masked full"
+        fwd_err = _flash_check(name, q, k, v, mask, False)[2]
+        do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+        out, lse = fa.flash_fwd(q, k, v, mask=mask)
+        delta = (do.float() * out.float()).sum(-1).permute(0, 2, 1)
+        bwd_errs, route = _bwd_check(
+            name, (q, k, v, do, lse, delta.contiguous(), mask), False)
+        errs[f"{str(dtype)[6:]} {route}"] = {"out": fwd_err, **bwd_errs}
+    log(f"[bert-kernels] B={b} S={BERT_SEQ} N={n} D={d}, glue_mnli key "
+        f"masks (lengths {mask.sum(1).tolist()}), not causal: max abs err "
+        f"{errs} (tol fwd {TOL[torch.bfloat16]['out']} bf16 / "
+        f"{TOL[torch.float32]['out']} f32; bwd {BWD_TOL} x max|plain|)")
+
+
+def _bert_grads(dtype: str, impl: str, batch: dict):
+    """One glue_bert_mnli training step's loss and gradients at full
+    width, dropout 0, on ``impl``'s attention, from the seed-0 weights.
+    ``float64`` (the einsum only) runs the model, its weights and its
+    head in f64: the reference the f32 routes are held to."""
+    cfg = get_config("glue_bert_mnli").with_overrides(
+        compute_dtype=dtype, model_kwargs={"num_classes": 3, "dropout": 0.0})
+    with _attn_impl(impl):
+        model = get_model(cfg.model, dtype=dtype, device="cuda", seed=0,
+                          **cfg.model_kwargs)
+        if dtype == "float64":
+            model.double()
+            model.classifier.dtype = torch.float64
+        loss, _ = train_lib.make_loss_fn(cfg)(model, batch, 0)
+        loss.backward()
+    grads = {n: p.grad.float() for n, p in model.named_parameters()}
+    return float(loss.detach()), grads
+
+
+def _grad_rel_err(got: dict, ref: dict) -> dict:
+    """``{name: |got - ref| / |ref|}`` per tensor.  The key projections'
+    biases have a gradient that is zero by symmetry (the bias adds q.b to
+    every score of a row, which the softmax cancels), so theirs is
+    measured against their layer's key-kernel gradient instead."""
+    out = {}
+    for name, r in ref.items():
+        scale = r
+        if name.endswith("attention.key.bias"):
+            scale = ref[name.replace(".bias", ".weight")]
+        out[name] = float((got[name] - r).norm()
+                          / scale.norm().clamp_min(1e-30))
+    return out
+
+
+def phase_bert_parity() -> None:
+    """BERT-base at full width with dropout 0: the kernels at BERT's
+    shapes, then one GLUE step's loss and every parameter's gradient
+    through the kernels against the einsum attention from the same
+    weights: in f32 within GRAD_PARITY_RTOL of an f64 run of the einsum,
+    in bf16 within BF16_NOISE_FACTOR times the bf16 einsum route's own
+    error to the f32 einsum."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    _bert_kernel_checks(gen)
+    batch = _glue_batch("glue_mnli", BERT_PARITY_BATCH)
+    out, ran = {}, {}
+    for route, impl, dtype in (("f64", "xla", "float64"),
+                               ("kernels_f32", "pallas", "float32"),
+                               ("f32", "xla", "float32"),
+                               ("kernels", "pallas", "bfloat16"),
+                               ("plain", "xla", "bfloat16")):
+        reset_launches()
+        out[route] = _bert_grads(dtype, impl, batch)
+        torch.cuda.synchronize()
+        ran[route] = {**launch_counts(), "fwd": dict(fa.FWD_ROUTES),
+                      "bwd": dict(fa.BWD_ROUTES), "impls": dict(attn.IMPLS)}
+    bad = []
+    L = BERT_LAYERS
+    for route, core in (("kernels_f32", "cuda_core"),
+                        ("kernels", "tensor_core")):
+        r = ran[route]
+        want = {"flash_fwd": L, "flash_bwd_delta": L, "flash_bwd_dq": L,
+                "flash_bwd_dkv": L}
+        got = {k: r[k] for k in want}
+        if (got != want or r["fwd"][core] != L or r["bwd"][core] != 3 * L
+                or r["impls"] != {"pallas": L, "xla": 0, "xla_dropout": 0}):
+            bad.append(f"{route}: launches {got}, forward routes "
+                       f"{r['fwd']}, backward routes {r['bwd']}, attention "
+                       f"paths {r['impls']}; want {L} of each kernel a step "
+                       f"on the {core} route")
+    for route in ("f64", "f32", "plain"):
+        if ran[route]["impls"] != {"pallas": 0, "xla": L, "xla_dropout": 0}:
+            bad.append(f"{route}: attention paths {ran[route]['impls']}")
+
+    (l64, g64), (lk32, gk32), (l32, g32) = (out["f64"], out["kernels_f32"],
+                                            out["f32"])
+    relk32, relx32 = _grad_rel_err(gk32, g64), _grad_rel_err(g32, g64)
+    where32 = max(relk32, key=relk32.get)
+    direct32 = _grad_rel_err(gk32, g32)
+    for name in relk32:
+        if relk32[name] > GRAD_PARITY_RTOL:
+            bad.append(f"f32 {name}: {relk32[name]:.2e} off f64 (f32 einsum "
+                       f"{relx32[name]:.2e})")
+    if abs(lk32 - l64) > GRAD_PARITY_RTOL * abs(l64):
+        bad.append(f"f32 loss {lk32} vs f64 {l64}")
+    (lk, gk), (lx, gx) = out["kernels"], out["plain"]
+    relk, relx = _grad_rel_err(gk, g32), _grad_rel_err(gx, g32)
+    where = max(relk, key=relk.get)
+    for name in relk:
+        if relk[name] > BF16_NOISE_FACTOR * relx[name]:
+            bad.append(f"bf16 {name}: {relk[name]:.2e} (noise floor "
+                       f"{relx[name]:.2e})")
+    if abs(lk - l32) > max(BF16_NOISE_FACTOR * abs(lx - l32),
+                           1e-3 * abs(l32)):
+        bad.append(f"bf16 loss {lk} vs f32 {l32} (einsum bf16 {lx})")
+    log(f"[bert-parity] BERT-base full width, dropout 0, glue_mnli B="
+        f"{BERT_PARITY_BATCH} S={BERT_SEQ}: loss f64 {l64:.8f}, f32 kernels "
+        f"{lk32:.8f} einsum {l32:.8f}; f32 per-tensor relative grad error "
+        f"vs f64: kernels worst {relk32[where32]:.2e} ({where32}; tol "
+        f"{GRAD_PARITY_RTOL}), einsum up to {max(relx32.values()):.2e}; "
+        f"kernels vs einsum f32 up to {max(direct32.values()):.2e}; bf16 "
+        f"loss kernels {lk:.6f} einsum {lx:.6f}, per-tensor relative grad "
+        f"error vs f32: kernels worst {relk[where]:.2e} ({where}), einsum "
+        f"bf16 up to {max(relx.values()):.2e}, largest ratio "
+        f"{max(relk[n] / max(relx[n], 1e-30) for n in relk):.2f} (tol "
+        f"{BF16_NOISE_FACTOR}); launches a step: f32 {ran['kernels_f32']}, "
+        f"bf16 {ran['kernels']}")
+    if bad:
+        raise RuntimeError("BERT gradient parity: " + "; ".join(bad[:8]))
+
+
+def _flash_bert_eval_case(gen) -> dict:
+    """The forward kernel at glue_bert's eval shape (B=32, S=128, N=12,
+    D=64, bf16, key masks of glue_sst2's eval split, not causal) against
+    its plain version, timed beside its bound, the plain version and SDPA
+    with the same boolean mask."""
+    b, s, n, d = BERT_BATCH, BERT_SEQ, 12, 64
+    mask = _glue_batch("glue_sst2", b, split=1)["attention_mask"]
+    q, k, v = (torch.randn((b, s, n, d), generator=gen,
+                           device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    name = f"BERT eval B={b} S={s} bf16 key-masked full"
+    out, lse, err, err_lse = _flash_check(name, q, k, v, mask, False)
+    call = lambda: fa.flash_mha_lse(q, k, v, mask=mask)  # noqa: E731
+    ms = cuda_ms(call, 100)
+    dev_ms = sum(t for _, t, _ in device_time(call, 10)) / 10
+    plain_ms = cuda_ms(lambda: fa.flash_mha_reference(q, k, v, mask=mask),
+                       10)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    bool_mask = mask.bool()[:, None, None, :]
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, attn_mask=bool_mask)
+    lib_ms = cuda_ms(sdpa, 100)
+    lib_dev = sum(t for _, t, _ in device_time(sdpa, 10)) / 10
+    ops = 4 * d * _pairs(s, s, b, n, mask, False)
+    nbytes = (4 * q.numel() * 2 + lse.numel() * 4 + mask.numel() * 4)
+    t_ops, t_bytes = ops / PEAK_OPS_S[torch.bfloat16], nbytes / PEAK_BYTES_S
+    case = {"case": name, "route": fa.fwd_route(q.dtype, d),
+            "max_abs_err": err, "max_abs_err_lse": err_lse, "ms": ms,
+            "device_ms": dev_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "library_device_ms": lib_dev,
+            "bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "ops": ops, "bytes": nbytes}
+    log(f"[flash] {name}, route {case['route']}: err {err:.2e}, lse err "
+        f"{err_lse:.2e}; kernel {ms:.4f} ms (device {dev_ms:.4f}, "
+        f"{ops / ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.4f} ms, sdpa "
+        f"(same boolean mask) {lib_ms:.4f} ms (device {lib_dev:.4f}), bound "
+        f"{case['bound_ms']:.5f} ms ({case['bound_by']})")
+    return case
+
+
+def phase_bert_serve() -> dict:
+    """BertClassifier at full width in bf16 over buckets 64 and 128:
+    16 requests of lengths 8-128 from a seed, each held to a classifier
+    on the einsum path with the same weights and timed with a sync; the
+    forward kernel launched 12 times a request on the tensor cores.  Then
+    the forward kernel at glue_bert's eval shape."""
+    cfg = BertConfig(dtype="bfloat16")
+    clf = BertClassifier(cfg, buckets=BERT_BUCKETS, seed=0)
+    weights = {k: v.float() for k, v in clf.model.state_dict().items()}
+    plain = BertClassifier(cfg, weights, buckets=BERT_BUCKETS)
+    rng = np.random.default_rng(0)
+    reqs = [rng.integers(1000, cfg.vocab_size, int(n)).tolist()
+            for n in rng.integers(8, 129, BERT_SERVE_REQUESTS)]
+    with _attn_impl("pallas"):
+        for b in BERT_BUCKETS:            # warm-up, outside the counts
+            clf.classify(reqs[0][:1] * b)
+        torch.cuda.synchronize()
+        reset_launches()
+        got, req_ms = [], []
+        for ids in reqs:
+            t0 = time.perf_counter()
+            got.append(clf.classify(ids))
+            torch.cuda.synchronize()
+            req_ms.append(1e3 * (time.perf_counter() - t0))
+        launches = launch_counts()
+        routes = dict(fa.FWD_ROUTES)
+        impls = dict(attn.IMPLS)
+    with _attn_impl("xla"):
+        want = [plain.classify(ids) for ids in reqs]
+    hit = sorted({kv.bucket_for(len(r), BERT_BUCKETS) for r in reqs})
+    diff = max(float(np.abs(g[1] - w[1]).max()) for g, w in zip(got, want))
+    agree = sum(g[0] == w[0] for g, w in zip(got, want))
+    n_fwd = BERT_LAYERS * len(reqs)
+    problems = []
+    if hit != list(BERT_BUCKETS):
+        problems.append(f"buckets hit {hit}")
+    if not diff <= BERT_SERVE_ATOL or not all(
+            np.isfinite(g[1]).all() and abs(g[1].sum() - 1) < 1e-5
+            for g in got):
+        problems.append(f"max |probs diff| {diff:.3e} (atol "
+                        f"{BERT_SERVE_ATOL}) or probabilities that do not "
+                        f"sum to 1")
+    if launches["flash_fwd"] != n_fwd or routes != {
+            "tensor_core": n_fwd, "cuda_core": 0}:
+        problems.append(f"flash_fwd launches {launches['flash_fwd']} by "
+                        f"route {routes}, want {n_fwd} on the tensor cores")
+    if impls != {"pallas": n_fwd, "xla": 0, "xla_dropout": 0}:
+        problems.append(f"attention paths {impls}, want every call on the "
+                        f"kernel")
+    if problems:
+        raise RuntimeError("BERT serving: " + "; ".join(problems))
+    log(f"[bert-serve] BertClassifier BERT-base bf16, {len(reqs)} requests "
+        f"(lengths {[len(r) for r in reqs]}) over buckets {hit}: request "
+        f"ms p50 {_pct(req_ms, .5):.3f} p90 {_pct(req_ms, .9):.3f} (min "
+        f"{min(req_ms):.3f} max {max(req_ms):.3f}); probs vs the einsum "
+        f"path max |diff| {diff:.2e} (atol {BERT_SERVE_ATOL}), labels agree "
+        f"{agree}/{len(reqs)}; flash_fwd launches {launches['flash_fwd']} "
+        f"by route {routes}; attention paths {impls}")
+    with _attn_impl("pallas"):
+        ids = reqs[0]
+        profile_window("BERT request (bucket 64)",
+                       lambda: clf.classify(ids[:60]),
+                       wall_ms(lambda: clf.classify(ids[:60]), 10))
+    eval_case = _flash_bert_eval_case(
+        torch.Generator(device="cuda").manual_seed(7))
+    return {"launches": launches, "routes": routes,
+            "p50_ms": _pct(req_ms, .5), "p90_ms": _pct(req_ms, .9),
+            "eval_case": eval_case}
+
+
+def _bert_train_flops(harness, steps: int) -> float:
+    """Model FLOPs of an average step of the first ``steps`` batches:
+    6 x (encoder matmul params) x tokens, the pooler and classifier on one
+    row per example, and 3 x 4 x D x (kept query-key pairs) x N x L for
+    attention."""
+    cfg = harness.state.model.cfg
+    h, inter, n, d = (cfg.hidden_size, cfg.intermediate_size, cfg.num_heads,
+                      cfg.head_dim)
+    enc = cfg.num_layers * (4 * h * h + 2 * h * inter)
+    head = h * h + h * cfg.num_classes
+    pairs = []
+    for i, batch in enumerate(harness.train_loader.from_step(0)):
+        if i >= steps:
+            break
+        pairs.append(BERT_SEQ * int(batch["attention_mask"].sum()))
+    return (6 * enc * BERT_BATCH * BERT_SEQ + 6 * head * BERT_BATCH
+            + 3 * 4 * d * statistics.mean(pairs) * n * cfg.num_layers)
+
+
+def phase_bert_train() -> dict:
+    """glue_bert through ``tpuframe_torch.train.main`` at its own recipe
+    (BERT_CUTS), kernels and attention paths read around it: the training
+    forwards drop attention probabilities on the einsum (12 a step, no
+    kernel), each eval batch runs the forward kernel 12 times on the
+    tensor cores.  Then one more step under the profiler, and
+    glue_bert_stsb and glue_bert_cola end to end."""
+    steps, evals = BERT_CUTS["total_steps"], BERT_CUTS["eval_batches"]
+    L = BERT_LAYERS
+    with _attn_impl("pallas"):
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.monotonic()
+        metrics = train_lib.main(BERT_ARGS)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = launch_counts()
+        routes = dict(fa.FWD_ROUTES)
+        impls = dict(attn.IMPLS)
+        peak = torch.cuda.max_memory_allocated()
+    losses, step_ms = metrics["losses"], metrics["step_ms"]
+    want = {"flash_fwd": evals * L, "flash_bwd_delta": 0, "flash_bwd_dq": 0,
+            "flash_bwd_dkv": 0, "fused_conv_bn_bwd": 0,
+            "precision_probe": 0}
+    problems = []
+    if not all(math.isfinite(x) for x in losses) or len(losses) != steps:
+        problems.append(f"losses {losses}")
+    for key in ("eval_loss", "eval_accuracy"):
+        if not math.isfinite(metrics.get(key, float("nan"))):
+            problems.append(f"no finite {key}")
+    if launches != want or routes != {"tensor_core": evals * L,
+                                      "cuda_core": 0}:
+        problems.append(f"launches {launches} by route {routes}, want "
+                        f"{want} (the forward kernel once per layer and "
+                        f"eval batch, on the tensor cores; no kernel in "
+                        f"training, whose dropout runs on the einsum)")
+    want_impls = {"pallas": evals * L, "xla": 0, "xla_dropout": steps * L}
+    if impls != want_impls:
+        problems.append(f"attention paths {impls}, want {want_impls}")
+    if problems:
+        raise RuntimeError("BERT training: " + "; ".join(problems))
+    p50 = statistics.median(step_ms[1:])
+    cfg = get_config("glue_bert").with_overrides(**BERT_CUTS)
+    with _attn_impl("pallas"):
+        harness = train_lib.build_harness(cfg)
+    flops = _bert_train_flops(harness, steps)
+    mfu = flops / (p50 / 1e3) / PEAK_OPS_S[torch.bfloat16]
+    n_params = sum(p.numel() for p in harness.state.model.parameters())
+    log(f"[bert-train] glue_bert ({n_params / 1e6:.2f} M params), batch "
+        f"{BERT_BATCH} x {BERT_SEQ}, mesh 1, {steps} steps + {evals} eval "
+        f"batches in {wall:.1f} s: losses {[round(x, 4) for x in losses]}, "
+        f"eval loss {metrics['eval_loss']:.4f} accuracy "
+        f"{metrics['eval_accuracy']:.4f}; step ms "
+        f"{[round(x, 2) for x in step_ms]} (p50 after the first "
+        f"{p50:.2f}); {BERT_BATCH / p50 * 1e3:.1f} examples/s; model FLOPs "
+        f"{flops:.3e} a step, MFU {mfu:.4f} of 989 TFLOP/s; peak memory "
+        f"{peak / 2**30:.2f} GiB; launches {launches}; forward launches by "
+        f"route {routes}; attention paths {impls}")
+
+    with _attn_impl("pallas"):
+        batch = next(iter(harness.train_loader))
+        step = lambda: float(  # noqa: E731
+            harness.train_step(harness.state, batch)["loss"])
+        wall_step = wall_ms(step, 3)
+        kernels = device_time(step)
+    busy = sum(ms for _, ms, _ in kernels)
+    log(f"[profile] glue_bert training step: wall {wall_step:.2f} ms, "
+        f"{sum(c for *_, c in kernels)} kernels, device {busy:.2f} ms, idle "
+        f"share {1 - busy / wall_step:.3f}; top: "
+        + "; ".join(f"{k[:60]} {ms:.2f} ms x{c}" for k, ms, c in kernels[:8]))
+    del harness
+
+    tasks = {}
+    for name in ("glue_bert_stsb", "glue_bert_cola"):
+        args = ["--config", name] + [
+            a for k, v in BERT_TASK_CUTS.items()
+            for a in ("--set", f"{k}={v!r}")]
+        with _attn_impl("pallas"):
+            m = train_lib.main(args)
+        shown = {k: v for k, v in m.items() if k.startswith("eval_")}
+        if not (all(math.isfinite(x) for x in m["losses"])
+                and len(m["losses"]) == BERT_TASK_CUTS["total_steps"]
+                and shown and all(math.isfinite(v) for v in shown.values())):
+            raise RuntimeError(f"{name}: losses {m['losses']}, eval {shown}")
+        if name == "glue_bert_stsb" and "eval_pearson" not in shown:
+            raise RuntimeError(f"{name}: no eval_pearson in {shown}")
+        tasks[name] = shown
+        log(f"[bert-train] {name}, {len(m['losses'])} steps + 1 eval batch: "
+            f"losses {[round(x, 4) for x in m['losses']]}, eval {shown}")
+    return {"launches": launches, "routes": routes, "step_ms_p50": p50,
+            "mfu": mfu, "peak_bytes": peak, "device_ms": busy,
+            "idle_share": 1 - busy / wall_step, "tasks": tasks}
 
 
 def wall_ms(fn, calls: int) -> float:
@@ -1482,16 +1951,23 @@ def main(argv=None) -> int:
     conv_bn = phase_conv_bn()
     phase_resnet_grad_parity()
     resnet = phase_resnet_train()
+    phase_bert_parity()
+    bert_serve = phase_bert_serve()
+    bert_train = phase_bert_train()
 
     by_path = {name: {"serve": serve_launches[name],
                       "lm_train": train["launches"][name],
                       "resnet_train": resnet["launches"][name],
-                      "probe": probe["launches"][name]}
+                      "probe": probe["launches"][name],
+                      "bert_serve": bert_serve["launches"][name],
+                      "bert_train": bert_train["launches"][name]}
                for name in launch_counts()}
     attn = "B=8 S=4096 N=12 D=64 bf16 causal"
     ops = "tpuframe/ops/"
     rows = [("flash_fwd", "flash_fwd.cu", ops + "flash_attention.py:136",
              cases["train"], attn),
+            ("flash_bwd_delta", "flash_bwd.cu", ops + "flash_attention.py:378",
+             bwd["delta"], attn),
             ("flash_bwd_dq", "flash_bwd.cu", ops + "flash_attention.py:295",
              bwd["dq"], attn),
             ("flash_bwd_dkv", "flash_bwd.cu", ops + "flash_attention.py:327",
@@ -1523,9 +1999,13 @@ def main(argv=None) -> int:
                             "16/32/256, on the CUDA cores")
             row["device_ms"] = cases["train"]["device_ms"]
             row["routes_by_path"] = {"serve": serve_routes,
-                                     "lm_train": train["fwd_routes"]}
+                                     "lm_train": train["fwd_routes"],
+                                     "bert_serve": bert_serve["routes"],
+                                     "bert_train": bert_train["routes"]}
             row["cuda_core_bf16"] = {key: cases["train"]["cuda_core"][key]
                                      for key in sub}
+            row["bert_eval"] = {key: bert_serve["eval_case"][key]
+                                for key in ("case", "route", *sub)}
         elif row["name"] == "fused_conv_bn_bwd":
             row["cores"] = ("tensor cores (wgmma bf16) at all 15 shapes and "
                             "on every path's launch; f32 and K or C not a "
@@ -1537,6 +2017,11 @@ def main(argv=None) -> int:
         elif row["name"].startswith("flash_bwd_"):
             which = row["name"][len("flash_bwd_"):]
             f32 = bwd["cuda_core_f32"][which]
+            if which == "delta":
+                row["note"] = ("the dq kernel in its delta mode: delta = "
+                               "sum_j p*dp / sum_j p, where the TPU "
+                               "backward takes rowsum(dO*O) from XLA; no "
+                               "Pallas kernel of its own")
             row["cores"] = (f"tensor cores (wgmma bf16) at this shape; "
                             f"f32, and bf16 at D 16/32/256, on the CUDA "
                             f"cores")
@@ -1560,7 +2045,9 @@ PHASES = {"kernels": phase_kernels, "backward": phase_backward,
           "grad_parity_bf16": phase_grad_parity_bf16, "train": phase_train,
           "conv_bn": phase_conv_bn,
           "resnet_grad_parity": phase_resnet_grad_parity,
-          "resnet_train": phase_resnet_train}
+          "resnet_train": phase_resnet_train,
+          "bert_parity": phase_bert_parity, "bert_serve": phase_bert_serve,
+          "bert_train": phase_bert_train}
 
 
 if __name__ == "__main__":

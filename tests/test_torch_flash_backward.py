@@ -153,8 +153,8 @@ def test_cpu_backward_launches_no_kernel():
     out = fa.flash_mha(tq, tk, tv, mask=_torch_mask(mask), causal=True)
     out.backward(torch.from_numpy(do))
     assert fa.LAUNCHES == before
-    assert set(fa.LAUNCHES) == {"flash_fwd", "flash_bwd_dq",
-                                "flash_bwd_dkv"}
+    assert set(fa.LAUNCHES) == {"flash_fwd", "flash_bwd_delta",
+                                "flash_bwd_dq", "flash_bwd_dkv"}
     assert all(n == 0 for n in fa.LAUNCHES.values())
 
 
@@ -177,6 +177,63 @@ def test_plain_backward_versions_round_operands_like_the_tpu_kernel():
     assert not torch.equal(dv, dv_f32.bfloat16())
 
 
+def test_delta_pass_is_rowsum_of_do_times_o():
+    """In exact arithmetic sum_j p * dp / sum_j p = rowsum(dO * O); a row
+    that keeps no key gets 0."""
+    q, k, v, do, _, mask = _inputs(64, 32, masked=True, seed=8)
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
+    tmask = _torch_mask(mask)
+    out, lse = fa.flash_mha_reference(tq, tk, tv, mask=tmask)
+    got = fa.flash_bwd_delta(tq, tk, tv, tdo, lse, mask=tmask)
+    assert got.dtype == torch.float32 and got.shape == lse.shape
+    want = (tdo * out).sum(-1).permute(0, 2, 1)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5,
+                               rtol=1e-5)
+    assert not got[1].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_delta_pass_keeps_small_query_and_key_gradients(dtype):
+    """Values that differ little from key to key make dp - delta small
+    against dp, so dq and dk are ~1e-2 of dv, as in BERT's upper layers at
+    init.  With delta = rowsum(dO * O) from the output rounded to bf16
+    (the TPU kernels' input) that rounding is a per-row offset in every ds,
+    and dq and dk come out ~20% wrong; the delta pass keeps them at bf16's
+    own rounding of the result.  Against f64 softmax attention on the same
+    rounded inputs."""
+    rng = np.random.default_rng(9)
+    b, s, n, d = 2, 64, 2, 64
+    q, k, do = (torch.from_numpy(rng.standard_normal((b, s, n, d)))
+                .to(dtype) for _ in range(3))
+    u = rng.standard_normal((b, 1, n, d))
+    v = torch.from_numpy(u + 1e-2 * rng.standard_normal((b, s, n, d))) \
+        .to(dtype)
+    mask = torch.ones((b, s), dtype=torch.int32)
+    mask[1, 40:] = 0
+    q64, k64, v64 = (t.double().requires_grad_() for t in (q, k, v))
+    scores = torch.einsum("bqnd,bknd->bnqk", q64, k64) * d ** -0.5
+    scores = scores.masked_fill(mask[:, None, None, :] == 0, -1e300)
+    o64 = torch.einsum("bnqk,bknd->bqnd", scores.softmax(-1), v64)
+    want = torch.autograd.grad(o64, (q64, k64, v64), do.double())
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = fa.flash_mha(*leaves, mask=mask)
+    got = torch.autograd.grad(out, leaves, do)
+    _, lse = fa.flash_fwd(q, k, v, mask=mask)
+    rowsum = (do.float() * out.detach().float()).sum(-1).permute(0, 2, 1)
+    old = fa.flash_bwd(q, k, v, do, lse, rowsum, mask=mask)
+
+    def rel(a, w):
+        return float((a.double() - w).norm() / w.norm())
+
+    assert float(want[0].norm() / want[2].norm()) < 0.02   # dq ~1e-2 of dv
+    tol = 1e-2 if dtype == torch.bfloat16 else 3e-5
+    for g, w in zip(got, want):
+        assert rel(g, w) < tol
+    if dtype == torch.bfloat16:
+        assert rel(old[0], want[0]) > 0.05 and rel(old[1], want[1]) > 0.05
+
+
 def test_backward_launch_checks_before_the_gpu():
     q = torch.zeros((1, 8, 2, 16))
     lse = torch.zeros((1, 2, 8))
@@ -187,6 +244,8 @@ def test_backward_launch_checks_before_the_gpu():
         fa._launch_bwd("dkv", q, q, q, q[:, :4], lse, lse, None, False)
     with pytest.raises(ValueError, match="lse must be f32"):
         fa._launch_bwd("dq", q, q, q, q, lse.double(), lse, None, False)
+    with pytest.raises(ValueError, match="lse must be f32"):
+        fa._launch_bwd("delta", q, q, q, q, lse[:, :1], None, None, False)
 
 
 @pytest.mark.parametrize("d", fa.HEAD_DIMS)
@@ -222,7 +281,7 @@ def test_backward_kernel_on_cpu_tensors_raises_before_the_gpu():
     q = torch.zeros((1, 8, 2, 64), dtype=torch.bfloat16)
     lse = torch.zeros((1, 2, 8))
     routes = dict(fa.BWD_ROUTES)
-    for which in ("dq", "dkv"):
+    for which in ("delta", "dq", "dkv"):
         with pytest.raises(ValueError, match="CUDA tensors"):
             fa._launch_bwd(which, q, q, q, q, lse, lse, None, True)
     assert fa.BWD_ROUTES == routes

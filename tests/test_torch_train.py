@@ -342,7 +342,7 @@ def test_harness_never_falls_back_to_the_cpu():
     ({"mesh": {"data": 1, "seq": -1}}, {}, 4, "sequence parallelism"),
     ({"dataset": "mnist"}, {}, 1, "item 4"),
     ({"dataset": "cifar10"}, {}, 1, "item 4"),
-    ({"dataset": "glue_sst2"}, {}, 1, "slice 4"),
+    ({"tb_dir": "/nonexistent"}, {}, 1, "TensorBoard"),
 ])
 def test_unported_features_refuse_loudly(overrides, env, world, match,
                                          monkeypatch):
@@ -355,16 +355,20 @@ def test_unported_features_refuse_loudly(overrides, env, world, match,
 
 
 def test_model_registry_names_are_the_jax_registrys():
-    """``transformer-lm`` and the ResNets build as the JAX harness calls
-    them; every other name the JAX registry has refuses, naming its
-    ROADMAP.md item."""
+    """``transformer-lm``, the ResNets and ``bert-base`` build as the JAX
+    harness calls them; every other name the JAX registry has refuses,
+    naming its ROADMAP.md item."""
     lm = port_models.get_model("transformer-lm", dtype="bfloat16", tiny=True,
                                device="cpu", vocab_size=64)
     assert lm.cfg == torch_lm.LMConfig.tiny(vocab_size=64, dtype="bfloat16")
     r18 = port_models.get_model("resnet18", dtype="bfloat16", device="cpu")
     assert r18.dtype == torch.bfloat16 and r18.fc.out_features == 10
     assert r18.cifar_stem
-    built = {"transformer-lm", *port_models._RESNETS}
+    bert = port_models.get_model("bert-base", dtype="bfloat16", device="cpu",
+                                 num_classes=3, num_layers=1, dropout=0.0)
+    assert bert.cfg == port_models.BertConfig(dtype="bfloat16", num_classes=3,
+                                              num_layers=1, dropout=0.0)
+    built = {"transformer-lm", "bert-base", *port_models._RESNETS}
     others = set(jax_models._REGISTRY) - built
     assert others == set(port_models._LATER)
     for name in others:

@@ -1,5 +1,6 @@
 // Flash-attention backward for Hopper (sm_90a), with a plain C interface:
-// two kernels, one for dq and one for dk and dv, each in two routes.
+// two kernels, one for dq and one for dk and dv, each in two routes, and
+// the delta pass that runs before them.
 //
 // Replaces the TPU kernels tpuframe/ops/flash_attention.py:_bwd_dq_kernel
 // and _bwd_dkv_kernel (their pallas_calls in _flash_bwd), with the
@@ -11,8 +12,21 @@
 // the p^T.dO product and ds to q's (k's) type before its product, and a
 // masked pair gets an explicit zero before any exponential: a fully masked
 // row has lse = -1e30, so exp(s - lse) would be inf; its dq, and what it
-// gives dk and dv, are exactly 0.  delta = rowsum(dO * O) (minus the lse
-// cotangent, for flash_mha_lse) is computed outside, in PyTorch.
+// gives dk and dv, are exactly 0.
+//
+// delta.  The TPU kernels take delta = rowsum(dO * O), computed outside
+// from the forward's output rounded to its dtype.  Here the delta pass, the
+// dq kernel run in a mode that skips its third product, computes it from
+// the very p and dp the two kernels use:
+//   delta = sum_j p * dp / sum_j p,
+// so ds = p * (dp - delta) sums to zero over each row.  Where dp - delta
+// is small against dp (BERT's upper layers, whose query and key gradients
+// are ~1e-3 of the value gradients at init), any error in delta is a
+// per-row offset that ds carries into every key: the rounded O's error in
+// rowsum(dO * O) outweighed those gradients in bf16, and an f32 sum of
+// p * dp, whose terms cancel, cost them ~1e-4 in f32.  So the pass adds
+// the f32 products in f64 (an f32 product is exact in f64).  The lse
+// cotangent (flash_mha_lse) is folded in outside, in PyTorch.
 //
 // The FA2 split keeps the backward free of atomics and deterministic: the
 // dq kernel owns a tile of query rows and loops over key tiles (stopping
@@ -96,12 +110,16 @@ struct Params {
   void* dq;
   void* dk;
   void* dv;
+  float* delta_out;  // the delta pass's [B, N, S_q] f32 output
   int n_heads, s_q, s_kv;
   int64_t q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss,
       o_sh;
   float scale;
   int causal;
 };
+
+// Which kernel a launch runs.
+enum Mode { DKV = 0, DQ = 1, DELTA = 2 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -201,7 +219,9 @@ constexpr size_t dkv_smem_bytes() {
 // One block per (batch * head, tile of BR query rows); loops over key
 // tiles.  Thread (ty, tx) owns query rows ty*RPT .. ty*RPT+RPT-1; for the
 // scores it takes keys tx + 16*j of each tile, for dq head dims tx + 16*c.
-template <typename T, int D>
+// With DELTA_PASS it sums p * dp and p over each row instead of the dS.k
+// product and writes delta.
+template <typename T, int D, bool DELTA_PASS>
 __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(Params p) {
   constexpr int DP = D + 1;
   constexpr int OPT = D / COL_LANES;
@@ -228,12 +248,14 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(Params p) {
   load_tile<T, D, BR>(dos, dout, p.o_ss, q0, p.s_q, tid);
 
   float lse[RPT], delta[RPT], acc[RPT][OPT];
+  double pdp[RPT], psum[RPT];
 #pragma unroll
   for (int i = 0; i < RPT; ++i) {
     const int row = q0 + ty * RPT + i;
     const int64_t at = static_cast<int64_t>(bh) * p.s_q + row;
     lse[i] = row < p.s_q ? p.lse[at] : 0.f;
-    delta[i] = row < p.s_q ? p.delta[at] : 0.f;
+    delta[i] = !DELTA_PASS && row < p.s_q ? p.delta[at] : 0.f;
+    pdp[i] = psum[i] = 0.0;
 #pragma unroll
     for (int c = 0; c < OPT; ++c) acc[i][c] = 0.f;
   }
@@ -266,12 +288,36 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(Params p) {
         const bool keep = key_ok[j] && (!p.causal || row >= col);
         // Explicit zero first: exp(s - lse) overflows on a masked row.
         const float pij = keep ? expf(s[i][j] * p.scale - lse[i]) : 0.f;
-        dss[(ty * RPT + i) * BCP + tx + COL_LANES * j] =
-            round_to<T>(pij * (dp[i][j] - delta[i]));
+        if constexpr (DELTA_PASS) {
+          pdp[i] = __fma_rn(static_cast<double>(pij), dp[i][j], pdp[i]);
+          psum[i] += pij;
+        } else {
+          dss[(ty * RPT + i) * BCP + tx + COL_LANES * j] =
+              round_to<T>(pij * (dp[i][j] - delta[i]));
+        }
       }
     }
-    __syncthreads();
-    tile_acc<D>(dss, ks, ty, tx, acc);
+    if constexpr (!DELTA_PASS) {
+      __syncthreads();
+      tile_acc<D>(dss, ks, ty, tx, acc);
+    }
+  }
+
+  if constexpr (DELTA_PASS) {
+    // The 16 lanes that share a row are one half of a warp.
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+#pragma unroll
+      for (int off = COL_LANES / 2; off > 0; off /= 2) {
+        pdp[i] += __shfl_xor_sync(0xffffffffu, pdp[i], off);
+        psum[i] += __shfl_xor_sync(0xffffffffu, psum[i], off);
+      }
+      const int row = q0 + ty * RPT + i;
+      if (tx == 0 && row < p.s_q)
+        p.delta_out[static_cast<int64_t>(bh) * p.s_q + row] =
+            psum[i] > 0.0 ? static_cast<float>(pdp[i] / psum[i]) : 0.f;
+    }
+    return;
   }
 
   T* dq = static_cast<T*>(p.dq);
@@ -477,12 +523,14 @@ constexpr size_t tc_dkv_smem_bytes() {
 }
 
 // One block per (batch * head, tile of 64 query rows), warp w owning rows
-// 16w .. 16w+15; loops over tiles of 64 keys, two stages deep.
+// 16w .. 16w+15; loops over tiles of 64 keys, two stages deep.  With
+// DELTA_PASS it sums p * dp and p over each row instead of the dS.k
+// product and writes delta.
 //
 // Both tensor-core kernels ask for three blocks an SM at D=64, which caps
 // them at 168 registers a thread; at D=128 the accumulators need the
 // registers, so they take what they need and two blocks fit.
-template <int D>
+template <int D, bool DELTA_PASS>
 __global__ void __launch_bounds__(NT, D == 64 ? 3 : 1)
     flash_bwd_dq_tc_kernel(Params p) {
   constexpr int BK = TC_DQ_COLS;
@@ -528,12 +576,13 @@ __global__ void __launch_bounds__(NT, D == 64 ? 3 : 1)
   // This thread's two rows of the warp's 16: r_lo and r_lo + 8.
   const int r_lo = q0 + warp * 16 + g;
   float lse2[2], delta[2];
+  double pdp[2] = {0.0, 0.0}, psum[2] = {0.0, 0.0};
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int row = r_lo + half * 8;
     const int64_t at = static_cast<int64_t>(bh) * p.s_q + row;
     lse2[half] = row < p.s_q ? p.lse[at] * LOG2E : 0.f;
-    delta[half] = row < p.s_q ? p.delta[at] : 0.f;
+    delta[half] = !DELTA_PASS && row < p.s_q ? p.delta[at] : 0.f;
   }
   const float scale2 = p.scale * LOG2E;
 
@@ -571,14 +620,36 @@ __global__ void __launch_bounds__(NT, D == 64 ? 3 : 1)
         // Explicit zero first: exp(s - lse) overflows on a masked row.
         const float pij =
             keep ? exp2f(fmaf(s[j][e], scale2, -lse2[half])) : 0.f;
-        s[j][e] = pij * (dp[j][e] - delta[half]);  // ds
+        if constexpr (DELTA_PASS) {
+          pdp[half] = __fma_rn(static_cast<double>(pij), dp[j][e], pdp[half]);
+          psum[half] += pij;
+        } else {
+          s[j][e] = pij * (dp[j][e] - delta[half]);  // ds
+        }
       }
-    tc_acc<D, BK>(acc, s, kt);
+    if constexpr (!DELTA_PASS) tc_acc<D, BK>(acc, s, kt);
     __syncthreads();  // this stage is reloaded two tiles on
   }
   cp_async_wait<0>();
-  tc_store<D>(static_cast<bf16*>(p.dq), acc, p.scale, b, h, p.n_heads,
-              p.s_q, r_lo, p.s_q, lane);
+  if constexpr (DELTA_PASS) {
+    // A row's columns lie in the four lanes of one quad.
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+#pragma unroll
+      for (int off = 1; off < 4; off *= 2) {
+        pdp[half] += __shfl_xor_sync(0xffffffffu, pdp[half], off);
+        psum[half] += __shfl_xor_sync(0xffffffffu, psum[half], off);
+      }
+      const int row = r_lo + half * 8;
+      if (tig == 0 && row < p.s_q)
+        p.delta_out[static_cast<int64_t>(bh) * p.s_q + row] =
+            psum[half] > 0.0 ? static_cast<float>(pdp[half] / psum[half])
+                             : 0.f;
+    }
+  } else {
+    tc_store<D>(static_cast<bf16*>(p.dq), acc, p.scale, b, h, p.n_heads,
+                p.s_q, r_lo, p.s_q, lane);
+  }
 }
 
 // One block per (batch * head, tile of 64 keys), warp w owning keys
@@ -700,42 +771,53 @@ __global__ void __launch_bounds__(NT, D == 64 ? 3 : 1)
 using KernelFn = void (*)(Params);
 
 template <typename T, int D, typename F>
-cudaError_t with_cuda_core(bool dq, F&& f) {
-  return dq ? f(flash_bwd_dq_kernel<T, D>, dq_smem_bytes<D>(), BR)
-            : f(flash_bwd_dkv_kernel<T, D>, dkv_smem_bytes<D>(), BR);
+cudaError_t with_cuda_core(Mode mode, F&& f) {
+  switch (mode) {
+    case DQ: return f(flash_bwd_dq_kernel<T, D, false>, dq_smem_bytes<D>(),
+                      BR);
+    case DELTA: return f(flash_bwd_dq_kernel<T, D, true>, dq_smem_bytes<D>(),
+                         BR);
+    default: return f(flash_bwd_dkv_kernel<T, D>, dkv_smem_bytes<D>(), BR);
+  }
 }
 
 template <int D, typename F>
-cudaError_t with_tensor_core(bool dq, F&& f) {
-  return dq ? f(flash_bwd_dq_tc_kernel<D>, tc_dq_smem_bytes<D>(), TC_ROWS)
-            : f(flash_bwd_dkv_tc_kernel<D>, tc_dkv_smem_bytes<D>(), TC_ROWS);
+cudaError_t with_tensor_core(Mode mode, F&& f) {
+  switch (mode) {
+    case DQ: return f(flash_bwd_dq_tc_kernel<D, false>,
+                      tc_dq_smem_bytes<D>(), TC_ROWS);
+    case DELTA: return f(flash_bwd_dq_tc_kernel<D, true>,
+                         tc_dq_smem_bytes<D>(), TC_ROWS);
+    default: return f(flash_bwd_dkv_tc_kernel<D>, tc_dkv_smem_bytes<D>(),
+                      TC_ROWS);
+  }
 }
 
 // f(kernel, its dynamic shared memory bytes, the rows a block owns) for
-// the kernel that serves (dq or dkv, head_dim, dtype, route).
+// the kernel that serves (mode, head_dim, dtype, route).
 template <typename F>
-cudaError_t with_kernel(bool dq, int head_dim, bool bf16, bool tensor_core,
+cudaError_t with_kernel(Mode mode, int head_dim, bool bf16, bool tensor_core,
                         F&& f) {
   if (tensor_core) {
     if (!bf16) return cudaErrorInvalidValue;
     switch (head_dim) {
-      case 64: return with_tensor_core<64>(dq, f);
-      case 128: return with_tensor_core<128>(dq, f);
+      case 64: return with_tensor_core<64>(mode, f);
+      case 128: return with_tensor_core<128>(mode, f);
       default: return cudaErrorInvalidValue;
     }
   }
   // bf16 at 64 and 128 runs on the tensor cores only.
   switch (head_dim) {
-    case 16: return bf16 ? with_cuda_core<__nv_bfloat16, 16>(dq, f)
-                         : with_cuda_core<float, 16>(dq, f);
-    case 32: return bf16 ? with_cuda_core<__nv_bfloat16, 32>(dq, f)
-                         : with_cuda_core<float, 32>(dq, f);
+    case 16: return bf16 ? with_cuda_core<__nv_bfloat16, 16>(mode, f)
+                         : with_cuda_core<float, 16>(mode, f);
+    case 32: return bf16 ? with_cuda_core<__nv_bfloat16, 32>(mode, f)
+                         : with_cuda_core<float, 32>(mode, f);
     case 64: return bf16 ? cudaErrorInvalidValue
-                         : with_cuda_core<float, 64>(dq, f);
+                         : with_cuda_core<float, 64>(mode, f);
     case 128: return bf16 ? cudaErrorInvalidValue
-                          : with_cuda_core<float, 128>(dq, f);
-    case 256: return bf16 ? with_cuda_core<__nv_bfloat16, 256>(dq, f)
-                          : with_cuda_core<float, 256>(dq, f);
+                          : with_cuda_core<float, 128>(mode, f);
+    case 256: return bf16 ? with_cuda_core<__nv_bfloat16, 256>(mode, f)
+                          : with_cuda_core<float, 256>(mode, f);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -757,27 +839,27 @@ bool tc_aligned(const Params& p, const int64_t* strides) {
   return true;
 }
 
-int run(bool dq, const void* q, const void* k, const void* v,
+int run(Mode mode, const void* q, const void* k, const void* v,
         const void* dout, const void* lse, const void* delta,
         const void* mask, void* dq_out, void* dk_out, void* dv_out,
-        int batch, int n_heads, int s_q, int s_kv, int head_dim, int is_bf16,
-        const int64_t* strides, float scale, int causal, int tensor_core,
-        void* stream) {
+        float* delta_out, int batch, int n_heads, int s_q, int s_kv,
+        int head_dim, int is_bf16, const int64_t* strides, float scale,
+        int causal, int tensor_core, void* stream) {
   if (s_q <= 0 || s_kv <= 0 || batch <= 0 || n_heads <= 0)
     return cudaErrorInvalidValue;
   const Params p{q, k, v, dout, static_cast<const float*>(lse),
                  static_cast<const float*>(delta),
                  static_cast<const int32_t*>(mask), dq_out, dk_out, dv_out,
-                 n_heads, s_q, s_kv,
+                 delta_out, n_heads, s_q, s_kv,
                  strides[0], strides[1], strides[2], strides[3], strides[4],
                  strides[5], strides[6], strides[7], strides[8], strides[9],
                  strides[10], strides[11], scale, causal};
   if (tensor_core && !tc_aligned(p, strides))
     return cudaErrorMisalignedAddress;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int rows_total = dq ? s_q : s_kv;
+  const int rows_total = mode == DKV ? s_kv : s_q;
   return with_kernel(
-      dq, head_dim, is_bf16 != 0, tensor_core != 0,
+      mode, head_dim, is_bf16 != 0, tensor_core != 0,
       [&](KernelFn kernel, size_t smem, int rows) {
         const cudaError_t err = allow_smem(kernel, smem);
         if (err != cudaSuccess) return err;
@@ -793,7 +875,7 @@ extern "C" {
 
 // Each returns cudaSuccess (0) or the launch's cudaError_t.  is_bf16
 // selects __nv_bfloat16 for q, k, v, dout and the gradients; otherwise all
-// are float.  strides holds the batch, sequence and head strides (in
+// are float (lse, delta and the delta pass's output are float always).  strides holds the batch, sequence and head strides (in
 // elements) of q, k, v and dout, in that order: 12 values.  tensor_core
 // selects the tensor-core kernels (bf16, head_dim 64 or 128, strides that
 // are multiples of 8 on 16-byte aligned data); otherwise the CUDA-core
@@ -804,9 +886,9 @@ int tf_flash_bwd_dq(const void* q, const void* k, const void* v,
                     int s_q, int s_kv, int head_dim, int is_bf16,
                     const int64_t* strides, float scale, int causal,
                     int tensor_core, void* stream) {
-  return run(true, q, k, v, dout, lse, delta, mask, dq, nullptr, nullptr,
-             batch, n_heads, s_q, s_kv, head_dim, is_bf16, strides, scale,
-             causal, tensor_core, stream);
+  return run(DQ, q, k, v, dout, lse, delta, mask, dq, nullptr, nullptr,
+             nullptr, batch, n_heads, s_q, s_kv, head_dim, is_bf16, strides,
+             scale, causal, tensor_core, stream);
 }
 
 int tf_flash_bwd_dkv(const void* q, const void* k, const void* v,
@@ -815,17 +897,33 @@ int tf_flash_bwd_dkv(const void* q, const void* k, const void* v,
                      int n_heads, int s_q, int s_kv, int head_dim,
                      int is_bf16, const int64_t* strides, float scale,
                      int causal, int tensor_core, void* stream) {
-  return run(false, q, k, v, dout, lse, delta, mask, nullptr, dk, dv, batch,
-             n_heads, s_q, s_kv, head_dim, is_bf16, strides, scale, causal,
-             tensor_core, stream);
+  return run(DKV, q, k, v, dout, lse, delta, mask, nullptr, dk, dv, nullptr,
+             batch, n_heads, s_q, s_kv, head_dim, is_bf16, strides, scale,
+             causal, tensor_core, stream);
 }
 
-// The dynamic shared memory of the kernel that serves (dq or dkv,
-// head_dim, dtype, route) and how many of its blocks an SM holds at once.
-int tf_flash_bwd_kernel_info(int dq, int head_dim, int is_bf16,
+// The delta pass: delta [B, N, S_q] = sum_j p * dp / sum_j p over each
+// query row (0 where the row keeps no key), before dq and dkv run.
+int tf_flash_bwd_delta(const void* q, const void* k, const void* v,
+                       const void* dout, const void* lse, const void* mask,
+                       float* delta, int batch, int n_heads, int s_q,
+                       int s_kv, int head_dim, int is_bf16,
+                       const int64_t* strides, float scale, int causal,
+                       int tensor_core, void* stream) {
+  return run(DELTA, q, k, v, dout, lse, nullptr, mask, nullptr, nullptr,
+             nullptr, delta, batch, n_heads, s_q, s_kv, head_dim, is_bf16,
+             strides, scale, causal, tensor_core, stream);
+}
+
+// The dynamic shared memory of the kernel that serves (mode: 0 dkv, 1 dq,
+// 2 the delta pass; head_dim, dtype, route) and how many of its blocks an
+// SM holds at once.
+int tf_flash_bwd_kernel_info(int mode, int head_dim, int is_bf16,
                              int tensor_core, int* smem_bytes,
                              int* blocks_per_sm) {
-  return with_kernel(dq != 0, head_dim, is_bf16 != 0, tensor_core != 0,
+  if (mode < DKV || mode > DELTA) return cudaErrorInvalidValue;
+  return with_kernel(static_cast<Mode>(mode), head_dim, is_bf16 != 0,
+                     tensor_core != 0,
                      [&](KernelFn kernel, size_t smem, int) {
                        *smem_bytes = static_cast<int>(smem);
                        const cudaError_t err = allow_smem(kernel, smem);

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+from tpuframe_torch.models.bert import (BertConfig,
+                                        BertForSequenceClassification)
 from tpuframe_torch.models.resnet import (ResNet, ResNet18, ResNet34,
                                           ResNet50, ResNet101, ResNet152)
 from tpuframe_torch.models.transformer_lm import LMConfig, TransformerLM
@@ -14,7 +16,6 @@ _RESNETS = {"resnet18": ResNet18, "resnet34": ResNet34,
 # the ROADMAP.md item that brings each.
 _LATER = {
     "convnet": "queue 1, item 3 (the MNIST ConvNet)",
-    "bert-base": "slice 4 (BERT/GLUE training)",
     "transformer-lm-pp": "queue 1, item 12 (pipeline parallelism)",
 }
 
@@ -29,6 +30,13 @@ def get_model(name: str, *, dtype=None, tiny: bool = False, device="cuda",
             kwargs.setdefault("dtype", str(dtype).replace("torch.", ""))
         cfg = LMConfig.tiny(**kwargs) if tiny else LMConfig(**kwargs)
         return TransformerLM(cfg, device=device, seed=seed)
+    if name == "bert-base":
+        # The JAX adapter's call shape: dtype= becomes BertConfig.dtype,
+        # num_classes, dropout and the widths are BertConfig fields.
+        if dtype is not None:
+            kwargs.setdefault("dtype", str(dtype).replace("torch.", ""))
+        return BertForSequenceClassification(BertConfig.base(**kwargs),
+                                             device=device, seed=seed)
     if name in _RESNETS:
         if dtype is not None:
             kwargs.setdefault("dtype", dtype)
@@ -39,5 +47,6 @@ def get_model(name: str, *, dtype=None, tiny: bool = False, device="cuda",
     raise ValueError(f"unknown model {name!r}")
 
 
-__all__ = ["LMConfig", "ResNet", "ResNet18", "ResNet34", "ResNet50",
+__all__ = ["BertConfig", "BertForSequenceClassification", "LMConfig",
+           "ResNet", "ResNet18", "ResNet34", "ResNet50",
            "ResNet101", "ResNet152", "TransformerLM", "get_model"]

@@ -1,5 +1,6 @@
-"""Carry flax ``TransformerLM`` parameters (and optax Adam moments), and
-flax ResNet parameters and batch statistics, into the port's models.
+"""Carry flax ``TransformerLM`` parameters (and optax Adam moments), flax
+ResNet parameters and batch statistics, and flax BERT parameters into the
+port's models.
 
 The flax tree (``{"embed": {"embedding"}, "block_<i>": {...},
 "final_ln": {"scale"}, "lm_head": {"kernel"}}``) arrives as nested dicts of
@@ -142,5 +143,61 @@ def resnet_from_jax(params, batch_stats) -> dict:
     if len(used) != total:
         raise ValueError(f"the flax tree holds {total} leaves, "
                          f"{len(used)} were mapped: not a tpuframe ResNet")
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32))
+            for k, v in sd.items()}
+
+
+def bert_params_from_jax(params) -> dict:
+    """A flax ``tpuframe.models.bert.BertForSequenceClassification``'s
+    ``params`` (nested dicts of numpy arrays) → the port model's
+    ``state_dict`` (f32 CPU tensors).  Embedding tables and LayerNorm
+    scales and biases carry over as they are; ``Dense`` kernels are
+    transposed; the ``DenseGeneral`` query/key/value kernels ``[H, N, D]``
+    and biases ``[N, D]`` and the out kernel ``[N, D, H]`` are flattened
+    over the heads first.  Raises on a tree that leaves a leaf
+    unmapped."""
+    used = set()
+
+    def get(*path):
+        node = params
+        for p in path:
+            node = node[p]
+        used.add(path)
+        return np.asarray(node)
+
+    def dense(dst, *src):
+        k = get(*src, "kernel")
+        sd[f"{dst}.weight"] = k.reshape(-1, k.shape[-1]).T
+        sd[f"{dst}.bias"] = get(*src, "bias").reshape(-1)
+
+    def ln(dst, *src):
+        sd[f"{dst}.weight"] = get(*src, "scale")
+        sd[f"{dst}.bias"] = get(*src, "bias")
+
+    sd = {}
+    for dst, src in (("word", "word"), ("position", "position"),
+                     ("token_type", "type")):
+        sd[f"embeddings.{dst}.weight"] = get("embeddings", src, "embedding")
+    ln("embeddings.ln", "embeddings", "ln")
+    i = 0
+    while f"layer_{i}" in params["encoder"]:
+        src, dst = ("encoder", f"layer_{i}"), f"encoder.layers.{i}."
+        for name in ("query", "key", "value"):
+            k = get(*src, "attention", name, "kernel")      # [H, N, D]
+            sd[dst + f"attention.{name}.weight"] = k.reshape(k.shape[0], -1).T
+            sd[dst + f"attention.{name}.bias"] = get(
+                *src, "attention", name, "bias").reshape(-1)
+        dense(dst + "attention.out", *src, "attention", "out")  # [N, D, H]
+        ln(dst + "attention_ln", *src, "attention_ln")
+        dense(dst + "intermediate", *src, "intermediate")
+        dense(dst + "output", *src, "output")
+        ln(dst + "output_ln", *src, "output_ln")
+        i += 1
+    dense("pooler", "pooler")
+    dense("classifier", "classifier")
+    total = sum(1 for _ in _leaves(params))
+    if len(used) != total:
+        raise ValueError(f"the flax tree holds {total} leaves, {len(used)} "
+                         f"were mapped: not a tpuframe BERT")
     return {k: torch.from_numpy(np.array(v, dtype=np.float32))
             for k, v in sd.items()}

@@ -97,36 +97,47 @@ def rope(x, positions, theta: float):
 
 
 class LayerNorm(nn.Module):
-    """``flax.linen.LayerNorm(use_bias=False)``: scale only, eps 1e-6."""
+    """``flax.linen.LayerNorm``: scale only and eps 1e-6 by default (the
+    LM's ``use_bias=False``); ``bias=True`` adds flax's bias after the
+    scale (BERT's, with eps 1e-12).  The result is f32."""
 
-    def __init__(self, size: int, *, eps: float = 1e-6, device=None):
+    def __init__(self, size: int, *, eps: float = 1e-6, bias: bool = False,
+                 device=None):
         super().__init__()
         self.eps = eps
         self.weight = nn.Parameter(torch.ones(size, device=device))
+        self.bias = (nn.Parameter(torch.zeros(size, device=device))
+                     if bias else None)
 
     def forward(self, x):
-        xf = x.float()
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
         mean = xf.mean(dim=-1, keepdim=True)
         var = torch.clamp((xf * xf).mean(dim=-1, keepdim=True)
                           - mean * mean, min=0.0)
-        return (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight)
+        y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight)
+        return y if self.bias is None else y + self.bias
 
 
 class Dense(nn.Module):
     """``flax.linen.Dense(use_bias=False, dtype=dtype)``: an f32 kernel,
     stored as ``[out, in]`` like ``nn.Linear.weight``; input and kernel
-    are cast to ``dtype`` at the call, so the output is in ``dtype``."""
+    are cast to ``dtype`` at the call, so the output is in ``dtype``.
+    ``bias=True`` adds an f32 bias (zeros at init), cast like the kernel
+    (flax's ``use_bias=True``)."""
 
     def __init__(self, in_features: int, out_features: int, *,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, bias: bool = False, device=None):
         super().__init__()
         self.in_features = in_features
         self.dtype = dtype
         self.weight = nn.Parameter(torch.empty((out_features, in_features),
                                                device=device))
+        self.bias = (nn.Parameter(torch.zeros(out_features, device=device))
+                     if bias else None)
 
     def forward(self, x):
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype))
+        b = None if self.bias is None else self.bias.to(self.dtype)
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype), b)
 
 
 def _seed_for(*parts: int) -> int:

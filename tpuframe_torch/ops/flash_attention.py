@@ -11,6 +11,13 @@ Three kernels replace the TPU kernels of ``tpuframe/ops/flash_attention.py``:
     ``_flash_bwd``): the FA2 split, one kernel owning query rows and one
     owning keys, each recomputing the probabilities from the saved
     logsumexp, with no atomics.
+  - ``flash_bwd_delta`` (the dq kernel in its delta mode) computes the
+    rows' ``delta`` that both take, where ``_flash_bwd`` computes
+    ``rowsum(dO * O)`` in XLA: ``sum_j p * dp / sum_j p`` from the same
+    recomputed p and dp, so that each row's ``ds`` sums to zero.  The
+    rounded output's error in ``rowsum(dO * O)`` is a per-row offset that
+    outweighs query and key gradients of ~1e-3 of the rest (BERT's upper
+    layers) in bf16.
 
 Every kernel has two routes, chosen from the dtype and head_dim alone
 (:func:`fwd_route`, :func:`bwd_route`): bf16 at head_dim 64 or 128 runs on
@@ -25,11 +32,12 @@ over).
 
 Public functions take the JAX package's layout, ``[batch, seq, heads,
 head_dim]``, and are differentiable through :class:`_Flash`, whose backward
-is the two backward kernels; ``delta = rowsum(dO * O)`` and the fold of the
-lse cotangent into it are plain PyTorch, as in the JAX package.  A tensor on
+is the delta pass and the two backward kernels; the fold of the lse
+cotangent into delta is plain PyTorch, as in the JAX package.  A tensor on
 the CPU goes to the plain versions (:func:`flash_mha_reference`,
-:func:`flash_bwd_dq_reference`, :func:`flash_bwd_dkv_reference`); a CUDA
-tensor launches the kernels or raises.
+:func:`flash_bwd_delta_reference`, :func:`flash_bwd_dq_reference`,
+:func:`flash_bwd_dkv_reference`); a CUDA tensor launches the kernels or
+raises.
 """
 
 from __future__ import annotations
@@ -47,10 +55,11 @@ TC_HEAD_DIMS = (64, 128)
 
 # Launches of each CUDA kernel in this process: the counts a run reads to
 # show that its path went through the kernels.
-LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+LAUNCHES = {"flash_fwd": 0, "flash_bwd_delta": 0, "flash_bwd_dq": 0,
+            "flash_bwd_dkv": 0}
 # Forward kernel launches by route.
 FWD_ROUTES = {"tensor_core": 0, "cuda_core": 0}
-# Backward kernel launches by route, dq and dkv alike.
+# Backward kernel launches by route, the delta pass, dq and dkv alike.
 BWD_ROUTES = {"tensor_core": 0, "cuda_core": 0}
 
 _fns: dict = {}
@@ -73,11 +82,14 @@ def _kernel(name: str):
             _fns["flash_fwd_info"] = info
             err = lib.tf_flash_error_string
         else:
-            fns = [lib.tf_flash_bwd_dq, lib.tf_flash_bwd_dkv]
+            fns = [lib.tf_flash_bwd_dq, lib.tf_flash_bwd_dkv,
+                   lib.tf_flash_bwd_delta]
             strides = ctypes.POINTER(i64)
             fns[0].argtypes = ([ptr] * 8 + [i32] * 6
                                + [strides, ctypes.c_float, i32, i32, ptr])
             fns[1].argtypes = ([ptr] * 9 + [i32] * 6
+                               + [strides, ctypes.c_float, i32, i32, ptr])
+            fns[2].argtypes = ([ptr] * 7 + [i32] * 6
                                + [strides, ctypes.c_float, i32, i32, ptr])
             info = lib.tf_flash_bwd_kernel_info
             info.argtypes = [i32] * 4 + [ctypes.POINTER(i32)] * 2
@@ -157,10 +169,29 @@ def _recompute_p(q, k, lse, mask, causal):
     return torch.where(keep, p, 0.0)
 
 
+def _dp(do, v):
+    """``dp = dO.v^T`` in f32, ``[B, N, S_q, S_kv]``."""
+    return torch.einsum("bqnd,bknd->bnqk", do.float(), v.float())
+
+
 def _ds(p, do, v, delta):
     """``ds = p * (dO.v^T - delta)`` in f32, ``[B, N, S_q, S_kv]``."""
-    dp = torch.einsum("bqnd,bknd->bnqk", do.float(), v.float())
-    return p * (dp - delta[..., None])
+    return p * (_dp(do, v) - delta[..., None])
+
+
+def flash_bwd_delta_reference(q, k, v, do, lse, *, mask=None,
+                              causal=False):
+    """The plain version of the delta pass: ``[B, N, S_q]`` f32, ``sum_j p
+    * dp / sum_j p`` over each query row from the probabilities recomputed
+    from ``lse`` and ``dp = dO.v^T`` (0 for a row that keeps no key).  p
+    and dp are f32; their products and the sums are f64, as in the
+    kernel."""
+    _check(q, k, v, mask)
+    p = _recompute_p(q, k, lse, mask, causal).double()
+    total = p.sum(dim=-1)
+    pdp = (p * _dp(do, v).double()).sum(dim=-1)
+    return torch.where(total > 0.0, pdp / torch.where(total > 0.0, total,
+                                                      1.0), 0.0).float()
 
 
 def flash_bwd_dq_reference(q, k, v, do, lse, delta, *, mask=None,
@@ -299,8 +330,9 @@ def _tc_operand(t):
 
 
 def _launch_bwd(which, q, k, v, do, lse, delta, mask, causal):
-    """One backward kernel: ``which`` is ``"dq"`` (returns dq) or ``"dkv"``
-    (returns dk, dv), on the route :func:`bwd_route` picks."""
+    """One backward kernel: ``which`` is ``"dq"`` (returns dq), ``"dkv"``
+    (returns dk, dv) or ``"delta"`` (the delta pass, which takes no
+    ``delta``: returns it), on the route :func:`bwd_route` picks."""
     mask = _launch_checks(q, k, v, mask)
     if do.shape != q.shape or do.dtype != q.dtype or do.stride(-1) != 1:
         raise ValueError(f"dO {tuple(do.shape)} {do.dtype} must match q "
@@ -309,7 +341,9 @@ def _launch_bwd(which, q, k, v, do, lse, delta, mask, causal):
     b, s_q, n, d = q.shape
     s_kv = k.shape[1]
     rows = (b, n, s_q)
-    for name, t in (("lse", lse), ("delta", delta)):
+    row_inputs = {"lse": lse} if which == "delta" else {"lse": lse,
+                                                         "delta": delta}
+    for name, t in row_inputs.items():
         if (tuple(t.shape) != rows or t.dtype != torch.float32
                 or t.device != q.device):
             raise ValueError(f"{name} must be f32 {rows} on {q.device}")
@@ -319,38 +353,40 @@ def _launch_bwd(which, q, k, v, do, lse, delta, mask, causal):
     route = bwd_route(q.dtype, d)
     if route == "tensor_core":
         q, k, v, do = map(_tc_operand, (q, k, v, do))
-    lse, delta = lse.contiguous(), delta.contiguous()
-    if which == "dq":
+    if which == "delta":
+        outs = (torch.empty(rows, dtype=torch.float32, device=q.device),)
+    elif which == "dq":
         outs = (torch.empty((b, s_q, n, d), dtype=q.dtype, device=q.device),)
     else:
         outs = (torch.empty((b, s_kv, n, d), dtype=k.dtype, device=q.device),
                 torch.empty((b, s_kv, n, d), dtype=v.dtype, device=q.device))
     strides = (ctypes.c_int64 * 12)(*(t.stride(i) for t in (q, k, v, do)
                                       for i in range(3)))
-    fn_dq, fn_dkv, err_str = _kernel("flash_bwd")
+    fn_dq, fn_dkv, fn_delta, err_str = _kernel("flash_bwd")
+    fn = {"dq": fn_dq, "dkv": fn_dkv, "delta": fn_delta}[which]
+    rows_in = [t.contiguous() for t in row_inputs.values()]
+    ins = [t.data_ptr() for t in (q, k, v, do, *rows_in)]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = (fn_dq if which == "dq" else fn_dkv)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(),
-            None if mask is None else mask.data_ptr(),
-            *(t.data_ptr() for t in outs),
-            b, n, s_q, s_kv, d, int(q.dtype == torch.bfloat16), strides,
-            d ** -0.5, int(causal), int(route == "tensor_core"), stream)
+        err = fn(*ins, None if mask is None else mask.data_ptr(),
+                 *(t.data_ptr() for t in outs),
+                 b, n, s_q, s_kv, d, int(q.dtype == torch.bfloat16), strides,
+                 d ** -0.5, int(causal), int(route == "tensor_core"), stream)
     name = f"flash_bwd_{which}"
     _raise_on(name, err, err_str)
     LAUNCHES[name] += 1
     BWD_ROUTES[route] += 1
-    return outs[0] if which == "dq" else outs
+    return outs if which == "dkv" else outs[0]
 
 
 def bwd_kernel_info(which, dtype, head_dim, route):
     """``(dynamic shared memory bytes, blocks an SM holds)`` of the
-    backward kernel ``which`` (``"dq"`` or ``"dkv"``) on ``route``, from
-    the CUDA runtime's occupancy calculator."""
-    _, _, err_str = _kernel("flash_bwd")
+    backward kernel ``which`` (``"dq"``, ``"dkv"`` or ``"delta"``) on
+    ``route``, from the CUDA runtime's occupancy calculator."""
+    *_, err_str = _kernel("flash_bwd")
     smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
-    err = _fns["flash_bwd_info"](int(which == "dq"), head_dim,
+    mode = {"dkv": 0, "dq": 1, "delta": 2}[which]
+    err = _fns["flash_bwd_info"](mode, head_dim,
                                  int(dtype == torch.bfloat16),
                                  int(route == "tensor_core"),
                                  ctypes.byref(smem), ctypes.byref(blocks))
@@ -374,6 +410,16 @@ def flash_fwd(q, k, v, *, mask=None, causal=False):
     return flash_mha_reference(q, k, v, mask=mask, causal=causal)
 
 
+def flash_bwd_delta(q, k, v, do, lse, *, mask=None, causal=False):
+    """The delta pass (CUDA) or its plain version (CPU): ``[B, N, S_q]``
+    f32, ``sum_j p * dp / sum_j p``."""
+    _check(q, k, v, mask)
+    if _on_device(q):
+        return _launch_bwd("delta", q, k, v, do, lse, None, mask, causal)
+    return flash_bwd_delta_reference(q, k, v, do, lse, mask=mask,
+                                     causal=causal)
+
+
 def flash_bwd(q, k, v, do, lse, delta, *, mask=None, causal=False):
     """The two backward kernels (CUDA) or their plain versions (CPU).
     Returns ``(dq, dk, dv)``."""
@@ -391,25 +437,27 @@ class _Flash(torch.autograd.Function):
     """``(out, lse)`` with the JAX package's custom VJP
     (``_flash_lse_vjp_fwd`` / ``_bwd``): both outputs are differentiable,
     and the lse cotangent folds into delta (``delta - dlse``), so both
-    backward kernels run unchanged."""
+    backward kernels run unchanged.  delta comes from the delta pass
+    (:func:`flash_bwd_delta`), not from the saved output."""
 
     @staticmethod
     def forward(ctx, q, k, v, mask, causal):
         out, lse = flash_fwd(q, k, v, mask=mask, causal=causal)
-        ctx.save_for_backward(q, k, v, mask, out, lse)
+        ctx.save_for_backward(q, k, v, mask, lse)
         ctx.causal = causal
         ctx.set_materialize_grads(False)
         return out, lse
 
     @staticmethod
     def backward(ctx, do, dlse):
-        q, k, v, mask, out, lse = ctx.saved_tensors
+        q, k, v, mask, lse = ctx.saved_tensors
         if do is None:
-            do = torch.zeros_like(out)
+            do = torch.zeros_like(q)
         elif do.stride(-1) != 1:
             do = do.contiguous()
-        do = do.to(out.dtype)
-        delta = (do.float() * out.float()).sum(dim=-1).permute(0, 2, 1)
+        do = do.to(q.dtype)
+        delta = flash_bwd_delta(q, k, v, do, lse, mask=mask,
+                                causal=ctx.causal)
         if dlse is not None:
             # lse = logsumexp(s) is an output: d lse / d s_j = p_j adds
             # dlse * p_j to ds, i.e. ds = p * (dp - (delta - dlse)).

@@ -1,5 +1,5 @@
-"""Prefill/decode engine over :class:`TransformerLM` (counterpart of
-``tpuframe/serve/engine.py``).
+"""Prefill/decode engine over :class:`TransformerLM`, and the single-shot
+:class:`BertClassifier` (counterpart of ``tpuframe/serve/engine.py``).
 
   prefill  one prompt, batch 1, padded to its bucket: causal attention
            over the padded prompt (the training forward's math, through
@@ -17,6 +17,10 @@ PyTorch runs eagerly, so there is no ahead-of-time program table: the
 shapes are still the closed set of buckets, and the decode cache,
 lengths and tokens are updated in place (the JAX engine donates those
 buffers to its compiled programs for the same effect).
+
+  classify one BERT request, batch 1, padded to its bucket with a
+           ``[1, bucket]`` key mask, no cache; the class probabilities
+           are a softmax in f32.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ import numpy as np
 import torch
 
 from tpuframe_torch import _device
+from tpuframe_torch.models.bert import BertForSequenceClassification
 from tpuframe_torch.models.transformer_lm import Dense, TransformerLM
 from tpuframe_torch.serve import kv_cache as kv
 
@@ -61,14 +66,7 @@ class LMEngine:
         self.model = TransformerLM(cfg, device=self.device, seed=seed)
         if params is not None:
             self.model.load_state_dict(params)
-        self.model.eval().requires_grad_(False)
-        # The model keeps f32 weights and casts each Dense kernel to the
-        # compute dtype at every call, as flax does.  The engine never
-        # trains, so it keeps a compute-dtype copy instead: the same bits
-        # as that cast, made once, and a decode step reads half the bytes.
-        for mod in self.model.modules():
-            if isinstance(mod, Dense):
-                mod.weight.data = mod.weight.data.to(mod.dtype)
+        _freeze_for_serving(self.model)
         self.reset()
 
     def reset(self) -> None:
@@ -127,6 +125,59 @@ class LMEngine:
         self._tokens = logits[:, 0].argmax(dim=-1, keepdim=True)
         self._lengths += 1
         return self._tokens[:, 0].cpu().numpy()
+
+
+def _freeze_for_serving(model) -> None:
+    """Eval mode, no gradients, and each Dense's weight (and bias) kept in
+    its compute dtype.  The model keeps f32 weights and casts them at
+    every call, as flax does; a server never trains, so it keeps the cast
+    copy instead: the same bits, made once, and half the bytes read."""
+    model.eval().requires_grad_(False)
+    for mod in model.modules():
+        if isinstance(mod, Dense):
+            mod.weight.data = mod.weight.data.to(mod.dtype)
+            if mod.bias is not None:
+                mod.bias.data = mod.bias.data.to(mod.dtype)
+
+
+class BertClassifier:
+    """Bucketed single-shot classifier over
+    :class:`BertForSequenceClassification`: no cache, batch 1, one shape
+    per sequence bucket (``tpuframe/serve/engine.py:BertClassifier``).
+
+    ``state_dict`` is the port model's (for one,
+    :func:`tpuframe_torch.models.convert.bert_params_from_jax`); without
+    it the weights are random, drawn from ``seed``.  Attention follows
+    ``TPUFRAME_ATTN_IMPL``: with ``pallas`` each request runs the flash
+    forward once per layer, over a ``[1, bucket]`` key mask."""
+
+    def __init__(self, cfg, state_dict=None, *, buckets=(64, 128),
+                 seed: int = 0, device="cuda"):
+        self.device = _device.resolve(device)
+        self.cfg = cfg
+        self.buckets = tuple(sorted(set(buckets)))
+        if max(self.buckets) > cfg.max_position:
+            raise ValueError(f"bucket {max(self.buckets)} exceeds "
+                             f"max_position {cfg.max_position}")
+        self.model = BertForSequenceClassification(cfg, device=self.device,
+                                                   seed=seed)
+        if state_dict is not None:
+            self.model.load_state_dict(state_dict)
+        _freeze_for_serving(self.model)
+
+    @torch.no_grad()
+    def classify(self, token_ids) -> tuple:
+        """-> ``(label: int, probs: np.ndarray[num_classes])`` (f32)."""
+        ids = [int(t) for t in token_ids]
+        bucket = kv.bucket_for(len(ids), self.buckets)
+        padded = torch.zeros((1, bucket), dtype=torch.int64)
+        mask = torch.zeros((1, bucket), dtype=torch.int32)
+        padded[0, :len(ids)] = torch.tensor(ids, dtype=torch.int64)
+        mask[0, :len(ids)] = 1
+        logits = self.model(padded.to(self.device),
+                            attention_mask=mask.to(self.device))
+        probs = torch.softmax(logits.float(), dim=-1)[0].cpu().numpy()
+        return int(probs.argmax()), probs
 
 
 def golden_parity_check(cfg, *, buckets, capacity: int,

@@ -1,11 +1,12 @@
-"""Training harness (counterpart of ``tpuframe/train.py``): the LM and
-ImageNet ResNet workloads.
+"""Training harness (counterpart of ``tpuframe/train.py``): the LM,
+ImageNet ResNet and BERT/GLUE workloads.
 
     python -m tpuframe_torch.train --config lm_long \\
         --set 'mesh={"data": 1, "seq": 1}' --set dataset_kwargs='{"seq_len": 4096}'
     python -m tpuframe_torch.train --config imagenet_resnet50 \\
         --set 'model_kwargs={"bn": "fused"}' --set 'mesh={"data": 1}' \\
         --set global_batch=256
+    python -m tpuframe_torch.train --config glue_bert
     python -m tpuframe_torch.train --config lm_smoke --device cpu \\
         --set 'mesh={"data": 1, "seq": 1}'
 
@@ -18,15 +19,17 @@ from ``torch.distributed`` (initialise the default group before
 :func:`main`, e.g. through ``torchrun``); the data degree of the config's
 mesh must equal the world size.
 
-The LM workloads (``lm_text`` data, ``transformer-lm``) and the ImageNet
+The LM workloads (``lm_text`` data, ``transformer-lm``), the ImageNet
 ResNets (``imagenet`` data, ``resnet*``; on-device augmentation, label
-smoothing, top-5 eval) train here.  What the JAX harness has and the port
-does not yet refuses loudly, naming its ROADMAP.md item: the MNIST,
-CIFAR-10 and GLUE data, checkpoints, the observability plane (events, TensorBoard,
-traces, metrics exporter), pipeline, fsdp, tensor and expert parallelism,
-ZeRO-1, quantized or hierarchical collectives, bucketed fusion, adasum,
-sequence parallelism (a seq degree above 1), fault injection and elastic
-resizing.
+smoothing, top-5 eval) and the GLUE tasks (``glue_sst2``, ``glue_mnli``,
+``glue_stsb``, ``glue_cola`` data, ``bert-base``; cross-entropy, or MSE
+when ``num_classes`` is 1; Pearson and Matthews correlation at eval) train
+here.  What the JAX harness has and the port does not yet refuses loudly,
+naming its ROADMAP.md item: the MNIST and CIFAR-10 data, checkpoints, the
+observability plane (events, TensorBoard, traces, metrics exporter),
+pipeline, fsdp, tensor and expert parallelism, ZeRO-1, quantized or
+hierarchical collectives, bucketed fusion, adasum, sequence parallelism (a
+seq degree above 1), fault injection and elastic resizing.
 """
 
 from __future__ import annotations
@@ -143,6 +146,17 @@ def _is_lm_task(cfg: TrainConfig) -> bool:
     return cfg.dataset == "lm_text"
 
 
+def _is_text_task(cfg: TrainConfig) -> bool:
+    return cfg.dataset in ("glue_sst2", "glue_mnli", "glue_stsb",
+                           "glue_cola")
+
+
+def _is_regression_task(cfg: TrainConfig) -> bool:
+    """HF's convention, as the JAX harness enforces it: one output is a
+    regression (STS-B), trained with MSE on the squeezed logit."""
+    return cfg.model_kwargs.get("num_classes") == 1
+
+
 def _maybe_normalize(cfg: TrainConfig, x):
     """Normalise a uint8 image batch on the device (datasets built with
     ``keep_u8``): ``(x / 255 - mean) / std`` in f32, with ImageNet's mean
@@ -184,7 +198,24 @@ def make_loss_fn(cfg: TrainConfig):
     seeds dropout.  Images: ``cfg.augment`` on the device from a generator
     seeded with ``seed``, normalisation, the training forward (BN batch
     statistics, running statistics updated) and cross-entropy with
-    ``cfg.label_smoothing``."""
+    ``cfg.label_smoothing``.  GLUE: the training forward with dropout
+    masks drawn from ``seed``, then cross-entropy and accuracy, or, for a
+    regression (``num_classes`` 1), the MSE of the squeezed logit."""
+    if _is_text_task(cfg):
+        regression = _is_regression_task(cfg)
+
+        def text_loss_fn(model, batch, dropout_seed):
+            logits = model(batch["input_ids"], batch["attention_mask"],
+                           batch["token_type_ids"], train=True,
+                           dropout_seed=dropout_seed)
+            if regression:
+                loss = ((logits[..., 0] - batch["label"]) ** 2).mean()
+                return loss, {"mse": loss.detach()}
+            loss = losses.softmax_cross_entropy(logits, batch["label"])
+            return loss, {"accuracy": losses.accuracy(logits.detach(),
+                                                      batch["label"])}
+
+        return text_loss_fn
     if not _is_lm_task(cfg):
         def image_loss_fn(model, batch, seed):
             images = batch["image"]
@@ -226,7 +257,38 @@ def make_metric_fn(cfg: TrainConfig):
     """Eval metrics.  LM: loss, perplexity and token accuracy over valid
     tokens, global over the world.  Images: accuracy and cross-entropy
     (no smoothing) with running statistics, plus ``top5`` for ImageNet;
-    ``crop_flip`` training pairs with a center crop here."""
+    ``crop_flip`` training pairs with a center crop here.  GLUE: accuracy
+    and loss, or MSE for a regression, plus the per-batch means
+    (``_m_*``) from which :func:`_finalize_eval` derives Pearson (STS-B)
+    and the Matthews correlation (CoLA) over the whole pass."""
+    if _is_text_task(cfg):
+        regression = _is_regression_task(cfg)
+
+        def text_metric_fn(model, batch):
+            logits = model(batch["input_ids"], batch["attention_mask"],
+                           batch["token_type_ids"])
+            y = batch["label"]
+            if regression:
+                pred = logits[..., 0]
+                mse = ((pred - y) ** 2).mean()
+                # Moments as per-batch means: averaged over equal-size
+                # batches they are the whole pass's.
+                return {"loss": mse, "mse": mse, "_m_pred": pred.mean(),
+                        "_m_y": y.mean(), "_m_pred2": (pred ** 2).mean(),
+                        "_m_y2": (y ** 2).mean(),
+                        "_m_py": (pred * y).mean()}
+            out = {"accuracy": losses.accuracy(logits, y),
+                   "loss": losses.softmax_cross_entropy(logits, y)}
+            if cfg.dataset == "glue_cola":
+                pred = logits.argmax(dim=-1)
+                out.update(
+                    _m_tp=((pred == 1) & (y == 1)).float().mean(),
+                    _m_fp=((pred == 1) & (y == 0)).float().mean(),
+                    _m_tn=((pred == 0) & (y == 0)).float().mean(),
+                    _m_fn=((pred == 0) & (y == 1)).float().mean())
+            return out
+
+        return text_metric_fn
     if not _is_lm_task(cfg):
         def image_metric_fn(model, batch):
             images = batch["image"]
@@ -294,7 +356,7 @@ def build_harness(cfg: TrainConfig, device="cuda") -> Harness:
 
 def evaluate(h: Harness, max_batches: int) -> dict:
     """Mean of the per-batch eval metrics over the first ``max_batches``
-    batches of the (unshuffled) eval set."""
+    batches of the (unshuffled) eval set, through :func:`_finalize_eval`."""
     agg, n = None, 0
     for i, batch in enumerate(h.eval_loader.epoch(0)):
         if i >= max_batches:
@@ -302,7 +364,29 @@ def evaluate(h: Harness, max_batches: int) -> dict:
         m = h.eval_step(h.state, batch)
         agg = m if agg is None else {k: agg[k] + m[k] for k in agg}
         n += 1
-    return {} if agg is None else {k: float(v) / n for k, v in agg.items()}
+    if agg is None:
+        return {}
+    return _finalize_eval({k: float(v) / n for k, v in agg.items()})
+
+
+def _finalize_eval(avg: dict) -> dict:
+    """Set-level metrics from the averaged moments (keys ``_m_*``, dropped
+    from the report): the Matthews correlation, omitted when its
+    denominator is 0 (a class never predicted), and Pearson's r, omitted
+    when either variance is 0."""
+    if "_m_tp" in avg:
+        tp, fp = avg["_m_tp"], avg["_m_fp"]
+        tn, fn = avg["_m_tn"], avg["_m_fn"]
+        denom = ((tp + fp) * (tp + fn) * (tn + fp) * (tn + fn)) ** 0.5
+        if denom > 0:
+            avg["mcc"] = (tp * tn - fp * fn) / denom
+    if "_m_py" in avg:
+        var_p = avg["_m_pred2"] - avg["_m_pred"] ** 2
+        var_y = avg["_m_y2"] - avg["_m_y"] ** 2
+        cov = avg["_m_py"] - avg["_m_pred"] * avg["_m_y"]
+        if var_p > 0 and var_y > 0:
+            avg["pearson"] = cov / (var_p * var_y) ** 0.5
+    return {k: v for k, v in avg.items() if not k.startswith("_m_")}
 
 
 def _log(prefix: str, step: int, metrics: dict) -> None:

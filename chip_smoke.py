@@ -18,8 +18,9 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
      call that computes the same function (a yardstick only);
   4. the same for the delta pass and the two backward kernels at the
      training slice's shapes on both routes (bf16 on the tensor cores,
-     f32 on the CUDA cores),
-     with their shared memory and blocks an SM, plus a correctness sweep
+     f32 on the CUDA cores), each beside its bound and the whole backward
+     beside SDPA's, with their shared memory and blocks an SM, plus a
+     correctness sweep
      (f32, key masks with fully masked rows, ragged lengths, every
      head_dim, strided inputs, an lse cotangent), each case asserting the
      route it took;
@@ -55,7 +56,8 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
      run, then profile one more step;
  13. BERT-base at full width with dropout 0 (``bert_parity``): the three
      flash kernels against their plain versions at BERT's shapes (key
-     masked, not causal), then one GLUE step's loss and gradients through
+     masked, not causal; the delta pass timed at batch 8 and 32), then one
+     GLUE step's loss and gradients through
      the kernels against the einsum attention, in f32 and in bf16;
  14. serve 16 single-shot requests through ``BertClassifier`` at full
      width in bf16 over buckets 64 and 128 (``bert_serve``), each held
@@ -141,8 +143,9 @@ PARITY_ATOL_BF16 = 0.25
 # to bf16 at the end (2^-8 relative).
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 # The delta pass vs its plain version: max |diff| over max |plain|.  Both
-# sum p * dp and p in f32 from the same inputs (bf16 products are exact in
-# f32), in other orders: 1e-4 in either dtype.
+# sum p * dp and p in f32 within each 64-key tile and in f64 across tiles,
+# from the same inputs, in other orders within a tile: 1e-4 in either
+# dtype.
 DELTA_TOL = 1e-4
 
 # The training slice: lm_long at its full width (hidden 768, 12 layers,
@@ -349,16 +352,17 @@ def phase_build() -> None:
 
 def _kernel_label(mangled: str) -> str:
     """``flash_bwd_dq_tc_kernel<64>`` from a mangled kernel name: the
-    first all-letter identifier ending in ``_kernel``, with its dtype and
-    integer template arguments."""
+    first all-letter identifier ending in ``_kernel``, with its dtype,
+    integer and bool template arguments."""
     m = re.search(r"[a-z][a-z_]*_kernel", mangled)
     if m is None:
         return mangled[:60]
     args = mangled[m.end():].split("EEv")[0]
     dtype = (["bf16"] if "__nv_bfloat16" in args
              else ["f32"] if args.startswith("If") else [])
-    ints = re.findall(r"Li(\d+)E", args)
-    return f"{m.group(0)}<{','.join(dtype + ints)}>"
+    consts = [f"{int(v)}" if t == "i" else ("true" if v == "1" else "false")
+              for t, v in re.findall(r"L([ib])(\d+)E", args)]
+    return f"{m.group(0)}<{','.join(dtype + consts)}>"
 
 
 def _flash_inputs(b, s, n, d, dtype, masked, gen, strided=False):
@@ -701,7 +705,7 @@ def _bwd_train_shape(dtype, gen) -> dict:
                     f"{r['tflops']:.2f} TFLOP/s, {r['smem_bytes']} B smem, "
                     f"{r['blocks_per_sm']} blocks/SM), plain "
                     f"{r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms "
-                    f"({r['bound_by']})"
+                    f"({r['bound_by']}; {r['bound_ms'] / r['ms']:.3f} of it)"
                     for w, r in res.items())
         + f"; pair {pair:.3f} ms, with the delta pass {whole:.3f} ms; sdpa "
           f"backward {lib:.3f} ms (device {lib_dev:.3f}), pair / sdpa "
@@ -1076,18 +1080,23 @@ def phase_train() -> dict:
     wall_step = wall_ms(step, 1)
     kernels = device_time(step)
     busy = sum(ms for _, ms, _ in kernels)
-    # the delta pass is the dq kernel in its delta mode: both match
-    pair = sum(ms for k, ms, _ in kernels if "flash_bwd_d" in k)
+    split = {which: sum(ms for k, ms, _ in kernels
+                        if f"flash_bwd_{which}_tc_kernel" in k)
+             for which in ("delta", "dq", "dkv")}
+    pair = sum(split.values())
     fwd = sum(ms for k, ms, _ in kernels if "flash_fwd" in k)
     log(f"[profile] training step: wall {wall_step:.1f} ms, "
         f"{sum(c for *_, c in kernels)} kernels, device {busy:.1f} ms, idle "
         f"share {1 - busy / wall_step:.3f}; flash forward {fwd:.1f} ms "
-        f"({fwd / busy:.3f} of device time), backward (delta pass, dq, "
-        f"dkv) {pair:.1f} ms ({pair / busy:.3f}); top: "
+        f"({fwd / busy:.3f} of device time), backward {pair:.1f} ms "
+        f"({pair / busy:.3f}): "
+        + ", ".join(f"{w} {ms:.1f} ms" for w, ms in split.items())
+        + "; top: "
         + "; ".join(f"{k[:60]} {ms:.1f} ms x{c}" for k, ms, c in kernels[:8]))
     return {"launches": launches, "step_ms_p50": p50, "mfu": mfu,
             "peak_bytes": peak, "routes": routes, "fwd_routes": fwd_routes,
-            "device_ms": busy, "idle_share": 1 - busy / wall_step}
+            "device_ms": busy, "idle_share": 1 - busy / wall_step,
+            "backward_device_ms": split}
 
 
 def resnet_conv_bn_shapes(batch: int = RESNET_BATCH, size: int = 224):
@@ -1550,6 +1559,48 @@ def _bert_kernel_checks(gen) -> None:
         f"{TOL[torch.float32]['out']} f32; bwd {BWD_TOL} x max|plain|)")
 
 
+def _bert_delta_case(b, glue, split, gen) -> dict:
+    """The delta pass at BERT's shape (bf16, the key masks of a GLUE
+    builder's split, not causal) against its plain version, timed beside
+    its bound and the plain version."""
+    n, d = 12, 64
+    mask = _glue_batch(glue, b, split=split)["attention_mask"]
+    q, k, v, do = (torch.randn((b, BERT_SEQ, n, d), generator=gen,
+                               device="cuda").to(torch.bfloat16)
+                   for _ in range(4))
+    _, lse = fa.flash_fwd(q, k, v, mask=mask)
+    args = (q, k, v, do, lse)
+    call = lambda: fa._launch_bwd("delta", *args, None, mask,  # noqa: E731
+                                  False)
+    got = call()
+    (want,) = _by_row(fa.flash_bwd_delta_reference, args, mask, False)
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    name = f"BERT B={b} S={BERT_SEQ} bf16 {glue} key-masked full"
+    if not (torch.isfinite(got).all() and err <= DELTA_TOL * scale):
+        raise RuntimeError(f"delta pass {name}: max|diff| {err:.3e} vs tol "
+                           f"{DELTA_TOL} x max|plain| {scale:.3e}")
+    ms = cuda_ms(call, 100)
+    dev = sum(t for _, t, _ in device_time(call, 10)) / 10
+    plain = cuda_ms(lambda: _by_row(fa.flash_bwd_delta_reference, args,
+                                    mask, False), 3)
+    ops = 4 * d * _pairs(BERT_SEQ, BERT_SEQ, b, n, mask, False)
+    nbytes = 4 * q.numel() * 2 + 2 * lse.numel() * 4 + mask.numel() * 4
+    t_ops, t_bytes = ops / PEAK_OPS_S[torch.bfloat16], nbytes / PEAK_BYTES_S
+    case = {"case": name, "route": fa.bwd_route(q.dtype, d),
+            "max_abs_err": err, "ms": ms, "device_ms": dev,
+            "plain_ms": plain, "library_ms": None,
+            "bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "ops": ops, "bytes": nbytes}
+    log(f"[bert-delta] {name}, route {case['route']}: err {err:.2e} (tol "
+        f"{DELTA_TOL} x max|plain| {scale:.2e}); kernel {ms:.4f} ms (device "
+        f"{dev:.4f}), plain {plain:.4f} ms, bound {case['bound_ms']:.5f} ms "
+        f"({case['bound_by']}; {case['bound_ms'] / dev:.3f} of it by "
+        f"device time)")
+    return case
+
+
 def _bert_grads(dtype: str, impl: str, batch: dict):
     """One glue_bert_mnli training step's loss and gradients at full
     width, dropout 0, on ``impl``'s attention, from the seed-0 weights.
@@ -1584,9 +1635,10 @@ def _grad_rel_err(got: dict, ref: dict) -> dict:
     return out
 
 
-def phase_bert_parity() -> None:
+def phase_bert_parity() -> list:
     """BERT-base at full width with dropout 0: the kernels at BERT's
-    shapes, then one GLUE step's loss and every parameter's gradient
+    shapes (the delta pass timed at B=8 and B=32, returned), then one GLUE
+    step's loss and every parameter's gradient
     through the kernels against the einsum attention from the same
     weights: in f32 within GRAD_PARITY_RTOL of an f64 run of the einsum,
     in bf16 within BF16_NOISE_FACTOR times the bf16 einsum route's own
@@ -1594,6 +1646,8 @@ def phase_bert_parity() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(6)
     _bert_kernel_checks(gen)
+    delta_cases = [_bert_delta_case(BERT_PARITY_BATCH, "glue_mnli", 0, gen),
+                   _bert_delta_case(BERT_BATCH, "glue_sst2", 1, gen)]
     batch = _glue_batch("glue_mnli", BERT_PARITY_BATCH)
     out, ran = {}, {}
     for route, impl, dtype in (("f64", "xla", "float64"),
@@ -1659,6 +1713,7 @@ def phase_bert_parity() -> None:
         f"bf16 {ran['kernels']}")
     if bad:
         raise RuntimeError("BERT gradient parity: " + "; ".join(bad[:8]))
+    return delta_cases
 
 
 def _flash_bert_eval_case(gen) -> dict:
@@ -1951,7 +2006,7 @@ def main(argv=None) -> int:
     conv_bn = phase_conv_bn()
     phase_resnet_grad_parity()
     resnet = phase_resnet_train()
-    phase_bert_parity()
+    bert_delta = phase_bert_parity()
     bert_serve = phase_bert_serve()
     bert_train = phase_bert_train()
 
@@ -2018,10 +2073,14 @@ def main(argv=None) -> int:
             which = row["name"][len("flash_bwd_"):]
             f32 = bwd["cuda_core_f32"][which]
             if which == "delta":
-                row["note"] = ("the dq kernel in its delta mode: delta = "
-                               "sum_j p*dp / sum_j p, where the TPU "
-                               "backward takes rowsum(dO*O) from XLA; no "
-                               "Pallas kernel of its own")
+                row["note"] = ("delta = sum_j p*dp / sum_j p (f32 sums over "
+                               "a key tile, f64 across tiles), where the "
+                               "TPU backward takes rowsum(dO*O) from XLA; "
+                               "no Pallas kernel of its own. Tensor cores: "
+                               "flash_bwd_delta_tc_kernel; CUDA cores: the "
+                               "dq kernel's delta mode")
+                row["bert_shapes"] = [{key: c[key] for key in (
+                    "case", "route", *sub)} for c in bert_delta]
             row["cores"] = (f"tensor cores (wgmma bf16) at this shape; "
                             f"f32, and bf16 at D 16/32/256, on the CUDA "
                             f"cores")

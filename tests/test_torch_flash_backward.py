@@ -234,6 +234,67 @@ def test_delta_pass_keeps_small_query_and_key_gradients(dtype):
         assert rel(old[0], want[0]) > 0.05 and rel(old[1], want[1]) > 0.05
 
 
+# The delta pass's sums against an all-f64 sum: max error over the row's
+# scale sum_j p |dp| / sum_j p, at most 8 f32 roundings (8 * 2^-24).  Why
+# so tight: where dp - delta is small against dp (BERT's upper layers,
+# whose query and key gradients are ~1e-3 of the value gradients at
+# init), an error in delta is an offset in every ds of its row, and f32
+# gradients are held to 1e-4.  f32 sums over a 64-key tile, then f64
+# across tiles, round at one tile's magnitude; a serial f32 sum over the
+# row rounds at the running sum's magnitude at every key.
+DELTA_SUM_TOL = 8 * 2.0 ** -24
+DELTA_LAYOUTS = {"lm_causal": (True, False), "bert_masked": (False, True)}
+
+
+def _delta_sums(causal, masked, seed):
+    """f32 p and dp at S=256, D=64 with values that vary little from key
+    to key (dp of one sign along a row, as in BERT's upper layers at
+    init), the f64 delta and each row's scale."""
+    rng = np.random.default_rng(seed)
+    b, s, n, d = 2, 256, 4, 64
+    q, k, do = (torch.from_numpy(rng.standard_normal((b, s, n, d))
+                                 .astype(np.float32)) for _ in range(3))
+    u = rng.standard_normal((b, 1, n, d))
+    v = torch.from_numpy((u + 1e-2 * rng.standard_normal((b, s, n, d)))
+                         .astype(np.float32))
+    mask = None
+    if masked:
+        mask = torch.ones((b, s), dtype=torch.int32)
+        mask[1, 150:] = 0
+    _, lse = fa.flash_mha_reference(q, k, v, mask=mask, causal=causal)
+    p = fa._recompute_p(q, k, lse, mask, causal)
+    dp = fa._dp(do, v)
+    p64, dp64 = p.double(), dp.double()
+    want = (p64 * dp64).sum(-1) / p64.sum(-1)
+    scale = (p64 * dp64.abs()).sum(-1) / p64.sum(-1)
+    return (q, k, v, do, lse, mask), p, dp, want, scale
+
+
+@pytest.mark.parametrize("layout", list(DELTA_LAYOUTS))
+def test_blocked_delta_sum_holds_an_f64_sum(layout):
+    causal, masked = DELTA_LAYOUTS[layout]
+    args, _, _, want, scale = _delta_sums(causal, masked, seed=10)
+    *tensors, mask = args
+    got = fa.flash_bwd_delta_reference(*tensors, mask=mask, causal=causal)
+    err = float(((got.double() - want).abs() / scale).max())
+    assert err <= DELTA_SUM_TOL, err / 2.0 ** -24
+
+
+@pytest.mark.parametrize("layout", list(DELTA_LAYOUTS))
+def test_serial_f32_delta_sum_exceeds_the_tolerance(layout):
+    """The same rows summed in f32 key by key, as a kernel thread that
+    owned a row would: the blocking is what keeps delta within
+    DELTA_SUM_TOL."""
+    causal, masked = DELTA_LAYOUTS[layout]
+    _, p, dp, want, scale = _delta_sums(causal, masked, seed=10)
+    pdp = total = torch.zeros(p.shape[:-1])
+    for j in range(p.shape[-1]):
+        pdp = pdp + p[..., j] * dp[..., j]
+        total = total + p[..., j]
+    err = float(((pdp / total).double() - want).abs().div(scale).max())
+    assert err > DELTA_SUM_TOL, err / 2.0 ** -24
+
+
 def test_backward_launch_checks_before_the_gpu():
     q = torch.zeros((1, 8, 2, 16))
     lse = torch.zeros((1, 2, 8))

@@ -15,18 +15,20 @@
 // gives dk and dv, are exactly 0.
 //
 // delta.  The TPU kernels take delta = rowsum(dO * O), computed outside
-// from the forward's output rounded to its dtype.  Here the delta pass, the
-// dq kernel run in a mode that skips its third product, computes it from
-// the very p and dp the two kernels use:
+// from the forward's output rounded to its dtype.  Here the delta pass
+// computes it from the very p and dp the two kernels use:
 //   delta = sum_j p * dp / sum_j p,
 // so ds = p * (dp - delta) sums to zero over each row.  Where dp - delta
 // is small against dp (BERT's upper layers, whose query and key gradients
 // are ~1e-3 of the value gradients at init), any error in delta is a
 // per-row offset that ds carries into every key: the rounded O's error in
-// rowsum(dO * O) outweighed those gradients in bf16, and an f32 sum of
-// p * dp, whose terms cancel, cost them ~1e-4 in f32.  So the pass adds
-// the f32 products in f64 (an f32 product is exact in f64).  The lse
-// cotangent (flash_mha_lse) is folded in outside, in PyTorch.
+// rowsum(dO * O) outweighed those gradients in bf16, and a plain f32 sum
+// of p * dp over the row cost them ~1e-4 in f32.  So the pass sums in f32
+// only over one key tile (a thread's share of it) and adds those partial
+// sums in f64.  On the tensor cores the pass is a kernel of its own,
+// flash_bwd_delta_tc_kernel (its note below says what bounds it); on the
+// CUDA cores it is the dq kernel in a mode that skips its third product.
+// The lse cotangent (flash_mha_lse) is folded in outside, in PyTorch.
 //
 // The FA2 split keeps the backward free of atomics and deterministic: the
 // dq kernel owns a tile of query rows and loops over key tiles (stopping
@@ -85,6 +87,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "tc_tiles.cuh"
 
@@ -220,7 +224,8 @@ constexpr size_t dkv_smem_bytes() {
 // tiles.  Thread (ty, tx) owns query rows ty*RPT .. ty*RPT+RPT-1; for the
 // scores it takes keys tx + 16*j of each tile, for dq head dims tx + 16*c.
 // With DELTA_PASS it sums p * dp and p over each row instead of the dS.k
-// product and writes delta.
+// product and writes delta: in f32 over a thread's four keys of a tile,
+// then in f64, as the tensor-core delta kernel does.
 template <typename T, int D, bool DELTA_PASS>
 __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(Params p) {
   constexpr int DP = D + 1;
@@ -282,6 +287,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(Params p) {
 #pragma unroll
     for (int i = 0; i < RPT; ++i) {
       const int row = q0 + ty * RPT + i;
+      float tp = 0.f, ts = 0.f;  // the delta pass's f32 sums over the tile
 #pragma unroll
       for (int j = 0; j < CPT; ++j) {
         const int col = k0 + tx + COL_LANES * j;
@@ -289,12 +295,16 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(Params p) {
         // Explicit zero first: exp(s - lse) overflows on a masked row.
         const float pij = keep ? expf(s[i][j] * p.scale - lse[i]) : 0.f;
         if constexpr (DELTA_PASS) {
-          pdp[i] = __fma_rn(static_cast<double>(pij), dp[i][j], pdp[i]);
-          psum[i] += pij;
+          tp = fmaf(pij, dp[i][j], tp);
+          ts += pij;
         } else {
           dss[(ty * RPT + i) * BCP + tx + COL_LANES * j] =
               round_to<T>(pij * (dp[i][j] - delta[i]));
         }
+      }
+      if constexpr (DELTA_PASS) {
+        pdp[i] += tp;
+        psum[i] += ts;
       }
     }
     if constexpr (!DELTA_PASS) {
@@ -523,14 +533,12 @@ constexpr size_t tc_dkv_smem_bytes() {
 }
 
 // One block per (batch * head, tile of 64 query rows), warp w owning rows
-// 16w .. 16w+15; loops over tiles of 64 keys, two stages deep.  With
-// DELTA_PASS it sums p * dp and p over each row instead of the dS.k
-// product and writes delta.
+// 16w .. 16w+15; loops over tiles of 64 keys, two stages deep.
 //
 // Both tensor-core kernels ask for three blocks an SM at D=64, which caps
 // them at 168 registers a thread; at D=128 the accumulators need the
 // registers, so they take what they need and two blocks fit.
-template <int D, bool DELTA_PASS>
+template <int D>
 __global__ void __launch_bounds__(NT, D == 64 ? 3 : 1)
     flash_bwd_dq_tc_kernel(Params p) {
   constexpr int BK = TC_DQ_COLS;
@@ -576,13 +584,12 @@ __global__ void __launch_bounds__(NT, D == 64 ? 3 : 1)
   // This thread's two rows of the warp's 16: r_lo and r_lo + 8.
   const int r_lo = q0 + warp * 16 + g;
   float lse2[2], delta[2];
-  double pdp[2] = {0.0, 0.0}, psum[2] = {0.0, 0.0};
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int row = r_lo + half * 8;
     const int64_t at = static_cast<int64_t>(bh) * p.s_q + row;
     lse2[half] = row < p.s_q ? p.lse[at] * LOG2E : 0.f;
-    delta[half] = !DELTA_PASS && row < p.s_q ? p.delta[at] : 0.f;
+    delta[half] = row < p.s_q ? p.delta[at] : 0.f;
   }
   const float scale2 = p.scale * LOG2E;
 
@@ -620,35 +627,194 @@ __global__ void __launch_bounds__(NT, D == 64 ? 3 : 1)
         // Explicit zero first: exp(s - lse) overflows on a masked row.
         const float pij =
             keep ? exp2f(fmaf(s[j][e], scale2, -lse2[half])) : 0.f;
-        if constexpr (DELTA_PASS) {
-          pdp[half] = __fma_rn(static_cast<double>(pij), dp[j][e], pdp[half]);
-          psum[half] += pij;
-        } else {
-          s[j][e] = pij * (dp[j][e] - delta[half]);  // ds
-        }
+        s[j][e] = pij * (dp[j][e] - delta[half]);  // ds
       }
-    if constexpr (!DELTA_PASS) tc_acc<D, BK>(acc, s, kt);
+    tc_acc<D, BK>(acc, s, kt);
     __syncthreads();  // this stage is reloaded two tiles on
   }
   cp_async_wait<0>();
-  if constexpr (DELTA_PASS) {
-    // A row's columns lie in the four lanes of one quad.
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-#pragma unroll
-      for (int off = 1; off < 4; off *= 2) {
-        pdp[half] += __shfl_xor_sync(0xffffffffu, pdp[half], off);
-        psum[half] += __shfl_xor_sync(0xffffffffu, psum[half], off);
-      }
-      const int row = r_lo + half * 8;
-      if (tig == 0 && row < p.s_q)
-        p.delta_out[static_cast<int64_t>(bh) * p.s_q + row] =
-            psum[half] > 0.0 ? static_cast<float>(pdp[half] / psum[half])
-                             : 0.f;
+  tc_store<D>(static_cast<bf16*>(p.dq), acc, p.scale, b, h, p.n_heads, p.s_q,
+              r_lo, p.s_q, lane);
+}
+
+// 2^x on the MUFU, a result below 2^-126 flushed to zero: the probability
+// of a pair that weighs nothing in delta.
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Warpgroups of the delta kernel: two at D=64, each owning 64 query rows
+// of the block's 128 against the same key tiles; one at D=128, where two
+// would leave one block an SM.
+template <int D>
+__host__ __device__ constexpr int tc_delta_wgs() { return D == 64 ? 2 : 1; }
+
+template <int D>
+constexpr size_t tc_delta_smem_bytes() {
+  return sizeof(bf16) * (2 * tc_delta_wgs<D>() * TC_ROWS + 4 * TC_DQ_COLS) *
+             D +
+         sizeof(int32_t) * 2 * TC_DQ_COLS + TC_ALIGN;
+}
+
+// The delta pass on the tensor cores: the dq kernel's two score products
+// a tile, without its third product or its accumulator.  Per kept pair it
+// does one FMA, one exp2 on the MUFU (16 a clock an SM: as fast, for a
+// D=64 pair, as the pair's two products on the tensor cores), one FMA and
+// one add.  Run as the dq kernel in a mode that added each pair in f64
+// (two conversions to f64, at 16 a clock an SM, and two f64 ops a pair),
+// the pass took 1.8 ms a layer at the LM's shape, 8.7x its bound.  So:
+//   - the sums of p * dp and p run in f32 over the 16 values each of this
+//     thread's two rows takes from one key tile, and only those partial
+//     sums are added into the f64 row sums: four conversions a thread a
+//     tile, not two a pair.  An f32 sum over one tile rounds at one tile's
+//     magnitude; a serial f32 sum over the whole row would round at the
+//     row's at every key;
+//   - tiles that need no mask (below the causal diagonal, inside S_kv, no
+//     key mask) skip the per-pair keep test, and exp2 flushes results
+//     below 2^-126 to zero (ex2.approx.ftz), which saves its range fix-up;
+//   - at D=64 a block is two warpgroups, 128 query rows, that share each
+//     K and V tile, and with no accumulator two such blocks (16 warps) fit
+//     an SM.
+// What bounds it now is no single unit: measured at the LM's shape (PERF.md
+// §6), it runs at a third of its tensor-core bound, it is only 7% faster
+// with its exponentials removed, no faster with a third load stage, and
+// slower with Q and dO as register operands or with the next tile's
+// products issued before this tile's arithmetic in one warpgroup.  Each
+// warpgroup waits for its products before its arithmetic; overlapping the
+// two across warpgroups (FA3's ping-pong) is what is left.
+template <int D>
+__global__ void __launch_bounds__(NT * tc_delta_wgs<D>(), 2)
+    flash_bwd_delta_tc_kernel(Params p) {
+  constexpr int BK = TC_DQ_COLS, WG = tc_delta_wgs<D>();
+  constexpr int THREADS = WG * NT, ROWS = WG * TC_ROWS;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* qs = tc_smem_base(tc_smem);  // [WG][TC_ROWS][D], swizzled
+  bf16* dos = qs + ROWS * D;         // [WG][TC_ROWS][D]
+  bf16* ks = dos + ROWS * D;         // [2][BK][D]
+  bf16* vs = ks + 2 * BK * D;        // [2][BK][D]
+  int32_t* mask_s = reinterpret_cast<int32_t*>(vs + 2 * BK * D);  // [2][BK]
+
+  const int tid = threadIdx.x, wg = tid / NT, warp = (tid % NT) >> 5;
+  const int lane = tid & 31, g = lane >> 2, tig = lane & 3;
+  const int bh = blockIdx.x;
+  const int b = bh / p.n_heads, h = bh % p.n_heads;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * ROWS;  // heaviest first
+  const int qw = q0 + wg * TC_ROWS;  // this warpgroup's first row
+  const bf16* q = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const bf16* k = static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const bf16* v = static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const bf16* dout =
+      static_cast<const bf16*>(p.dout) + b * p.o_sb + h * p.o_sh;
+  const int32_t* mask =
+      p.mask != nullptr ? p.mask + static_cast<int64_t>(b) * p.s_kv : nullptr;
+
+  // Under `causal` the block stops at its last row's diagonal tile, and a
+  // warpgroup skips the tiles past its own.
+  const int kv_end = p.causal ? min(p.s_kv, q0 + ROWS) : p.s_kv;
+  const int wg_end = p.causal ? min(p.s_kv, qw + TC_ROWS) : p.s_kv;
+  const int n_tiles = (kv_end + BK - 1) / BK;
+  auto load_kv = [&](int t) {
+    const int stage = t & 1;
+    tc_load_tile<D, BK, THREADS>(ks + stage * BK * D, k, p.k_ss, t * BK,
+                                 p.s_kv, tid);
+    tc_load_tile<D, BK, THREADS>(vs + stage * BK * D, v, p.v_ss, t * BK,
+                                 p.s_kv, tid);
+    if (mask != nullptr && tid < BK) {
+      const int col = t * BK + tid;
+      cp_async4(mask_s + stage * BK + tid, col < p.s_kv ? mask + col : mask,
+                col < p.s_kv);
     }
-  } else {
-    tc_store<D>(static_cast<bf16*>(p.dq), acc, p.scale, b, h, p.n_heads,
-                p.s_q, r_lo, p.s_q, lane);
+  };
+#pragma unroll
+  for (int w = 0; w < WG; ++w) {
+    tc_load_tile<D, TC_ROWS, THREADS>(qs + w * TC_ROWS * D, q, p.q_ss,
+                                      q0 + w * TC_ROWS, p.s_q, tid);
+    tc_load_tile<D, TC_ROWS, THREADS>(dos + w * TC_ROWS * D, dout, p.o_ss,
+                                      q0 + w * TC_ROWS, p.s_q, tid);
+  }
+  if (n_tiles > 0) load_kv(0);
+  cp_async_commit();
+
+  // This thread's two rows of its warp's 16: r_lo and r_lo + 8.
+  const int r_lo = qw + warp * 16 + g;
+  const bf16* qw_s = qs + wg * TC_ROWS * D;
+  const bf16* dow_s = dos + wg * TC_ROWS * D;
+  float lse2[2];
+  double pdp[2] = {0.0, 0.0}, psum[2] = {0.0, 0.0};
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = r_lo + half * 8;
+    lse2[half] =
+        row < p.s_q ? p.lse[static_cast<int64_t>(bh) * p.s_q + row] * LOG2E
+                    : 0.f;
+  }
+  const float scale2 = p.scale * LOG2E;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    if (t + 1 < n_tiles) {
+      load_kv(t + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    fence_proxy_async();  // the tiles that arrived are read by wgmma
+    __syncthreads();
+    const int stage = t & 1, k0 = t * BK;
+    if (k0 < wg_end) {  // the same for the whole warpgroup
+      const int32_t* mt = mask_s + stage * BK;
+      float s[BK / 8][4], dp[BK / 8][4];
+      tc_scores<D, BK>(s, dp, qw_s, dow_s, ks + stage * BK * D,
+                       vs + stage * BK * D);
+      // This tile's f32 sums of p * dp and p for each of the two rows.
+      float tp[2] = {0.f, 0.f}, ts[2] = {0.f, 0.f};
+      auto add_pairs = [&](auto check) {
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int half = e >> 1;
+            float pij = exp2_ftz(fmaf(s[j][e], scale2, -lse2[half]));
+            if constexpr (decltype(check)::value) {
+              const int c = j * 8 + tig * 2 + (e & 1);
+              const int row = r_lo + half * 8, col = k0 + c;
+              // A select, not a product: a masked row's exponential is inf.
+              pij = col < p.s_kv && (mask == nullptr || mt[c] != 0) &&
+                            (!p.causal || row >= col)
+                        ? pij
+                        : 0.f;
+            }
+            tp[half] = fmaf(pij, dp[j][e], tp[half]);
+            ts[half] += pij;
+          }
+      };
+      if (mask == nullptr && k0 + BK <= p.s_kv && (!p.causal || k0 < qw))
+        add_pairs(std::false_type{});
+      else
+        add_pairs(std::true_type{});
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        pdp[half] += tp[half];
+        psum[half] += ts[half];
+      }
+    }
+    __syncthreads();  // this stage is reloaded two tiles on
+  }
+  cp_async_wait<0>();
+  // A row's columns lie in the four lanes of one quad.
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+#pragma unroll
+    for (int off = 1; off < 4; off *= 2) {
+      pdp[half] += __shfl_xor_sync(0xffffffffu, pdp[half], off);
+      psum[half] += __shfl_xor_sync(0xffffffffu, psum[half], off);
+    }
+    const int row = r_lo + half * 8;
+    if (tig == 0 && row < p.s_q)
+      p.delta_out[static_cast<int64_t>(bh) * p.s_q + row] =
+          psum[half] > 0.0 ? static_cast<float>(pdp[half] / psum[half]) : 0.f;
   }
 }
 
@@ -774,27 +940,29 @@ template <typename T, int D, typename F>
 cudaError_t with_cuda_core(Mode mode, F&& f) {
   switch (mode) {
     case DQ: return f(flash_bwd_dq_kernel<T, D, false>, dq_smem_bytes<D>(),
-                      BR);
+                      BR, NT);
     case DELTA: return f(flash_bwd_dq_kernel<T, D, true>, dq_smem_bytes<D>(),
-                         BR);
-    default: return f(flash_bwd_dkv_kernel<T, D>, dkv_smem_bytes<D>(), BR);
+                         BR, NT);
+    default: return f(flash_bwd_dkv_kernel<T, D>, dkv_smem_bytes<D>(), BR,
+                      NT);
   }
 }
 
 template <int D, typename F>
 cudaError_t with_tensor_core(Mode mode, F&& f) {
   switch (mode) {
-    case DQ: return f(flash_bwd_dq_tc_kernel<D, false>,
-                      tc_dq_smem_bytes<D>(), TC_ROWS);
-    case DELTA: return f(flash_bwd_dq_tc_kernel<D, true>,
-                         tc_dq_smem_bytes<D>(), TC_ROWS);
+    case DQ: return f(flash_bwd_dq_tc_kernel<D>, tc_dq_smem_bytes<D>(),
+                      TC_ROWS, NT);
+    case DELTA: return f(flash_bwd_delta_tc_kernel<D>,
+                         tc_delta_smem_bytes<D>(),
+                         TC_ROWS * tc_delta_wgs<D>(), NT * tc_delta_wgs<D>());
     default: return f(flash_bwd_dkv_tc_kernel<D>, tc_dkv_smem_bytes<D>(),
-                      TC_ROWS);
+                      TC_ROWS, NT);
   }
 }
 
-// f(kernel, its dynamic shared memory bytes, the rows a block owns) for
-// the kernel that serves (mode, head_dim, dtype, route).
+// f(kernel, its dynamic shared memory bytes, the rows a block owns, its
+// threads) for the kernel that serves (mode, head_dim, dtype, route).
 template <typename F>
 cudaError_t with_kernel(Mode mode, int head_dim, bool bf16, bool tensor_core,
                         F&& f) {
@@ -860,11 +1028,11 @@ int run(Mode mode, const void* q, const void* k, const void* v,
   const int rows_total = mode == DKV ? s_kv : s_q;
   return with_kernel(
       mode, head_dim, is_bf16 != 0, tensor_core != 0,
-      [&](KernelFn kernel, size_t smem, int rows) {
+      [&](KernelFn kernel, size_t smem, int rows, int threads) {
         const cudaError_t err = allow_smem(kernel, smem);
         if (err != cudaSuccess) return err;
         const dim3 grid(batch * n_heads, (rows_total + rows - 1) / rows);
-        kernel<<<grid, NT, smem, st>>>(p);
+        kernel<<<grid, threads, smem, st>>>(p);
         return cudaGetLastError();
       });
 }
@@ -924,12 +1092,12 @@ int tf_flash_bwd_kernel_info(int mode, int head_dim, int is_bf16,
   if (mode < DKV || mode > DELTA) return cudaErrorInvalidValue;
   return with_kernel(static_cast<Mode>(mode), head_dim, is_bf16 != 0,
                      tensor_core != 0,
-                     [&](KernelFn kernel, size_t smem, int) {
+                     [&](KernelFn kernel, size_t smem, int, int threads) {
                        *smem_bytes = static_cast<int>(smem);
                        const cudaError_t err = allow_smem(kernel, smem);
                        if (err != cudaSuccess) return err;
                        return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                           blocks_per_sm, kernel, NT, smem);
+                           blocks_per_sm, kernel, threads, smem);
                      });
 }
 

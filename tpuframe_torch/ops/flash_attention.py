@@ -11,13 +11,16 @@ Three kernels replace the TPU kernels of ``tpuframe/ops/flash_attention.py``:
     ``_flash_bwd``): the FA2 split, one kernel owning query rows and one
     owning keys, each recomputing the probabilities from the saved
     logsumexp, with no atomics.
-  - ``flash_bwd_delta`` (the dq kernel in its delta mode) computes the
-    rows' ``delta`` that both take, where ``_flash_bwd`` computes
+  - ``flash_bwd_delta`` (``flash_bwd_delta_tc_kernel`` on the tensor
+    cores, the CUDA-core dq kernel in its delta mode otherwise) computes
+    the rows' ``delta`` that both take, where ``_flash_bwd`` computes
     ``rowsum(dO * O)`` in XLA: ``sum_j p * dp / sum_j p`` from the same
     recomputed p and dp, so that each row's ``ds`` sums to zero.  The
     rounded output's error in ``rowsum(dO * O)`` is a per-row offset that
     outweighs query and key gradients of ~1e-3 of the rest (BERT's upper
-    layers) in bf16.
+    layers) in bf16.  The sums run in f32 within a key tile of
+    :data:`DELTA_BLOCK` keys and in f64 across tiles: a serial f32 sum
+    over a long row loses those gradients' last digits in f32.
 
 Every kernel has two routes, chosen from the dtype and head_dim alone
 (:func:`fwd_route`, :func:`bwd_route`): bf16 at head_dim 64 or 128 runs on
@@ -52,6 +55,9 @@ DTYPES = (torch.float32, torch.bfloat16)
 
 # The head dims the tensor-core routes take (in bf16).
 TC_HEAD_DIMS = (64, 128)
+# The delta pass sums each row in f32 over this many keys (the kernels'
+# key tile on both routes), then in f64 across them.
+DELTA_BLOCK = 64
 
 # Launches of each CUDA kernel in this process: the counts a run reads to
 # show that its path went through the kernels.
@@ -82,26 +88,31 @@ def _kernel(name: str):
             _fns["flash_fwd_info"] = info
             err = lib.tf_flash_error_string
         else:
-            fns = [lib.tf_flash_bwd_dq, lib.tf_flash_bwd_dkv,
-                   lib.tf_flash_bwd_delta]
-            strides = ctypes.POINTER(i64)
-            fns[0].argtypes = ([ptr] * 8 + [i32] * 6
-                               + [strides, ctypes.c_float, i32, i32, ptr])
-            fns[1].argtypes = ([ptr] * 9 + [i32] * 6
-                               + [strides, ctypes.c_float, i32, i32, ptr])
-            fns[2].argtypes = ([ptr] * 7 + [i32] * 6
-                               + [strides, ctypes.c_float, i32, i32, ptr])
-            info = lib.tf_flash_bwd_kernel_info
-            info.argtypes = [i32] * 4 + [ctypes.POINTER(i32)] * 2
-            info.restype = ctypes.c_int
-            _fns["flash_bwd_info"] = info
-            err = lib.tf_flash_bwd_error_string
+            *fns, _fns["flash_bwd_info"], err = bind_bwd(lib)
         for fn in fns:
             fn.restype = ctypes.c_int
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
         _fns[name] = (*fns, err)
     return _fns[name]
+
+
+def bind_bwd(lib):
+    """``(dq, dkv, delta, kernel_info, error_string)``: the ctypes
+    functions of a library built from ``csrc/flash_bwd.cu``, typed."""
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    tail = [ctypes.POINTER(ctypes.c_int64), ctypes.c_float, i32, i32, ptr]
+    fns = [lib.tf_flash_bwd_dq, lib.tf_flash_bwd_dkv, lib.tf_flash_bwd_delta]
+    for fn, n_ptr in zip(fns, (8, 9, 7)):
+        fn.argtypes = [ptr] * n_ptr + [i32] * 6 + tail
+        fn.restype = ctypes.c_int
+    info = lib.tf_flash_bwd_kernel_info
+    info.argtypes = [i32] * 4 + [ctypes.POINTER(i32)] * 2
+    info.restype = ctypes.c_int
+    err = lib.tf_flash_bwd_error_string
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
+    return (*fns, info, err)
 
 
 def _check(q, k, v, mask):
@@ -179,17 +190,27 @@ def _ds(p, do, v, delta):
     return p * (_dp(do, v) - delta[..., None])
 
 
+def _blocked_sum(x):
+    """Sum over the last dim as the delta pass takes it: f32 over blocks
+    of :data:`DELTA_BLOCK` keys (the kernel's key tile), f64 across the
+    blocks."""
+    x = torch.nn.functional.pad(x, (0, -x.shape[-1] % DELTA_BLOCK))
+    return x.unflatten(-1, (-1, DELTA_BLOCK)).sum(dim=-1).double().sum(-1)
+
+
 def flash_bwd_delta_reference(q, k, v, do, lse, *, mask=None,
                               causal=False):
     """The plain version of the delta pass: ``[B, N, S_q]`` f32, ``sum_j p
     * dp / sum_j p`` over each query row from the probabilities recomputed
     from ``lse`` and ``dp = dO.v^T`` (0 for a row that keeps no key).  p
-    and dp are f32; their products and the sums are f64, as in the
-    kernel."""
+    and dp are f32, and so are the products and their sums within each
+    tile of 64 keys; the tiles' sums add in f64, as in the kernel, from
+    which it differs in summation order only.  A serial f32 sum over a
+    long row would round at the row's full magnitude at every key."""
     _check(q, k, v, mask)
-    p = _recompute_p(q, k, lse, mask, causal).double()
-    total = p.sum(dim=-1)
-    pdp = (p * _dp(do, v).double()).sum(dim=-1)
+    p = _recompute_p(q, k, lse, mask, causal)
+    total = _blocked_sum(p)
+    pdp = _blocked_sum(p * _dp(do, v))
     return torch.where(total > 0.0, pdp / torch.where(total > 0.0, total,
                                                       1.0), 0.0).float()
 
@@ -329,10 +350,14 @@ def _tc_operand(t):
     return t.clone(memory_format=torch.contiguous_format)
 
 
-def _launch_bwd(which, q, k, v, do, lse, delta, mask, causal):
+def _launch_bwd(which, q, k, v, do, lse, delta, mask, causal, fns=None):
     """One backward kernel: ``which`` is ``"dq"`` (returns dq), ``"dkv"``
     (returns dk, dv) or ``"delta"`` (the delta pass, which takes no
-    ``delta``: returns it), on the route :func:`bwd_route` picks."""
+    ``delta``: returns it), on the route :func:`bwd_route` picks.
+    ``fns``, the ``(dq, dkv, delta, error_string)`` of another build of
+    ``flash_bwd.cu`` (:func:`bind_bwd`), runs that build's kernel and
+    counts no launch: ``tpuframe_torch.tools.flash_bwd_ab`` times builds
+    against each other."""
     mask = _launch_checks(q, k, v, mask)
     if do.shape != q.shape or do.dtype != q.dtype or do.stride(-1) != 1:
         raise ValueError(f"dO {tuple(do.shape)} {do.dtype} must match q "
@@ -362,7 +387,7 @@ def _launch_bwd(which, q, k, v, do, lse, delta, mask, causal):
                 torch.empty((b, s_kv, n, d), dtype=v.dtype, device=q.device))
     strides = (ctypes.c_int64 * 12)(*(t.stride(i) for t in (q, k, v, do)
                                       for i in range(3)))
-    fn_dq, fn_dkv, fn_delta, err_str = _kernel("flash_bwd")
+    fn_dq, fn_dkv, fn_delta, err_str = fns or _kernel("flash_bwd")
     fn = {"dq": fn_dq, "dkv": fn_dkv, "delta": fn_delta}[which]
     rows_in = [t.contiguous() for t in row_inputs.values()]
     ins = [t.data_ptr() for t in (q, k, v, do, *rows_in)]
@@ -374,8 +399,9 @@ def _launch_bwd(which, q, k, v, do, lse, delta, mask, causal):
                  d ** -0.5, int(causal), int(route == "tensor_core"), stream)
     name = f"flash_bwd_{which}"
     _raise_on(name, err, err_str)
-    LAUNCHES[name] += 1
-    BWD_ROUTES[route] += 1
+    if fns is None:
+        LAUNCHES[name] += 1
+        BWD_ROUTES[route] += 1
     return outs if which == "dkv" else outs[0]
 
 

@@ -68,9 +68,24 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
      recipe (cuts in BERT_CUTS: steps only), asserting the reference's
      dispatch (dropout on the einsum in training, the forward kernel in
      eval), profile one more step, then run glue_bert_stsb and
-     glue_bert_cola briefly (``bert_train``).
+     glue_bert_cola briefly (``bert_train``);
+ 16. train mnist_single through ``tpuframe_torch.train.main`` at its own
+     recipe (MNIST_CUTS: steps only), after holding the ConvNet's logits
+     on the card to the same model's on the CPU; profile 20 more steps
+     (``mnist_train``);
+ 17. train cifar10_resnet18 the same way (CIFAR_CUTS: steps and mesh),
+     with its MFU against the f32 peak, peak memory, an idle share, and
+     the precision its f32 convolutions ran in (``cifar_train``);
+ 18. ResNet-50 at full width in f32: ``bn="folded"``, the space-to-depth
+     stem and ``remat=True``, each against the ``bn="flax"`` 7x7 model
+     from the same weights; then train imagenet_resnet50 with bn
+     "fused", the s2d stem, remat and lars (VARIANT_CUTS), asserting
+     every fused conv+BN launch and the lower peak memory against phase
+     12's run (``resnet_variants``).
 
 Phases 13-15 run with ``TPUFRAME_ATTN_IMPL=pallas`` and restore it after.
+The harness turns TF32 off (f32 convolutions and matmuls run in f32), and
+so does every f32 check here.
 
 ``--phases`` runs a subset after the build, for debugging.  A full run
 prints a ``{"kernels": [...]}`` line, then ends with
@@ -248,6 +263,65 @@ STRIDED_TOL = {torch.float32: 2e-4, torch.bfloat16: 3e-2}
 RESNET_PARITY_BATCH = 8
 RESNET_PARITY_RTOL = 1e-3
 RESNET_NOISE_FACTOR = 3.0
+# The same tolerances and noise floor hold the three ResNet-50 options of
+# phase 18 to the bn="flax" 7x7 model from the same weights, f32, batch 8:
+#   - bn="folded" normalises as x * a + b with the affine folded in f32
+#     where flax takes (x - mean) * s + beta: equal in exact arithmetic,
+#     one rounding apart in f32 (folded_bn.py: ~1e-5 per layer), carried
+#     through 53 BN layers: loss, every gradient and running statistic;
+#   - the space-to-depth stem with s2d_stem_kernel's weight sums the 7x7
+#     stem's products (and a zero tap) in another order: the logits,
+#     against the noise floor of the 7x7 model's logits on the batch
+#     reversed;
+#   - remat=True recomputes each block with the same arithmetic, and
+#     cuDNN's backward may sum in other orders: every gradient; the
+#     running statistics, updated once, within RESNET_PARITY_RTOL (a
+#     second update would move them by ~10%).
+
+# mnist_single (the reference's workload 1: the MNIST ConvNet, one
+# device, no collective; batch 64, f32, dropout 0.25/0.5, nesterov SGD
+# 0.02 constant; synthetic MNIST, 2048 train and 256 eval images) at its
+# own recipe.  The only cut is the steps: 400 -> 100, with one eval pass
+# (the 4 eval batches) at the end.
+MNIST_CUTS = {"total_steps": 100, "eval_every": 100, "log_every": 50}
+MNIST_ARGS = ["--config", "mnist_single"] + [
+    a for k, v in MNIST_CUTS.items() for a in ("--set", f"{k}={v!r}")]
+MNIST_BATCH = 64
+# The ConvNet on the card against the same weights on the CPU, eval mode,
+# f32 with TF32 off: summation order only, ~1e-6 of logits ~0.5.
+MNIST_CPU_ATOL = 1e-4
+# Learnable synthetic data: 100 steps must reach this eval accuracy (20
+# reach 1.0 on the CPU).
+MNIST_MIN_ACCURACY = 0.9
+
+# cifar10_resnet18 (workload 2: ResNet-18 with the CIFAR stem at full
+# width, 11.17 M params; batch 256, f32, nesterov SGD 0.1 x 256/256 with
+# wd 5e-4 under the decay mask, 200 warmup steps then cosine; uint8
+# synthetic CIFAR-10 with pad_crop_flip on the card) at its own recipe.
+# Cuts: the mesh (data-parallel over all chips in the recipe; one card
+# here) and the steps, 2000 -> 20 (inside the warmup) with one eval batch.
+CIFAR_CUTS = {"mesh": {"data": 1}, "total_steps": 20, "eval_every": 20,
+              "eval_batches": 1, "log_every": 5}
+CIFAR_ARGS = ["--config", "cifar10_resnet18"] + [
+    a for k, v in CIFAR_CUTS.items() for a in ("--set", f"{k}={v!r}")]
+CIFAR_BATCH = 256
+# A 3x3 conv at ResNet-18's first stage, f32 against f64: TF32 (10
+# mantissa bits) errs ~1e-3 relative, f32 ~1e-6.  The harness's f32 must
+# stay below this.
+F32_CONV_MAX_REL = 1e-4
+
+# The ResNet-50 variant run: imagenet_resnet50 with every option of the
+# JAX model that reaches the hand-written kernel (bn "fused", the
+# space-to-depth stem, remat) and lars, cut as RESNET_CUTS (one card's
+# batch of 256, bf16, synthetic images), for 3 steps and one eval batch.
+VARIANT_STEPS = 3
+VARIANT_CUTS = {**RESNET_CUTS,
+                "model_kwargs": {"bn": "fused", "stem": "space_to_depth",
+                                 "remat": True},
+                "optimizer": "lars", "total_steps": VARIANT_STEPS,
+                "eval_every": VARIANT_STEPS}
+VARIANT_ARGS = ["--config", "imagenet_resnet50"] + [
+    a for k, v in VARIANT_CUTS.items() for a in ("--set", f"{k}={v!r}")]
 
 # The BERT slice: glue_bert (BERT-base at full width: hidden 768, 12
 # layers, 12 heads of 64, FFN 3072, vocab 30522, max_position 512; adamw
@@ -1940,6 +2014,317 @@ def phase_bert_train() -> dict:
             "idle_share": 1 - busy / wall_step, "tasks": tasks}
 
 
+def _no_kernel_launches(launches: dict, what: str) -> None:
+    if any(launches.values()):
+        raise RuntimeError(f"{what}: launches {launches}, want none (no "
+                           f"hand-written kernel on this path)")
+
+
+def _profile_steps(harness, calls: int):
+    """``calls`` more training steps of ``harness`` on one batch: wall ms
+    a step, the kernels (largest first) and device ms a step."""
+    batch = next(iter(harness.train_loader))
+    step = lambda: float(harness.train_step(harness.state, batch)["loss"])  # noqa: E731
+    wall_step = wall_ms(step, calls)
+
+    def window():
+        for _ in range(calls):
+            step()
+
+    kernels = device_time(window)
+    busy = sum(ms for _, ms, _ in kernels) / calls
+    return wall_step, kernels, busy
+
+
+def phase_mnist_train() -> dict:
+    """mnist_single through ``tpuframe_torch.train.main`` (MNIST_CUTS):
+    the eval accuracy must rise on the learnable synthetic data, and no
+    hand-written kernel runs.  First the ConvNet on the card against the
+    same weights on the CPU; after, 20 more steps under the profiler."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    x = torch.rand((MNIST_BATCH, 28, 28, 1),
+                   generator=torch.Generator().manual_seed(3))
+    card = get_model("convnet", dtype="float32", device="cuda", seed=0)
+    cpu = get_model("convnet", dtype="float32", device="cpu", seed=0)
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    with torch.no_grad():
+        err = float((card(x.cuda()).cpu() - cpu(x)).abs().max())
+    n_params = sum(p.numel() for p in cpu.parameters())
+    log(f"[mnist-train] ConvNet logits, card vs CPU (f32, eval): max |diff| "
+        f"{err:.3e} (tolerance {MNIST_CPU_ATOL:g})")
+    if not err <= MNIST_CPU_ATOL:
+        raise RuntimeError(f"ConvNet card vs CPU: {err} > {MNIST_CPU_ATOL}")
+    del card, cpu
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.monotonic()
+    metrics = train_lib.main(MNIST_ARGS)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses, step_ms = metrics["losses"], metrics["step_ms"]
+    steps = MNIST_CUTS["total_steps"]
+    _no_kernel_launches(launches, "mnist_single")
+    acc = metrics.get("eval_accuracy", float("nan"))
+    if (len(losses) != steps or not all(math.isfinite(v) for v in losses)
+            or not acc >= MNIST_MIN_ACCURACY
+            or not np.mean(losses[-10:]) < np.mean(losses[:10])):
+        raise RuntimeError(f"mnist_single: losses {losses[:3]}..."
+                           f"{losses[-3:]}, eval accuracy {acc} (want >= "
+                           f"{MNIST_MIN_ACCURACY})")
+    p50 = statistics.median(step_ms[1:])
+    log(f"[mnist-train] mnist_single (ConvNet, {n_params / 1e6:.2f} M "
+        f"params), batch "
+        f"{MNIST_BATCH}, f32, {steps} steps + 1 eval pass in {wall:.1f} s: "
+        f"loss {np.mean(losses[:10]):.4f} (first 10) -> "
+        f"{np.mean(losses[-10:]):.4f} (last 10), final {losses[-1]:.4f}; "
+        f"eval loss {metrics['eval_loss']:.4f} accuracy {acc:.4f}; step ms "
+        f"p50 {p50:.3f} (after the first; first {step_ms[0]:.1f}); "
+        f"{MNIST_BATCH / p50 * 1e3:.1f} images/s; peak memory "
+        f"{peak / 2**30:.3f} GiB")
+    cfg = get_config("mnist_single").with_overrides(**MNIST_CUTS)
+    wall_step, kernels, busy = _profile_steps(train_lib.build_harness(cfg),
+                                              20)
+    log(f"[profile] mnist_single training step (20 steps): wall "
+        f"{wall_step:.3f} ms a step, {sum(c for *_, c in kernels) // 20} "
+        f"kernels a step, device {busy:.3f} ms a step, idle share "
+        f"{1 - busy / wall_step:.3f}; top: "
+        + "; ".join(f"{k[:50]} {ms / 20:.3f} ms x{c // 20}"
+                    for k, ms, c in kernels[:6]))
+    return {"launches": launches, "step_ms_p50": p50, "peak_bytes": peak,
+            "device_ms": busy, "idle_share": 1 - busy / wall_step,
+            "eval_accuracy": acc}
+
+
+def _f32_conv_precision(tf32: bool) -> float:
+    """Max relative error against f64 of a 3x3 conv at ResNet-18's first
+    stage (batch 256, 64 -> 64 channels, 32x32), with cuDNN's TF32 flag
+    set to ``tf32`` for the call and restored after."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.randn((CIFAR_BATCH, 64, 32, 32), generator=gen, device="cuda")
+    w = torch.randn((64, 64, 3, 3), generator=gen, device="cuda") / 24
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = tf32
+    try:
+        y = F.conv2d(x, w, padding=1)
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    ref = F.conv2d(x.double(), w.double(), padding=1)
+    return float((y.double() - ref).abs().max() / ref.abs().max())
+
+
+def phase_cifar_train() -> dict:
+    """cifar10_resnet18 through ``tpuframe_torch.train.main`` (CIFAR_CUTS):
+    finite losses and eval, no hand-written kernel; step time, images/s,
+    MFU against the f32 peak, peak memory, the precision the f32
+    convolutions ran in, then one more step under the profiler."""
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.monotonic()
+    metrics = train_lib.main(CIFAR_ARGS)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses, step_ms = metrics["losses"], metrics["step_ms"]
+    steps = CIFAR_CUTS["total_steps"]
+    _no_kernel_launches(launches, "cifar10_resnet18")
+    if (len(losses) != steps or not all(math.isfinite(v) for v in losses)
+            or not all(math.isfinite(metrics.get(k, float("nan")))
+                       for k in ("eval_loss", "eval_accuracy"))):
+        raise RuntimeError(f"cifar10_resnet18: losses {losses}, metrics "
+                           f"{metrics}")
+    tf32_flag = torch.backends.cudnn.allow_tf32
+    off, on = _f32_conv_precision(tf32_flag), _f32_conv_precision(True)
+    if tf32_flag or not off <= F32_CONV_MAX_REL:
+        raise RuntimeError(f"f32 convolutions: cudnn.allow_tf32 "
+                           f"{tf32_flag} after the harness, max relative "
+                           f"error to f64 {off:.2e} (want f32: <= "
+                           f"{F32_CONV_MAX_REL:g})")
+    p50 = statistics.median(step_ms[1:])
+    cfg = get_config("cifar10_resnet18").with_overrides(**CIFAR_CUTS)
+    harness = train_lib.build_harness(cfg)
+    fwd = resnet_forward_flops(harness.state.model, 32)
+    flops = 3 * fwd * CIFAR_BATCH
+    mfu = flops / (p50 / 1e3) / PEAK_OPS_S[torch.float32]
+    n_params = sum(p.numel() for p in harness.state.model.parameters())
+    log(f"[cifar-train] cifar10_resnet18 (ResNet-18, CIFAR stem, "
+        f"{n_params / 1e6:.2f} M params), batch {CIFAR_BATCH}, f32, u8 "
+        f"synthetic + pad_crop_flip "
+        f"on the card, {steps} steps + 1 eval batch in {wall:.1f} s: losses "
+        f"{[round(v, 4) for v in losses[:3]]}..."
+        f"{[round(v, 4) for v in losses[-3:]]}, "
+        f"eval loss {metrics['eval_loss']:.4f} accuracy "
+        f"{metrics['eval_accuracy']:.4f}; step ms p50 {p50:.2f} (after the "
+        f"first; first {step_ms[0]:.1f}); {CIFAR_BATCH / p50 * 1e3:.1f} "
+        f"images/s; model FLOPs {flops:.3e} a step (3 x {fwd:.4e} a forward "
+        f"image), MFU {mfu:.4f} of the 67 TFLOP/s f32 peak; peak memory "
+        f"{peak / 2**30:.2f} GiB; f32 convolutions in f32 (cudnn.allow_tf32 "
+        f"{tf32_flag}): max relative error to f64 {off:.2e}, against "
+        f"{on:.2e} with TF32 on")
+    wall_step, kernels, busy = _profile_steps(harness, 1)
+    log(f"[profile] cifar10_resnet18 training step: wall {wall_step:.2f} ms,"
+        f" {sum(c for *_, c in kernels)} kernels, device {busy:.2f} ms, idle "
+        f"share {1 - busy / wall_step:.3f}; top: "
+        + "; ".join(f"{k[:60]} {ms:.2f} ms x{c}" for k, ms, c in kernels[:8]))
+    return {"launches": launches, "step_ms_p50": p50, "mfu": mfu,
+            "peak_bytes": peak, "device_ms": busy,
+            "idle_share": 1 - busy / wall_step, "conv_rel_err": off,
+            "conv_rel_err_tf32": on}
+
+
+def _resnet50_f32_step(state, batch, **kwargs):
+    """One ResNet-50 f32 training forward and backward from ``state``:
+    ``(loss, logits, grads, buffers)``."""
+    cfg = get_config("imagenet_resnet50").with_overrides(
+        compute_dtype="float32", augment="none")
+    model = get_model("resnet50", dtype="float32", device="cuda", seed=0,
+                      num_classes=1000, **kwargs)
+    model.load_state_dict(state)
+    out = []
+    hook = model.register_forward_hook(lambda m, i, o: out.append(o.detach()))
+    loss, _ = train_lib.make_loss_fn(cfg)(model, batch, 0)
+    loss.backward()
+    hook.remove()
+    return (float(loss.detach()), out[0],
+            {n: p.grad for n, p in model.named_parameters()},
+            {n: v.clone() for n, v in model.named_buffers()})
+
+
+def _variant_parity() -> list:
+    """bn="folded", the s2d stem and remat=True against the bn="flax" 7x7
+    ResNet-50 from the same weights, f32, batch RESNET_PARITY_BATCH, each
+    held as RESNET_PARITY_RTOL's comment says."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    b = RESNET_PARITY_BATCH
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    batch = {"image": torch.randn((b, 224, 224, 3), generator=gen,
+                                  device="cuda") * 0.3 + 0.5,
+             "label": torch.randint(0, 1000, (b,), generator=gen,
+                                    device="cuda")}
+    rev = {k: v.flip(0) for k, v in batch.items()}
+    model = get_model("resnet50", dtype="float32", device="cuda", seed=1,
+                      num_classes=1000)
+    _random_bn_scales(model, 9)
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    del model
+    s2d_state = dict(state, **{"conv1.weight": resnet_lib.s2d_stem_kernel(
+        state["conv1.weight"])})
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+    lp, logits, gp, sp = _resnet50_f32_step(state, batch)
+    _, logits_r, gr, _ = _resnet50_f32_step(state, rev)
+    floor_logits = rel(logits_r.flip(0), logits)
+    results, bad = [], []
+    for name, st, kwargs in (("folded", state, {"bn": "folded"}),
+                             ("s2d", s2d_state, {"stem": "space_to_depth"}),
+                             ("remat", state, {"remat": True})):
+        lk, logits_k, gk, sk = _resnet50_f32_step(st, batch, **kwargs)
+        row = {"option": name, "loss": lk, "loss_ref": lp}
+        if name == "s2d":
+            got = rel(logits_k, logits)
+            tol = max(RESNET_PARITY_RTOL, RESNET_NOISE_FACTOR * floor_logits)
+            row.update(logits_rel=got, noise_floor=floor_logits, tol=tol)
+            if got > tol:
+                bad.append(f"s2d logits {got:.2e} > {tol:.2e}")
+            log(f"[resnet-variants] s2d stem vs 7x7 stem (s2d_stem_kernel "
+                f"weights), f32 B={b}: logits relative difference "
+                f"{got:.2e}, tolerance {tol:.2e} (noise floor "
+                f"{floor_logits:.2e})")
+            results.append(row)
+            continue
+        worst, where, noise = 0.0, "", 0.0
+        for n, g in gp.items():
+            got, floor = rel(gk[n], g), rel(gr[n], g)
+            noise = max(noise, floor)
+            if got > worst:
+                worst, where = got, n
+            if got > max(RESNET_PARITY_RTOL, RESNET_NOISE_FACTOR * floor):
+                bad.append(f"{name} {n}: {got:.2e} (noise floor {floor:.2e})")
+        stat = max(rel(sk[n], v) for n, v in sp.items())
+        if abs(lk - lp) > RESNET_PARITY_RTOL * abs(lp):
+            bad.append(f"{name} loss {lk} vs {lp}")
+        if stat > RESNET_PARITY_RTOL:
+            bad.append(f"{name} running stats {stat:.3e}")
+        row.update(worst_grad_rel=worst, worst_grad=where, noise_floor=noise,
+                   stats_rel=stat, tol=RESNET_PARITY_RTOL,
+                   noise_factor=RESNET_NOISE_FACTOR)
+        results.append(row)
+        log(f"[resnet-variants] {name} vs flax, f32 B={b}: loss {lk:.6f} vs "
+            f"{lp:.6f}; worst per-tensor relative grad difference "
+            f"{worst:.2e} ({where}), tolerance max({RESNET_PARITY_RTOL:g}, "
+            f"{RESNET_NOISE_FACTOR:g} x its noise floor; floors up to "
+            f"{noise:.2e}); running stats {stat:.2e} (tolerance "
+            f"{RESNET_PARITY_RTOL:g})")
+    if bad:
+        raise RuntimeError("ResNet-50 option parity: " + "; ".join(bad[:8]))
+    return results
+
+
+def phase_resnet_variants(baseline: dict | None = None) -> dict:
+    """The ResNet-50 options against bn="flax" (:func:`_variant_parity`),
+    then imagenet_resnet50 with bn "fused", the s2d stem, remat and lars
+    (VARIANT_CUTS) through ``tpuframe_torch.train.main``: every fused
+    conv+BN launch on the tensor cores, once per pair and step under
+    remat, and a lower peak memory than phase 12's run without remat
+    (``baseline``; run here when not given)."""
+    parity = _variant_parity()
+    if baseline is None:
+        baseline = phase_resnet_train()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.monotonic()
+    metrics = train_lib.main(VARIANT_ARGS)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = launch_counts()
+    conv_routes = dict(fcb.ROUTES)
+    peak = torch.cuda.max_memory_allocated()
+    losses, step_ms = metrics["losses"], metrics["step_ms"]
+    steps = len(losses)
+    want = {"flash_fwd": 0, "flash_bwd_delta": 0, "flash_bwd_dq": 0,
+            "flash_bwd_dkv": 0, "fused_conv_bn_bwd": 36 * steps,
+            "precision_probe": 0}
+    problems = []
+    if not all(math.isfinite(v) for v in losses) or steps != VARIANT_STEPS:
+        problems.append(f"losses {losses}")
+    for key in ("eval_loss", "eval_accuracy", "eval_top5"):
+        if not math.isfinite(metrics.get(key, float("nan"))):
+            problems.append(f"no finite {key}")
+    if launches != want:
+        problems.append(f"launches {launches}, want {want} (the fused op's "
+                        f"backward once per 1x1 pair and step under remat)")
+    if conv_routes != {"tensor_core": 36 * steps, "cuda_core": 0}:
+        problems.append(f"fused conv+BN launches by route {conv_routes}: "
+                        f"want all {36 * steps} on the tensor cores")
+    if not peak < baseline["peak_bytes"]:
+        problems.append(f"peak memory {peak / 2**30:.2f} GiB with remat, "
+                        f"not below {baseline['peak_bytes'] / 2**30:.2f} "
+                        f"GiB without")
+    if problems:
+        raise RuntimeError("ResNet-50 variant training: "
+                           + "; ".join(problems))
+    p50 = statistics.median(step_ms[1:])
+    log(f"[resnet-variants] imagenet_resnet50 bn=fused + space_to_depth + "
+        f"remat + lars, batch {RESNET_BATCH} bf16, {steps} steps + 1 eval "
+        f"batch in {wall:.1f} s: losses {[round(v, 4) for v in losses]}, "
+        f"eval loss {metrics['eval_loss']:.4f}; step ms "
+        f"{[round(v, 1) for v in step_ms]} (p50 after the first {p50:.1f}; "
+        f"phase 12 without remat {baseline['step_ms_p50']:.1f}); peak memory "
+        f"{peak / 2**30:.2f} GiB (phase 12 without remat "
+        f"{baseline['peak_bytes'] / 2**30:.2f}); launches {launches}; fused "
+        f"conv+BN launches by route {conv_routes}")
+    return {"launches": launches, "routes": conv_routes, "step_ms_p50": p50,
+            "peak_bytes": peak, "baseline_step_ms_p50": baseline["step_ms_p50"],
+            "baseline_peak_bytes": baseline["peak_bytes"], "parity": parity}
+
+
 def wall_ms(fn, calls: int) -> float:
     fn()
     t = time.monotonic()
@@ -2009,13 +2394,19 @@ def main(argv=None) -> int:
     bert_delta = phase_bert_parity()
     bert_serve = phase_bert_serve()
     bert_train = phase_bert_train()
+    mnist = phase_mnist_train()
+    cifar = phase_cifar_train()
+    variants = phase_resnet_variants(resnet)
 
     by_path = {name: {"serve": serve_launches[name],
                       "lm_train": train["launches"][name],
                       "resnet_train": resnet["launches"][name],
                       "probe": probe["launches"][name],
                       "bert_serve": bert_serve["launches"][name],
-                      "bert_train": bert_train["launches"][name]}
+                      "bert_train": bert_train["launches"][name],
+                      "mnist_train": mnist["launches"][name],
+                      "cifar_train": cifar["launches"][name],
+                      "resnet_variants": variants["launches"][name]}
                for name in launch_counts()}
     attn = "B=8 S=4096 N=12 D=64 bf16 causal"
     ops = "tpuframe/ops/"
@@ -2066,7 +2457,8 @@ def main(argv=None) -> int:
                             "on every path's launch; f32 and K or C not a "
                             "multiple of 64 on the CUDA cores")
             row["device_ms"] = conv_bn["device_ms"]
-            row["routes_by_path"] = {"resnet_train": resnet["routes"]}
+            row["routes_by_path"] = {"resnet_train": resnet["routes"],
+                                     "resnet_variants": variants["routes"]}
             row["cuda_core_bf16"] = {key: conv_bn["cuda_core"][key]
                                      for key in sub}
         elif row["name"].startswith("flash_bwd_"):
@@ -2106,7 +2498,9 @@ PHASES = {"kernels": phase_kernels, "backward": phase_backward,
           "resnet_grad_parity": phase_resnet_grad_parity,
           "resnet_train": phase_resnet_train,
           "bert_parity": phase_bert_parity, "bert_serve": phase_bert_serve,
-          "bert_train": phase_bert_train}
+          "bert_train": phase_bert_train, "mnist_train": phase_mnist_train,
+          "cifar_train": phase_cifar_train,
+          "resnet_variants": phase_resnet_variants}
 
 
 if __name__ == "__main__":

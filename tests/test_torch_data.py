@@ -1,11 +1,17 @@
 """tpuframe_torch's data layer and configs against the JAX package's.
 
-``lm_text`` must give bit-equal arrays, the loader the same batches in the
-same order (two epochs, a mid-epoch resume, a per-rank split), and the
-configs the same fields, defaults, workloads and merge semantics.
+``lm_text``, ``mnist`` and ``cifar10`` must give bit-equal arrays, from
+their synthetic generators and from local files in the formats the
+reference reads (MNIST idx files, gzipped or not; CIFAR-10's python pickle
+batches), the loader the same batches in the same order (two epochs, a
+mid-epoch resume, a per-rank split), and the configs the same fields,
+defaults, workloads and merge semantics.
 """
 
 import dataclasses
+import gzip
+import pickle
+import struct
 
 import numpy as np
 import pytest
@@ -45,8 +51,79 @@ def test_lm_text_reads_a_local_token_stream(tmp_path):
             np.testing.assert_array_equal(g.columns[k], w.columns[k])
     with pytest.raises(NotImplementedError, match="GCS"):
         datasets.lm_text("gs://bucket/lm", seq_len=64)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        datasets.build("cifar10")
+    with pytest.raises(ValueError, match="unknown dataset"):
+        datasets.build("svhn")
+
+
+def _assert_splits_equal(got, want):
+    for g, w in zip(got, want):
+        assert set(g.columns) == set(w.columns) == {"image", "label"}
+        for k in w.columns:
+            assert g.columns[k].dtype == w.columns[k].dtype
+            np.testing.assert_array_equal(g.columns[k], w.columns[k])
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("mnist", {}),
+    ("cifar10", {"keep_u8": False}),
+    ("cifar10", {"keep_u8": True}),
+])
+def test_mnist_and_cifar10_synthetic_splits_are_bit_equal(name, kw):
+    got = datasets.build(name, None, synthetic_size=200, **kw)
+    want = getattr(jax_datasets, name)(None, synthetic_size=200, **kw)
+    _assert_splits_equal(got, want)
+    assert len(got[0]) == 200 and len(got[1]) == 64   # max(n // 8, 64)
+    image = got[0].columns["image"]
+    assert image.shape[1:] == ((28, 28, 1) if name == "mnist"
+                               else (32, 32, 3))
+    assert image.dtype == (np.uint8 if kw.get("keep_u8") else np.float32)
+
+
+def _idx(arr: np.ndarray) -> bytes:
+    """An idx file: magic 0x0000080N (uint8, rank N), the dims, the data."""
+    return (struct.pack(">I", 0x800 | arr.ndim)
+            + struct.pack(f">{arr.ndim}I", *arr.shape) + arr.tobytes())
+
+
+@pytest.mark.parametrize("gzipped", [True, False])
+def test_mnist_reads_local_idx_files_like_jax(tmp_path, gzipped):
+    rng = np.random.default_rng(2)
+    for split, n in (("train", 30), ("t10k", 12)):
+        files = {f"{split}-images-idx3-ubyte.gz":
+                 rng.integers(0, 256, (n, 28, 28)).astype(np.uint8),
+                 f"{split}-labels-idx1-ubyte.gz":
+                 rng.integers(0, 10, n).astype(np.uint8)}
+        for name, arr in files.items():
+            raw = _idx(arr)
+            (tmp_path / name).write_bytes(gzip.compress(raw) if gzipped
+                                          else raw)
+    got = datasets.mnist(str(tmp_path))
+    _assert_splits_equal(got, jax_datasets.mnist(str(tmp_path)))
+    assert got[0].columns["image"].shape == (30, 28, 28, 1)
+    assert got[1].columns["label"].dtype == np.int32
+    with pytest.raises(NotImplementedError, match="GCS"):
+        datasets.mnist("gs://bucket/mnist")
+
+
+@pytest.mark.parametrize("keep_u8", [False, True])
+def test_cifar10_reads_local_pickle_batches_like_jax(tmp_path, keep_u8):
+    rng = np.random.default_rng(3)
+    for name in [f"data_batch_{i}" for i in range(1, 6)] + ["test_batch"]:
+        batch = {b"data": rng.integers(0, 256, (7, 3072)).astype(np.uint8),
+                 b"labels": rng.integers(0, 10, 7).tolist(),
+                 b"batch_label": name.encode()}
+        (tmp_path / name).write_bytes(pickle.dumps(batch))
+    got = datasets.cifar10(str(tmp_path), keep_u8=keep_u8)
+    _assert_splits_equal(got, jax_datasets.cifar10(str(tmp_path),
+                                                   keep_u8=keep_u8))
+    assert len(got[0]) == 35 and len(got[1]) == 7
+    # rows are CHW: pixel (0, 0)'s channels sit 1024 bytes apart
+    first = pickle.loads((tmp_path / "data_batch_1").read_bytes())[b"data"][0]
+    if keep_u8:
+        np.testing.assert_array_equal(got[0].columns["image"][0, 0, 0],
+                                      first[[0, 1024, 2048]])
+    with pytest.raises(NotImplementedError, match="GCS"):
+        datasets.cifar10("gs://bucket/cifar")
 
 
 def _jax_batches(loader, it, n):

@@ -43,6 +43,14 @@ CASES = {
     "adamw-constant-clip": dict(optimizer="adamw", base_lr=1e-3,
                                 scale_lr_by_batch=False, schedule="constant",
                                 grad_clip_norm=0.5),
+    # optax.lars: the decay and the trust ratio under the decay mask, the
+    # momentum on the update after the learning rate
+    "lars-decay-warmup-cosine": dict(
+        optimizer="lars", base_lr=0.5, warmup_steps=5, schedule="cosine",
+        weight_decay=1e-4, momentum=0.9),
+    "lars-constant-clip": dict(optimizer="lars", base_lr=2.0,
+                               scale_lr_by_batch=False, schedule="constant",
+                               grad_clip_norm=1.0, momentum=0.8),
 }
 
 
@@ -71,19 +79,20 @@ def _port_model(params):
     return lm
 
 
-@pytest.mark.parametrize("case", list(CASES))
-def test_fifty_updates_match_optax(flax_params, case):
-    kw = dict(BASE, **CASES[case])
-    tx = jax_optim.build_optimizer(JaxTrainConfig(**kw), flax_params)
-    state = tx.init(flax_params)
+def _fifty_updates(kw, init):
+    """50 optax updates and 50 port updates from ``init``: (the optax
+    params as a state_dict, the port model, the port's returned norms,
+    the gradients)."""
+    tx = jax_optim.build_optimizer(JaxTrainConfig(**kw), init)
+    state = tx.init(init)
     update = jax.jit(tx.update)
-    params = flax_params
-    grads = _grads(flax_params)
+    params = init
+    grads = _grads(init)
     for g in grads:
         updates, state = update(g, state, params)
         params = optax.apply_updates(params, updates)
 
-    lm = _port_model(flax_params)
+    lm = _port_model(init)
     opt = optim.build_optimizer(TrainConfig(**kw), lm)
     named = dict(lm.named_parameters())
     norms = []
@@ -96,6 +105,13 @@ def test_fifty_updates_match_optax(flax_params, case):
     for name, t in lm.state_dict().items():
         np.testing.assert_allclose(t.numpy(), want[name].numpy(), rtol=1e-6,
                                    atol=1e-7, err_msg=name)
+    return want, lm, norms, grads
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_fifty_updates_match_optax(flax_params, case):
+    kw = dict(BASE, **CASES[case])
+    _, _, norms, grads = _fifty_updates(kw, flax_params)
     # the returned norm is optax's global norm of the raw gradients
     np.testing.assert_allclose(
         norms, [float(optax.global_norm(g)) for g in grads], rtol=1e-6)
@@ -167,7 +183,23 @@ def test_decay_mask_matches_flax_names(flax_params):
     assert not got["final_ln.weight"] and not got["blocks.0.attn_ln.weight"]
 
 
-def test_lars_is_not_ported_yet(flax_params):
-    kw = dict(BASE, optimizer="lars")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        optim.build_optimizer(TrainConfig(**kw), _port_model(flax_params))
+def test_lars_zero_norm_parameter_takes_trust_ratio_one(flax_params):
+    """A decayed tensor that starts at 0 has a parameter norm of 0, so
+    optax's trust ratio is 1 on the first update (not 0): the tensor moves
+    by -lr times its clipped gradient.  Then 50 updates hold to optax as
+    above."""
+    name = "blocks.0.up.weight"
+    init = jax.tree.map(np.copy, flax_params)
+    init["block_0"]["up"]["kernel"][...] = 0.0
+    kw = dict(BASE, **CASES["lars-constant-clip"])
+    lm = _port_model(init)
+    opt = optim.build_optimizer(TrainConfig(**kw), lm)
+    assert opt.decay[opt.names.index(name)]
+    g = params_from_jax(_grads(init)[0])
+    for n, p in lm.named_parameters():
+        p.grad = g[n]
+    norm = float(opt.step())
+    torch.testing.assert_close(dict(lm.named_parameters())[name].detach(),
+                               -2.0 * g[name] / max(norm, 1.0), rtol=1e-6,
+                               atol=0)
+    _fifty_updates(kw, init)

@@ -332,6 +332,76 @@ def test_harness_never_falls_back_to_the_cpu():
         port_train.build_harness(cfg)
 
 
+@pytest.mark.parametrize("name,kwargs", [
+    ("convnet", {}), ("resnet50", {"bn": "folded"}),
+    ("resnet50", {"stem": "space_to_depth"}), ("resnet18", {"remat": True})])
+def test_new_models_never_fall_back_to_the_cpu(name, kwargs):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is visible: the default device is usable")
+    with pytest.raises(RuntimeError, match="no GPU is visible"):
+        port_models.get_model(name, **kwargs)
+
+
+@pytest.mark.parametrize("name", ["mnist_single", "cifar10_resnet18"])
+def test_image_workloads_never_fall_back_to_the_cpu(name):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is visible: the default device is usable")
+    cfg = port_train.get_config(name).with_overrides(mesh={"data": 1})
+    with pytest.raises(RuntimeError, match="no GPU is visible"):
+        port_train.build_harness(cfg)
+
+
+# A rank of a 2-rank gloo world that trains mnist_single (distributed=False)
+# with every collective made to raise; each rank writes its losses.
+_SOLO_WORKER = r"""
+import json, sys
+import torch.distributed as dist
+from tpuframe_torch import train as port_train
+
+rank, port, out, overrides = (int(sys.argv[1]), sys.argv[2], sys.argv[3],
+                              json.loads(sys.argv[4]))
+dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                        world_size=2, rank=rank)
+
+
+def refuse(*args, **kwargs):
+    raise AssertionError("a collective ran in a distributed=False step")
+
+
+for verb in ("all_reduce", "broadcast", "all_gather", "reduce_scatter"):
+    setattr(dist, verb, refuse)
+cfg = port_train.get_config("mnist_single").with_overrides(**overrides)
+metrics = port_train.train(cfg, device="cpu")
+with open(f"{out}.{rank}", "w") as f:
+    json.dump(metrics["losses"], f)
+"""
+
+
+def test_distributed_false_trains_with_no_collective(tmp_path):
+    """mnist_single is the JAX harness's config-1 path: one device, no
+    mesh, no collective.  In a 2-rank process group each rank trains the
+    whole batch alone, with collectives patched to raise, and takes the
+    steps a process with no group takes."""
+    overrides = {"global_batch": 16, "total_steps": 3, "eval_every": 3,
+                 "eval_batches": 1, "dataset_kwargs": {"synthetic_size": 64}}
+    out = tmp_path / "losses"
+    port = str(_free_port())
+    env = {**os.environ, "PYTHONPATH": REPO}
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _SOLO_WORKER, str(r), port, str(out),
+         json.dumps(overrides)], cwd=REPO, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(2)]
+    for p in procs:
+        _, err = p.communicate(timeout=240)
+        assert p.returncode == 0, err
+    cfg = port_train.get_config("mnist_single").with_overrides(**overrides)
+    assert not cfg.distributed
+    want = port_train.train(cfg, device="cpu")["losses"]
+    for r in range(2):
+        got = json.loads((tmp_path / f"losses.{r}").read_text())
+        assert got == want, r
+
+
 @pytest.mark.parametrize("overrides,env,world,match", [
     ({"ckpt_dir": "/nonexistent"}, {}, 1, "checkpointing"),
     ({}, {"TPUFRAME_WEIGHT_UPDATE": "zero1"}, 1, "ZeRO-1"),
@@ -340,8 +410,6 @@ def test_harness_never_falls_back_to_the_cpu():
     ({"model": "transformer-lm-pp"}, {}, 1, "pipeline"),
     ({"mesh": {"data": 1, "fsdp": 2}}, {}, 2, "sharded state"),
     ({"mesh": {"data": 1, "seq": -1}}, {}, 4, "sequence parallelism"),
-    ({"dataset": "mnist"}, {}, 1, "item 4"),
-    ({"dataset": "cifar10"}, {}, 1, "item 4"),
     ({"tb_dir": "/nonexistent"}, {}, 1, "TensorBoard"),
 ])
 def test_unported_features_refuse_loudly(overrides, env, world, match,
@@ -355,9 +423,9 @@ def test_unported_features_refuse_loudly(overrides, env, world, match,
 
 
 def test_model_registry_names_are_the_jax_registrys():
-    """``transformer-lm``, the ResNets and ``bert-base`` build as the JAX
-    harness calls them; every other name the JAX registry has refuses,
-    naming its ROADMAP.md item."""
+    """``transformer-lm``, the ResNets, ``convnet`` and ``bert-base``
+    build as the JAX harness calls them; every other name the JAX registry
+    has refuses, naming its ROADMAP.md item."""
     lm = port_models.get_model("transformer-lm", dtype="bfloat16", tiny=True,
                                device="cpu", vocab_size=64)
     assert lm.cfg == torch_lm.LMConfig.tiny(vocab_size=64, dtype="bfloat16")
@@ -368,7 +436,11 @@ def test_model_registry_names_are_the_jax_registrys():
                                  num_classes=3, num_layers=1, dropout=0.0)
     assert bert.cfg == port_models.BertConfig(dtype="bfloat16", num_classes=3,
                                               num_layers=1, dropout=0.0)
-    built = {"transformer-lm", "bert-base", *port_models._RESNETS}
+    net = port_models.get_model("convnet", dtype="bfloat16", device="cpu",
+                                dropout=0.0)
+    assert net.dtype == torch.bfloat16 and net.fc2.out_features == 10
+    assert net.rates == (0.0, 0.0)
+    built = {"transformer-lm", "bert-base", "convnet", *port_models._RESNETS}
     others = set(jax_models._REGISTRY) - built
     assert others == set(port_models._LATER)
     for name in others:

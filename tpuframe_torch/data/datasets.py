@@ -1,19 +1,22 @@
 """Dataset builders (counterpart of ``tpuframe/data/datasets.py``).
 
 Numpy only, a local copy of what the ported slices need: ``ArrayDataset``,
-``lm_text``, ``imagenet`` and the four GLUE tasks (``glue_sst2``,
-``glue_mnli``, ``glue_stsb``, ``glue_cola``) with their synthetic
-generators, which give the same arrays as the JAX package's from the same
-arguments.  Rows are gathered with numpy indexing (the JAX package uses
-its native C++ gather for the same rows).  ``tokens.npy``, the ImageNet
-``.npy`` shards and the GLUE tsv files are read from a local
-``data_dir``; ``gs://`` paths and the MNIST and CIFAR-10 builders are not
-ported yet (ROADMAP.md queue 1, item 4).
+``lm_text``, ``mnist``, ``cifar10``, ``imagenet`` and the four GLUE tasks
+(``glue_sst2``, ``glue_mnli``, ``glue_stsb``, ``glue_cola``) with their
+synthetic generators, which give the same arrays as the JAX package's from
+the same arguments.  Rows are gathered with numpy indexing (the JAX
+package uses its native C++ gather for the same rows).  ``tokens.npy``,
+the MNIST idx files, the CIFAR-10 pickle batches, the ImageNet ``.npy``
+shards and the GLUE tsv files are read from a local ``data_dir``;
+``gs://`` paths are not ported yet (ROADMAP.md queue 1, item 4).
 """
 
 from __future__ import annotations
 
+import gzip
 import os
+import pickle
+import struct
 import zlib
 from dataclasses import dataclass
 
@@ -21,6 +24,8 @@ import numpy as np
 
 from tpuframe_torch.parallel import collectives
 
+CIFAR_MEAN = np.array([0.4914, 0.4822, 0.4465], np.float32)
+CIFAR_STD = np.array([0.2470, 0.2435, 0.2616], np.float32)
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
 _GCS = "the GCS reader is ROADMAP.md queue 1, item 4"
@@ -131,6 +136,89 @@ def _local(data_dir: str) -> None:
                                   f"directories are ported ({_GCS})")
 
 
+def _read_local(data_dir: str, name: str) -> bytes:
+    _local(data_dir)
+    with open(os.path.join(data_dir, name), "rb") as f:
+        return f.read()
+
+
+def _read_idx(data: bytes) -> np.ndarray:
+    """An idx file (big-endian magic whose low byte is the rank, then the
+    dims, then uint8 data)."""
+    magic, = struct.unpack(">I", data[:4])
+    ndim = magic & 0xFF
+    dims = struct.unpack(f">{ndim}I", data[4:4 + 4 * ndim])
+    return np.frombuffer(data, np.uint8, offset=4 + 4 * ndim).reshape(dims)
+
+
+def _maybe_gunzip(raw: bytes) -> bytes:
+    return gzip.decompress(raw) if raw[:2] == b"\x1f\x8b" else raw
+
+
+def mnist(data_dir: str | None = None, *, synthetic_size: int = 2048):
+    """``image [N, 28, 28, 1]`` float32 in [0, 1] and ``label [N]`` int32.
+
+    With ``data_dir``: the four idx files under their usual names
+    (``train-images-idx3-ubyte.gz`` and so on; gzipped or not) from a
+    local directory.  Without: the synthetic class-template images
+    (``synthetic_size`` train, an eighth of it, at least 64, eval),
+    bit-equal to the JAX package's."""
+    if data_dir is not None:
+        def load(img_name, lbl_name):
+            imgs = _read_idx(_maybe_gunzip(_read_local(data_dir, img_name)))
+            lbls = _read_idx(_maybe_gunzip(_read_local(data_dir, lbl_name)))
+            x = (imgs.astype(np.float32) / 255.0)[..., None]
+            return ArrayDataset({"image": x, "label": lbls.astype(np.int32)})
+
+        return (load("train-images-idx3-ubyte.gz",
+                     "train-labels-idx1-ubyte.gz"),
+                load("t10k-images-idx3-ubyte.gz", "t10k-labels-idx1-ubyte.gz"))
+    return (_synthetic_images(synthetic_size, (28, 28, 1), 10, seed=0),
+            _synthetic_images(max(synthetic_size // 8, 64), (28, 28, 1), 10,
+                              seed=1, template_seed=0))
+
+
+def cifar10(data_dir: str | None = None, *, synthetic_size: int = 2048,
+            keep_u8: bool = False):
+    """``image [N, 32, 32, 3]`` float32 (normalised with CIFAR-10's mean
+    and std for real data), or uint8 with ``keep_u8``, and ``label [N]``
+    int32.
+
+    With ``data_dir``: the python pickle batches of the standard
+    ``cifar-10-batches-py`` layout (``data_batch_1`` to ``_5``,
+    ``test_batch``; bytes keys, ``[N, 3072]`` rows in CHW order) from a
+    local directory.  Without: the synthetic class-template images in
+    [0, 1], rounded to uint8 with ``keep_u8``, bit-equal to the JAX
+    package's."""
+    if data_dir is not None:
+        def load(names):
+            xs, ys = [], []
+            for name in names:
+                # the CIFAR-10 distribution's own format; read only from
+                # the caller's local directory
+                d = pickle.loads(_read_local(data_dir, name),
+                                 encoding="bytes")
+                xs.append(np.asarray(d[b"data"], np.uint8))
+                ys.append(np.asarray(d[b"labels"], np.int64))
+            x = np.concatenate(xs).reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1)
+            if not keep_u8:
+                x = (x.astype(np.float32) / 255.0 - CIFAR_MEAN) / CIFAR_STD
+            return ArrayDataset({"image": np.ascontiguousarray(x),
+                                 "label": np.concatenate(ys).astype(np.int32)})
+
+        return (load([f"data_batch_{i}" for i in range(1, 6)]),
+                load(["test_batch"]))
+    train, test = (
+        _synthetic_images(synthetic_size, (32, 32, 3), 10, seed=2),
+        _synthetic_images(max(synthetic_size // 8, 64), (32, 32, 3), 10,
+                          seed=3, template_seed=2))
+    if keep_u8:
+        for ds in (train, test):
+            ds.columns["image"] = np.round(
+                ds.columns["image"] * 255.0).astype(np.uint8)
+    return train, test
+
+
 def imagenet(data_dir: str | None = None, *, image_size: int = 224,
              synthetic_size: int = 512, keep_u8: bool = False,
              num_classes: int = 1000):
@@ -200,9 +288,7 @@ def _synthetic_images(n, shape, num_classes, *, seed, template_seed=None):
 # ---------------------------------------------------------------------------
 
 def _read_text(data_dir: str, name: str) -> str:
-    _local(data_dir)
-    with open(os.path.join(data_dir, name), "rb") as f:
-        return f.read().decode()
+    return _read_local(data_dir, name).decode()
 
 
 def glue_sst2(data_dir: str | None = None, *, seq_len: int = 128,
@@ -453,19 +539,15 @@ def _synthetic_score_pairs(n, seq_len, vocab_size, *, seed):
     return ds
 
 
-BUILDERS = {"lm_text": lm_text, "imagenet": imagenet, "glue_sst2": glue_sst2,
+BUILDERS = {"lm_text": lm_text, "mnist": mnist, "cifar10": cifar10,
+            "imagenet": imagenet, "glue_sst2": glue_sst2,
             "glue_mnli": glue_mnli, "glue_stsb": glue_stsb,
             "glue_cola": glue_cola}
-_LATER = {"mnist": "queue 1, item 4 (the MNIST and CIFAR-10 builders)",
-          "cifar10": "queue 1, item 4 (the MNIST and CIFAR-10 builders)"}
 
 
 def check(name: str) -> None:
-    """Raise for a ``dataset`` name the port cannot build: not ported yet
-    (``NotImplementedError``, naming its ROADMAP.md item) or unknown."""
-    if name in _LATER:
-        raise NotImplementedError(f"dataset {name!r} is not ported yet: "
-                                  f"ROADMAP.md {_LATER[name]}")
+    """Raise ``ValueError`` for a ``dataset`` name the port cannot
+    build."""
     if name not in BUILDERS:
         raise ValueError(f"unknown dataset {name!r}")
 

@@ -4,6 +4,7 @@ from __future__ import annotations
 
 from tpuframe_torch.models.bert import (BertConfig,
                                         BertForSequenceClassification)
+from tpuframe_torch.models.convnet import ConvNet
 from tpuframe_torch.models.resnet import (ResNet, ResNet18, ResNet34,
                                           ResNet50, ResNet101, ResNet152)
 from tpuframe_torch.models.transformer_lm import LMConfig, TransformerLM
@@ -15,7 +16,6 @@ _RESNETS = {"resnet18": ResNet18, "resnet34": ResNet34,
 # Registry names of the JAX package that the port does not build yet, and
 # the ROADMAP.md item that brings each.
 _LATER = {
-    "convnet": "queue 1, item 3 (the MNIST ConvNet)",
     "transformer-lm-pp": "queue 1, item 12 (pipeline parallelism)",
 }
 
@@ -37,16 +37,18 @@ def get_model(name: str, *, dtype=None, tiny: bool = False, device="cuda",
             kwargs.setdefault("dtype", str(dtype).replace("torch.", ""))
         return BertForSequenceClassification(BertConfig.base(**kwargs),
                                              device=device, seed=seed)
-    if name in _RESNETS:
+    if name in _RESNETS or name == "convnet":
         if dtype is not None:
             kwargs.setdefault("dtype", dtype)
-        return _RESNETS[name](device=device, seed=seed, **kwargs)
+        build = ConvNet if name == "convnet" else _RESNETS[name]
+        return build(device=device, seed=seed, **kwargs)
     if name in _LATER:
         raise NotImplementedError(f"model {name!r} is not ported yet: "
                                   f"ROADMAP.md {_LATER[name]}")
     raise ValueError(f"unknown model {name!r}")
 
 
-__all__ = ["BertConfig", "BertForSequenceClassification", "LMConfig",
+__all__ = ["BertConfig", "BertForSequenceClassification", "ConvNet",
+           "LMConfig",
            "ResNet", "ResNet18", "ResNet34", "ResNet50",
            "ResNet101", "ResNet152", "TransformerLM", "get_model"]

@@ -1,6 +1,6 @@
 """Carry flax ``TransformerLM`` parameters (and optax Adam moments), flax
-ResNet parameters and batch statistics, and flax BERT parameters into the
-port's models.
+ResNet parameters and batch statistics, flax BERT parameters and the flax
+MNIST ConvNet's parameters into the port's models.
 
 The flax tree (``{"embed": {"embedding"}, "block_<i>": {...},
 "final_ln": {"scale"}, "lm_head": {"kernel"}}``) arrives as nested dicts of
@@ -73,16 +73,40 @@ def _conv(k):
     return np.asarray(k).transpose(3, 2, 0, 1)
 
 
+def convnet_from_jax(params) -> dict:
+    """A flax ``tpuframe.models.convnet.ConvNet``'s ``params`` → the port
+    ConvNet's ``state_dict`` (f32 CPU tensors): ``Conv_0``, ``Conv_1`` →
+    ``conv1``, ``conv2`` (kernels ``HWIO`` → ``OIHW``), ``Dense_0``,
+    ``Dense_1`` → ``fc1``, ``fc2`` (kernels transposed); biases as they
+    are.  Raises on a tree that leaves a leaf unmapped."""
+    sd = {}
+    for src, dst, kernel in (("Conv_0", "conv1", _conv),
+                             ("Conv_1", "conv2", _conv),
+                             ("Dense_0", "fc1", lambda k: np.asarray(k).T),
+                             ("Dense_1", "fc2", lambda k: np.asarray(k).T)):
+        sd[f"{dst}.weight"] = kernel(params[src]["kernel"])
+        sd[f"{dst}.bias"] = params[src]["bias"]
+    total = sum(1 for _ in _leaves(params))
+    if total != len(sd):
+        raise ValueError(f"the flax tree holds {total} leaves, {len(sd)} "
+                         f"were mapped: not a tpuframe ConvNet")
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32))
+            for k, v in sd.items()}
+
+
 def resnet_from_jax(params, batch_stats) -> dict:
     """A flax ``tpuframe.models.resnet.ResNet``'s ``params`` and
-    ``batch_stats`` (nested dicts of numpy arrays), built with ``bn="flax"``
-    or ``bn="fused"`` → the port ResNet's ``state_dict`` (f32 CPU tensors,
-    torchvision's names).
+    ``batch_stats`` (nested dicts of numpy arrays), built with any ``bn``,
+    ``stem`` and ``remat`` → the port ResNet's ``state_dict`` (f32 CPU
+    tensors, torchvision's names).
 
     Flax names its blocks ``<Block>_<n>`` with one running index across
-    stages; a stage opens at block 0 and at each later block that has a
-    downsample.  In a block, flax's ``Conv_j``/``BatchNorm_j`` are the
-    ``conv{j+1}``/``bn{j+1}`` pairs in order; under ``bn="fused"`` the
+    stages (``remat`` keeps these names); a stage opens at block 0 and at
+    each later block that has a downsample.  The space-to-depth stem's
+    ``[4, 4, 12, O]`` kernel maps as any conv kernel.  In a block, flax's
+    ``Conv_j``/``BatchNorm_j`` (``FoldedBatchNorm_j`` under
+    ``bn="folded"``) are the ``conv{j+1}``/``bn{j+1}`` pairs in order;
+    under ``bn="fused"`` the
     Bottleneck's 1x1 pairs are ``FusedConvBN_0`` (conv1, bn1) and
     ``FusedConvBN_1`` (conv3, bn3), its 3x3 pair ``Conv_0``/``BatchNorm_0``
     (conv2, bn2), and the downsample ``downsample_fused``.  Raises on a
@@ -126,10 +150,12 @@ def resnet_from_jax(params, batch_stats) -> dict:
                 pair(pre + "downsample.0", pre + "downsample.1",
                      (b, "downsample_fused"), (b, "downsample_fused"))
         else:
+            norm = ("FoldedBatchNorm" if "FoldedBatchNorm_0" in blk
+                    else "BatchNorm")
             j = 0
             while f"Conv_{j}" in blk:
                 pair(pre + f"conv{j + 1}", pre + f"bn{j + 1}",
-                     (b, f"Conv_{j}"), (b, f"BatchNorm_{j}"))
+                     (b, f"Conv_{j}"), (b, f"{norm}_{j}"))
                 j += 1
             if has_ds:
                 pair(pre + "downsample.0", pre + "downsample.1",

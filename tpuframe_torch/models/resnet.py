@@ -31,8 +31,17 @@ numerics follow flax where the two could drift:
     "normal")`` (a normal truncated at 2 sigma), the last BN scale of each
     block zero, the Dense ``normal(0.01)`` with a zero bias.
 
-``bn="folded"``, ``stem="space_to_depth"`` and ``remat=True`` are not
-ported yet and raise, naming their ROADMAP.md item.
+  - ``bn="folded"`` normalises with :class:`~tpuframe_torch.models
+    .folded_bn.FoldedBatchNorm` everywhere, the stem's and the
+    downsample's included.
+  - ``stem="space_to_depth"`` (ImageNet stem only) rearranges the input
+    into ``[B, H/2, W/2, 12]`` (:func:`space_to_depth`) and runs a 4x4
+    stride-1 conv; :func:`s2d_stem_kernel` turns a 7x7 stride-2 stem's
+    weight into the equivalent 4x4 one.
+  - ``remat=True`` recomputes each residual block in the backward
+    (``torch.utils.checkpoint``, non-reentrant), as flax's ``nn.remat``
+    does; the recomputed forward leaves the running statistics alone, so
+    they move once a step, as in flax.
 """
 
 from __future__ import annotations
@@ -42,13 +51,13 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from tpuframe_torch import _device
 from tpuframe_torch.ops import fused_conv_bn as fcb
 
 MOMENTUM = 0.9
 EPS = 1e-5
-_ITEM_3 = "ROADMAP.md queue 1, item 3"
 
 
 def _same_pads(size: int, k: int, s: int) -> tuple[int, int]:
@@ -112,23 +121,31 @@ class BatchNorm(nn.Module):
         self.running_mean.mul_(MOMENTUM).add_((1 - MOMENTUM) * mean)
         self.running_var.mul_(MOMENTUM).add_((1 - MOMENTUM) * var)
 
-    def forward(self, x, train: bool):
-        xf = x.float()
-        if train:
-            mean = xf.mean(dim=(0, 1, 2))
-            var = torch.clamp((xf * xf).mean(dim=(0, 1, 2)) - mean * mean,
-                              min=0.0)
+    def stats(self, xf, train: bool, update: bool = True):
+        """``(mean, var)`` to normalise the f32 ``xf`` with: the batch's
+        in training (updating the running ones unless ``update`` is False,
+        as in a recomputed forward), else the running ones."""
+        if not train:
+            return self.running_mean, self.running_var
+        mean = xf.mean(dim=(0, 1, 2))
+        var = torch.clamp((xf * xf).mean(dim=(0, 1, 2)) - mean * mean,
+                          min=0.0)
+        if update:
             self.update_running(mean.detach(), var.detach())
-        else:
-            mean, var = self.running_mean, self.running_var
+        return mean, var
+
+    def forward(self, x, train: bool, update: bool = True):
+        xf = x.float()
+        mean, var = self.stats(xf, train, update)
         y = (xf - mean) * (torch.rsqrt(var + EPS) * self.weight) + self.bias
         return y.to(self.dtype)
 
 
-def conv_bn(conv: Conv, bn: BatchNorm, x, train: bool, fused: bool):
+def conv_bn(conv: Conv, bn: BatchNorm, x, train: bool, fused: bool,
+            update: bool = True):
     """A conv + BN pair; with ``fused`` (a 1x1 conv) one fused op."""
     if not fused:
-        return bn(conv(x), train)
+        return bn(conv(x), train, update)
     s = conv.stride
     x = x.to(conv.dtype)
     if s > 1:
@@ -138,21 +155,22 @@ def conv_bn(conv: Conv, bn: BatchNorm, x, train: bool, fused: bool):
         return fcb.conv1x1_bn_eval(x, w, bn.weight, bn.bias, bn.running_mean,
                                    bn.running_var, eps=EPS)
     y, mean, var = fcb.conv1x1_bn_train(x, w, bn.weight, bn.bias, eps=EPS)
-    bn.update_running(mean, var)
+    if update:
+        bn.update_running(mean, var)
     return y
 
 
 class Downsample(nn.Sequential):
     """``downsample.0`` (1x1 conv) and ``downsample.1`` (BN)."""
 
-    def __init__(self, cin, cout, stride, fused, dtype, device):
+    def __init__(self, cin, cout, stride, fused, norm, dtype, device):
         super().__init__(Conv(cin, cout, 1, stride, dtype=dtype,
                               device=device),
-                         BatchNorm(cout, dtype=dtype, device=device))
+                         norm(cout, dtype=dtype, device=device))
         self.fused = fused
 
-    def forward(self, x, train: bool):
-        return conv_bn(self[0], self[1], x, train, self.fused)
+    def forward(self, x, train: bool, update: bool = True):
+        return conv_bn(self[0], self[1], x, train, self.fused, update)
 
 
 class BasicBlock(nn.Module):
@@ -160,7 +178,7 @@ class BasicBlock(nn.Module):
 
     expansion = 1
 
-    def __init__(self, cin, filters, stride, *, fused=False,
+    def __init__(self, cin, filters, stride, *, fused=False, norm=BatchNorm,
                  dtype=torch.float32, device=None):
         super().__init__()
         if fused:
@@ -168,17 +186,18 @@ class BasicBlock(nn.Module):
                              "BasicBlock models have no 1x1 compute convs")
         kw = dict(dtype=dtype, device=device)
         self.conv1 = Conv(cin, filters, 3, stride, **kw)
-        self.bn1 = BatchNorm(filters, **kw)
+        self.bn1 = norm(filters, **kw)
         self.conv2 = Conv(filters, filters, 3, **kw)
-        self.bn2 = BatchNorm(filters, zero_init=True, **kw)
-        self.downsample = (Downsample(cin, filters, stride, False, dtype,
-                                      device)
+        self.bn2 = norm(filters, zero_init=True, **kw)
+        self.downsample = (Downsample(cin, filters, stride, False, norm,
+                                      dtype, device)
                            if stride != 1 or cin != filters else None)
 
-    def forward(self, x, train: bool):
-        y = F.relu(self.bn1(self.conv1(x), train))
-        y = self.bn2(self.conv2(y), train)
-        res = x if self.downsample is None else self.downsample(x, train)
+    def forward(self, x, train: bool, update: bool = True):
+        y = F.relu(self.bn1(self.conv1(x), train, update))
+        y = self.bn2(self.conv2(y), train, update)
+        res = (x if self.downsample is None
+               else self.downsample(x, train, update))
         return F.relu(res + y)
 
 
@@ -188,27 +207,67 @@ class Bottleneck(nn.Module):
 
     expansion = 4
 
-    def __init__(self, cin, filters, stride, *, fused=False,
+    def __init__(self, cin, filters, stride, *, fused=False, norm=BatchNorm,
                  dtype=torch.float32, device=None):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
         out = filters * 4
         self.fused = fused
         self.conv1 = Conv(cin, filters, 1, **kw)
-        self.bn1 = BatchNorm(filters, **kw)
+        self.bn1 = norm(filters, **kw)
         self.conv2 = Conv(filters, filters, 3, stride, **kw)
-        self.bn2 = BatchNorm(filters, **kw)
+        self.bn2 = norm(filters, **kw)
         self.conv3 = Conv(filters, out, 1, **kw)
-        self.bn3 = BatchNorm(out, zero_init=True, **kw)
-        self.downsample = (Downsample(cin, out, stride, fused, dtype, device)
+        self.bn3 = norm(out, zero_init=True, **kw)
+        self.downsample = (Downsample(cin, out, stride, fused, norm, dtype,
+                                      device)
                            if stride != 1 or cin != out else None)
 
-    def forward(self, x, train: bool):
-        y = F.relu(conv_bn(self.conv1, self.bn1, x, train, self.fused))
-        y = F.relu(self.bn2(self.conv2(y), train))
-        y = conv_bn(self.conv3, self.bn3, y, train, self.fused)
-        res = x if self.downsample is None else self.downsample(x, train)
+    def forward(self, x, train: bool, update: bool = True):
+        y = F.relu(conv_bn(self.conv1, self.bn1, x, train, self.fused,
+                           update))
+        y = F.relu(self.bn2(self.conv2(y), train, update))
+        y = conv_bn(self.conv3, self.bn3, y, train, self.fused, update)
+        res = (x if self.downsample is None
+               else self.downsample(x, train, update))
         return F.relu(res + y)
+
+
+def space_to_depth(x, block: int = 2):
+    """``[B, H, W, C]`` → ``[B, H/b, W/b, b*b*C]``, channels in (row
+    offset, column offset, C) order, as :func:`s2d_stem_kernel` expects."""
+    b, h, w, c = x.shape
+    x = x.reshape(b, h // block, block, w // block, block, c)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(b, h // block, w // block,
+                                               block * block * c)
+
+
+def s2d_stem_kernel(w7):
+    """A 7x7 stride-2 stem weight ``[O, C, 7, 7]`` → the equivalent
+    ``[O, 4C, 4, 4]`` weight of the space-to-depth stem: padded to 8x8 at
+    the end, even and odd taps split into the depth axis.  The 4x4
+    stride-1 conv's SAME padding (1, 2) on ``H/2`` then reads the inputs
+    the 7x7 one's (2, 3) on ``H`` does, with the eighth tap zero."""
+    o, c = w7.shape[:2]
+    w8 = F.pad(w7, (0, 1, 0, 1))
+    # [O, C, 8, 8] → [O, C, 4, p=2, 4, q=2] → [O, (p, q, C), 4, 4]
+    w8 = w8.reshape(o, c, 4, 2, 4, 2).permute(0, 3, 5, 1, 2, 4)
+    return w8.reshape(o, 4 * c, 4, 4)
+
+
+def _remat_block(block, x):
+    """A training forward of ``block`` whose activations are recomputed in
+    the backward.  The recomputation runs the block a second time with
+    ``update=False``, so the running statistics move once, as under
+    flax's ``nn.remat``.  The block draws no random numbers, so the RNG
+    state need not be kept for the recomputation."""
+    calls = []
+
+    def run(x):
+        calls.append(None)
+        return block(x, True, len(calls) == 1)
+
+    return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
 
 
 class ResNet(nn.Module):
@@ -222,34 +281,38 @@ class ResNet(nn.Module):
                  bn: str = "flax", device="cuda", seed: int = 0):
         super().__init__()
         if bn == "folded":
-            raise NotImplementedError(f"bn='folded' is not ported yet "
-                                      f"({_ITEM_3})")
-        if bn not in ("flax", "fused"):
+            from tpuframe_torch.models.folded_bn import FoldedBatchNorm
+
+            norm = FoldedBatchNorm
+        elif bn in ("flax", "fused"):
+            norm = BatchNorm
+        else:
             raise ValueError(f"unknown bn {bn!r}; expected 'flax', 'folded'"
                              f" or 'fused'")
-        if stem == "space_to_depth":
-            raise NotImplementedError(f"stem='space_to_depth' is not ported "
-                                      f"yet ({_ITEM_3})")
-        if stem != "conv":
+        if stem not in ("conv", "space_to_depth"):
             raise ValueError(f"unknown stem {stem!r}; expected 'conv' or "
                              f"'space_to_depth'")
-        if remat:
-            raise NotImplementedError(f"ResNet remat is not ported yet "
-                                      f"({_ITEM_3})")
         device = _device.resolve(device)
         dt = getattr(torch, str(dtype).replace("torch.", ""))
-        self.dtype, self.cifar_stem = dt, cifar_stem
+        self.dtype, self.cifar_stem, self.remat = dt, cifar_stem, remat
+        # the CIFAR stem wins over stem=, as in flax
+        self.s2d = stem == "space_to_depth" and not cifar_stem
         fused = bn == "fused"
-        self.conv1 = Conv(3, width, 3 if cifar_stem else 7,
-                          1 if cifar_stem else 2, dtype=dt, device=device)
-        self.bn1 = BatchNorm(width, dtype=dt, device=device)
+        if cifar_stem:
+            self.conv1 = Conv(3, width, 3, dtype=dt, device=device)
+        elif self.s2d:
+            # flax pads this conv ((1, 2), (1, 2)): its SAME padding
+            self.conv1 = Conv(12, width, 4, dtype=dt, device=device)
+        else:
+            self.conv1 = Conv(3, width, 7, 2, dtype=dt, device=device)
+        self.bn1 = norm(width, dtype=dt, device=device)
         cin = width
         for i, n_blocks in enumerate(stage_sizes):
             blocks = []
             for j in range(n_blocks):
                 stride = 2 if i > 0 and j == 0 else 1
                 blocks.append(block_cls(cin, width * 2 ** i, stride,
-                                        fused=fused, dtype=dt,
+                                        fused=fused, norm=norm, dtype=dt,
                                         device=device))
                 cin = width * 2 ** i * block_cls.expansion
             self.add_module(f"layer{i + 1}", nn.Sequential(*blocks))
@@ -274,13 +337,16 @@ class ResNet(nn.Module):
 
     def forward(self, x, *, train: bool = False):
         x = x.to(self.dtype)
+        if self.s2d:
+            x = space_to_depth(x, 2)
         x = F.relu(self.bn1(self.conv1(x), train))
         if not self.cifar_stem:
             x = F.max_pool2d(x.permute(0, 3, 1, 2), 3, 2, padding=1)
             x = x.permute(0, 2, 3, 1)
+        remat = self.remat and train and torch.is_grad_enabled()
         for i in range(self.n_stages):
             for block in getattr(self, f"layer{i + 1}"):
-                x = block(x, train)
+                x = _remat_block(block, x) if remat else block(x, train)
         x = x.mean(dim=(1, 2))                  # global average pool
         x = F.linear(x, self.fc.weight.to(self.dtype),
                      self.fc.bias.to(self.dtype))

@@ -19,6 +19,10 @@ group is initialised), then the optimizer.  The same contract holds:
     each replica's forward from its own batch, once per microbatch in
     order, and are then averaged over the world, which keeps them
     single-valued as the JAX step's ``pmean`` of ``model_state`` does.
+
+With ``distributed=False`` the steps run no collective even in a process
+group: each process trains alone, as the JAX package's unmapped step on
+one device does.
 """
 
 from __future__ import annotations
@@ -58,11 +62,12 @@ def dropout_seed(seed: int, step: int, rank: int, micro: int = 0) -> int:
 
 
 def make_train_step(loss_fn: LossFn, *, accum_steps: int = 1,
-                    grad_reduce: str = "mean"):
+                    grad_reduce: str = "mean", distributed: bool = True):
     """``train_step(state, batch) -> metrics``: forward, backward, the
-    world's gradient mean and the optimizer update, in place on
-    ``state``.  ``metrics`` holds ``loss``, ``grad_norm`` and the loss
-    function's metrics, as 0-d tensors on the model's device."""
+    world's gradient mean (none unless ``distributed``) and the optimizer
+    update, in place on ``state``.  ``metrics`` holds ``loss``,
+    ``grad_norm`` and the loss function's metrics, as 0-d tensors on the
+    model's device."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     if grad_reduce != "mean":
@@ -72,8 +77,8 @@ def make_train_step(loss_fn: LossFn, *, accum_steps: int = 1,
 
     def train_step(state: TrainState, batch: dict) -> dict:
         model = state.model
-        grp = collectives.group()
-        rank = collectives.world()[1]
+        grp = collectives.group() if distributed else None
+        rank = collectives.world()[1] if distributed else 0
         for p in model.parameters():
             p.grad = None
         n = next(iter(batch.values())).shape[0]
@@ -102,14 +107,17 @@ def make_train_step(loss_fn: LossFn, *, accum_steps: int = 1,
     return train_step
 
 
-def make_eval_step(metric_fn: Callable[[nn.Module, dict], dict]):
+def make_eval_step(metric_fn: Callable[[nn.Module, dict], dict], *,
+                   distributed: bool = True):
     """``eval_step(state, batch) -> metrics``: forward only, in eval
-    mode, each metric averaged over the world."""
+    mode, each metric averaged over the world (unless not
+    ``distributed``)."""
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: dict) -> dict:
         out = metric_fn(state.model, batch)
-        collectives.mean_(list(out.values()), collectives.group())
+        if distributed:
+            collectives.mean_(list(out.values()), collectives.group())
         return out
 
     return eval_step

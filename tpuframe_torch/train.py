@@ -1,14 +1,17 @@
-"""Training harness (counterpart of ``tpuframe/train.py``): the LM,
-ImageNet ResNet and BERT/GLUE workloads.
+"""Training harness (counterpart of ``tpuframe/train.py``): the MNIST,
+CIFAR-10 and ImageNet image workloads, the LM and BERT/GLUE.
 
+    python -m tpuframe_torch.train --config mnist_single
+    python -m tpuframe_torch.train --config cifar10_resnet18 \\
+        --set 'mesh={"data": 1}'
     python -m tpuframe_torch.train --config lm_long \\
         --set 'mesh={"data": 1, "seq": 1}' --set dataset_kwargs='{"seq_len": 4096}'
     python -m tpuframe_torch.train --config imagenet_resnet50 \\
         --set 'model_kwargs={"bn": "fused"}' --set 'mesh={"data": 1}' \\
         --set global_batch=256
     python -m tpuframe_torch.train --config glue_bert
-    python -m tpuframe_torch.train --config lm_smoke --device cpu \\
-        --set 'mesh={"data": 1, "seq": 1}'
+    python -m tpuframe_torch.train --config mnist_single --device cpu \\
+        --set total_steps=20
 
 Config → model (random weights from ``seed``) → data → optimizer → the
 replicated data-parallel step → a host loop that feeds batches, logs and
@@ -17,19 +20,24 @@ evaluates, printing the JAX harness's ``[tpuframe] ...``, ``[train N]`` and
 with no GPU visible it raises instead of falling back.  Several ranks come
 from ``torch.distributed`` (initialise the default group before
 :func:`main`, e.g. through ``torchrun``); the data degree of the config's
-mesh must equal the world size.
+mesh must equal the world size.  A config with ``distributed=False``
+(``mnist_single``) trains on one device with no collective, even in a
+process group, as the JAX harness's config-1 path does.  f32 means f32:
+the harness turns TF32 off for cuDNN's convolutions and for matmuls.
 
-The LM workloads (``lm_text`` data, ``transformer-lm``), the ImageNet
-ResNets (``imagenet`` data, ``resnet*``; on-device augmentation, label
-smoothing, top-5 eval) and the GLUE tasks (``glue_sst2``, ``glue_mnli``,
-``glue_stsb``, ``glue_cola`` data, ``bert-base``; cross-entropy, or MSE
-when ``num_classes`` is 1; Pearson and Matthews correlation at eval) train
-here.  What the JAX harness has and the port does not yet refuses loudly,
-naming its ROADMAP.md item: the MNIST and CIFAR-10 data, checkpoints, the
-observability plane (events, TensorBoard, traces, metrics exporter),
-pipeline, fsdp, tensor and expert parallelism, ZeRO-1, quantized or
-hierarchical collectives, bucketed fusion, adasum, sequence parallelism (a
-seq degree above 1), fault injection and elastic resizing.
+The image workloads (``mnist``, ``cifar10`` and ``imagenet`` data; the
+``convnet`` with dropout drawn from the step's generator, the ``resnet*``
+with every ``bn``, ``stem`` and ``remat`` option; on-device augmentation
+and uint8 normalisation, label smoothing, top-5 eval for ImageNet), the LM
+workloads (``lm_text`` data, ``transformer-lm``) and the GLUE tasks
+(``glue_sst2``, ``glue_mnli``, ``glue_stsb``, ``glue_cola`` data,
+``bert-base``; cross-entropy, or MSE when ``num_classes`` is 1; Pearson
+and Matthews correlation at eval) train here.  What the JAX harness has
+and the port does not yet refuses loudly, naming its ROADMAP.md item:
+checkpoints, the observability plane (events, TensorBoard, traces, metrics
+exporter), pipeline, fsdp, tensor and expert parallelism, ZeRO-1,
+quantized or hierarchical collectives, bucketed fusion, adasum, sequence
+parallelism (a seq degree above 1), fault injection and elastic resizing.
 """
 
 from __future__ import annotations
@@ -127,6 +135,12 @@ class Harness:
     world: int
 
 
+def _group(cfg: TrainConfig):
+    """The data-parallel group of the step's reductions: None (no
+    collective) for a config that is not ``distributed``."""
+    return collectives.group() if cfg.distributed else None
+
+
 def _lm_reduce(cfg: TrainConfig):
     """The group of the global valid-token mean (``losses.masked_mean``).
     Gradient accumulation differentiates a local loss per microbatch, and
@@ -139,7 +153,7 @@ def _lm_reduce(cfg: TrainConfig):
                 "loss, and a per-rank valid-token mean would be biased by "
                 "unequal padding across ranks")
         return None
-    return collectives.group()
+    return _group(cfg)
 
 
 def _is_lm_task(cfg: TrainConfig) -> bool:
@@ -159,15 +173,18 @@ def _is_regression_task(cfg: TrainConfig) -> bool:
 
 def _maybe_normalize(cfg: TrainConfig, x):
     """Normalise a uint8 image batch on the device (datasets built with
-    ``keep_u8``): ``(x / 255 - mean) / std`` in f32, with ImageNet's mean
-    and std for real ImageNet data and (0, 1) for synthetic data, which is
-    quantised [0, 1] data.  Float batches pass through: they were
-    normalised on the host."""
+    ``keep_u8``): ``(x / 255 - mean) / std`` in f32, with the dataset's
+    mean and std for real ImageNet or CIFAR-10 data and (0, 1) for
+    synthetic data, which is quantised [0, 1] data.  Float batches pass
+    through: they were normalised on the host."""
     if x.dtype != torch.uint8:
         return x
     mean, std = np.float32(0.0), np.float32(1.0)
-    if cfg.data_dir is not None and cfg.dataset == "imagenet":
-        mean, std = datasets.IMAGENET_MEAN, datasets.IMAGENET_STD
+    if cfg.data_dir is not None:
+        mean, std = {
+            "imagenet": (datasets.IMAGENET_MEAN, datasets.IMAGENET_STD),
+            "cifar10": (datasets.CIFAR_MEAN, datasets.CIFAR_STD),
+        }.get(cfg.dataset, (mean, std))
     mean = torch.as_tensor(mean, device=x.device)
     std = torch.as_tensor(std, device=x.device)
     return (x.float() / 255.0 - mean) / std
@@ -197,10 +214,12 @@ def make_loss_fn(cfg: TrainConfig):
     through the fused chunked head when ``cfg.fused_xent``; ``seed``
     seeds dropout.  Images: ``cfg.augment`` on the device from a generator
     seeded with ``seed``, normalisation, the training forward (BN batch
-    statistics, running statistics updated) and cross-entropy with
-    ``cfg.label_smoothing``.  GLUE: the training forward with dropout
-    masks drawn from ``seed``, then cross-entropy and accuracy, or, for a
-    regression (``num_classes`` 1), the MSE of the squeezed logit."""
+    statistics, running statistics updated; the ConvNet's dropout masks
+    from the same generator, after the augmentation's draws) and
+    cross-entropy with ``cfg.label_smoothing``.  GLUE: the training
+    forward with dropout masks drawn from ``seed``, then cross-entropy and
+    accuracy, or, for a regression (``num_classes`` 1), the MSE of the
+    squeezed logit."""
     if _is_text_task(cfg):
         regression = _is_regression_task(cfg)
 
@@ -217,14 +236,17 @@ def make_loss_fn(cfg: TrainConfig):
 
         return text_loss_fn
     if not _is_lm_task(cfg):
+        dropout = cfg.model == "convnet"
+
         def image_loss_fn(model, batch, seed):
             images = batch["image"]
+            gen = torch.Generator(device=images.device)
+            gen.manual_seed(seed)
             if cfg.augment != "none":
-                gen = torch.Generator(device=images.device)
-                gen.manual_seed(seed)
                 images = augment_lib.apply(cfg.augment, images, gen,
                                            crop_size=cfg.augment_crop)
-            logits = model(_maybe_normalize(cfg, images), train=True)
+            kw = {"generator": gen} if dropout else {}
+            logits = model(_maybe_normalize(cfg, images), train=True, **kw)
             loss = losses.softmax_cross_entropy(logits, batch["label"],
                                                 cfg.label_smoothing)
             acc = losses.accuracy(logits.detach(), batch["label"])
@@ -306,7 +328,7 @@ def make_metric_fn(cfg: TrainConfig):
 
     def metric_fn(model, batch):
         ids, labels = batch["input_ids"], batch["labels"]
-        reduce = collectives.group()
+        reduce = _group(cfg)
         if cfg.fused_xent:
             hidden = model(ids, hidden_only=True)
             loss, acc = fx.mean_xent_and_accuracy(
@@ -325,12 +347,17 @@ def make_metric_fn(cfg: TrainConfig):
 
 
 def build_harness(cfg: TrainConfig, device="cuda") -> Harness:
-    world, _ = collectives.world()
+    world, rank = collectives.world() if cfg.distributed else (1, 0)
     _refuse_unported(cfg, world)
     dev = _device.resolve(device)
+    # f32 means f32: PyTorch runs cuDNN's f32 convolutions as TF32 unless
+    # told otherwise
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     model = models.get_model(cfg.model, dtype=cfg.compute_dtype, device=dev,
                              seed=cfg.seed, **cfg.model_kwargs)
-    step_lib.broadcast_parameters(model)
+    if cfg.distributed:
+        step_lib.broadcast_parameters(model)
     train_ds, eval_ds = datasets.build(cfg.dataset, cfg.data_dir,
                                        **cfg.dataset_kwargs)
     _check_labels(cfg, (("train", train_ds), ("eval", eval_ds)))
@@ -339,9 +366,11 @@ def build_harness(cfg: TrainConfig, device="cuda") -> Harness:
     cast = (None if cfg.compute_dtype == "float32"
             else getattr(torch, cfg.compute_dtype))
     train_loader = ShardedLoader(train_ds, cfg.global_batch, device=dev,
-                                 seed=cfg.seed, cast_floats=cast)
+                                 seed=cfg.seed, cast_floats=cast,
+                                 world=world, rank=rank)
     eval_loader = ShardedLoader(eval_ds, cfg.global_batch, device=dev,
-                                shuffle=False, cast_floats=cast)
+                                shuffle=False, cast_floats=cast, world=world,
+                                rank=rank)
     state = step_lib.TrainState(model=model,
                                 opt=build_optimizer(cfg, model),
                                 seed=cfg.seed + 1)
@@ -349,8 +378,10 @@ def build_harness(cfg: TrainConfig, device="cuda") -> Harness:
         cfg=cfg, device=dev, state=state,
         train_step=step_lib.make_train_step(make_loss_fn(cfg),
                                             accum_steps=cfg.accum_steps,
-                                            grad_reduce=cfg.grad_reduce),
-        eval_step=step_lib.make_eval_step(make_metric_fn(cfg)),
+                                            grad_reduce=cfg.grad_reduce,
+                                            distributed=cfg.distributed),
+        eval_step=step_lib.make_eval_step(make_metric_fn(cfg),
+                                          distributed=cfg.distributed),
         train_loader=train_loader, eval_loader=eval_loader, world=world)
 
 

@@ -15,7 +15,13 @@ parity is at stake:
     square root, bias corrections from the incremented count), then the
     decoupled decay ``+ wd * p`` on masked leaves, then ``-lr``;
   - nesterov SGD is ``trace(nesterov=True)`` then ``-lr``, with the decay
-    added to the gradient before it when ``weight_decay > 0``.
+    added to the gradient before it when ``weight_decay > 0``;
+  - LARS is ``optax.lars``: the decay added to the gradient, each
+    tensor's update scaled by its trust ratio ``0.001 * |p| / |u|`` (1
+    where either norm is 0), then ``-lr``, then ``trace(momentum)``
+    without nesterov.  The momentum runs on the update after the learning
+    rate, which ``torch.optim.SGD`` does not do.  Decay and trust ratio
+    share the decay mask.
 
 No decay on norm scales and biases (``_decay_mask`` in the JAX package
 skips leaves named ``bias``, ``scale`` or ``b``): here by module type,
@@ -34,6 +40,7 @@ from tpuframe_torch.models.transformer_lm import LayerNorm
 from tpuframe_torch.utils.config import TrainConfig
 
 F32 = np.float32
+LARS_TRUST = 0.001    # optax.lars's trust_coefficient (its eps is 0)
 _NORMS = (LayerNorm, BatchNorm, nn.LayerNorm, nn.GroupNorm,
           nn.modules.batchnorm._NormBase)
 
@@ -100,7 +107,7 @@ class Optimizer:
 
     def state_dict(self) -> dict:
         """``{"count": int, <moment>: {parameter name: tensor}}``; the
-        moments are ``mu``/``nu`` (adamw) or ``trace`` (sgd)."""
+        moments are ``mu``/``nu`` (adamw) or ``trace`` (sgd, lars)."""
         out = {"count": self.count}
         for key, ts in self.moments.items():
             out[key] = dict(zip(self.names, ts))
@@ -139,6 +146,18 @@ class Optimizer:
             if dec:
                 torch._foreach_add_([upd[i] for i in dec],
                                     [ps[i] for i in dec], alpha=wd)
+        elif cfg.optimizer == "lars":
+            gs = list(gs)
+            for i in dec:
+                u = gs[i] + wd * ps[i]
+                pn, un = ps[i].norm(), u.norm()
+                ratio = torch.where((pn == 0) | (un == 0), 1.0,
+                                    LARS_TRUST * pn / un)
+                gs[i] = u * ratio
+            # -lr comes before the trace, and the trace is the update
+            upd = self.moments["trace"]
+            torch._foreach_mul_(upd, cfg.momentum)
+            torch._foreach_add_(upd, torch._foreach_mul(gs, -lr))
         elif cfg.optimizer == "sgd":
             if wd > 0.0 and dec:
                 gs = list(gs)
@@ -151,7 +170,8 @@ class Optimizer:
                 trace, cfg.momentum))
         else:
             raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
-        torch._foreach_add_(ps, upd, alpha=-lr)
+        torch._foreach_add_(ps, upd,
+                            alpha=1.0 if cfg.optimizer == "lars" else -lr)
         self.count += 1
         return norm
 
@@ -160,9 +180,6 @@ def build_optimizer(cfg: TrainConfig, model: nn.Module) -> Optimizer:
     """``[clip] → optimizer(+wd) → schedule`` over ``model``'s parameters.
     LR linear-scaling rule: peak = base_lr * global_batch / 256 when
     ``scale_lr_by_batch``."""
-    if cfg.optimizer == "lars":
-        raise NotImplementedError(
-            "lars is not ported yet (ROADMAP.md queue 1, item 5)")
-    if cfg.optimizer not in ("adamw", "sgd"):
+    if cfg.optimizer not in ("adamw", "sgd", "lars"):
         raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
     return Optimizer(cfg, model, lr_schedule(cfg, cfg.global_batch / 256.0))

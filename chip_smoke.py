@@ -81,7 +81,19 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
      from the same weights; then train imagenet_resnet50 with bn
      "fused", the s2d stem, remat and lars (VARIANT_CUTS), asserting
      every fused conv+BN launch and the lower peak memory against phase
-     12's run (``resnet_variants``).
+     12's run (``resnet_variants``);
+ 19. checkpointing and the preemption contract (``ckpt``): lm_long at the
+     train phase's cuts straight for 6 steps, then with periodic async
+     saves preempted at step 3 by ``TPUFRAME_FAULTS=host:step=3:kind=
+     sigterm`` (``SystemExit(14)``), then resumed to step 6: losses and
+     state bit-equal to the straight run, every resumed flash launch on
+     the tensor cores; an async snapshot held bit for bit to a blocking
+     copy while the next step updates the state in place; a corrupt save
+     quarantined and walked back; imagenet_resnet50's statistics and
+     traces bit-equal after a resume, steps 3-4 within two straight runs'
+     difference; bytes on disk, save, snapshot, worker and restore ms,
+     the CRC-32C rate and step time with a save in flight, beside the
+     card's name and power limit.
 
 Phases 13-15 run with ``TPUFRAME_ATTN_IMPL=pallas`` and restore it after.
 The harness turns TF32 off (f32 convolutions and matmuls run in f32), and
@@ -101,9 +113,12 @@ import json
 import math
 import os
 import re
+import shutil
+import signal
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -114,11 +129,15 @@ import torch.nn.functional as F
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 from tpuframe_torch import _build  # noqa: E402
+from tpuframe_torch import ckpt  # noqa: E402
+from tpuframe_torch import native  # noqa: E402
 from tpuframe_torch import train as train_lib  # noqa: E402
+from tpuframe_torch.ckpt import checkpoint as ckpt_mod  # noqa: E402
 from tpuframe_torch.data import datasets  # noqa: E402
 from tpuframe_torch.models import get_model  # noqa: E402
 from tpuframe_torch.models.bert import BertConfig  # noqa: E402
 from tpuframe_torch.models.transformer_lm import LMConfig  # noqa: E402
+from tpuframe_torch.obs import events  # noqa: E402
 from tpuframe_torch.models import resnet as resnet_lib  # noqa: E402
 from tpuframe_torch.ops import attention as attn  # noqa: E402
 from tpuframe_torch.ops import flash_attention as fa  # noqa: E402
@@ -359,6 +378,29 @@ BERT_SERVE_ATOL = 1e-2
 BERT_SERVE_REQUESTS = 16
 BERT_BUCKETS = (64, 128)
 
+# Checkpointing and the preemption contract (phase 19, ``ckpt``).  lm_long
+# with the train phase's cuts (TRAIN_OVERRIDES: batch 8, S=4096, mesh
+# 1x1, bf16 compute, f32 state: 134.1 M params, ~1.6 GB a checkpoint with
+# the two Adam moments), 6 steps and its eval batch at the end; periodic
+# async saves every 2 steps, 2 kept.  The resumed run must equal a
+# straight run bit for bit: the flash and conv+BN kernels use no atomics
+# (flash_bwd.cu, fused_conv_bn.cu), and a restore puts back every bit of
+# the state (parameters, both moments, the update count, step and seed).
+CKPT_STEPS = 6
+CKPT_PREEMPT_STEP = 3
+CKPT_LM_CUTS = {**TRAIN_OVERRIDES, "total_steps": CKPT_STEPS,
+                "eval_every": 1000, "log_every": 1, "ckpt_every": 2,
+                "ckpt_keep": 2, "ckpt_async": True}
+# imagenet_resnet50 (bn fused) with RESNET_CUTS: 4 steps straight, twice,
+# then 2 steps, a save, a resume and steps 3-4.  BN running statistics and
+# SGD traces must be bit-equal after the restore; the losses of steps 3-4
+# must agree within the difference between the two straight runs (cuDNN's
+# convolutions may choose algorithms that sum in no fixed order).
+CKPT_RESNET_CUTS = {**RESNET_CUTS, "eval_every": 1000, "ckpt_every": 2,
+                    "ckpt_keep": 2}
+# The CRC-32C rate is read over this many bytes.
+CRC_BYTES = 256 << 20
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -394,14 +436,19 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def phase_card() -> None:
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
+def _card_line() -> str:
+    """The card's name and power limit, as nvidia-smi reads them."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
-    log(smi.stdout.strip().splitlines()[0])
+    return smi.stdout.strip().splitlines()[0]
+
+
+def phase_card() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
+    log(_card_line())
 
 
 def phase_build() -> None:
@@ -1582,7 +1629,7 @@ def phase_resnet_train() -> dict:
         + "; ".join(f"{k[:60]} {ms:.1f} ms x{c}" for k, ms, c in kernels[:10]))
     return {"launches": launches, "step_ms_p50": p50, "mfu": mfu,
             "peak_bytes": peak, "routes": conv_routes, "device_ms": busy,
-            "idle_share": 1 - busy / wall_step}
+            "idle_share": 1 - busy / wall_step, "losses": losses}
 
 
 @contextlib.contextmanager
@@ -2325,6 +2372,339 @@ def phase_resnet_variants(baseline: dict | None = None) -> dict:
             "baseline_peak_bytes": baseline["peak_bytes"], "parity": parity}
 
 
+def _host_copy(tree) -> dict:
+    """A blocking host copy of every tensor of ``tree`` (and its numbers)."""
+    return {n: t.detach().cpu().clone() if isinstance(t, torch.Tensor)
+            else t for n, t in ckpt_mod._flatten(tree)}
+
+
+def _diff_leaves(got: dict, want: dict) -> list:
+    """Leaf names whose values are not bit-equal (or missing)."""
+    bad = [n for n in want if n not in got]
+    for n, w in want.items():
+        g = got.get(n)
+        if g is None:
+            continue
+        if isinstance(w, torch.Tensor):
+            g = torch.as_tensor(g)
+            if g.dtype != w.dtype or not torch.equal(g.cpu(), w.cpu()):
+                bad.append(n)
+        elif int(g) != int(w):
+            bad.append(n)
+    return bad
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(f.stat().st_size for f in Path(path).iterdir())
+
+
+def _harness_steps(h, n: int) -> list:
+    """``n`` training steps of a harness, as ``train_lib.train`` takes
+    them: the loader from the state's step, host ms to the loss read."""
+    it = h.train_loader.from_step(h.state.step)
+    out = []
+    for _ in range(n):
+        batch = next(it)
+        t0 = time.perf_counter()
+        loss = float(h.train_step(h.state, batch)["loss"])
+        out.append((loss, 1e3 * (time.perf_counter() - t0)))
+    return out
+
+
+def _ckpt_lm(root: str, before_sigterm) -> dict:
+    """lm_long: a straight run, the same run preempted at step 3 by the
+    host:sigterm seam, its resume, then the snapshot and corruption
+    checks on a harness of its own (see phase_ckpt)."""
+    cfg = get_config("lm_long").with_overrides(**CKPT_LM_CUTS)
+    layers = 12
+    # 1. straight: 6 steps; its final state is saved (sync) at step 6
+    dir_a = os.path.join(root, "straight")
+    straight = train_lib.train(cfg.with_overrides(
+        ckpt_dir=dir_a, ckpt_every=1000, ckpt_async=False))
+    disk = _dir_bytes(os.path.join(dir_a, f"step_{CKPT_STEPS:08d}"))
+    want6 = dict(ckpt_mod._flatten(ckpt.restore(dir_a, CKPT_STEPS)))
+    n_params = sum(t.numel() for n, t in want6.items()
+                   if n.startswith("model/"))
+    shutil.rmtree(dir_a)
+
+    # 2. preempted at step 3: async saves at 2, the preemption save at 3
+    dir_b = os.path.join(root, "preempted")
+    run = cfg.with_overrides(ckpt_dir=dir_b)
+    os.environ["TPUFRAME_FAULTS"] = (f"host:step={CKPT_PREEMPT_STEP}:"
+                                     f"kind=sigterm")
+    try:
+        train_lib.train(run)
+    except SystemExit as e:
+        if e.code != 14:
+            raise
+    else:
+        raise RuntimeError("ckpt: the host:sigterm fault did not preempt")
+    finally:
+        del os.environ["TPUFRAME_FAULTS"]
+    problems = []
+    if signal.getsignal(signal.SIGTERM) is not before_sigterm:
+        problems.append("the preemption guard is still installed")
+    committed = sorted(p.name for p in Path(dir_b).iterdir()
+                       if (p / "COMMIT").exists())
+    if committed != ["step_00000002", "step_00000003"]:
+        problems.append(f"committed {committed}, want steps 2 and 3")
+    if ckpt.latest_step(dir_b) != CKPT_PREEMPT_STEP:
+        problems.append(f"latest_step {ckpt.latest_step(dir_b)}")
+    world = ckpt.committed_world(dir_b)
+    if world != {"step": 3, "processes": 1, "devices": 1}:
+        problems.append(f"committed_world {world}")
+
+    # 3. resume to step 6, the flash kernels' launches read around it
+    reset_launches()
+    resumed = train_lib.train(run)
+    launches = launch_counts()
+    fwd_routes, bwd_routes = dict(fa.FWD_ROUTES), dict(fa.BWD_ROUTES)
+    steps = CKPT_STEPS - CKPT_PREEMPT_STEP
+    if resumed["losses"] != straight["losses"][CKPT_PREEMPT_STEP:]:
+        problems.append(f"resumed losses {resumed['losses']} != straight "
+                        f"{straight['losses'][CKPT_PREEMPT_STEP:]}")
+    bad = _diff_leaves(dict(ckpt_mod._flatten(ckpt.restore(
+        dir_b, CKPT_STEPS))), want6)
+    if bad:
+        problems.append(f"state at step 6, resumed vs straight: {len(bad)} "
+                        f"leaves differ, first {bad[:4]}")
+    del want6
+    shutil.rmtree(dir_b)
+    # 4. every resumed launch on the tensor cores
+    want = {"flash_fwd": (2 * steps + 1) * layers,
+            "flash_bwd_delta": steps * layers,
+            "flash_bwd_dq": steps * layers, "flash_bwd_dkv": steps * layers,
+            "fused_conv_bn_bwd": 0, "precision_probe": 0}
+    if launches != want:
+        problems.append(f"resumed launches {launches}, want {want}")
+    if (fwd_routes != {"tensor_core": want["flash_fwd"], "cuda_core": 0}
+            or bwd_routes != {"tensor_core": 3 * steps * layers,
+                              "cuda_core": 0}):
+        problems.append(f"resumed routes: forward {fwd_routes}, backward "
+                        f"{bwd_routes}, want every launch on the tensor "
+                        f"cores")
+
+    # 5. the snapshot: an async save at step 1, then at once an optimizer
+    # update in place (step 1's gradients again: the earliest the next
+    # step writes the state, while the ~30 ms of copies are in flight) and
+    # step 2; step 1 restored must equal a blocking copy taken at step 1.
+    # Then step time with a save in flight against without.
+    dir_s = os.path.join(root, "snapshot")
+    h = train_lib.build_harness(cfg.with_overrides(ckpt_dir=dir_s,
+                                                   ckpt_every=1000))
+    _harness_steps(h, 1)
+    ref = _host_copy(h.state.to_tree())
+    h.manager.save(1, h.state.to_tree())
+    h.state.opt.step()
+    in_flight = [ms for _, ms in _harness_steps(h, 1)]
+    h.manager.wait_pending()
+    t0 = time.perf_counter()
+    snap = ckpt.restore(dir_s, 1, target=h.state.to_tree())
+    restore_ms = 1e3 * (time.perf_counter() - t0)
+    bad = _diff_leaves(dict(ckpt_mod._flatten(snap)), ref)
+    if bad:
+        problems.append(f"async snapshot at step 1 vs a blocking copy: "
+                        f"{len(bad)} leaves differ, first {bad[:4]}")
+    del snap, ref
+    plain = []
+    for _ in range(2):
+        plain += [ms for _, ms in _harness_steps(h, 1)]
+        h.manager.save(h.state.step, h.state.to_tree())
+        in_flight += [ms for _, ms in _harness_steps(h, 1)]
+        h.manager.wait_pending()
+    # device memory a save and a restore take beyond the state
+    ref = _host_copy(h.state.to_tree())
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    h.manager.save(h.state.step, h.state.to_tree())
+    h.manager.wait_pending()
+    save_peak = torch.cuda.max_memory_allocated() - base
+
+    # 6. a save through the ckpt_shard:kind=corrupt seam: restore_latest
+    # quarantines it and walks back to the last good step
+    good = h.state.step
+    os.environ["TPUFRAME_FAULTS"] = "ckpt_shard:kind=corrupt"
+    try:
+        ckpt_mod.faults.reset_from_env()
+        ckpt.save(dir_s, good + 1, h.state.to_tree())
+    finally:
+        del os.environ["TPUFRAME_FAULTS"]
+        ckpt_mod.faults.reset_from_env()
+    got = h.manager.restore_latest(target=h.state.to_tree())
+    quarantined = Path(dir_s, f"step_{good + 1:08d}.corrupt").is_dir()
+    if got is None or got[0] != good or not quarantined:
+        problems.append(f"corrupt step {good + 1}: restore_latest gave "
+                        f"step {got and got[0]}, quarantined {quarantined}")
+    else:
+        bad = _diff_leaves(dict(ckpt_mod._flatten(got[1])), ref)
+        if bad:
+            problems.append(f"walked back to step {good}: {len(bad)} leaves"
+                            f" differ from a blocking copy, first {bad[:4]}")
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        h.state.load_tree(got[1])
+        torch.cuda.synchronize()
+        load_ms = 1e3 * (time.perf_counter() - t0)
+        restore_peak = torch.cuda.max_memory_allocated() - base
+    del h, got, ref
+    shutil.rmtree(dir_s)
+    if problems:
+        raise RuntimeError("ckpt (lm_long): " + "; ".join(problems))
+    return {"launches": launches, "disk_bytes": disk, "params": n_params,
+            "losses": resumed["losses"], "restore_ms": restore_ms,
+            "load_ms": load_ms, "save_peak": save_peak,
+            "restore_peak": restore_peak,
+            "step_ms_in_flight": statistics.median(in_flight),
+            "step_ms_plain": statistics.median(plain),
+            "in_flight": in_flight, "plain": plain}
+
+
+def _ckpt_resnet(root: str, straight: list | None) -> dict:
+    """imagenet_resnet50 (bn fused): 2 steps, a blocking copy and a save,
+    steps 3-4 (a straight run), then a resume in a new harness (every
+    tensor bit-equal to the copy) and its steps 3-4, held to the straight
+    runs' losses within their difference.  ``straight``: another straight
+    run's losses (phase 12's, same cuts), else one is run here."""
+    cfg = get_config("imagenet_resnet50").with_overrides(**CKPT_RESNET_CUTS)
+    if straight is None:
+        straight = train_lib.train(cfg)["losses"]
+    run = cfg.with_overrides(ckpt_dir=os.path.join(root, "resnet"))
+    h = train_lib.build_harness(run)
+    again = [loss for loss, _ in _harness_steps(h, 2)]
+    ref = _host_copy(h.state.to_tree())
+    h.manager.save(2, h.state.to_tree())
+    again += [loss for loss, _ in _harness_steps(h, 2)]
+    del h
+    noise = max(abs(x - y) for x, y in zip(straight, again))
+    reset_launches()
+    h = train_lib.build_harness(run)
+    bad = _diff_leaves(dict(ckpt_mod._flatten(h.state.to_tree())), ref)
+    resumed = [loss for loss, _ in _harness_steps(h, 2)]
+    launches = launch_counts()
+    stats = sum(1 for n in ref if n.endswith(("running_mean", "running_var")))
+    traces = sum(1 for n in ref if n.startswith("opt/trace/"))
+    diff = max(abs(x - y) for x, y in zip(resumed, straight[2:]))
+    problems = []
+    if h.state.step != 4 or bad:
+        problems.append(f"restored state: step {h.state.step}, "
+                        f"{len(bad)} leaves not bit-equal, first {bad[:4]}")
+    if not diff <= noise:
+        problems.append(f"steps 3-4 resumed {resumed} vs straight "
+                        f"{straight[2:]}: {diff:.3e} beyond the two straight"
+                        f" runs' difference {noise:.3e}")
+    if launches["fused_conv_bn_bwd"] != 72:
+        problems.append(f"resumed launches {launches}, want 36 fused "
+                        f"conv+BN a step")
+    del h
+    shutil.rmtree(os.path.join(root, "resnet"))
+    if problems:
+        raise RuntimeError("ckpt (imagenet_resnet50): " + "; ".join(problems))
+    return {"launches": launches, "noise": noise, "diff": diff,
+            "stats": stats, "traces": traces, "straight": straight,
+            "again": again, "resumed": resumed}
+
+
+def phase_ckpt(resnet_losses: list | None = None) -> dict:
+    """Checkpointing and the preemption contract (``tpuframe_torch.ckpt``,
+    ``resilience``) on the card, lm_long (CKPT_LM_CUTS) and
+    imagenet_resnet50 (CKPT_RESNET_CUTS), into a temporary directory
+    removed at the end:
+
+      1. lm_long straight for 6 steps (its final state saved, sync);
+      2. the same with periodic async saves, preempted at step 3 by
+         ``TPUFRAME_FAULTS=host:step=3:kind=sigterm``: SystemExit(14),
+         steps 2 and 3 committed, the guard uninstalled;
+      3. the resume to step 6: its losses and its state at step 6 equal
+         the straight run's bit for bit; the flash kernels' launches and
+         routes read around it;
+      4. (in 3) every resumed step's flash launches on the tensor cores;
+      5. an async save at step 1, then at once an in-place optimizer
+         update and step 2: step 1 restored is bit-equal to a blocking
+         copy taken at step 1; step time with a save in flight against
+         without; device memory a save and a restore take;
+      6. a save through the ``ckpt_shard:kind=corrupt`` seam is
+         quarantined and ``restore_latest`` walks back to the last good
+         step, bit-equal to a blocking copy;
+      7. imagenet_resnet50: statistics and traces bit-equal after a
+         resume, steps 3-4 within two straight runs' difference (one of
+         them phase 12's, ``resnet_losses``, when given).
+
+    The numbers come from the run's ``ckpt_save``/``ckpt_restore`` events
+    (``tpuframe_torch.obs.events``) and the phase's own clocks."""
+    before_sigterm = signal.getsignal(signal.SIGTERM)
+    crc_buf = np.frombuffer(np.random.default_rng(0).bytes(CRC_BYTES),
+                            np.uint8)
+    native.crc32c(crc_buf[:64])
+    if not native.loaded():
+        raise RuntimeError("ckpt: the native CRC-32C library did not load")
+    crc_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        native.crc32c(crc_buf)
+        crc_s.append(time.perf_counter() - t0)
+    crc_gbps = CRC_BYTES / min(crc_s) / 1e9
+    root = tempfile.mkdtemp(prefix="tpuframe_ckpt_")
+    events.init(os.path.join(root, "events"))
+    try:
+        t0 = time.monotonic()
+        lm = _ckpt_lm(root, before_sigterm)
+        lm_wall = time.monotonic() - t0
+        t0 = time.monotonic()
+        resnet = _ckpt_resnet(root, resnet_losses)
+        resnet_wall = time.monotonic() - t0
+        records = events.merge(os.path.join(root, "events"))
+    finally:
+        events.close()
+        shutil.rmtree(root, ignore_errors=True)
+    saves = [r for r in records if r["type"] == "ckpt_save"]
+    restores = [r for r in records if r["type"] == "ckpt_restore"]
+    faults_seen = [r for r in records if r["type"] == "fault_injected"]
+    sync_ms = saves[0]["ms"]
+    async_saves = [r for r in saves if r["async_write"]]
+    block = [r["block_ms"] for r in async_saves]
+    write = [r["write_ms"] for r in async_saves]
+    if (saves[0]["async_write"] or not async_saves or not restores
+            or [r["seam"] for r in faults_seen] != ["host", "ckpt_shard"]
+            or not any(r["type"] == "preempt" for r in records)):
+        raise RuntimeError(f"ckpt: events {[r['type'] for r in records]}")
+    card = _card_line()
+    gb = lm["disk_bytes"] / 1e9
+    log(f"[ckpt] {card}: lm_long ({lm['params'] / 1e6:.1f} M params, f32 "
+        f"state + 2 Adam moments) {lm['disk_bytes']} bytes on disk a "
+        f"checkpoint; sync save "
+        f"{sync_ms:.1f} ms ({gb / sync_ms * 1e3:.2f} GB/s); async snapshot "
+        f"(blocking) ms {block} (median {statistics.median(block):.1f}), "
+        f"worker ms {write} (median {statistics.median(write):.1f}); "
+        f"restore {restores[0]['ms']:.1f} ms in the resumed run, "
+        f"{lm['restore_ms']:.1f} ms to host + {lm['load_ms']:.1f} ms onto "
+        f"the card in the snapshot check; CRC32C {crc_gbps:.2f} GB/s "
+        f"(native, {CRC_BYTES >> 20} MiB); step p50 "
+        f"{lm['step_ms_in_flight']:.1f} ms with an async save in flight "
+        f"{[round(x, 1) for x in lm['in_flight']]} vs "
+        f"{lm['step_ms_plain']:.1f} ms without "
+        f"{[round(x, 1) for x in lm['plain']]}; peak device memory "
+        f"+{lm['save_peak'] / 2**20:.1f} MiB during a save, "
+        f"+{lm['restore_peak'] / 2**20:.1f} MiB during a restore; resumed "
+        f"steps 4-6 losses {lm['losses']} bit-equal to the straight run, "
+        f"state at step 6 bit-equal; async snapshot bit-equal; corrupt "
+        f"step quarantined; {len(saves)} saves, {len(restores)} restores, "
+        f"{lm_wall:.1f} s; launches {lm['launches']}")
+    log(f"[ckpt] {card}: imagenet_resnet50 bn=fused batch {RESNET_BATCH}: "
+        f"{resnet['stats']} running statistics and {resnet['traces']} SGD "
+        f"traces bit-equal after the restore; steps 3-4 resumed "
+        f"{resnet['resumed']} vs straight {resnet['straight'][2:]}: "
+        f"max |diff| {resnet['diff']:.3e} within two straight runs' "
+        f"{resnet['noise']:.3e} ({resnet['straight']} vs "
+        f"{resnet['again']}); {resnet_wall:.1f} s; launches "
+        f"{resnet['launches']}")
+    return {"lm": lm, "resnet": resnet, "crc_gbps": crc_gbps,
+            "sync_ms": sync_ms, "block_ms": block, "write_ms": write,
+            "restore_ms": restores[0]["ms"]}
+
+
 def wall_ms(fn, calls: int) -> float:
     fn()
     t = time.monotonic()
@@ -2397,6 +2777,7 @@ def main(argv=None) -> int:
     mnist = phase_mnist_train()
     cifar = phase_cifar_train()
     variants = phase_resnet_variants(resnet)
+    ckpt_run = phase_ckpt(resnet["losses"])
 
     by_path = {name: {"serve": serve_launches[name],
                       "lm_train": train["launches"][name],
@@ -2406,7 +2787,10 @@ def main(argv=None) -> int:
                       "bert_train": bert_train["launches"][name],
                       "mnist_train": mnist["launches"][name],
                       "cifar_train": cifar["launches"][name],
-                      "resnet_variants": variants["launches"][name]}
+                      "resnet_variants": variants["launches"][name],
+                      "ckpt_lm_resume": ckpt_run["lm"]["launches"][name],
+                      "ckpt_resnet_resume":
+                          ckpt_run["resnet"]["launches"][name]}
                for name in launch_counts()}
     attn = "B=8 S=4096 N=12 D=64 bf16 causal"
     ops = "tpuframe/ops/"
@@ -2500,7 +2884,7 @@ PHASES = {"kernels": phase_kernels, "backward": phase_backward,
           "bert_parity": phase_bert_parity, "bert_serve": phase_bert_serve,
           "bert_train": phase_bert_train, "mnist_train": phase_mnist_train,
           "cifar_train": phase_cifar_train,
-          "resnet_variants": phase_resnet_variants}
+          "resnet_variants": phase_resnet_variants, "ckpt": phase_ckpt}
 
 
 if __name__ == "__main__":

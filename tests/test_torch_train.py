@@ -403,7 +403,7 @@ def test_distributed_false_trains_with_no_collective(tmp_path):
 
 
 @pytest.mark.parametrize("overrides,env,world,match", [
-    ({"ckpt_dir": "/nonexistent"}, {}, 1, "checkpointing"),
+    ({}, {"TPUFRAME_EVENTS_DIR": "/nonexistent"}, 1, "run events.*item 11"),
     ({}, {"TPUFRAME_WEIGHT_UPDATE": "zero1"}, 1, "ZeRO-1"),
     ({}, {"TPUFRAME_HIER": "hier"}, 1, "hierarchical"),
     ({"grad_reduce": "adasum"}, {}, 1, "adasum"),

@@ -1,4 +1,4 @@
-"""Build the port's CUDA kernels at first use and load them with ctypes.
+"""Build the port's native code at first use and load it with ctypes.
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
 with a plain C interface, ``_build/lib<name>-<digest>.so``.  The digest
@@ -7,8 +7,12 @@ unchanged one is loaded from disk.  Sources build in parallel: one
 ``nvcc`` per file, all started together.  No source includes PyTorch's
 headers, which keeps a build to seconds.
 
-Only the launching code calls :func:`load`; importing this module needs
-neither ``nvcc`` nor a GPU.
+Host code (``csrc/<name>.cc``: the CRC-32C of the checkpoints) builds the
+same way with ``g++`` through :func:`load_host`, on any machine with a C++
+compiler.
+
+Only the launching code calls :func:`load` or :func:`load_host`;
+importing this module needs neither a compiler nor a GPU.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -26,8 +31,10 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_TIMEOUT_S = 900
+GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+_HOST_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -103,3 +110,38 @@ def load(name: str) -> ctypes.CDLL:
         build_all()
         _LIBS[name] = ctypes.CDLL(str(_target(SRC_DIR / f"{name}.cu")))
     return _LIBS[name]
+
+
+def _host_target(src: Path) -> Path:
+    h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
+    h.update(src.read_bytes())
+    return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:12]}.so"
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The shared library built from ``csrc/<name>.cc`` with ``g++``,
+    built first if needed.  A failed build raises with the compiler's
+    output: there is no fallback."""
+    with _HOST_LOCK:
+        key = f"{name}.cc"
+        if key not in _LIBS:
+            src = SRC_DIR / key
+            out = _host_target(src)
+            if not out.exists():
+                gxx = shutil.which(os.environ.get("CXX", "g++"))
+                if gxx is None:
+                    raise RuntimeError(f"no C++ compiler to build {src.name}"
+                                       f" (set CXX)")
+                BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+                proc = subprocess.run(
+                    [gxx, *GXX_FLAGS, "-o", str(tmp), str(src)],
+                    capture_output=True, text=True, timeout=BUILD_TIMEOUT_S)
+                if proc.returncode != 0:
+                    tmp.unlink(missing_ok=True)
+                    raise RuntimeError(f"g++ {src.name} exited "
+                                       f"{proc.returncode}:\n{proc.stdout}"
+                                       f"{proc.stderr}")
+                os.replace(tmp, out)    # atomic: concurrent builds agree
+            _LIBS[key] = ctypes.CDLL(str(out))
+        return _LIBS[key]

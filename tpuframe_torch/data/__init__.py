@@ -1,2 +1,2 @@
-"""Datasets and the sharded, prefetching loader (counterpart of
-``tpuframe/data``)."""
+"""Datasets, the sharded, prefetching loader and the storage paths of the
+checkpoints (counterpart of ``tpuframe/data``)."""

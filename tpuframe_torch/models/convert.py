@@ -1,6 +1,9 @@
 """Carry flax ``TransformerLM`` parameters (and optax Adam moments), flax
 ResNet parameters and batch statistics, flax BERT parameters and the flax
-MNIST ConvNet's parameters into the port's models.
+MNIST ConvNet's parameters into the port's models, and whole JAX training
+states (a ``TrainState`` checkpoint: parameters, statistics, optimizer
+moments and step) into the port's model and optimizer
+(:func:`train_state_from_jax`).
 
 The flax tree (``{"embed": {"embedding"}, "block_<i>": {...},
 "final_ln": {"scale"}, "lm_head": {"kernel"}}``) arrives as nested dicts of
@@ -227,3 +230,80 @@ def bert_params_from_jax(params) -> dict:
                          f"were mapped: not a tpuframe BERT")
     return {k: torch.from_numpy(np.array(v, dtype=np.float32))
             for k, v in sd.items()}
+
+
+_MOMENTS = ("mu", "nu", "trace")
+_JAX_STATE_KEYS = {"step", "params", "opt_state", "model_state", "rng"}
+
+
+def train_state_from_jax(tree, family: str):
+    """A JAX ``TrainState`` checkpoint, as ``tpuframe.ckpt.restore(dir,
+    step)`` (or the port's ``ckpt.restore``) returns it without a target,
+    → ``(model state_dict, optimizer state_dict, step)`` for the port's
+    model of ``family`` (``transformer-lm``, ``resnet*``, ``bert-base``,
+    ``convnet``) and its :class:`~tpuframe_torch.utils.optim.Optimizer`.
+
+    The optax chain's state is a nest of tuples whose indices depend on
+    the chain (clip or not, decay or not), so the moments are found by key
+    under ``opt_state`` (``mu``/``nu`` for adamw, ``trace`` for sgd and
+    lars) and mapped with the family's parameter map, as
+    :func:`adam_state_from_jax` does; ``count`` is the update count, the
+    moment's own or the schedule's (they must agree).  The JAX ``rng``
+    leaf is dropped: the port draws dropout and augmentation from
+    ``dropout_seed(seed, step, rank)``, not from a saved key, so a resumed
+    run's draws differ from the JAX run's.  Any other leaf that maps
+    nowhere raises."""
+    params = tree["params"]
+    extra = set(tree) - _JAX_STATE_KEYS
+    model_state = dict(tree.get("model_state") or {})
+    stats = model_state.pop("batch_stats", None)
+    if extra or model_state:
+        raise ValueError(f"unmapped JAX TrainState leaves: "
+                         f"{sorted(extra | set(model_state))}")
+    if family == "transformer-lm":
+        to_port = params_from_jax
+    elif family.startswith("resnet"):
+        if stats is None:
+            raise ValueError("a ResNet TrainState needs "
+                             "model_state/batch_stats")
+
+        def to_port(p):
+            return {k: v for k, v in resnet_from_jax(p, stats).items()
+                    if not k.endswith(("running_mean", "running_var"))}
+    elif family == "bert-base":
+        to_port = bert_params_from_jax
+    elif family == "convnet":
+        to_port = convnet_from_jax
+    else:
+        raise ValueError(f"no JAX TrainState map for model {family!r}")
+    if stats is not None and not family.startswith("resnet"):
+        raise ValueError(f"{family}: unmapped model_state/batch_stats")
+
+    moments: dict = {}
+    counts: list[int] = []
+
+    def walk(node, path):
+        for key, sub in node.items():
+            where = f"{path}/{key}"
+            if key in _MOMENTS and isinstance(sub, dict):
+                if key in moments:
+                    raise ValueError(f"two {key} moments under opt_state")
+                moments[key] = to_port(sub)
+            elif key == "count" and not isinstance(sub, dict):
+                counts.append(int(np.asarray(sub)))
+            elif isinstance(sub, dict):
+                walk(sub, where)
+            else:
+                raise ValueError(f"unmapped JAX optimizer leaf {where}")
+
+    walk(tree["opt_state"], "opt_state")
+    if not counts or len(set(counts)) != 1:
+        raise ValueError(f"opt_state update counts {counts}: want one "
+                         f"value")
+    if set(moments) not in ({"mu", "nu"}, {"trace"}):
+        raise ValueError(f"opt_state holds moments {sorted(moments)}: "
+                         f"neither adamw's mu/nu nor sgd's or lars' trace")
+    model = (resnet_from_jax(params, stats) if family.startswith("resnet")
+             else to_port(params))
+    return (model, {"count": counts[0], **moments},
+            int(np.asarray(tree["step"])))

@@ -52,6 +52,24 @@ class TrainState:
     step: int = 0
     seed: int = 0
 
+    def to_tree(self) -> dict:
+        """The checkpoint's leaf tree: ``model/<state_dict name>``
+        (parameters and buffers, BatchNorm running statistics among
+        them), ``opt/count``, ``opt/<mu|nu|trace>/<parameter name>``,
+        ``step`` and ``seed``.  The tensors are the live ones, not
+        copies."""
+        return {"model": dict(self.model.state_dict()),
+                "opt": self.opt.state_dict(),
+                "step": self.step, "seed": self.seed}
+
+    def load_tree(self, tree: dict) -> None:
+        """Take a tree of :meth:`to_tree`'s structure, copying into the
+        live tensors in place."""
+        self.model.load_state_dict(tree["model"])
+        self.opt.load_state_dict(tree["opt"])
+        self.step = int(tree["step"])
+        self.seed = int(tree["seed"])
+
 
 def dropout_seed(seed: int, step: int, rank: int, micro: int = 0) -> int:
     """The step's dropout seed: one per (seed, step, rank, microbatch), so

@@ -34,10 +34,23 @@ workloads (``lm_text`` data, ``transformer-lm``) and the GLUE tasks
 ``bert-base``; cross-entropy, or MSE when ``num_classes`` is 1; Pearson
 and Matthews correlation at eval) train here.  What the JAX harness has
 and the port does not yet refuses loudly, naming its ROADMAP.md item:
-checkpoints, the observability plane (events, TensorBoard, traces, metrics
-exporter), pipeline, fsdp, tensor and expert parallelism, ZeRO-1,
-quantized or hierarchical collectives, bucketed fusion, adasum, sequence
-parallelism (a seq degree above 1), fault injection and elastic resizing.
+the observability plane (the trainer's run events, TensorBoard, traces,
+the metrics exporter: item 11), pipeline, fsdp, tensor and expert
+parallelism, ZeRO-1, quantized or hierarchical collectives, bucketed
+fusion, adasum, sequence parallelism (a seq degree above 1) and elastic
+resizing.
+
+Checkpoints and preemption, as in the JAX harness and on its on-disk
+format (``tpuframe_torch.ckpt``): with ``--ckpt-dir DIR`` (or ``ckpt_dir``)
+the run saves every ``ckpt_every`` steps (async with ``ckpt_async`` or
+``TPUFRAME_ASYNC_CKPT=1``), keeps ``ckpt_keep``, keeps the best eval loss
+under ``DIR/best`` with ``track_best``, always saves its final state, and
+resumes from the newest readable checkpoint.  SIGTERM or SIGINT sets a
+flag; at the next step boundary the run saves, drains its async saves
+within ``TPUFRAME_FLUSH_DEADLINE_S`` and exits with rc 14 (``SystemExit``
+when :func:`main` is called in process).  ``TPUFRAME_FAULTS`` injects
+faults at named seams (``tpuframe_torch.resilience.faults``), e.g.
+``host:step=3:kind=sigterm``.
 """
 
 from __future__ import annotations
@@ -54,6 +67,7 @@ import torch
 
 from tpuframe_torch import _device
 from tpuframe_torch import models
+from tpuframe_torch import ckpt as ckpt_lib
 from tpuframe_torch.data import augment as augment_lib
 from tpuframe_torch.data import datasets
 from tpuframe_torch.data.pipeline import ShardedLoader
@@ -61,10 +75,12 @@ from tpuframe_torch.models import losses
 from tpuframe_torch.ops import fused_xent as fx
 from tpuframe_torch.parallel import collectives
 from tpuframe_torch.parallel import step as step_lib
+from tpuframe_torch.resilience import faults
+from tpuframe_torch.resilience.preempt import RC_PREEMPTED, PreemptionGuard
 from tpuframe_torch.utils.config import TrainConfig, get_config
 from tpuframe_torch.utils.optim import build_optimizer
 
-ITEM_11 = "ROADMAP.md queue 1, item 11 (run plumbing: obs, resilience)"
+ITEM_11 = "ROADMAP.md queue 1, item 11 (run plumbing: obs, the launcher)"
 ITEM_12 = "ROADMAP.md queue 1, item 12 (beyond-DP parallelism)"
 
 # Environment knobs of the JAX harness that select what the port lacks,
@@ -76,11 +92,12 @@ _UNPORTED_ENV = {
     "TPUFRAME_WIRE_FORMAT_DCN": ("fp", f"quantized collectives, {ITEM_12}"),
     "TPUFRAME_HIER": ("flat", f"hierarchical collectives, {ITEM_12}"),
     "TPUFRAME_FUSION_THRESHOLD": (None, f"bucketed fusion, {ITEM_12}"),
-    "TPUFRAME_EVENTS_DIR": (None, f"run events, {ITEM_11}"),
+    "TPUFRAME_EVENTS_DIR": (None, f"the trainer's run events (run_start, "
+                                  f"step, run_end need the goodput meter),"
+                                  f" {ITEM_11}"),
     "TPUFRAME_TB_DIR": (None, f"TensorBoard, {ITEM_11}"),
     "TPUFRAME_TRACE_STEPS": (None, f"profiler traces, {ITEM_11}"),
     "TPUFRAME_METRICS_PORT": (None, f"the metrics exporter, {ITEM_11}"),
-    "TPUFRAME_FAULTS": (None, f"fault injection, {ITEM_11}"),
     "TPUFRAME_ELASTIC": (None, "elastic resizing, ROADMAP.md queue 1, "
                                "item 14"),
 }
@@ -94,9 +111,6 @@ def _refuse_unported(cfg: TrainConfig, world: int) -> dict:
         if val and val != off:
             raise NotImplementedError(f"{var}={val!r}: {what} is not "
                                       f"ported yet")
-    if cfg.ckpt_dir is not None or cfg.track_best:
-        raise NotImplementedError(
-            "checkpointing is not ported yet (ROADMAP.md queue 1, item 7)")
     if cfg.tb_dir is not None:
         raise NotImplementedError(f"TensorBoard logging is not ported yet "
                                   f"({ITEM_11})")
@@ -133,6 +147,8 @@ class Harness:
     train_loader: ShardedLoader
     eval_loader: ShardedLoader
     world: int
+    manager: ckpt_lib.CheckpointManager | None = None
+    start_step: int = 0
 
 
 def _group(cfg: TrainConfig):
@@ -374,8 +390,10 @@ def build_harness(cfg: TrainConfig, device="cuda") -> Harness:
     state = step_lib.TrainState(model=model,
                                 opt=build_optimizer(cfg, model),
                                 seed=cfg.seed + 1)
+    manager = _resume(cfg, state)
     return Harness(
-        cfg=cfg, device=dev, state=state,
+        cfg=cfg, device=dev, state=state, manager=manager,
+        start_step=state.step,
         train_step=step_lib.make_train_step(make_loss_fn(cfg),
                                             accum_steps=cfg.accum_steps,
                                             grad_reduce=cfg.grad_reduce,
@@ -383,6 +401,31 @@ def build_harness(cfg: TrainConfig, device="cuda") -> Harness:
         eval_step=step_lib.make_eval_step(make_metric_fn(cfg),
                                           distributed=cfg.distributed),
         train_loader=train_loader, eval_loader=eval_loader, world=world)
+
+
+def _resume(cfg: TrainConfig, state: step_lib.TrainState):
+    """The checkpoint manager of ``cfg.ckpt_dir`` (None without one), after
+    restoring ``state`` in place from the newest readable checkpoint when
+    ``cfg.resume``.  ``TPUFRAME_ASYNC_CKPT`` overrides ``ckpt_async``."""
+    if cfg.track_best and cfg.ckpt_dir is None:
+        raise ValueError("track_best=True needs ckpt_dir (the best/ "
+                         "checkpoint lives under it)")
+    if cfg.ckpt_dir is None:
+        return None
+    async_env = os.environ.get("TPUFRAME_ASYNC_CKPT", "")
+    ckpt_async = (async_env not in ("0", "false", "") if async_env
+                  else cfg.ckpt_async)
+    manager = ckpt_lib.CheckpointManager(
+        cfg.ckpt_dir, every_steps=cfg.ckpt_every, keep=cfg.ckpt_keep,
+        async_write=ckpt_async)
+    if cfg.resume:
+        resumed = manager.restore_latest(target=state.to_tree())
+        if resumed is not None:
+            state.load_tree(resumed[1])
+            if collectives.world()[1] == 0:
+                print(f"[tpuframe] resumed from step {state.step}",
+                      flush=True)
+    return manager
 
 
 def evaluate(h: Harness, max_batches: int) -> dict:
@@ -429,7 +472,20 @@ def _log(prefix: str, step: int, metrics: dict) -> None:
 def train(cfg: TrainConfig, *, device="cuda") -> dict:
     """Run the workload; returns the final metrics, plus ``losses`` and
     ``step_ms`` (each step's loss and host wall time, synchronised by
-    reading the loss)."""
+    reading the loss) of the steps this call ran.  Raises
+    ``SystemExit(14)`` when preempted (see the module docstring)."""
+    # installed before the harness, so a signal during the build or the
+    # restore is caught too
+    guard = PreemptionGuard().install()
+    try:
+        return _train(cfg, device, guard)
+    finally:
+        guard.uninstall()
+
+
+def _train(cfg: TrainConfig, device, guard: PreemptionGuard) -> dict:
+    # in-process callers train repeatedly under different environments
+    faults.reset_from_env()
     h = build_harness(cfg, device)
     primary = collectives.world()[1] == 0
     if primary:
@@ -438,6 +494,8 @@ def train(cfg: TrainConfig, *, device="cuda") -> dict:
               f"params={n_params / 1e6:.2f}M devices={h.world} "
               f"global_batch={cfg.global_batch} steps={cfg.total_steps}",
               flush=True)
+    # once=1 faults are dropped on a resumed run
+    faults.set_resumed(h.start_step > 0)
     data_iter = h.train_loader.from_step(h.state.step)
     final: dict = {}
     step_ms, step_losses, window = [], [], []
@@ -451,6 +509,8 @@ def train(cfg: TrainConfig, *, device="cuda") -> dict:
         step_ms.append(1e3 * dt)
         step_losses.append(loss)
         window.append(dt)
+        faults.set_step(step)
+        faults.fire("host")                  # crash and signal faults
         if step % cfg.log_every == 0 or step == cfg.total_steps:
             final = {k: float(v) for k, v in metrics.items()}
             rate = cfg.global_batch * len(window) / sum(window)
@@ -464,12 +524,50 @@ def train(cfg: TrainConfig, *, device="cuda") -> dict:
             if primary:
                 _log("eval", step, eval_metrics)
             final.update({f"eval_{k}": v for k, v in eval_metrics.items()})
+            if (cfg.track_best and "loss" in eval_metrics
+                    and h.manager.save_best(step, h.state.to_tree(),
+                                            float(eval_metrics["loss"]))
+                    and primary):
+                print(f"[tpuframe] new best eval loss "
+                      f"{eval_metrics['loss']:.4f} at step {step}",
+                      flush=True)
+        if h.manager is not None:
+            h.manager.maybe_save(step, h.state.to_tree())
+        if guard.requested:
+            _exit_preempted(h, step, guard)
+    if h.manager is not None:
+        if h.state.step % cfg.ckpt_every != 0:
+            h.manager.save(h.state.step, h.state.to_tree())   # final state
+        h.manager.wait_pending()
     final["step"] = h.state.step
     final["losses"] = step_losses
     final["step_ms"] = step_ms
     if not all(math.isfinite(x) for x in step_losses):
         raise FloatingPointError(f"non-finite training loss: {step_losses}")
     return final
+
+
+def _exit_preempted(h: Harness, step: int, guard: PreemptionGuard):
+    """The preemption contract at a step boundary: save this step unless
+    it was just saved, drain the async saves within
+    ``TPUFRAME_FLUSH_DEADLINE_S`` (each commits or is quarantined), then
+    exit with rc 14."""
+    primary = collectives.world()[1] == 0
+    if h.manager is not None:
+        if not h.manager.should_save(step):
+            h.manager.save(step, h.state.to_tree())
+        flushed = h.manager.flush(deadline_s=float(os.environ.get(
+            "TPUFRAME_FLUSH_DEADLINE_S", "60")))
+        if not flushed and primary:
+            print("[tpuframe] flush deadline expired — in-flight save "
+                  "quarantined; resume uses the previous committed step",
+                  flush=True)
+    guard.uninstall()
+    if primary:
+        print(f"[tpuframe] preempted ({guard.signal_name}): checkpoint "
+              f"committed at step {step}; exiting rc {RC_PREEMPTED} for "
+              f"supervisor resume", flush=True)
+    raise SystemExit(RC_PREEMPTED)
 
 
 def _parse_set(values: list[str]) -> dict:

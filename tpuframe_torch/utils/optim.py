@@ -114,6 +114,29 @@ class Optimizer:
         return out
 
     @torch.no_grad()
+    def load_state_dict(self, sd: dict) -> None:
+        """The inverse of :meth:`state_dict`: copies each moment into the
+        existing tensor (the update's lists hold references to them) and
+        restores ``count``, the schedule's position."""
+        if set(sd) != {"count", *self.moments}:
+            raise ValueError(f"optimizer state holds {sorted(sd)}, this "
+                             f"{self.cfg.optimizer} optimizer "
+                             f"{sorted({'count', *self.moments})}")
+        for key, ts in self.moments.items():
+            src = sd[key]
+            if set(src) != set(self.names):
+                raise ValueError(f"{key}: parameters differ; missing "
+                                 f"{sorted(set(self.names) - set(src))}, "
+                                 f"extra {sorted(set(src) - set(self.names))}")
+            for name, t in zip(self.names, ts):
+                if tuple(src[name].shape) != tuple(t.shape):
+                    raise ValueError(f"{key} {name}: shape "
+                                     f"{tuple(src[name].shape)}, parameter "
+                                     f"{tuple(t.shape)}")
+                t.copy_(src[name])
+        self.count = int(sd["count"])
+
+    @torch.no_grad()
     def step(self) -> torch.Tensor:
         cfg = self.cfg
         ps = self.params

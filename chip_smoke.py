@@ -93,7 +93,20 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
      traces bit-equal after a resume, steps 3-4 within two straight runs'
      difference; bytes on disk, save, snapshot, worker and restore ms,
      the CRC-32C rate and step time with a save in flight, beside the
-     card's name and power limit.
+     card's name and power limit;
+ 20. the Horovod slice (``hvd``), in worlds of processes that
+     ``LocalCluster`` starts with the launcher's environment (this process
+     holds no process group): (a) a world of one over NCCL, every hvd verb
+     and op on CUDA tensors against its plain expectation, then
+     imagenet_resnet50 at RESNET_CUTS with ``grad_reduce="adasum"``, its
+     losses equal to phase 12's and every fused conv+BN launch on the
+     tensor cores (path ``hvd_resnet``); (b) cifar10_resnet18 as two
+     processes on the one card over gloo (HVD_CIFAR_CUTS): final states
+     bit-identical across ranks, step 1 against the plain data-parallel
+     step, the loss falling, step p50 and idle share (gloo through the
+     host); (c) ``adasum_combine`` at ResNet-50's leaf shapes against
+     float64; (d) probes written down: raw gloo verbs on CUDA tensors, and
+     two NCCL ranks on one card.
 
 Phases 13-15 run with ``TPUFRAME_ATTN_IMPL=pallas`` and restore it after.
 The harness turns TF32 off (f32 convolutions and matmuls run in f32), and
@@ -109,6 +122,8 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
+import hashlib
 import json
 import math
 import os
@@ -133,6 +148,7 @@ from tpuframe_torch import ckpt  # noqa: E402
 from tpuframe_torch import native  # noqa: E402
 from tpuframe_torch import train as train_lib  # noqa: E402
 from tpuframe_torch.ckpt import checkpoint as ckpt_mod  # noqa: E402
+from tpuframe_torch.launch.launcher import LocalCluster  # noqa: E402
 from tpuframe_torch.data import datasets  # noqa: E402
 from tpuframe_torch.models import get_model  # noqa: E402
 from tpuframe_torch.models.bert import BertConfig  # noqa: E402
@@ -143,11 +159,14 @@ from tpuframe_torch.ops import attention as attn  # noqa: E402
 from tpuframe_torch.ops import flash_attention as fa  # noqa: E402
 from tpuframe_torch.ops import fused_conv_bn as fcb  # noqa: E402
 from tpuframe_torch.ops import precision_probe as pp  # noqa: E402
+from tpuframe_torch.parallel import collectives, hvd  # noqa: E402
+from tpuframe_torch.parallel import step as step_lib  # noqa: E402
 from tpuframe_torch.serve import kv_cache as kv  # noqa: E402
 from tpuframe_torch.serve import loadgen  # noqa: E402
 from tpuframe_torch.serve.engine import (BertClassifier, LMEngine,  # noqa: E402
                                         parity_diffs)
 from tpuframe_torch.utils.config import get_config  # noqa: E402
+from tpuframe_torch.utils.optim import build_optimizer  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W).
 PEAK_BYTES_S = 3.35e12
@@ -400,6 +419,35 @@ CKPT_RESNET_CUTS = {**RESNET_CUTS, "eval_every": 1000, "ckpt_every": 2,
                     "ckpt_keep": 2}
 # The CRC-32C rate is read over this many bytes.
 CRC_BYTES = 256 << 20
+
+# The Horovod slice (phase 20, ``hvd``): worlds of ranks started by
+# LocalCluster with the launcher's environment, each rank a process that
+# runs this script with ``--hvd-worker``; this process holds no group.
+# A world's ranks must end within this (a hung probe is killed and
+# reported).
+HVD_TIMEOUT_S = 300
+HVD_PROBE_TIMEOUT_S = 90
+# (b) the reference's workload 2, cifar10_resnet18 at its own widths,
+# batch (256 global, 128 a rank) and recipe, as two processes on the one
+# card over gloo (NCCL refuses two ranks on one card).  Cut: steps, 2000
+# -> 20, and one eval batch, as phase 17.
+HVD_CIFAR_CUTS = {"mesh": {"data": 2}, "total_steps": 20, "eval_every": 20,
+                  "eval_batches": 1, "log_every": 5}
+HVD_CIFAR_ARGS = ["--config", "cifar10_resnet18"] + [
+    a for k, v in HVD_CIFAR_CUTS.items() for a in ("--set", f"{k}={v!r}")]
+# Step 1 of the two-rank run against the plain data-parallel step in one
+# process (each rank's half-batch through forward and backward in turn,
+# gradients and BN statistics averaged), every parameter, buffer and SGD
+# trace: max |diff| over max |plain| per tensor.  f32 with TF32 off; the
+# two differ only in the order of cuDNN's sums in two processes (~1e-6
+# in one step), held to GRAD_PARITY_RTOL's 1e-4.
+HVD_DP_RTOL = 1e-4
+# (c) adasum_combine on the card against float64, max |diff| over max
+# |f64| per leaf: in f32 its dots are f32 tree sums over up to 2.4 M
+# entries (~1e-7 relative) and the combine rounds a few times: 1e-5; a
+# bf16 leaf is rounded to bf16 once at the end: one bf16 step, 2^-8 of
+# the entry (so at most 2^-8 of the largest), on top of f32's 1e-5.
+HVD_COMBINE_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -8 + 1e-5}
 
 
 def log(msg: str) -> None:
@@ -2705,6 +2753,550 @@ def phase_ckpt(resnet_losses: list | None = None) -> dict:
             "restore_ms": restores[0]["ms"]}
 
 
+def _cpu_tree(tree):
+    """A blocking host copy of a nested tree of tensors and numbers."""
+    if isinstance(tree, dict):
+        return {k: _cpu_tree(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().clone()
+    return tree
+
+
+def _state_digest(tree) -> str:
+    """SHA-256 over every leaf's name and bytes."""
+    digest = hashlib.sha256()
+    for name, leaf in ckpt_mod._flatten(tree):
+        digest.update(name.encode())
+        if isinstance(leaf, torch.Tensor):
+            digest.update(leaf.detach().cpu().contiguous().view(torch.uint8)
+                          .numpy().tobytes())
+        else:
+            digest.update(repr(leaf).encode())
+    return digest.hexdigest()
+
+
+def _hvd_launch(name: str, n: int, out: str, env: dict | None = None,
+                timeout: float = HVD_TIMEOUT_S):
+    """``n`` ranks of ``chip_smoke.py --hvd-worker name out`` through
+    LocalCluster, with the launcher's environment and ``env``."""
+    return LocalCluster(n, timeout=timeout, extra_env=env or {}).launch(
+        [sys.executable, str(Path(__file__).resolve()), "--hvd-worker",
+         name, out])
+
+
+def _hvd_world1_verbs() -> dict:
+    """Every hvd verb and op on CUDA tensors in a world of one, each
+    against its plain expectation (the input), as a name -> bool map."""
+    import torch.distributed as dist
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(64, 33, device="cuda", generator=gen)
+    checks = {}
+
+    def check(name, got, want):
+        checks[name] = (got is not want and got.device.type == "cuda"
+                        and torch.equal(got, want))
+
+    for op in (hvd.Average, hvd.Sum, hvd.Min, hvd.Max, hvd.Product,
+               hvd.Adasum):
+        check(op.name, hvd.allreduce(x, op=op), x)
+    check("average=False", hvd.allreduce(x, average=False), x)
+    check("ProcessSet Average", hvd.allreduce(
+        x, process_set=hvd.ProcessSet([0])), x)
+    check("ProcessSet Sum", hvd.allreduce(
+        x, op=hvd.Sum, process_set=hvd.ProcessSet([0])), x)
+    check("allgather", hvd.allgather(x), x)
+    check("alltoall", hvd.alltoall(x, splits=[64]), x)
+    a, b = hvd.grouped_allreduce([x, 2 * x])
+    check("grouped_allreduce", torch.cat([a, b]), torch.cat([x, 2 * x]))
+    t = x.clone()
+    check("allreduce_async_ + synchronize",
+          hvd.synchronize(hvd.allreduce_async_(t, op=hvd.Sum)), x)
+    sd = {"w": x.clone()}
+    hvd.broadcast_parameters(sd)
+    check("broadcast_parameters", sd["w"], x)
+    checks["broadcast_object"] = hvd.broadcast_object({"a": [1]}) == {"a": [1]}
+    checks["allgather_object"] = hvd.allgather_object("zz") == ["zz"]
+    hvd.barrier()
+    checks["barrier"] = True
+    checks["join"] = hvd.join() == -1
+    checks["nccl_built"] = hvd.nccl_built()
+    checks["cuda_built"] = hvd.cuda_built()
+    checks["backend nccl"] = dist.get_backend() == "nccl"
+    checks["size, rank, local_rank, local_size"] = [
+        hvd.size(), hvd.rank(), hvd.local_rank(), hvd.local_size()] == [
+        1, 0, 0, 1]
+    return checks
+
+
+def hvd_worker_nccl(out: str) -> None:
+    """(a) The one rank of a world of one over NCCL: init and first
+    collective seconds, every verb, the NCCL kernels they ran, then
+    imagenet_resnet50 (RESNET_CUTS) with grad_reduce="adasum" through
+    ``tpuframe_torch.train.main``, its launches read around it."""
+    t0 = time.perf_counter()
+    hvd.init()
+    group_s = time.perf_counter() - t0
+    x = torch.ones(1024, device="cuda")
+    hvd.allreduce(x, op=hvd.Sum)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    checks = _hvd_world1_verbs()
+    nccl = [(k, c) for k, _, c in device_time(_hvd_world1_verbs)
+            if "nccl" in k.lower()]
+    reset_launches()
+    metrics = train_lib.main(RESNET_ARGS + ["--set", "grad_reduce='adasum'"])
+    torch.cuda.synchronize()
+    with open(out, "w") as f:
+        json.dump({"group_s": group_s, "first_collective_s": first_s,
+                   "checks": checks, "nccl_kernels": nccl,
+                   "losses": metrics["losses"],
+                   "step_ms": metrics["step_ms"],
+                   "launches": launch_counts(),
+                   "routes": dict(fcb.ROUTES)}, f)
+
+
+def hvd_worker_probe(out: str) -> None:
+    """A rank of a gloo world of two on the one card: each raw
+    ``torch.distributed`` verb on CUDA tensors, its outcome written to
+    ``out.<rank>`` as soon as it is known (a verb that hangs leaves the
+    ones before it); point-to-point last."""
+    import torch.distributed as dist
+    hvd.init()
+    r, n = dist.get_rank(), dist.get_world_size()
+    total = float(n * (n + 1) // 2)
+    x = torch.full((8,), float(r + 1), device="cuda")
+    found = {}
+
+    def run(name, fn, ok):
+        try:
+            res = fn()
+            torch.cuda.synchronize()
+            found[name] = "ok" if ok(res) else "ran, wrong result"
+        except Exception as e:  # noqa: BLE001 - the backend's answer
+            found[name] = f"{type(e).__name__}: " + (
+                str(e).strip().splitlines() or [""])[0][:160]
+        with open(f"{out}.{r}", "w") as f:
+            json.dump(found, f)
+
+    def inplace(call, t):
+        call(t)
+        return t
+
+    run("all_reduce", lambda: inplace(dist.all_reduce, x.clone()),
+        lambda t: bool((t == total).all()))
+    run("broadcast", lambda: inplace(lambda t: dist.broadcast(t, 1),
+                                     x.clone()),
+        lambda t: bool((t == n).all()))
+    parts = [torch.empty_like(x) for _ in range(n)]
+    run("all_gather", lambda: dist.all_gather(parts, x),
+        lambda _: all(bool((p == i + 1).all()) for i, p in enumerate(parts)))
+    big = torch.empty(n * 8, device="cuda")
+    run("all_gather_into_tensor",
+        lambda: dist.all_gather_into_tensor(big, x),
+        lambda _: bool((big.view(n, 8)[:, 0] == torch.arange(
+            1, n + 1, device="cuda")).all()))
+    one = torch.empty(8 // n, device="cuda")
+    run("reduce_scatter_tensor",
+        lambda: dist.reduce_scatter_tensor(one, x),
+        lambda _: bool((one == total).all()))
+    a2a = torch.empty_like(x)
+    run("all_to_all_single", lambda: dist.all_to_all_single(a2a, x),
+        lambda _: bool((a2a.view(n, -1)[:, 0] == torch.arange(
+            1, n + 1, device="cuda")).all()))
+    run("reduce", lambda: inplace(lambda t: dist.reduce(t, 0), x.clone()),
+        lambda t: r != 0 or bool((t == total).all()))
+    got = [torch.empty_like(x) for _ in range(n)] if r == 0 else None
+    run("gather", lambda: dist.gather(x, got, dst=0),
+        lambda _: r != 0 or all(bool((g == i + 1).all())
+                                for i, g in enumerate(got)))
+    sc = torch.empty_like(x)
+    run("scatter", lambda: dist.scatter(
+        sc, [x * 0 + i for i in range(n)] if r == 0 else None, src=0),
+        lambda _: bool((sc == r).all()))
+    recv = torch.empty_like(x)
+    run("send/recv (batch_isend_irecv)", lambda: [w.wait() for w in (
+        dist.batch_isend_irecv([dist.P2POp(dist.isend, x, 1 - r),
+                                dist.P2POp(dist.irecv, recv, 1 - r)]))],
+        lambda _: bool((recv == 2 - r).all()))
+
+
+def hvd_worker_nccl_pair(out: str) -> None:
+    """A rank of an NCCL world of two on the one card: NCCL's own error
+    is expected at the first collective."""
+    hvd.init()
+    hvd.allreduce(torch.ones(4, device="cuda"))
+    torch.cuda.synchronize()
+    with open(f"{out}.{hvd.rank()}", "w") as f:
+        f.write("ran")
+
+
+def _gloo_verbs_on_cuda() -> dict:
+    """Each hvd verb on CUDA tensors in this gloo world: a verb whose
+    collective gloo takes on CUDA (``GLOO_CUDA_VERBS``) must give the
+    expected values; every other one must raise, naming the verb and
+    gloo.  ``{verb: "ok" | "refused" | what went wrong}``."""
+    r, n = hvd.rank(), hvd.size()
+    x = torch.full((4, 8), float(r + 1), device="cuda")
+    total = float(n * (n + 1) // 2)
+    # rank j's block of a gather, or the block rank j sent: j + 1
+    by_rank = torch.arange(1.0, n + 1, device="cuda").repeat_interleave(
+        x.shape[0] // n)
+    cases = {  # verb: (raw collective, call, expected)
+        "allreduce Average": ("all_reduce", lambda: hvd.allreduce(x),
+                              total / n),
+        "allreduce Sum": ("all_reduce",
+                          lambda: hvd.allreduce(x, op=hvd.Sum), total),
+        "allreduce Max": ("all_reduce",
+                          lambda: hvd.allreduce(x, op=hvd.Max), float(n)),
+        "allreduce Min": ("all_reduce",
+                          lambda: hvd.allreduce(x, op=hvd.Min), 1.0),
+        "broadcast_parameters": ("broadcast", lambda: _bcast(x), 1.0),
+        "allgather": ("all_gather", lambda: hvd.allgather(x),
+                      torch.arange(1.0, n + 1, device="cuda")
+                      .repeat_interleave(x.shape[0])[:, None]),
+        "alltoall": ("all_to_all", lambda: hvd.alltoall(x),
+                     by_rank[:, None]),
+        "allreduce Product": ("all_gather",
+                              lambda: hvd.allreduce(x, op=hvd.Product),
+                              float(math.factorial(n))),
+        "allreduce Adasum": ("send/recv",
+                             lambda: hvd.allreduce(x, op=hvd.Adasum), None),
+    }
+    found = {}
+    for verb, (raw, call, want) in cases.items():
+        allowed = raw in collectives.GLOO_CUDA_VERBS
+        try:
+            got = call()
+            ok = allowed and bool((got == want).all())
+            found[verb] = "ok" if ok else f"ran ({raw}): {got.flatten()[:4]}"
+        except RuntimeError as e:
+            found[verb] = ("refused" if not allowed and raw in str(e)
+                           and "gloo" in str(e) else f"raised: {e}")
+    return found
+
+
+def _bcast(x):
+    sd = {"t": x.clone()}
+    hvd.broadcast_parameters(sd, root_rank=0)
+    return sd["t"]
+
+
+def hvd_worker_cifar(out: str) -> None:
+    """(b) A rank of the gloo world of two: the hvd verbs on CUDA tensors
+    under gloo, then cifar10_resnet18 (HVD_CIFAR_ARGS) through
+    ``tpuframe_torch.train.main`` with its step 1 captured (the rank's
+    batch, the state before and after), the final state's digest gathered
+    from every rank, and one more step profiled."""
+    hvd.init()
+    rank = hvd.rank()
+    verbs = _gloo_verbs_on_cuda()
+    captured = {}
+    build = train_lib.build_harness
+
+    def capturing_build(cfg, device="cuda"):
+        h = build(cfg, device)
+        step = h.train_step
+
+        def train_step(state, batch):
+            if "step1" in captured:
+                return step(state, batch)
+            captured["batch"] = _cpu_tree(batch)
+            captured["init"] = _cpu_tree(state.to_tree())
+            metrics = step(state, batch)
+            captured["step1"] = _cpu_tree(state.to_tree())
+            return metrics
+
+        h.train_step = train_step
+        captured["harness"] = h
+        return h
+
+    train_lib.build_harness = capturing_build
+    try:
+        metrics = train_lib.main(HVD_CIFAR_ARGS)
+    finally:
+        train_lib.build_harness = build
+    h = captured.pop("harness")
+    digests = hvd.allgather_object(_state_digest(h.state.to_tree()))
+    torch.save(captured, f"{out}.{rank}.pt")
+    # step 1's batches again under the final parameters, with step 1's
+    # augmentation: the loss falls on the same data
+    batch = {k: v.to(h.device) for k, v in captured["batch"].items()}
+    with torch.no_grad():
+        again, _ = train_lib.make_loss_fn(h.cfg)(
+            h.state.model, batch,
+            step_lib.dropout_seed(h.state.seed, 0, rank))
+    again = statistics.mean(hvd.allgather_object(float(again)))
+    wall_step, kernels, busy = _profile_steps(h, 1)
+    if rank == 0:
+        with open(out, "w") as f:
+            json.dump({"verbs": verbs, "losses": metrics["losses"],
+                       "step1_again": again,
+                       "step_ms": metrics["step_ms"],
+                       "eval_loss": metrics["eval_loss"],
+                       "eval_accuracy": metrics["eval_accuracy"],
+                       "digests": digests, "wall_step": wall_step,
+                       "device_ms": busy,
+                       "top": [(k[:60], ms, c) for k, ms, c in kernels[:8]]},
+                      f)
+
+
+def _hvd_plain_dp_step(batches: list, init: dict) -> dict:
+    """The plain version of step 1 of (b): one process, the same init;
+    each rank's half-batch through forward and backward in turn (BN
+    statistics restored in between), gradients and statistics averaged,
+    the optimizer's step.  Returns the state's flat host copy."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("cifar10_resnet18").with_overrides(**HVD_CIFAR_CUTS)
+    model = get_model(cfg.model, dtype=cfg.compute_dtype, device="cuda",
+                      seed=cfg.seed, **cfg.model_kwargs)
+    state = step_lib.TrainState(model, build_optimizer(cfg, model))
+    state.load_tree(init)
+    loss_fn = train_lib.make_loss_fn(cfg)
+    bufs = [b for b in model.buffers() if b.is_floating_point()]
+    start = [b.clone() for b in bufs]
+    grads, stats = [], []
+    for r, batch in enumerate(batches):
+        for b, b0 in zip(bufs, start):
+            b.copy_(b0)
+        model.zero_grad(set_to_none=True)
+        batch = {k: v.to("cuda") for k, v in batch.items()}
+        loss, _ = loss_fn(model, batch,
+                          step_lib.dropout_seed(state.seed, 0, r))
+        loss.backward()
+        grads.append([p.grad.clone() for p in model.parameters()])
+        stats.append([b.clone() for b in bufs])
+    n = len(batches)
+    with torch.no_grad():
+        for p, *gs in zip(model.parameters(), *grads):
+            p.grad = sum(gs) / n
+        for b, *ss in zip(bufs, *stats):
+            b.copy_(sum(ss) / n)
+    state.opt.step()
+    state.step += 1
+    return _host_copy(state.to_tree())
+
+
+def _adasum_combine_check() -> dict:
+    """(c) ``adasum_combine`` on the card at the shapes of ResNet-50's
+    161 gradient leaves, f32 and bf16, against float64; the exact cases;
+    its time over all leaves (CUDA events) beside its bound."""
+    shapes = [tuple(p.shape) for p in get_model(
+        "resnet50", device="cuda").parameters()]
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    out = {"leaves": len(shapes),
+           "elements": sum(math.prod(s) for s in shapes)}
+    for dtype in (torch.float32, torch.bfloat16):
+        worst, exact = 0.0, True
+        pairs = []
+        for shape in shapes:
+            a = torch.randn(shape, device="cuda", generator=gen).to(dtype)
+            b = (0.5 * a.float() + torch.randn(
+                shape, device="cuda", generator=gen)).to(dtype)
+            pairs.append((a, b))
+            got = collectives.adasum_combine(a, b).double().cpu().numpy()
+            a64, b64 = a.double().cpu().numpy(), b.double().cpu().numpy()
+            dot, na, nb = (a64 * b64).sum(), (a64 * a64).sum(), \
+                (b64 * b64).sum()
+            ref = (1 - dot / (2 * na)) * a64 + (1 - dot / (2 * nb)) * b64
+            worst = max(worst, float(np.abs(got - ref).max()
+                                     / np.abs(ref).max()))
+            mask = torch.rand(shape, device="cuda", generator=gen) < 0.5
+            oa, ob = a * mask, b * ~mask
+            exact &= torch.equal(collectives.adasum_combine(a, a), a)
+            exact &= torch.equal(collectives.adasum_combine(oa, ob), oa + ob)
+            exact &= torch.equal(collectives.adasum_combine(
+                torch.zeros_like(a), b), b)
+        if not worst <= HVD_COMBINE_TOL[dtype] or not exact:
+            raise RuntimeError(
+                f"adasum_combine {dtype}: max error {worst:.3e} against "
+                f"float64 (tolerance {HVD_COMBINE_TOL[dtype]:g}); exact "
+                f"cases (identical, orthogonal, zero) held: {exact}")
+        ms = cuda_ms(lambda: [collectives.adasum_combine(a, b)
+                              for a, b in pairs], 10)
+        nbytes = 3 * out["elements"] * pairs[0][0].element_size()
+        out[str(dtype)] = {"max_rel_err": worst, "ms": ms,
+                           "bound_ms": nbytes / PEAK_BYTES_S * 1e3}
+    return out
+
+
+def phase_hvd(resnet_losses: list | None = None,
+              resnet_noise: float = 0.0) -> dict:
+    """The Horovod slice (``tpuframe_torch.parallel.hvd``, ``bootstrap``,
+    ``launch.launcher``), run in processes that LocalCluster starts with
+    the launcher's environment:
+
+      (a) a world of one over NCCL: every hvd verb and op on CUDA
+          tensors against its plain expectation, the seconds to the
+          group and to the first collective, then imagenet_resnet50 at
+          RESNET_CUTS with grad_reduce="adasum": its losses equal phase
+          12's (``resnet_losses``; within ``resnet_noise``, the measured
+          difference of two straight runs, when that is not 0), every
+          fused conv+BN launch on the tensor cores;
+      (b) cifar10_resnet18 as two processes on the one card over gloo
+          (HVD_CIFAR_CUTS): the hvd verbs on CUDA tensors under gloo (the
+          collectives gloo does not take on CUDA refused); the ranks'
+          final states bit-identical; step 1 against the plain
+          data-parallel step (HVD_DP_RTOL); the loss falls; step p50 and
+          rank 0's idle share, which are gloo's copies through the host,
+          not NCCL's cost;
+      (c) ``adasum_combine`` at ResNet-50's leaf shapes against float64;
+      (d) probes: each raw torch.distributed verb on CUDA tensors under
+          gloo, and an NCCL world of two on the one card (NCCL's own
+          error expected); written down, not held.
+
+    ``resnet_losses`` None: phase 12 runs first for its losses."""
+    if resnet_losses is None:
+        resnet_losses = phase_resnet_train()["losses"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    card = _card_line()
+    root = tempfile.mkdtemp(prefix="tpuframe_hvd_")
+    try:
+        t0 = time.monotonic()
+        _hvd_launch("nccl", 1, os.path.join(root, "nccl.json"))
+        a = json.loads(Path(root, "nccl.json").read_text())
+        a_wall = time.monotonic() - t0
+        t0 = time.monotonic()
+        _hvd_launch("cifar", 2, os.path.join(root, "cifar.json"),
+                    {"TPUFRAME_DIST_BACKEND": "gloo"})
+        b = json.loads(Path(root, "cifar.json").read_text())
+        ranks = [torch.load(os.path.join(root, f"cifar.json.{r}.pt"))
+                 for r in range(2)]
+        b_wall = time.monotonic() - t0
+        plain = _hvd_plain_dp_step([rk["batch"] for rk in ranks],
+                                   ranks[0]["init"])
+        combine = _adasum_combine_check()
+        probes = _hvd_probes(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    problems = []
+    bad = [k for k, ok in a["checks"].items() if not ok]
+    if bad:
+        problems.append(f"(a) NCCL world of one: {bad} failed")
+    diff = max(abs(x - y) for x, y in zip(a["losses"], resnet_losses))
+    if len(a["losses"]) != len(resnet_losses) or not diff <= resnet_noise:
+        problems.append(f"(a) adasum losses {a['losses']} vs phase 12's "
+                        f"{resnet_losses}: {diff:.3e}, beyond two straight "
+                        f"runs' {resnet_noise:.3e}")
+    steps = len(a["losses"])
+    want = {"fused_conv_bn_bwd": 36 * steps, "flash_fwd": 0,
+            "flash_bwd_delta": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+            "precision_probe": 0}
+    if a["launches"] != want or a["routes"] != {
+            "tensor_core": 36 * steps, "cuda_core": 0}:
+        problems.append(f"(a) launches {a['launches']} by route "
+                        f"{a['routes']}, want {want}, all tensor-core")
+    bad = {k: v for k, v in b["verbs"].items() if v not in ("ok", "refused")}
+    if bad:
+        problems.append(f"(b) hvd verbs on CUDA under gloo: {bad}")
+    if len(set(b["digests"])) != 1:
+        problems.append(f"(b) the ranks' final states differ: "
+                        f"{b['digests']}")
+    step1 = ranks[0]["step1"]
+    got = {n: t for n, t in ckpt_mod._flatten(step1)}
+    dp_err, worst = 0.0, None
+    for name, ref in plain.items():
+        if not isinstance(ref, torch.Tensor):
+            if got[name] != ref:
+                problems.append(f"(b) step 1 {name}: {got[name]} vs {ref}")
+            continue
+        scale = ref.double().abs().max().item()
+        err = (got[name].double() - ref.double()).abs().max().item() / (
+            scale if scale > 0 else 1.0)
+        if err > dp_err:
+            dp_err, worst = err, name
+    if not dp_err <= HVD_DP_RTOL:
+        problems.append(f"(b) step 1 against the plain data-parallel step: "
+                        f"{worst} off by {dp_err:.3e} of its largest entry "
+                        f"(tolerance {HVD_DP_RTOL:g})")
+    losses = b["losses"]
+    if (len(losses) != HVD_CIFAR_CUTS["total_steps"]
+            or not b["step1_again"] < losses[0]
+            or not all(math.isfinite(x) for x in losses)):
+        problems.append(f"(b) losses {losses}, step 1's batches again at "
+                        f"the end {b['step1_again']}: want every step's "
+                        f"finite, and the loss on step 1's batches fallen")
+    if problems:
+        raise RuntimeError("hvd: " + "; ".join(problems))
+    p50 = statistics.median(b["step_ms"][1:])
+    idle = 1 - b["device_ms"] / b["wall_step"]
+    log(f"[hvd] {card}: (a) world of one over NCCL: group in "
+        f"{a['group_s']:.2f} s, first collective at "
+        f"{a['first_collective_s']:.2f} s; {len(a['checks'])} verb checks "
+        f"held; NCCL kernels in the verbs {a['nccl_kernels']}; "
+        f"imagenet_resnet50 bn=fused grad_reduce=adasum losses "
+        f"{a['losses']} equal phase 12's (max |diff| {diff:.3e}); step ms "
+        f"{[round(x, 1) for x in a['step_ms']]}; launches {a['launches']}; "
+        f"{a_wall:.1f} s")
+    log(f"[hvd] {card}: (b) cifar10_resnet18, two processes on one card "
+        f"over gloo, batch 256 (128 a rank), {len(losses)} steps in "
+        f"{b_wall:.1f} s: losses {[round(x, 4) for x in losses[:3]]}..."
+        f"{[round(x, 4) for x in losses[-3:]]} (step 1's batches again at "
+        f"the end: {b['step1_again']:.4f}), eval loss "
+        f"{b['eval_loss']:.4f} accuracy {b['eval_accuracy']:.4f}; final "
+        f"states bit-identical ({b['digests'][0][:16]}); step 1 against "
+        f"the plain data-parallel step: max error {dp_err:.3e} ({worst}); "
+        f"step ms p50 {p50:.2f} and rank 0's idle share {idle:.3f}, both "
+        f"gloo through the host (not NCCL's cost); profiled step: wall "
+        f"{b['wall_step']:.2f} ms, rank 0's device {b['device_ms']:.2f} "
+        f"ms; top: " + "; ".join(f"{k} {ms:.2f} ms x{c}"
+                                 for k, ms, c in b["top"]))
+    log(f"[hvd] hvd verbs on CUDA under gloo: {b['verbs']}")
+    log(f"[hvd] {card}: (c) adasum_combine at ResNet-50's "
+        f"{combine['leaves']} leaf shapes ({combine['elements']} entries) "
+        f"against float64: " + "; ".join(
+            f"{k}: max error {v['max_rel_err']:.3e}, {v['ms']:.3f} ms over "
+            f"all leaves (bound {v['bound_ms']:.4f} ms, bytes)"
+            for k, v in combine.items() if isinstance(v, dict))
+        + "; identical, orthogonal and zero inputs exact")
+    log(f"[hvd] probes: raw torch.distributed verbs on CUDA tensors under "
+        f"gloo: {probes['gloo_cuda']}; NCCL world of two on one card: "
+        f"{probes['nccl_pair']}")
+    return {"launches": a["launches"], "nccl": a, "cifar_p50": p50,
+            "cifar_idle": idle, "dp_err": dp_err, "combine": combine,
+            "probes": probes}
+
+
+def _hvd_probes(root: str) -> dict:
+    """(d) The two probes, at once: what a failed or hung probe shows is
+    its finding."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def probe(name, env):
+        out = os.path.join(root, f"{name}.json")
+        try:
+            _hvd_launch(name, 2, out, env, timeout=HVD_PROBE_TIMEOUT_S)
+            status = "both ranks exited 0"
+        except RuntimeError as e:
+            lines = [ln for ln in str(e).splitlines()
+                     if re.search(r"\(exit |NCCL|Duplicate|Error|timed out|"
+                                  r"signal", ln)]
+            status = "failed: " + " | ".join(lines[:6])[:900]
+        return out, status
+
+    with ThreadPoolExecutor(2) as pool:
+        gloo = pool.submit(probe, "probe", {"TPUFRAME_DIST_BACKEND": "gloo"})
+        pair = pool.submit(probe, "nccl_pair", {})
+        (g_out, g_status), (_, p_status) = gloo.result(), pair.result()
+    found = {}
+    for r in range(2):
+        if os.path.exists(f"{g_out}.{r}"):
+            for verb, what in json.loads(
+                    Path(f"{g_out}.{r}").read_text()).items():
+                found.setdefault(verb, []).append(what)
+    found = {verb: whats[0] if len(set(whats)) == 1 else
+             {f"rank {r}": w for r, w in enumerate(whats)}
+             for verb, whats in found.items()}
+    found["(world)"] = g_status
+    return {"gloo_cuda": found, "nccl_pair": p_status}
+
+
+HVD_WORKERS = {"nccl": hvd_worker_nccl, "probe": hvd_worker_probe,
+               "nccl_pair": hvd_worker_nccl_pair, "cifar": hvd_worker_cifar}
+
+
 def wall_ms(fn, calls: int) -> float:
     fn()
     t = time.monotonic()
@@ -2751,7 +3343,14 @@ def main(argv=None) -> int:
                     help="comma-separated subset of "
                          f"{','.join(PHASES)} (debugging: a partial run "
                          "prints neither the kernels line nor the ok line)")
+    ap.add_argument("--hvd-worker", nargs=2, metavar=("NAME", "OUT"),
+                    help="run one rank of a phase-hvd world (LocalCluster "
+                         "starts these)")
     args = ap.parse_args(argv)
+    if args.hvd_worker is not None:
+        name, out = args.hvd_worker
+        HVD_WORKERS[name](out)
+        return 0
     phase_card()
     t0 = time.monotonic()
     phase_build()
@@ -2778,6 +3377,7 @@ def main(argv=None) -> int:
     cifar = phase_cifar_train()
     variants = phase_resnet_variants(resnet)
     ckpt_run = phase_ckpt(resnet["losses"])
+    hvd_run = phase_hvd(resnet["losses"], ckpt_run["resnet"]["noise"])
 
     by_path = {name: {"serve": serve_launches[name],
                       "lm_train": train["launches"][name],
@@ -2790,7 +3390,8 @@ def main(argv=None) -> int:
                       "resnet_variants": variants["launches"][name],
                       "ckpt_lm_resume": ckpt_run["lm"]["launches"][name],
                       "ckpt_resnet_resume":
-                          ckpt_run["resnet"]["launches"][name]}
+                          ckpt_run["resnet"]["launches"][name],
+                      "hvd_resnet": hvd_run["launches"][name]}
                for name in launch_counts()}
     attn = "B=8 S=4096 N=12 D=64 bf16 causal"
     ops = "tpuframe/ops/"
@@ -2884,7 +3485,8 @@ PHASES = {"kernels": phase_kernels, "backward": phase_backward,
           "bert_parity": phase_bert_parity, "bert_serve": phase_bert_serve,
           "bert_train": phase_bert_train, "mnist_train": phase_mnist_train,
           "cifar_train": phase_cifar_train,
-          "resnet_variants": phase_resnet_variants, "ckpt": phase_ckpt}
+          "resnet_variants": phase_resnet_variants, "ckpt": phase_ckpt,
+          "hvd": phase_hvd}
 
 
 if __name__ == "__main__":

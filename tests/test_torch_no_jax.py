@@ -54,6 +54,10 @@ CKPT_SLICE = {"tpuframe_torch.native", "tpuframe_torch.ckpt",
               "tpuframe_torch.resilience.faults",
               "tpuframe_torch.resilience.preempt", "tpuframe_torch.obs",
               "tpuframe_torch.obs.events", "tpuframe_torch.data.gcs"}
+# The Horovod slice's modules.
+HVD_SLICE = {"tpuframe_torch.parallel.bootstrap",
+             "tpuframe_torch.parallel.hvd", "tpuframe_torch.launch",
+             "tpuframe_torch.launch.launcher"}
 
 
 def test_port_and_chip_smoke_import_without_jax():
@@ -66,3 +70,4 @@ def test_port_and_chip_smoke_import_without_jax():
     # their modules, the serving CLI) and every later slice's
     assert len(names) >= 14
     assert CKPT_SLICE <= names, CKPT_SLICE - names
+    assert HVD_SLICE <= names, HVD_SLICE - names

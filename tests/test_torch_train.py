@@ -406,7 +406,7 @@ def test_distributed_false_trains_with_no_collective(tmp_path):
     ({}, {"TPUFRAME_EVENTS_DIR": "/nonexistent"}, 1, "run events.*item 11"),
     ({}, {"TPUFRAME_WEIGHT_UPDATE": "zero1"}, 1, "ZeRO-1"),
     ({}, {"TPUFRAME_HIER": "hier"}, 1, "hierarchical"),
-    ({"grad_reduce": "adasum"}, {}, 1, "adasum"),
+    ({}, {"HOROVOD_FUSION_THRESHOLD": "67108864"}, 1, "bucketed fusion"),
     ({"model": "transformer-lm-pp"}, {}, 1, "pipeline"),
     ({"mesh": {"data": 1, "fsdp": 2}}, {}, 2, "sharded state"),
     ({"mesh": {"data": 1, "seq": -1}}, {}, 4, "sequence parallelism"),

@@ -1,15 +1,42 @@
-"""The data-parallel world, from ``torch.distributed``.
+"""The data-parallel world and its collectives, on ``torch.distributed``
+(counterpart of ``tpuframe/parallel/collectives.py``).
 
 The JAX package names mesh axes and reduces over them with ``psum`` /
-``pmean`` inside its compiled step; here the world is the default process
-group (NCCL on the card, gloo on the CPU), or a world of one when no group
-is initialised, where every reduction is the identity.
+``pmean`` inside its compiled step.  Here the world is the default process
+group that ``tpuframe_torch.parallel.bootstrap.initialize`` makes from the
+launcher's environment (NCCL on the card, gloo on the CPU, or the backend
+``TPUFRAME_DIST_BACKEND`` names), or a world of one when there is no
+group, where every collective is the identity.
+
+Each collective takes the group it runs over: :func:`group` (None in a
+world of one: the train step's shortcut) or :func:`process_group` (the
+default group whenever one exists: the ``hvd`` verbs, which go through
+``torch.distributed`` even in a world of one).  A ``None`` group is the
+identity.  Ranks are the group's, and the group spans the world.
+
+gloo takes CUDA tensors for some verbs only (:data:`GLOO_CUDA_VERBS`); the
+others (point-to-point: Adasum) raise, naming the verb and the backend,
+and nothing is staged through the host by this module.
 """
 
 from __future__ import annotations
 
+from typing import Sequence
+
 import torch
 import torch.distributed as dist
+
+# The verbs this module calls whose gloo implementation takes CUDA
+# tensors.  torch.distributed's backend table lists all_reduce and
+# broadcast; on an H100 with torch 2.11 (chip_smoke.py's hvd phase) gloo
+# also gave the right results for all_gather and all_to_all_single (and
+# reduce, gather, scatter, reduce_scatter_tensor), while its
+# point-to-point sends failed.
+GLOO_CUDA_VERBS = frozenset({"all_reduce", "broadcast", "all_gather",
+                             "all_to_all"})
+
+_OPS = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN,
+        "max": dist.ReduceOp.MAX}
 
 
 def world() -> tuple[int, int]:
@@ -24,6 +51,38 @@ def group():
     """The default group when it spans more than one rank, else None: the
     ``reduce`` argument of the loss functions."""
     return dist.group.WORLD if world()[0] > 1 else None
+
+
+def process_group():
+    """The default group whenever one is initialised, of any size, else
+    None."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.group.WORLD
+    return None
+
+
+def _check_device(verb: str, t: torch.Tensor, grp) -> None:
+    """Raise where gloo cannot take ``t``'s device for ``verb``."""
+    if (t.device.type != "cpu" and dist.get_backend(grp) == "gloo"
+            and verb not in GLOO_CUDA_VERBS):
+        raise RuntimeError(
+            f"{verb} on a {t.device.type} tensor: the gloo backend takes "
+            f"{t.device.type} tensors only for {sorted(GLOO_CUDA_VERBS)}; "
+            f"use the nccl backend or CPU tensors")
+
+
+def _check_ranks(grp, ranks: Sequence[int]) -> None:
+    """Every rank must exist in the world, else a masked or rooted
+    collective would drop contributions (Horovod raises too)."""
+    n = dist.get_world_size(grp)
+    bad = [int(r) for r in ranks if not 0 <= int(r) < n]
+    if bad:
+        raise ValueError(f"ranks {bad} out of range for a {n}-rank world")
+
+
+def _dense(t: torch.Tensor) -> torch.Tensor:
+    """A fresh contiguous copy of ``t``, for a collective to work in."""
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 class _AllReduceSum(torch.autograd.Function):
@@ -60,3 +119,165 @@ def mean_(tensors, grp) -> None:
     for t in tensors:
         dist.all_reduce(t, group=grp)
         t.div_(n)
+
+
+def allreduce(t: torch.Tensor, grp, op: str = "sum") -> torch.Tensor:
+    """``t`` reduced over ``grp`` elementwise by ``op``: ``sum``, ``mean``
+    (the sum over the world size), ``min`` or ``max``."""
+    if grp is None:
+        return t
+    _check_device("all_reduce", t, grp)
+    out = _dense(t)
+    dist.all_reduce(out, op=_OPS["sum" if op == "mean" else op], group=grp)
+    if op == "mean":
+        out.div_(dist.get_world_size(grp))
+    return out
+
+
+def allreduce_start_(t: torch.Tensor, grp, op: str = "sum"):
+    """Start an in-place allreduce of ``t`` over ``grp`` and return its
+    ``Work`` (``async_op=True``).  ``mean`` sums: the caller divides by
+    the world size once the work is done."""
+    if not t.is_contiguous():
+        raise ValueError("an in-place allreduce needs a contiguous tensor")
+    _check_device("all_reduce", t, grp)
+    return dist.all_reduce(t, op=_OPS["sum" if op == "mean" else op],
+                           group=grp, async_op=True)
+
+
+def reduce_prod(t: torch.Tensor, grp) -> torch.Tensor:
+    """Elementwise product over the world (Horovod ``op=hvd.Product``),
+    as the JAX package computes it: gather every rank's tensor, then
+    multiply in rank order, so zeros and negative values stay exact."""
+    if grp is None:
+        return t
+    return allgather(t.unsqueeze(0), grp).prod(dim=0)
+
+
+def broadcast(t: torch.Tensor, grp, root: int = 0) -> torch.Tensor:
+    """``root``'s ``t`` on every rank (Horovod broadcast)."""
+    if grp is None:
+        return t
+    _check_ranks(grp, (root,))
+    _check_device("broadcast", t, grp)
+    out = _dense(t)
+    dist.broadcast(out, dist.get_global_rank(grp, root), group=grp)
+    return out
+
+
+def allgather(t: torch.Tensor, grp) -> torch.Tensor:
+    """Every rank's ``t`` concatenated along dim 0, in rank order (Horovod
+    allgather; equal shapes on every rank, as in the JAX package)."""
+    if grp is None:
+        return t
+    _check_device("all_gather", t, grp)
+    parts = [torch.empty_like(t, memory_format=torch.contiguous_format)
+             for _ in range(dist.get_world_size(grp))]
+    dist.all_gather(parts, t.contiguous(), group=grp)
+    return torch.cat(parts)
+
+
+def alltoall(t: torch.Tensor, grp) -> torch.Tensor:
+    """Horovod alltoall with equal splits: dim 0 cut into one block a
+    rank, block ``j`` sent to rank ``j``, the received blocks
+    concatenated in rank order."""
+    if grp is None:
+        return t
+    n = dist.get_world_size(grp)
+    if t.shape[0] % n:
+        raise ValueError(f"alltoall: dim 0 ({t.shape[0]}) does not split "
+                         f"evenly over {n} ranks")
+    _check_device("all_to_all", t, grp)
+    out = torch.empty_like(t, memory_format=torch.contiguous_format)
+    dist.all_to_all_single(out, t.contiguous(), group=grp)
+    return out
+
+
+def adasum_combine(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Adasum's pairwise combine (arXiv:2006.02924):
+
+        (1 - a.b / 2|a|^2) a + (1 - a.b / 2|b|^2) b
+
+    with each coefficient 0 where its norm is 0.  The dots and the
+    combine are in f32 whatever the dtype, and the result has ``a``'s
+    dtype.  It is the input when ``a == b`` and the sum when ``a`` is
+    orthogonal to ``b``.  Swapping the operands gives the same bits (each
+    dot multiplies the same pairs and sums them in the same order), which
+    keeps the two ranks of a pair in lockstep."""
+    a32, b32 = a.float(), b.float()
+    dot = (a32 * b32).sum()
+    na = (a32 * a32).sum()
+    nb = (b32 * b32).sum()
+    ca = torch.where(na > 0, dot / (2 * na), 0.0)
+    cb = torch.where(nb > 0, dot / (2 * nb), 0.0)
+    return ((1 - ca) * a32 + (1 - cb) * b32).to(a.dtype)
+
+
+def adasum_(tensors: Sequence[torch.Tensor], grp) -> None:
+    """Adaptive summation of each tensor over the world, in place
+    (Horovod ``op=hvd.Adasum``; the JAX package's ``collectives.adasum``).
+
+    A butterfly: at stage ``k`` rank ``i`` swaps its vectors with rank
+    ``i ^ 2**k`` (one batch of point-to-point sends and receives) and
+    both apply :func:`adasum_combine`, so after log2(world) stages every
+    rank holds the same bits.  Per tensor, in f32 from the first stage to
+    the last, then cast back.  The world must be a power of two; a world
+    of one is the identity."""
+    if grp is None:
+        return
+    n = dist.get_world_size(grp)
+    if n & (n - 1):
+        raise ValueError(f"adasum butterfly needs a power-of-two replica "
+                         f"count, got {n}")
+    if n == 1:
+        return
+    for t in tensors:
+        _check_device("send/recv", t, grp)
+    rank = dist.get_rank(grp)
+    vs = [t.float().clone(memory_format=torch.contiguous_format)
+          for t in tensors]
+    for k in range(n.bit_length() - 1):
+        peer = dist.get_global_rank(grp, rank ^ (1 << k))
+        others = [torch.empty_like(v) for v in vs]
+        ops = [dist.P2POp(dist.isend, v, peer, grp) for v in vs]
+        ops += [dist.P2POp(dist.irecv, o, peer, grp) for o in others]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        vs = [adasum_combine(v, o) for v, o in zip(vs, others)]
+    for t, v in zip(tensors, vs):
+        t.copy_(v)
+
+
+def masked_allreduce(t: torch.Tensor, grp, ranks: Sequence[int], *,
+                     average: bool = True) -> torch.Tensor:
+    """Allreduce over the ranks in ``ranks`` only (Horovod
+    ``process_set=``): members get the subgroup's sum or mean, the others
+    keep their ``t``.  One reduction over the whole world with zeros from
+    non-members, as in the JAX package."""
+    if grp is None:
+        return t
+    _check_ranks(grp, ranks)
+    members = {int(r) for r in ranks}
+    member = dist.get_rank(grp) in members
+    total = _dense(t) if member else torch.zeros_like(
+        t, memory_format=torch.contiguous_format)
+    _check_device("all_reduce", total, grp)
+    dist.all_reduce(total, group=grp)
+    if average:
+        total = (total.float() / len(members)).to(t.dtype)
+    return total if member else t
+
+
+def masked_broadcast(t: torch.Tensor, grp, ranks: Sequence[int], *,
+                     root: int) -> torch.Tensor:
+    """``root``'s ``t`` on the ranks in ``ranks`` only; the others keep
+    theirs (Horovod ``broadcast(..., process_set=...)``)."""
+    if grp is None:
+        return t
+    members = {int(r) for r in ranks}
+    if root not in members:
+        raise ValueError(f"root {root} is not a member of the process set "
+                         f"{sorted(members)}")
+    _check_ranks(grp, ranks)
+    out = broadcast(t, grp, root)
+    return out if dist.get_rank(grp) in members else t

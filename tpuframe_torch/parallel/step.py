@@ -3,9 +3,12 @@ core of ``tpuframe/parallel/step.py``).
 
 The JAX package traces the whole step into one program and lets the
 ``pmean`` of the loss emit the gradient reduction.  Here the step runs
-eagerly: forward and backward per microbatch, then one in-place mean of
-the gradients over the ``torch.distributed`` world (a world of one when no
-group is initialised), then the optimizer.  The same contract holds:
+eagerly: forward and backward per microbatch, then one in-place reduction
+of the gradients over the ``torch.distributed`` world (a world of one when
+no group is initialised), then the optimizer.  The reduction is the mean
+(Horovod's averaged allreduce) or, with ``grad_reduce="adasum"``, Adasum
+of the local gradients (``collectives.adasum_``), the identity in a world
+of one.  The same contract holds:
 
   - every rank starts from the same parameters and applies the same
     averaged gradients, so parameters stay in lockstep;
@@ -18,7 +21,8 @@ group is initialised), then the optimizer.  The same contract holds:
   - BatchNorm running statistics (the model's float buffers) update in
     each replica's forward from its own batch, once per microbatch in
     order, and are then averaged over the world, which keeps them
-    single-valued as the JAX step's ``pmean`` of ``model_state`` does.
+    single-valued as the JAX step's ``pmean`` of ``model_state`` does
+    (under Adasum too).
 
 With ``distributed=False`` the steps run no collective even in a process
 group: each process trains alone, as the JAX package's unmapped step on
@@ -82,16 +86,20 @@ def dropout_seed(seed: int, step: int, rank: int, micro: int = 0) -> int:
 def make_train_step(loss_fn: LossFn, *, accum_steps: int = 1,
                     grad_reduce: str = "mean", distributed: bool = True):
     """``train_step(state, batch) -> metrics``: forward, backward, the
-    world's gradient mean (none unless ``distributed``) and the optimizer
-    update, in place on ``state``.  ``metrics`` holds ``loss``,
-    ``grad_norm`` and the loss function's metrics, as 0-d tensors on the
-    model's device."""
+    world's gradient reduction (none unless ``distributed``): the mean,
+    or Adasum with ``grad_reduce="adasum"``, and the optimizer update, in
+    place on ``state``.  ``metrics`` holds ``loss``, ``grad_norm`` and the
+    loss function's metrics, as 0-d tensors on the model's device.
+
+    Adasum needs each rank's own gradients, so its loss must be local (no
+    reduction inside the loss function); with ``accum_steps`` the
+    microbatches' gradients are accumulated locally in the parameters'
+    f32 and one Adasum runs at the end, as in the JAX step."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
-    if grad_reduce != "mean":
-        raise NotImplementedError(
-            f"grad_reduce={grad_reduce!r} is not ported yet (adasum: "
-            f"ROADMAP.md queue 1, item 6)")
+    if grad_reduce not in ("mean", "adasum"):
+        raise ValueError(f"grad_reduce must be 'mean' or 'adasum', "
+                         f"got {grad_reduce!r}")
 
     def train_step(state: TrainState, batch: dict) -> dict:
         model = state.model
@@ -117,7 +125,11 @@ def make_train_step(loss_fn: LossFn, *, accum_steps: int = 1,
         stats = [b for b in model.buffers() if b.is_floating_point()]
         out = {k: v / accum_steps for k, v in metric_sums.items()}
         out["loss"] = loss_sum / accum_steps
-        collectives.mean_(grads + stats + list(out.values()), grp)
+        if grad_reduce == "adasum":
+            collectives.adasum_(grads, grp)
+            collectives.mean_(stats + list(out.values()), grp)
+        else:
+            collectives.mean_(grads + stats + list(out.values()), grp)
         out["grad_norm"] = state.opt.step()
         state.step += 1
         return out
@@ -140,15 +152,3 @@ def make_eval_step(metric_fn: Callable[[nn.Module, dict], dict], *,
 
     return eval_step
 
-
-def broadcast_parameters(model: nn.Module, root: int = 0) -> None:
-    """Every rank takes ``root``'s parameters (Horovod's
-    ``broadcast_parameters`` at start-up)."""
-    grp = collectives.group()
-    if grp is None:
-        return
-    import torch.distributed as dist
-
-    with torch.no_grad():
-        for p in model.parameters():
-            dist.broadcast(p, root, group=grp)

@@ -18,9 +18,14 @@ replicated data-parallel step → a host loop that feeds batches, logs and
 evaluates, printing the JAX harness's ``[tpuframe] ...``, ``[train N]`` and
 ``[eval N]`` lines.  It runs on the GPU unless ``--device cpu`` is given;
 with no GPU visible it raises instead of falling back.  Several ranks come
-from ``torch.distributed`` (initialise the default group before
-:func:`main`, e.g. through ``torchrun``); the data degree of the config's
-mesh must equal the world size.  A config with ``distributed=False``
+from the launcher's environment, as in the JAX harness
+(``TPUFRAME_COORDINATOR``, ``TPUFRAME_NUM_PROCESSES``,
+``TPUFRAME_PROCESS_ID``; ``TPUFRAME_DIST_BACKEND`` names the backend, by
+default NCCL on the GPU and gloo on the CPU): the harness starts the world
+itself (``parallel.bootstrap``), one process a card, or joins a default
+group the caller made (torchrun).  ``launch.launcher.LocalCluster`` starts
+N ranks of this command on one host.  The data degree of the config's mesh
+must equal the world size.  A config with ``distributed=False``
 (``mnist_single``) trains on one device with no collective, even in a
 process group, as the JAX harness's config-1 path does.  f32 means f32:
 the harness turns TF32 off for cuDNN's convolutions and for matmuls.
@@ -37,8 +42,8 @@ and the port does not yet refuses loudly, naming its ROADMAP.md item:
 the observability plane (the trainer's run events, TensorBoard, traces,
 the metrics exporter: item 11), pipeline, fsdp, tensor and expert
 parallelism, ZeRO-1, quantized or hierarchical collectives, bucketed
-fusion, adasum, sequence parallelism (a seq degree above 1) and elastic
-resizing.
+fusion, sequence parallelism (a seq degree above 1) and elastic
+resizing.  ``grad_reduce="adasum"`` reduces the gradients by Adasum.
 
 Checkpoints and preemption, as in the JAX harness and on its on-disk
 format (``tpuframe_torch.ckpt``): with ``--ckpt-dir DIR`` (or ``ckpt_dir``)
@@ -73,7 +78,9 @@ from tpuframe_torch.data import datasets
 from tpuframe_torch.data.pipeline import ShardedLoader
 from tpuframe_torch.models import losses
 from tpuframe_torch.ops import fused_xent as fx
+from tpuframe_torch.parallel import bootstrap
 from tpuframe_torch.parallel import collectives
+from tpuframe_torch.parallel import hvd
 from tpuframe_torch.parallel import step as step_lib
 from tpuframe_torch.resilience import faults
 from tpuframe_torch.resilience.preempt import RC_PREEMPTED, PreemptionGuard
@@ -81,7 +88,7 @@ from tpuframe_torch.utils.config import TrainConfig, get_config
 from tpuframe_torch.utils.optim import build_optimizer
 
 ITEM_11 = "ROADMAP.md queue 1, item 11 (run plumbing: obs, the launcher)"
-ITEM_12 = "ROADMAP.md queue 1, item 12 (beyond-DP parallelism)"
+ITEM_12 = bootstrap.ITEM_12
 
 # Environment knobs of the JAX harness that select what the port lacks,
 # with the value that means "off".
@@ -91,7 +98,6 @@ _UNPORTED_ENV = {
     "TPUFRAME_WIRE_FORMAT": ("fp", f"quantized collectives, {ITEM_12}"),
     "TPUFRAME_WIRE_FORMAT_DCN": ("fp", f"quantized collectives, {ITEM_12}"),
     "TPUFRAME_HIER": ("flat", f"hierarchical collectives, {ITEM_12}"),
-    "TPUFRAME_FUSION_THRESHOLD": (None, f"bucketed fusion, {ITEM_12}"),
     "TPUFRAME_EVENTS_DIR": (None, f"the trainer's run events (run_start, "
                                   f"step, run_end need the goodput meter),"
                                   f" {ITEM_11}"),
@@ -106,6 +112,7 @@ _UNPORTED_ENV = {
 def _refuse_unported(cfg: TrainConfig, world: int) -> dict:
     """Raise ``NotImplementedError`` for anything the port cannot run;
     returns the mesh degrees on ``world`` ranks."""
+    bootstrap.refuse_fusion_env()
     for var, (off, what) in _UNPORTED_ENV.items():
         val = os.environ.get(var, "").strip()
         if val and val != off:
@@ -114,9 +121,6 @@ def _refuse_unported(cfg: TrainConfig, world: int) -> dict:
     if cfg.tb_dir is not None:
         raise NotImplementedError(f"TensorBoard logging is not ported yet "
                                   f"({ITEM_11})")
-    if cfg.grad_reduce != "mean":
-        raise NotImplementedError(f"grad_reduce={cfg.grad_reduce!r} is not "
-                                  f"ported yet (ROADMAP.md queue 1, item 6)")
     datasets.check(cfg.dataset)
     sizes = cfg.mesh.sizes(world)
     if sizes["pipe"] > 1 or cfg.model == "transformer-lm-pp":
@@ -160,14 +164,15 @@ def _group(cfg: TrainConfig):
 def _lm_reduce(cfg: TrainConfig):
     """The group of the global valid-token mean (``losses.masked_mean``).
     Gradient accumulation differentiates a local loss per microbatch, and
-    a per-rank valid-token mean would be biased by unequal padding, so
-    that pairing is refused, as in the JAX harness."""
-    if cfg.accum_steps > 1:
+    Adasum needs each rank's own gradients, so both take a local loss; a
+    per-rank valid-token mean would be biased by unequal padding, so
+    ``padded_docs`` is refused with them, as in the JAX harness."""
+    if cfg.accum_steps > 1 or cfg.grad_reduce == "adasum":
         if cfg.distributed and cfg.dataset_kwargs.get("padded_docs"):
             raise ValueError(
-                "padded_docs with accum_steps>1: that path needs a local "
-                "loss, and a per-rank valid-token mean would be biased by "
-                "unequal padding across ranks")
+                "padded_docs with accum_steps>1 or grad_reduce='adasum': "
+                "these paths need a local loss, and a per-rank valid-token "
+                "mean would be biased by unequal padding across ranks")
         return None
     return _group(cfg)
 
@@ -363,6 +368,7 @@ def make_metric_fn(cfg: TrainConfig):
 
 
 def build_harness(cfg: TrainConfig, device="cuda") -> Harness:
+    bootstrap.initialize(device=device)
     world, rank = collectives.world() if cfg.distributed else (1, 0)
     _refuse_unported(cfg, world)
     dev = _device.resolve(device)
@@ -373,7 +379,8 @@ def build_harness(cfg: TrainConfig, device="cuda") -> Harness:
     model = models.get_model(cfg.model, dtype=cfg.compute_dtype, device=dev,
                              seed=cfg.seed, **cfg.model_kwargs)
     if cfg.distributed:
-        step_lib.broadcast_parameters(model)
+        # parameters and buffers (BatchNorm statistics), as the reference
+        hvd.broadcast_parameters(model.state_dict(), root_rank=0)
     train_ds, eval_ds = datasets.build(cfg.dataset, cfg.data_dir,
                                        **cfg.dataset_kwargs)
     _check_labels(cfg, (("train", train_ds), ("eval", eval_ds)))
@@ -422,7 +429,7 @@ def _resume(cfg: TrainConfig, state: step_lib.TrainState):
         resumed = manager.restore_latest(target=state.to_tree())
         if resumed is not None:
             state.load_tree(resumed[1])
-            if collectives.world()[1] == 0:
+            if bootstrap.is_primary():
                 print(f"[tpuframe] resumed from step {state.step}",
                       flush=True)
     return manager
@@ -487,7 +494,7 @@ def _train(cfg: TrainConfig, device, guard: PreemptionGuard) -> dict:
     # in-process callers train repeatedly under different environments
     faults.reset_from_env()
     h = build_harness(cfg, device)
-    primary = collectives.world()[1] == 0
+    primary = bootstrap.is_primary()
     if primary:
         n_params = sum(p.numel() for p in h.state.model.parameters())
         print(f"[tpuframe] {cfg.name}: model={cfg.model} "
@@ -552,7 +559,7 @@ def _exit_preempted(h: Harness, step: int, guard: PreemptionGuard):
     it was just saved, drain the async saves within
     ``TPUFRAME_FLUSH_DEADLINE_S`` (each commits or is quarantined), then
     exit with rc 14."""
-    primary = collectives.world()[1] == 0
+    primary = bootstrap.is_primary()
     if h.manager is not None:
         if not h.manager.should_save(step):
             h.manager.save(step, h.state.to_tree())
@@ -604,7 +611,7 @@ def main(argv: list[str] | None = None) -> dict:
     cfg = cfg.with_overrides(**overrides)
     t0 = time.time()
     metrics = train(cfg, device=args.device)
-    if collectives.world()[1] == 0:
+    if bootstrap.is_primary():
         shown = {k: round(v, 5) if isinstance(v, float) else v
                  for k, v in metrics.items()
                  if k not in ("losses", "step_ms")}
@@ -615,3 +622,4 @@ def main(argv: list[str] | None = None) -> dict:
 
 if __name__ == "__main__":
     main()
+    bootstrap.shutdown()

@@ -33,6 +33,14 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
      hidden 768, 12 layers, 12 heads, vocab 32000, bf16, flash attention),
      with every kernel's launch count and the forward's routes read
      around that run;
+ 7b. the serving fleet (``fleet``): the same engine in two replica
+     processes (``--replica-worker``) behind ``serve.router.Router``, 24
+     traced Poisson requests: (a) clean, every request's tokens bit-equal
+     to an in-process engine's, each replica's flash launches 12 a
+     prefill on the tensor cores (counted in the replica, reset after its
+     warm-up), its /metrics gauges, the merged traces verified, SIGTERM
+     drains to rc 0; (b) the same with ``replica_crash`` on replica 1:
+     nothing lost, a drain and a redispatch;
   8. one training step's loss and gradients at full width in f32, flash
      kernels against the plain einsum attention; then the same in bf16
      (the tensor-core route), both routes held to the f32 gradients;
@@ -154,6 +162,10 @@ from tpuframe_torch.models import get_model  # noqa: E402
 from tpuframe_torch.models.bert import BertConfig  # noqa: E402
 from tpuframe_torch.models.transformer_lm import LMConfig  # noqa: E402
 from tpuframe_torch.obs import events  # noqa: E402
+from tpuframe_torch.obs import exporter as obs_exporter  # noqa: E402
+from tpuframe_torch.obs import goodput as obs_goodput  # noqa: E402
+from tpuframe_torch.obs import slo as slo_lib  # noqa: E402
+from tpuframe_torch.obs import tracing  # noqa: E402
 from tpuframe_torch.models import resnet as resnet_lib  # noqa: E402
 from tpuframe_torch.ops import attention as attn  # noqa: E402
 from tpuframe_torch.ops import flash_attention as fa  # noqa: E402
@@ -162,7 +174,10 @@ from tpuframe_torch.ops import precision_probe as pp  # noqa: E402
 from tpuframe_torch.parallel import collectives, hvd  # noqa: E402
 from tpuframe_torch.parallel import step as step_lib  # noqa: E402
 from tpuframe_torch.serve import kv_cache as kv  # noqa: E402
+from tpuframe_torch.resilience import faults  # noqa: E402
 from tpuframe_torch.serve import loadgen  # noqa: E402
+from tpuframe_torch.serve import router as router_lib  # noqa: E402
+from tpuframe_torch.serve import replica as replica_lib  # noqa: E402
 from tpuframe_torch.serve.engine import (BertClassifier, LMEngine,  # noqa: E402
                                         parity_diffs)
 from tpuframe_torch.utils.config import get_config  # noqa: E402
@@ -448,6 +463,21 @@ HVD_DP_RTOL = 1e-4
 # bf16 leaf is rounded to bf16 once at the end: one bf16 step, 2^-8 of
 # the entry (so at most 2^-8 of the largest), on top of f32's 1e-5.
 HVD_COMBINE_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -8 + 1e-5}
+
+# The serving fleet (phase ``fleet``): phase serve's engine in each of
+# FLEET_REPLICAS replica processes behind the port's router.  Seeded
+# Poisson arrivals at FLEET_RATE a second, fast enough to keep both
+# replicas' slots busy; NEW_TOKENS each.  Run (b) arms
+# replica_crash:step=FLEET_CRASH_STEP:rank=1.  Workers exit after
+# FLEET_MAX_IDLE_S without work, so no orphan holds the card.
+FLEET_REPLICAS = 2
+FLEET_REQUESTS = 24
+FLEET_RATE = 16.0
+FLEET_CRASH_STEP = 3
+FLEET_READY_TIMEOUT_S = 240
+FLEET_RUN_TIMEOUT_S = 120
+FLEET_MAX_IDLE_S = 120
+FLEET_ROUTER_PROC = FLEET_REPLICAS + 90   # the router's event-file id
 
 
 def log(msg: str) -> None:
@@ -1020,22 +1050,33 @@ def _pct(vals, q):
     return vals[min(len(vals) - 1, int(round(q * (len(vals) - 1))))]
 
 
-def phase_serve() -> dict:
+def _serve_engine() -> LMEngine:
+    """The serving slice's engine: TransformerLM at lm_long's widths in
+    bf16 with the flash forward, 4 slots, buckets 128/256/512, seed 0."""
     cfg = LMConfig(dtype="bfloat16", attn_impl="pallas")
-    buckets = kv.DEFAULT_PROMPT_BUCKETS
+    return LMEngine(cfg, slots=4, prompt_buckets=kv.DEFAULT_PROMPT_BUCKETS,
+                    decode_block=kv.DEFAULT_DECODE_BLOCK, seed=0)
+
+
+def _warm_up(engine: LMEngine) -> None:
+    """Every bucket once (library handles, allocator), outside a counted
+    run; then a fresh decode cache."""
+    loadgen.run_loadgen(engine, loadgen.synthetic_requests(
+        3, buckets=engine.prompt_buckets, vocab_size=engine.cfg.vocab_size,
+        max_new_tokens=2, seed=1))
+    engine.reset()
+
+
+def phase_serve() -> tuple:
     t0 = time.monotonic()
-    engine = LMEngine(cfg, slots=4, prompt_buckets=buckets,
-                      decode_block=kv.DEFAULT_DECODE_BLOCK, seed=0)
+    engine = _serve_engine()
+    cfg, buckets = engine.cfg, engine.prompt_buckets
     n_params = sum(p.numel() for p in engine.model.parameters())
     log(f"[serve] engine: {n_params / 1e6:.1f} M params, capacity "
         f"{engine.spec.capacity}, KV cache "
         f"{engine.spec.total_bytes() / 1e6:.1f} MB, built in "
         f"{time.monotonic() - t0:.1f} s")
-    # Warm-up (library handles, allocator), outside the counted run.
-    loadgen.run_loadgen(engine, loadgen.synthetic_requests(
-        3, buckets=buckets, vocab_size=cfg.vocab_size, max_new_tokens=2,
-        seed=1))
-    engine.reset()
+    _warm_up(engine)
 
     reqs = loadgen.synthetic_requests(
         SERVE_REQUESTS, buckets=buckets, vocab_size=cfg.vocab_size,
@@ -1069,6 +1110,9 @@ def phase_serve() -> dict:
 
     ttft = [r.ttft_ms() for r in reqs]
     tpot = [r.tpot_ms() for r in reqs]
+    summary = {"tokens_per_s": stats["tokens_per_s"],
+               "ttft_p50": _pct(ttft, .5), "ttft_p90": _pct(ttft, .9),
+               "tpot_p50": _pct(tpot, .5), "tpot_p90": _pct(tpot, .9)}
     log(f"[serve] {stats['requests']} requests over buckets {hit} "
         f"({ragged} ragged), {stats['total_tokens']} tokens in "
         f"{stats['wall_s']} s: {stats['tokens_per_s']} tokens/s; "
@@ -1085,7 +1129,315 @@ def phase_serve() -> dict:
                        wall_ms(lambda: engine.prefill(ids), 5))
     profile_window(f"decode step ({engine.slots} slots)", engine.decode_step,
                    wall_ms(engine.decode_step, 20))
-    return launches, routes
+    return launches, routes, summary
+
+
+def replica_worker(rank: int, out: str, ready: str) -> int:
+    """One fleet replica (phase ``fleet``): phase serve's engine, warmed
+    up, its launch counts reset, then served behind ``Replica`` until a
+    SIGTERM drain (or FLEET_MAX_IDLE_S without work).  The parent sets
+    ``TPUFRAME_METRICS_PORT=0``, ``TPUFRAME_PROCESS_ID`` and
+    ``TPUFRAME_EVENTS_DIR`` (and, in run (b), ``TPUFRAME_FAULTS``).  The
+    kernels were built by the parent: the engine loads them.  After the
+    drain the counts go to ``out``; a crashed replica writes nothing."""
+    faults.reset_from_env()
+    engine = _serve_engine()
+    _warm_up(engine)             # before the log opens: no warm-up events
+    events.init()
+    torch.cuda.synchronize()
+    reset_launches()
+    rep = replica_lib.Replica(engine, stall_timeout_s=5.0)
+    signal.signal(signal.SIGTERM, rep.drain)
+    if rep.exporter is None or rep.exporter.port is None:
+        raise SystemExit("replica worker: no scrape endpoint")
+    tmp = f"{ready}.tmp"
+    Path(tmp).write_text(f"{replica_lib.READY_PREFIX} "
+                         f"port={rep.exporter.port} "
+                         f"pid={os.getpid()}\n")
+    os.replace(tmp, ready)
+    rc = rep.run(max_idle_s=FLEET_MAX_IDLE_S)
+    torch.cuda.synchronize()
+    Path(out).write_text(json.dumps({
+        "rank": rank, "prefills": len(rep.scheduler.completed),
+        "launches": launch_counts(), "routes": dict(fa.FWD_ROUTES),
+        "steps": rep.scheduler.step_count}))
+    events.close()
+    obs_exporter.stop()
+    return rc
+
+
+def _spawn_fleet(root: str, name: str, fault_rank: int | None) -> list:
+    """FLEET_REPLICAS ``chip_smoke.py --replica-worker`` processes with the
+    fleet's environment; ``fault_rank`` gets replica_crash."""
+    procs = []
+    for rank in range(FLEET_REPLICAS):
+        env = dict(os.environ)
+        env.pop("TPUFRAME_FAULTS", None)
+        env.update({"TPUFRAME_METRICS_PORT": "0",
+                    "TPUFRAME_PROCESS_ID": str(rank),
+                    "TPUFRAME_EVENTS_DIR": os.path.join(root, name),
+                    "TPUFRAME_TRACE_SAMPLE": "1"})
+        if rank == fault_rank:
+            env["TPUFRAME_FAULTS"] = (f"replica_crash:step={FLEET_CRASH_STEP}"
+                                      f":rank={rank}")
+        base = os.path.join(root, f"{name}.{rank}")
+        logf = open(f"{base}.log", "wb")
+        proc = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()),
+             "--replica-worker", str(rank), f"{base}.json", f"{base}.ready"],
+            env=env, stdout=logf, stderr=subprocess.STDOUT)
+        logf.close()
+        procs.append((proc, f"{base}.ready", f"{base}.log", f"{base}.json"))
+    return procs
+
+
+def _fleet_run(root: str, name: str, reqs: list, procs: list) -> dict:
+    """Serve ``reqs`` through the port's Router over the fleet ``procs``
+    (:func:`_spawn_fleet`); the router's events go to the same directory
+    under process id FLEET_ROUTER_PROC, as ``fleet_smoke`` does.  Every
+    worker is drained with SIGTERM (or killed) before this returns."""
+    saved = {k: os.environ.get(k) for k in ("TPUFRAME_PROCESS_ID",
+                                             "TPUFRAME_TRACE_SAMPLE")}
+    try:
+        t0 = time.monotonic()
+        ports = [router_lib._wait_ready(p, ready,
+                                        timeout_s=FLEET_READY_TIMEOUT_S)
+                 for p, ready, _, _ in procs]
+        ready_s = time.monotonic() - t0
+        urls = [f"http://127.0.0.1:{port}" for port in ports]
+        os.environ["TPUFRAME_PROCESS_ID"] = str(FLEET_ROUTER_PROC)
+        os.environ["TPUFRAME_TRACE_SAMPLE"] = "1"
+        events.init(os.path.join(root, name))
+        router = router_lib.Router(
+            urls, scrape_interval_s=0.05, scrape_timeout_s=1.0,
+            dispatch_timeout_s=60.0, max_inflight_per_replica=4)
+        t0 = time.monotonic()
+        out = router.run(reqs, timeout_s=FLEET_RUN_TIMEOUT_S, log=log)
+        out["serve_s"] = time.monotonic() - t0
+        out["ready_s"] = ready_s
+        out["tokens"] = {q.rid: q.result["tokens"] for q in router.completed}
+        out["scrapes"] = {}
+        for rank, (p, *_rest) in enumerate(procs):
+            if p.poll() is None:
+                out["scrapes"][rank] = router_lib.http_transport(
+                    f"{urls[rank]}/metrics", None, 5.0)[1]
+        events.close()
+        for p, *_rest in procs:
+            if p.poll() is None:
+                p.terminate()            # the graceful drain (SIGTERM)
+        out["exit_codes"] = [p.wait(timeout=60) for p, *_rest in procs]
+        out["workers"] = {}
+        for rank, (_p, _r, _l, res) in enumerate(procs):
+            if os.path.exists(res):
+                out["workers"][rank] = json.loads(Path(res).read_text())
+        out["events"] = events.merge(os.path.join(root, name))
+        return out
+    except BaseException:
+        for rank, (_p, _r, logp, _res) in enumerate(procs):
+            if os.path.exists(logp):
+                log(f"[fleet] replica {rank} log tail:\n"
+                    + Path(logp).read_text(errors="replace")[-3000:])
+        raise
+    finally:
+        events.close()
+        for key, val in saved.items():
+            if val is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = val
+        for p, *_rest in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def _fleet_checks(run: dict, reqs: list, want: dict, *, crash: bool,
+                  num_layers: int) -> list:
+    problems = []
+    tag = "(b)" if crash else "(a)"
+    if run["lost"] or run["timed_out"] or run["shed"]:
+        problems.append(f"{tag} lost {run['lost']}, shed {run['shed']}, "
+                        f"timed out {run['timed_out']}")
+    if run["requests"] != len(reqs):
+        problems.append(f"{tag} {run['requests']}/{len(reqs)} answered")
+    wrong = sorted(rid for rid, toks in run["tokens"].items()
+                   if toks != want[rid])
+    if wrong:
+        problems.append(f"{tag} tokens of rids {wrong} differ from the "
+                        f"in-process engine's")
+    served = {r.get("replica") for r in run["events"]
+              if r.get("type") == "router_request"}
+    codes = [0] * FLEET_REPLICAS
+    if crash:
+        codes[1] = faults._CRASH_RC
+        if run["drains"] < 1 or run["redispatched"] < 1:
+            problems.append(f"{tag} {run['drains']} drains, "
+                            f"{run['redispatched']} redispatches")
+    elif served != {f"r{i}" for i in range(FLEET_REPLICAS)}:
+        problems.append(f"{tag} replicas that answered: {sorted(served)}")
+    if run["exit_codes"] != codes:
+        problems.append(f"{tag} exit codes {run['exit_codes']}, want "
+                        f"{codes}")
+    for rank, w in run["workers"].items():
+        n = w["launches"]["flash_fwd"]
+        others = {k: v for k, v in w["launches"].items()
+                  if k != "flash_fwd" and v}
+        if (n != num_layers * w["prefills"] or others or w["routes"]
+                != {"tensor_core": n, "cuda_core": 0}):
+            problems.append(f"{tag} replica {rank}: launches "
+                            f"{w['launches']} by route {w['routes']}, want "
+                            f"{num_layers} x {w['prefills']} prefills, all "
+                            f"tensor-core")
+    if not crash:
+        for rank in range(FLEET_REPLICAS):
+            text = run["scrapes"].get(rank, "")
+            gauges = router_lib.parse_gauges(text, (
+                "tpuframe_serve_queue_depth", "tpuframe_serve_active_slots",
+                "tpuframe_open_spans"))
+            if (gauges != {"tpuframe_serve_queue_depth": 0.0,
+                           "tpuframe_serve_active_slots": 0.0,
+                           "tpuframe_open_spans": 0.0}
+                    or 'tpuframe_serve_ttft_ms{quantile="p50"}' not in text):
+                problems.append(f"{tag} replica {rank} /metrics: {gauges}")
+        if len(run["workers"]) != FLEET_REPLICAS:
+            problems.append(f"{tag} counts from {sorted(run['workers'])}")
+    found = (tracing.verify_traces(run["events"])
+             + tracing.span_anomalies(run["events"]))
+    if crash:
+        # the JAX chaos tier's contract: the only findings are the killed
+        # replica's serve spans, leaked (its orphaned work), and there
+        # are some; every admitted request has one complete root
+        leaked = [f for f in found if f["kind"] == "leaked_span"
+                  and str(f.get("host", "")).endswith("-p1")]
+        if not leaked:
+            problems.append(f"{tag} the killed replica leaked no span")
+        found = [f for f in found if f not in leaked]
+        traces = tracing.build_traces(run["events"])
+        roots = [len(traces[r["trace"]].complete_roots())
+                 for r in run["events"] if r.get("type") == "router_admit"]
+        if roots != [1] * len(reqs):
+            problems.append(f"{tag} complete roots a request: {roots}")
+    if found:
+        problems.append(f"{tag} traces: " + "; ".join(
+            f"[{p['kind']}] {p['detail']}" for p in found[:5]))
+    return problems
+
+
+def phase_fleet(serve: dict | None = None) -> dict:
+    """The serving fleet (``serve/replica.py``, ``serve/router.py``,
+    ``obs/tracing.py``, ``obs/exporter.py``, ``obs/slo.py``): phase serve's
+    engine in FLEET_REPLICAS replica processes on the one card
+    (``--replica-worker``) behind the port's Router, with every request
+    traced.  FLEET_REQUESTS seeded Poisson requests over the three
+    buckets, ragged lengths included:
+
+      (a) clean: all answered, none lost or shed, both replicas serving;
+          every request's tokens bit-equal to the same request through an
+          in-process engine of the same config and seed; each replica's
+          flash_fwd launches 12 x its prefills, all on the tensor cores;
+          each replica's /metrics with its queue, slot and TTFT gauges
+          and tpuframe_open_spans 0 after the run; verify_traces and
+          span_anomalies clean on the merged events; SIGTERM drains both
+          to rc 0;
+      (b) the same with replica_crash:step=FLEET_CRASH_STEP:rank=1: none
+          lost, a drain and a redispatch, exit codes 0 and the crash
+          fault's, every answer's tokens still the in-process ones; on
+          the traces, one complete root a request, and no finding but
+          the killed replica's leaked serve spans (the JAX chaos tier's
+          contract).
+
+    Prints the fleet's tokens/s, TTFT (router, queue-inclusive) and TPOT
+    p50/p90 beside phase serve's single engine (``serve``; None: phase
+    serve runs first), and the SLO sentry's burn rates (informational)."""
+    if serve is None:
+        serve = phase_serve()[2]
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="tpuframe_fleet_")
+    try:
+        t_phase = time.monotonic()
+        reqs = loadgen.synthetic_requests(
+            FLEET_REQUESTS, buckets=kv.DEFAULT_PROMPT_BUCKETS,
+            vocab_size=LMConfig().vocab_size, max_new_tokens=NEW_TOKENS,
+            seed=0, rate=FLEET_RATE)
+        procs = _spawn_fleet(root, "clean", None)
+        try:
+            # the in-process reference, while the fleet starts
+            ref = _serve_engine()
+            cfg = ref.cfg
+            _warm_up(ref)
+            ref_reqs = [loadgen.Request(rid=r.rid, prompt=list(r.prompt),
+                                        max_new_tokens=r.max_new_tokens,
+                                        arrival_t=r.arrival_t) for r in reqs]
+            loadgen.run_loadgen(ref, ref_reqs)
+            want = {r.rid: [int(t) for t in r.tokens] for r in ref_reqs}
+            del ref
+            gc.collect()
+            torch.cuda.empty_cache()
+        except BaseException:
+            for p, *_rest in procs:
+                p.kill()
+                p.wait()
+            raise
+        clean = _fleet_run(root, "clean", reqs, procs)
+        crash = _fleet_run(root, "crash", reqs,
+                           _spawn_fleet(root, "crash", 1))
+        phase_s = time.monotonic() - t_phase
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    problems = (_fleet_checks(clean, reqs, want, crash=False,
+                              num_layers=cfg.num_layers)
+                + _fleet_checks(crash, reqs, want, crash=True,
+                                num_layers=cfg.num_layers))
+    hit = sorted({kv.bucket_for(len(r.prompt), kv.DEFAULT_PROMPT_BUCKETS)
+                  for r in reqs})
+    ragged = sum(len(r.prompt) not in kv.DEFAULT_PROMPT_BUCKETS
+                 for r in reqs)
+    if hit != list(kv.DEFAULT_PROMPT_BUCKETS) or not ragged:
+        problems.append(f"buckets hit {hit}, {ragged} ragged prompts")
+    if problems:
+        raise RuntimeError("fleet: " + "; ".join(problems))
+
+    fleet = obs_goodput.fleet_stats(clean["events"])
+    served = obs_goodput.serve_stats(clean["events"])
+    tokens = sum(len(t) for t in clean["tokens"].values())
+    tok_s = tokens / clean["serve_s"]
+    launches = {name: sum(w["launches"][name]
+                          for w in clean["workers"].values())
+                for name in launch_counts()}
+    log(f"[fleet] (a) {clean['requests']}/{len(reqs)} requests over buckets "
+        f"{hit} ({ragged} ragged), {tokens} tokens in "
+        f"{clean['serve_s']:.3f} s: {tok_s:.2f} tokens/s through "
+        f"{FLEET_REPLICAS} replicas (ready in {clean['ready_s']:.1f} s); "
+        f"by replica {fleet['by_replica']}, hedged {clean['hedged']}, "
+        f"duplicates {clean['duplicates']}; router TTFT p50 "
+        f"{fleet['ttft_ms']['p50']:.2f} ms p90 {fleet['ttft_ms']['p90']:.2f}"
+        f" ms; replica TTFT p50 {served['ttft_ms']['p50']:.2f} ms; TPOT p50 "
+        f"{served['tpot_ms']['p50']:.2f} ms p90 "
+        f"{served['tpot_ms']['p90']:.2f} ms; tokens bit-equal to the "
+        f"in-process engine; flash_fwd launches "
+        + ", ".join(f"r{k}: {w['launches']['flash_fwd']} = "
+                    f"{cfg.num_layers} x {w['prefills']} prefills"
+                    for k, w in sorted(clean["workers"].items()))
+        + "; traces verified; exit codes " + str(clean["exit_codes"]))
+    log(f"[fleet] phase serve's single engine, same run: "
+        f"{serve['tokens_per_s']} tokens/s, TTFT p50 {serve['ttft_p50']:.2f}"
+        f" ms p90 {serve['ttft_p90']:.2f} ms, TPOT p50 "
+        f"{serve['tpot_p50']:.2f} ms p90 {serve['tpot_p90']:.2f} ms")
+    log(f"[fleet] (b) replica_crash:step={FLEET_CRASH_STEP}:rank=1: "
+        f"{crash['requests']}/{len(reqs)} answered, lost {crash['lost']}, "
+        f"{crash['drains']} drain(s), {crash['redispatched']} "
+        f"redispatched, exit codes {crash['exit_codes']}, tokens bit-equal")
+    burn = slo_lib.evaluate(clean["events"])
+    log("[fleet] SLO burn (informational): " + "; ".join(
+        f"{row['slo']} rc-part {'breach' if row['breached'] else 'met'}, "
+        f"worst burn "
+        + ", ".join(f"{w['window_s']:g}s {w['burn']}" for w in row["windows"])
+        for row in burn["slos"]) + f"; rc {burn['rc']}")
+    log(f"[fleet] phase {phase_s:.1f} s")
+    return {"launches": launches, "tokens_per_s": tok_s,
+            "ttft_ms": fleet["ttft_ms"], "tpot_ms": served["tpot_ms"]}
 
 
 def phase_grad_parity() -> None:
@@ -3346,11 +3698,18 @@ def main(argv=None) -> int:
     ap.add_argument("--hvd-worker", nargs=2, metavar=("NAME", "OUT"),
                     help="run one rank of a phase-hvd world (LocalCluster "
                          "starts these)")
+    ap.add_argument("--replica-worker", nargs=3,
+                    metavar=("RANK", "OUT", "READY"),
+                    help="run one replica of phase fleet (the phase starts "
+                         "these)")
     args = ap.parse_args(argv)
     if args.hvd_worker is not None:
         name, out = args.hvd_worker
         HVD_WORKERS[name](out)
         return 0
+    if args.replica_worker is not None:
+        rank, out, ready = args.replica_worker
+        return replica_worker(int(rank), out, ready)
     phase_card()
     t0 = time.monotonic()
     phase_build()
@@ -3363,7 +3722,8 @@ def main(argv=None) -> int:
     bwd = phase_backward()
     probe = phase_probe()
     phase_parity()
-    serve_launches, serve_routes = phase_serve()
+    serve_launches, serve_routes, serve_summary = phase_serve()
+    fleet = phase_fleet(serve_summary)
     phase_grad_parity()
     phase_grad_parity_bf16()
     train = phase_train()
@@ -3380,6 +3740,7 @@ def main(argv=None) -> int:
     hvd_run = phase_hvd(resnet["losses"], ckpt_run["resnet"]["noise"])
 
     by_path = {name: {"serve": serve_launches[name],
+                      "fleet": fleet["launches"][name],
                       "lm_train": train["launches"][name],
                       "resnet_train": resnet["launches"][name],
                       "probe": probe["launches"][name],
@@ -3477,6 +3838,7 @@ def main(argv=None) -> int:
 
 PHASES = {"kernels": phase_kernels, "backward": phase_backward,
           "probe": phase_probe, "parity": phase_parity, "serve": phase_serve,
+          "fleet": phase_fleet,
           "grad_parity": phase_grad_parity,
           "grad_parity_bf16": phase_grad_parity_bf16, "train": phase_train,
           "conv_bn": phase_conv_bn,

@@ -58,6 +58,11 @@ CKPT_SLICE = {"tpuframe_torch.native", "tpuframe_torch.ckpt",
 HVD_SLICE = {"tpuframe_torch.parallel.bootstrap",
              "tpuframe_torch.parallel.hvd", "tpuframe_torch.launch",
              "tpuframe_torch.launch.launcher"}
+# The stall watchdog and the serving fleet's modules.
+FLEET_SLICE = {"tpuframe_torch.obs.heartbeat", "tpuframe_torch.obs.tracing",
+               "tpuframe_torch.obs.exporter", "tpuframe_torch.obs.slo",
+               "tpuframe_torch.obs.goodput", "tpuframe_torch.serve.replica",
+               "tpuframe_torch.serve.router"}
 
 
 def test_port_and_chip_smoke_import_without_jax():
@@ -71,3 +76,4 @@ def test_port_and_chip_smoke_import_without_jax():
     assert len(names) >= 14
     assert CKPT_SLICE <= names, CKPT_SLICE - names
     assert HVD_SLICE <= names, HVD_SLICE - names
+    assert FLEET_SLICE <= names, FLEET_SLICE - names

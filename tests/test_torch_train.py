@@ -411,6 +411,14 @@ def test_distributed_false_trains_with_no_collective(tmp_path):
     ({"mesh": {"data": 1, "fsdp": 2}}, {}, 2, "sharded state"),
     ({"mesh": {"data": 1, "seq": -1}}, {}, 4, "sequence parallelism"),
     ({"tb_dir": "/nonexistent"}, {}, 1, "TensorBoard"),
+    ({}, {"TPUFRAME_REMAT_POLICY": "dots"}, 1, "remat policies.*item 14"),
+    ({}, {"TPUFRAME_BENCH_REMAT": "1"}, 1, "remat policies.*item 14"),
+    ({}, {"TPUFRAME_TIMELINE": "/nonexistent/t.json"}, 1,
+     "step timeline.*item 11"),
+    ({}, {"TPUFRAME_PROFILER_PORT": "9012"}, 1, "profiler server.*item 11"),
+    ({}, {"TPUFRAME_DEVMEM_INTERVAL_S": "5"}, 1,
+     "device-memory sampler.*item 11"),
+    ({}, {"TPUFRAME_CHECK_SPMD": "1"}, 1, "program check.*item 11"),
 ])
 def test_unported_features_refuse_loudly(overrides, env, world, match,
                                          monkeypatch):

@@ -8,13 +8,21 @@ Record envelope (every line)::
      "host": "<hostname>-p<rank>", "proc": <rank>, "attempt": <int>,
      ...type-specific fields}
 
+``<rank>`` is :func:`tpuframe_torch.parallel.bootstrap.process_index`:
+the group rank, else ``TPUFRAME_PROCESS_ID``, so each replica and the
+router of a serving fleet (processes with no group) write files of their
+own.
+
 The port emits ``ckpt_save``, ``ckpt_restore``, ``fault_injected``,
 ``retry`` and ``preempt`` (checkpointing, fault injection, the retry
-policy and the preemption guard).  The trainer's ``run_start``, ``step``
-and ``run_end`` need the goodput meter and wait for ROADMAP.md queue 1,
-item 11; until then the trainer refuses ``TPUFRAME_EVENTS_DIR``, and a
-caller that wants the events opens the log with :func:`init`.  Every
-``emit`` is a no-op while no log is open, and never raises.
+policy and the preemption guard), ``stall`` (the watchdog), the serving
+``serve_*``, ``router_*`` and span events (``serve/``,
+``obs/tracing.py``).  The trainer's ``run_start``, ``step`` and
+``run_end`` need the goodput meter and wait for ROADMAP.md queue 1, item
+11; until then the trainer refuses ``TPUFRAME_EVENTS_DIR``, and a caller
+that wants the events opens the log with :func:`init` (a fleet replica
+does, from ``TPUFRAME_EVENTS_DIR``).  Every ``emit`` is a no-op while no
+log is open, and never raises.
 """
 
 from __future__ import annotations
@@ -26,7 +34,7 @@ import socket
 import threading
 import time
 
-from tpuframe_torch.parallel import collectives
+from tpuframe_torch.parallel import bootstrap
 
 SCHEMA_VERSION = 2
 ACCEPTED_SCHEMAS = (1, 2)
@@ -101,7 +109,7 @@ class EventLog:
 
     def __init__(self, directory: str, *, host: str | None = None,
                  proc: int | None = None):
-        self.proc = collectives.world()[1] if proc is None else proc
+        self.proc = bootstrap.process_index() if proc is None else proc
         self.host = host or f"{_hostname()}-p{self.proc}"
         os.makedirs(directory, exist_ok=True)
         self.path = os.path.join(directory, f"events.{self.host}.jsonl")

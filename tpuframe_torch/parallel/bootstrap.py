@@ -167,8 +167,16 @@ def shutdown() -> None:
 
 def process_index() -> int:
     """This process's rank (Horovod's ``hvd.rank()``: one process a
-    card)."""
-    return collectives.world()[1]
+    card): the group rank when a process group exists, else
+    ``TPUFRAME_PROCESS_ID``, else 0.  The event log's ``proc`` and the
+    fault registry's ``rank=`` read it, so that processes with no group
+    (the serving fleet's replicas and router) keep their own ids, as the
+    JAX package's ``_process_index`` does.  Under every launcher of the
+    repo the group rank and the variable agree."""
+    if collectives.process_group() is not None:
+        return collectives.world()[1]
+    env = os.environ.get("TPUFRAME_PROCESS_ID", "").strip()
+    return int(env) if env else 0
 
 
 def process_count() -> int:

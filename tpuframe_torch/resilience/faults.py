@@ -31,11 +31,13 @@ Seams, and where the port fires them:
                            ``crash``)
   sigterm_pending_upload   right after an async save is enqueued (default
                            kind ``sigterm``: drives the flush before rc 14)
-  replica_crash,           the serving replica's loop and weight swap:
-  replica_hang,            they parse here and fire nowhere until the
-  replica_slow,            serving fleet is ported (ROADMAP.md queue 1,
-  slow_canary,             item 13)
-  crash_during_swap
+  replica_crash,           ``serve/replica.py``: the replica's main
+  replica_hang,            loop, once an iteration, with the step pinned
+  replica_slow             to the scheduler's step count
+  slow_canary              the replica's loop, only while it serves a
+                           weights version it was not launched with
+  crash_during_swap        the replica's weight swap, after the swap was
+                           accepted and before the version flips
   =======================  ==============================================
 
 Kinds: ``ioerror`` (raise a retryable :class:`InjectedFault`), ``slow``
@@ -46,7 +48,9 @@ the real signal to this process), ``hang`` (sleep forever),
 
 Matching: ``step=N`` gates on the training step (the trainer calls
 :func:`set_step`); ``times=T`` caps firings (default 1); ``rank=R``
-restricts to one rank of the ``torch.distributed`` world; ``once=1`` drops
+restricts to one rank (:func:`tpuframe_torch.parallel.bootstrap.
+process_index`: the group rank, else ``TPUFRAME_PROCESS_ID``, so a fleet
+replica with no group keeps its id); ``once=1`` drops
 the fault on a resumed run, so that a relaunch survives the step that
 killed it.  The old ``TPUFRAME_FAULT_STEP``/``TPUFRAME_FAULT_ONCE``
 aliases are refused loudly: a fault the operator believes armed that never
@@ -61,7 +65,7 @@ import time
 from dataclasses import dataclass
 
 from tpuframe_torch.obs import events
-from tpuframe_torch.parallel import collectives
+from tpuframe_torch.parallel import bootstrap
 
 _KINDS = ("ioerror", "slow", "corrupt", "torn", "crash", "sigterm",
           "sigint", "hang", "partial_sigterm")
@@ -142,7 +146,7 @@ def parse(spec: str) -> list[Fault]:
 
 
 def _rank() -> int:
-    return collectives.world()[1]
+    return bootstrap.process_index()
 
 
 class FaultRegistry:

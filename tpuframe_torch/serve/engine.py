@@ -66,8 +66,40 @@ class LMEngine:
         self.model = TransformerLM(cfg, device=self.device, seed=seed)
         if params is not None:
             self.model.load_state_dict(params)
+        # what swap_params takes: the model's own state dict, before the
+        # serving cast
+        self._param_spec = [(k, tuple(v.shape), v.dtype)
+                            for k, v in self.model.state_dict().items()]
         _freeze_for_serving(self.model)
         self.reset()
+
+    @torch.no_grad()
+    def swap_params(self, new_params) -> None:
+        """The one live weight-swap seam (``tpuframe/serve/engine.py``
+        ``swap_params``): copies ``new_params``, a state dict of the
+        port's model as the constructor's ``params`` takes it, into the
+        served weights in place, with the serving cast.  The caller runs
+        it between scheduler steps (the replica's main loop), so no
+        prefill or decode sees half a swap; the decode cache is kept.
+        Other keys, shapes or dtypes mean the weights are for another
+        model, and are refused with the JAX engine's messages."""
+        if (not isinstance(new_params, dict)
+                or sorted(new_params) != sorted(k for k, *_ in
+                                               self._param_spec)):
+            raise ValueError(
+                "swap_params: new weights have a different tree "
+                "structure — this checkpoint is not for this model")
+        for i, (key, shape, dtype) in enumerate(self._param_spec):
+            b = new_params[key]
+            if tuple(b.shape) != shape or b.dtype != dtype:
+                raise ValueError(
+                    f"swap_params: leaf {i} is {_spec(b.shape, b.dtype)}, "
+                    f"engine compiled for {_spec(shape, dtype)} — a "
+                    f"shape-changing update needs a new engine, not a "
+                    f"hot swap")
+        served = self.model.state_dict()
+        for key, *_ in self._param_spec:
+            served[key].copy_(new_params[key])
 
     def reset(self) -> None:
         """Fresh (zeroed) decode cache; every slot becomes free."""
@@ -125,6 +157,11 @@ class LMEngine:
         self._tokens = logits[:, 0].argmax(dim=-1, keepdim=True)
         self._lengths += 1
         return self._tokens[:, 0].cpu().numpy()
+
+
+def _spec(shape, dtype) -> str:
+    """``(768, 768)/float32``, as the JAX engine prints a leaf."""
+    return f"{tuple(shape)}/{str(dtype).removeprefix('torch.')}"
 
 
 def _freeze_for_serving(model) -> None:

@@ -5,7 +5,8 @@ Arrivals are a seeded Poisson process on a virtual clock advanced once per
 scheduler step, so the *schedule* is deterministic; TTFT and TPOT are
 measured on the host clock by the scheduler.  Every engine call that
 returns tokens copies them to the host, so the host clock covers the
-device's work.
+device's work.  The summary is also emitted as a ``serve_summary``
+event.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import time
 
 import torch
 
+from tpuframe_torch.obs import events as obs_events
 from tpuframe_torch.serve.scheduler import Request, Scheduler
 
 
@@ -81,6 +83,7 @@ def run_loadgen(engine, requests, *, max_steps: int = 10_000,
         "tokens_per_s_per_chip": round(tokens_per_s / n_devices, 2),
         "n_devices": n_devices,
     }
+    obs_events.emit("serve_summary", **stats)
     if log:
         log(f"loadgen: {stats['requests']} requests, "
             f"{stats['total_tokens']} tokens in {stats['wall_s']}s "

@@ -13,14 +13,24 @@ generation never blocks a short one behind it.  Per step, in order:
   4. admit   — again, so a slot freed by this step's retires is refilled
                this step.
 
-The JAX scheduler's obs events, live exporter and tracing spans belong to
-the observability slice, not yet ported; ``Request.trace`` stays None.
+Telemetry, as in the JAX scheduler: a typed ``serve_step`` event per step
+and a ``serve_request`` event per retirement (TTFT/TPOT, token counts);
+the exporter's queue, slot, token and TTFT/TPOT collectors when
+``TPUFRAME_METRICS_PORT`` (or ``_TEXTFILE``) is set; and, for a traced
+request, the ``queue``, ``prefill`` and ``decode`` spans under its
+``serve`` span, which share their clock reads with TTFT.  All of it is a
+no-op while no event log or exporter is open.
 """
 
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
+
+from tpuframe_torch.obs import events as obs_events
+from tpuframe_torch.obs import exporter as obs_exporter
+from tpuframe_torch.obs import tracing
+from tpuframe_torch.obs.goodput import _pct
 
 
 @dataclass
@@ -35,6 +45,9 @@ class Request:
     first_token_t: float | None = None
     done_t: float | None = None
     tokens: list = field(default_factory=list)   # generated tokens
+    # Tracing context: trace id propagated in the /generate payload and
+    # the replica-side "serve" span the scheduler's queue/prefill/decode
+    # phase spans parent under.  None when the request is untraced.
     trace: str | None = None
     span: str | None = None
 
@@ -68,6 +81,37 @@ class Scheduler:
         self.completed: list = []
         self.step_count = 0
         self.tokens_generated = 0
+        # Live telemetry (obs/exporter.py, env-gated no-op otherwise):
+        # queue/slot/token gauges and TTFT/TPOT percentiles served
+        # through pull collectors — a scrape between steps must see the
+        # *current* pending depth (the router's admission signal), not
+        # the last step's snapshot.
+        self._exporter = obs_exporter.start_from_env()
+        if self._exporter is not None:
+            self._exporter.add_collector(self._latency_samples)
+            self._exporter.add_collector(self._load_samples)
+
+    def _load_samples(self):
+        return [
+            ("tpuframe_serve_queue_depth", {}, float(len(self.pending))),
+            ("tpuframe_serve_active_slots", {},
+             float(sum(r is not None for r in self.active))),
+            ("tpuframe_serve_tokens_generated", {},
+             float(self.tokens_generated)),
+        ]
+
+    def _latency_samples(self):
+        ttft = sorted(v for v in (r.ttft_ms() for r in self.completed)
+                      if v is not None)
+        tpot = sorted(v for v in (r.tpot_ms() for r in self.completed)
+                      if v is not None)
+        out = []
+        for name, vals in (("tpuframe_serve_ttft_ms", ttft),
+                           ("tpuframe_serve_tpot_ms", tpot)):
+            if vals:
+                for q, frac in (("p50", 0.5), ("p90", 0.9), ("p99", 0.99)):
+                    out.append((name, {"quantile": q}, _pct(vals, frac)))
+        return out
 
     def submit(self, request: Request) -> None:
         if len(request.prompt) > max(self.engine.prompt_buckets):
@@ -85,6 +129,7 @@ class Scheduler:
     def step(self) -> int:
         """One scheduler step (admit + decode + retire + admit).
         Returns the number of live tokens produced this step."""
+        t0 = self._clock()
         admitted = self._admit()
         produced = 0
         if any(r is not None for r in self.active):
@@ -102,6 +147,12 @@ class Scheduler:
         admitted += self._admit()
         self.step_count += 1
         self.tokens_generated += produced + admitted
+        obs_events.emit(
+            "serve_step", step=self.step_count,
+            wall_ms=round(1e3 * (self._clock() - t0), 3),
+            active=sum(r is not None for r in self.active),
+            admitted=admitted, produced=produced,
+            queued=len(self.pending))
         return produced + admitted
 
     def _admit(self) -> int:
@@ -114,10 +165,22 @@ class Scheduler:
                 slot += 1
                 continue
             req = self.pending.pop(0)
+            t_adm = self._clock()
             first_tok, pcache, length = self.engine.prefill(req.prompt)
             self.engine.insert(slot, pcache, length, first_tok)
             req.first_token_t = self._clock()
             req.tokens.append(first_tok)
+            if req.trace is not None:
+                # Phase spans share clock reads with the TTFT record:
+                # arrival -> admit is queue, admit -> first token is
+                # prefill, so queue.ms + prefill.ms == ttft_ms exactly
+                # (modulo rounding) — the verify_traces invariant.
+                tracing.span(req.trace, "queue", parent=req.span,
+                             ms=1e3 * (t_adm - req.arrival_t))
+                tracing.span(req.trace, "prefill", parent=req.span,
+                             ms=1e3 * (req.first_token_t - t_adm),
+                             engine_ms=getattr(self.engine,
+                                               "last_prefill_ms", None))
             self.active[slot] = req
             admitted += 1
             if self._finished(req, first_tok):
@@ -137,3 +200,14 @@ class Scheduler:
         if req.done_t is None:
             req.done_t = self._clock()
         self.completed.append(req)
+        if req.trace is not None and req.first_token_t is not None:
+            tracing.span(req.trace, "decode", parent=req.span,
+                         ms=1e3 * (req.done_t - req.first_token_t),
+                         tokens=len(req.tokens))
+        obs_events.emit(
+            "serve_request", id=req.rid, trace=req.trace,
+            prompt_tokens=len(req.prompt),
+            output_tokens=len(req.tokens),
+            ttft_ms=round(req.ttft_ms() or 0.0, 3),
+            tpot_ms=round(req.tpot_ms(), 3)
+            if req.tpot_ms() is not None else None)

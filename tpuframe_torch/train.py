@@ -40,10 +40,20 @@ workloads (``lm_text`` data, ``transformer-lm``) and the GLUE tasks
 and Matthews correlation at eval) train here.  What the JAX harness has
 and the port does not yet refuses loudly, naming its ROADMAP.md item:
 the observability plane (the trainer's run events, TensorBoard, traces,
-the metrics exporter: item 11), pipeline, fsdp, tensor and expert
+the metrics exporter, the step timeline, the profiler server, the
+device-memory sampler, the cross-host program check: item 11), named
+remat policies (item 14), pipeline, fsdp, tensor and expert
 parallelism, ZeRO-1, quantized or hierarchical collectives, bucketed
 fusion, sequence parallelism (a seq degree above 1) and elastic
 resizing.  ``grad_reduce="adasum"`` reduces the gradients by Adasum.
+
+The stall watchdog of the JAX harness: after the first step, a run that
+completes no step for ``TPUFRAME_STALL_TIMEOUT_S`` (300 s; polled every
+``TPUFRAME_STALL_POLL_S``, 5 s) emits a ``stall`` event and, unless
+``TPUFRAME_STALL_ABORT=0``, exits with rc 13 for a supervisor to restart
+it, rather than waiting in a collective until the process group's
+timeout.  ``TPUFRAME_HANG_STEP`` (with ``TPUFRAME_HANG_RANK``) hangs the
+loop after that step, to drive it.
 
 Checkpoints and preemption, as in the JAX harness and on its on-disk
 format (``tpuframe_torch.ckpt``): with ``--ckpt-dir DIR`` (or ``ckpt_dir``)
@@ -64,6 +74,7 @@ import argparse
 import ast
 import math
 import os
+import sys
 import time
 from dataclasses import dataclass
 
@@ -77,6 +88,8 @@ from tpuframe_torch.data import augment as augment_lib
 from tpuframe_torch.data import datasets
 from tpuframe_torch.data.pipeline import ShardedLoader
 from tpuframe_torch.models import losses
+from tpuframe_torch.obs import events
+from tpuframe_torch.obs.heartbeat import Heartbeat
 from tpuframe_torch.ops import fused_xent as fx
 from tpuframe_torch.parallel import bootstrap
 from tpuframe_torch.parallel import collectives
@@ -89,6 +102,8 @@ from tpuframe_torch.utils.optim import build_optimizer
 
 ITEM_11 = "ROADMAP.md queue 1, item 11 (run plumbing: obs, the launcher)"
 ITEM_12 = bootstrap.ITEM_12
+ITEM_14 = "ROADMAP.md queue 1, item 14 (elastic, mem, tune, analysis)"
+RC_STALLED = 13
 
 # Environment knobs of the JAX harness that select what the port lacks,
 # with the value that means "off".
@@ -106,6 +121,19 @@ _UNPORTED_ENV = {
     "TPUFRAME_METRICS_PORT": (None, f"the metrics exporter, {ITEM_11}"),
     "TPUFRAME_ELASTIC": (None, "elastic resizing, ROADMAP.md queue 1, "
                                "item 14"),
+    # the JAX default "none" (tpuframe/mem/policy.py resolve); the legacy
+    # alias acts only on "1" there, so "0" is its off value here
+    "TPUFRAME_REMAT_POLICY": ("none", f"named remat policies, {ITEM_14}"),
+    "TPUFRAME_BENCH_REMAT": ("0", f"named remat policies, {ITEM_14}"),
+    "TPUFRAME_TIMELINE": (None, f"the step timeline, {ITEM_11}"),
+    "TPUFRAME_PROFILER_PORT": (None, f"the profiler server, {ITEM_11}"),
+    # the JAX sampler's interval (tpuframe/train.py), which runs only with
+    # run events on
+    "TPUFRAME_DEVMEM_INTERVAL_S": ("30", f"the device-memory sampler, "
+                                         f"{ITEM_11}"),
+    # the JAX harness acts only on "1"
+    "TPUFRAME_CHECK_SPMD": ("0", f"the cross-host program check, "
+                                 f"{ITEM_11}"),
 }
 
 
@@ -503,6 +531,67 @@ def _train(cfg: TrainConfig, device, guard: PreemptionGuard) -> dict:
               flush=True)
     # once=1 faults are dropped on a resumed run
     faults.set_resumed(h.start_step > 0)
+    # The legacy hang injection that drives the stall path: rank
+    # TPUFRAME_HANG_RANK (every rank when unset) hangs after step
+    # TPUFRAME_HANG_STEP.
+    hang_step = int(os.environ.get("TPUFRAME_HANG_STEP", "0") or "0")
+    hang_rank = int(os.environ.get("TPUFRAME_HANG_RANK", "-1") or "-1")
+    if hang_rank >= 0 and bootstrap.process_index() != hang_rank:
+        hang_step = 0
+    heartbeat = _stall_watchdog()
+    try:
+        return _loop(cfg, h, guard, heartbeat, hang_step)
+    except Exception:
+        # A peer that stalls on this rank's step never beat the step this
+        # rank last completed, so its watchdog fires up to one beat
+        # interval before this one, and its abort closes the collective
+        # under this rank.  A loop that fails within that interval (plus
+        # one poll) of its own deadline reports the stall, as its watchdog
+        # would have an interval later; an earlier failure (a peer's crash)
+        # propagates at once.
+        heartbeat.check(slack_s=heartbeat.last_interval_s
+                        + heartbeat.poll_s)
+        raise
+    finally:
+        heartbeat.stop()
+
+
+def _stall_watchdog() -> Heartbeat:
+    """The heartbeat of the JAX harness: a peer that dies mid-collective,
+    a wedged loader or hung I/O becomes a clean exit 13 (the supervisor
+    restarts and the run resumes from its last checkpoint) instead of a
+    wait until the process group's timeout.  It arms after the first
+    completed step, which builds the kernels and tunes cuDNN and has no
+    bound.  ``TPUFRAME_STALL_TIMEOUT_S`` (300), ``TPUFRAME_STALL_POLL_S``
+    (5) and ``TPUFRAME_STALL_ABORT`` (1; 0 only logs the ``stall``
+    event)."""
+    timeout_s = float(os.environ.get("TPUFRAME_STALL_TIMEOUT_S", "300"))
+    poll_s = float(os.environ.get("TPUFRAME_STALL_POLL_S", "5"))
+    abort = os.environ.get("TPUFRAME_STALL_ABORT", "1") == "1"
+
+    def _on_stall(idle: float) -> None:
+        if not abort:
+            return
+        print(f"[tpuframe] STALL: no step completed in {idle:.0f}s — "
+              f"aborting for clean restart + checkpoint resume "
+              f"(exit {RC_STALLED})", file=sys.stderr, flush=True)
+        try:
+            # The heartbeat already emitted the stall event.  The JAX
+            # abort also writes run_end with the goodput buckets and dumps
+            # the flight recorder: both wait for the trainer's run events,
+            # which it still refuses (TPUFRAME_EVENTS_DIR, ROADMAP.md
+            # queue 1, item 11).
+            events.close()
+        finally:
+            os._exit(RC_STALLED)
+
+    return Heartbeat(timeout_s=timeout_s, poll_s=poll_s, on_stall=_on_stall,
+                     arm_after_first_beat=True).start()
+
+
+def _loop(cfg: TrainConfig, h: Harness, guard: PreemptionGuard,
+          heartbeat: Heartbeat, hang_step: int) -> dict:
+    primary = bootstrap.is_primary()
     data_iter = h.train_loader.from_step(h.state.step)
     final: dict = {}
     step_ms, step_losses, window = [], [], []
@@ -518,6 +607,11 @@ def _train(cfg: TrainConfig, device, guard: PreemptionGuard) -> dict:
         window.append(dt)
         faults.set_step(step)
         faults.fire("host")                  # crash and signal faults
+        if hang_step and step == hang_step:
+            print(f"[tpuframe] FAULT INJECTION: hanging at step {step}",
+                  flush=True)
+            time.sleep(10 ** 6)
+        heartbeat.beat(step)
         if step % cfg.log_every == 0 or step == cfg.total_steps:
             final = {k: float(v) for k, v in metrics.items()}
             rate = cfg.global_batch * len(window) / sum(window)
@@ -538,8 +632,10 @@ def _train(cfg: TrainConfig, device, guard: PreemptionGuard) -> dict:
                 print(f"[tpuframe] new best eval loss "
                       f"{eval_metrics['loss']:.4f} at step {step}",
                       flush=True)
+            heartbeat.beat(step)             # eval is progress
         if h.manager is not None:
             h.manager.maybe_save(step, h.state.to_tree())
+            heartbeat.beat(step)             # so is a long blocking save
         if guard.requested:
             _exit_preempted(h, step, guard)
     if h.manager is not None:

@@ -41,6 +41,17 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
      warm-up), its /metrics gauges, the merged traces verified, SIGTERM
      drains to rc 0; (b) the same with ``replica_crash`` on replica 1:
      nothing lost, a drain and a redispatch;
+ 7c. the live rollout (``rollout``): swap parity at full width (a hot swap
+     streams a cold start's tokens); then phase fleet's replicas, 112
+     traced requests, and the controller rolling them to seed 1's weights
+     once step 1 commits into a watched directory: (a) clean, after an
+     A/A gate between the two v0 replicas: done, both on v1, nothing
+     lost, one replica in transition at a time, every answer's tokens
+     bit-equal to an in-process engine on the version that served it,
+     the flash launches counted in the replicas, the traces verified; (b)
+     the same with a slow canary: aborted on a gate metric and rolled
+     back, both on v0; (c) ``python -m tpuframe_torch.serve --selfcheck``
+     on the card;
   8. one training step's loss and gradients at full width in f32, flash
      kernels against the plain einsum attention; then the same in bf16
      (the tensor-core route), both routes held to the f32 gradients;
@@ -178,8 +189,9 @@ from tpuframe_torch.resilience import faults  # noqa: E402
 from tpuframe_torch.serve import loadgen  # noqa: E402
 from tpuframe_torch.serve import router as router_lib  # noqa: E402
 from tpuframe_torch.serve import replica as replica_lib  # noqa: E402
+from tpuframe_torch.serve import rollout as rollout_lib  # noqa: E402
 from tpuframe_torch.serve.engine import (BertClassifier, LMEngine,  # noqa: E402
-                                        parity_diffs)
+                                        parity_diffs, swap_parity_check)
 from tpuframe_torch.utils.config import get_config  # noqa: E402
 from tpuframe_torch.utils.optim import build_optimizer  # noqa: E402
 
@@ -478,6 +490,45 @@ FLEET_READY_TIMEOUT_S = 240
 FLEET_RUN_TIMEOUT_S = 120
 FLEET_MAX_IDLE_S = 120
 FLEET_ROUTER_PROC = FLEET_REPLICAS + 90   # the router's event-file id
+
+# The live rollout (phase ``rollout``): phase fleet's replicas, run (a)
+# clean and run (b) with ROLLOUT_SLOW_CANARY armed on every replica (the
+# seam slows only a replica serving weights it was not launched with:
+# 0.25 s a loop iteration, ~8x a decode step of 31.6 ms).  ROLLOUT_REQUESTS
+# seeded Poisson requests at FLEET_RATE; once a quarter have retired, step
+# 1 commits into a watched directory and the controller rolls the fleet to
+# v1, the port's init for ROLLOUT_SEED (v0 is seed 0).  With two replicas
+# the canary takes half of the placements, what either replica gets
+# without one; the gate compares once each side has ROLLOUT_BAKE_MIN
+# answers (the slow canary answers 4 at a time, one wave of 16 tokens at
+# ~0.28 s each, so two waves; ROLLOUT_REQUESTS keeps a backlog queued
+# that long, and the router's queue holds them all: nothing is shed).  The A/A gate compares each v0 replica's last
+# ROLLOUT_BAKE_MIN answers before the roll: the gate's noise at the
+# bake's sample size.  Hedging is off in these runs: a hedge races a slow
+# canary's request against the old side, which wins, and the gate then
+# never sees the canary's answers.  The drain may wait for a slow
+# canary's wave.
+ROLLOUT_REQUESTS = 112
+ROLLOUT_SEED = 1
+ROLLOUT_CANARY_FRAC = 0.5
+ROLLOUT_BAKE_MIN = 8
+ROLLOUT_BAKE_TIMEOUT_S = 20.0
+ROLLOUT_DRAIN_TIMEOUT_S = 30.0
+ROLLOUT_SLOW_CANARY = "slow_canary:times=1000:delay_s=0.25"
+# The promotion gate's threshold, in % on the p90 of router TTFT, replica
+# TTFT and TPOT (the library default is the JAX package's 25%), set from
+# seven runs of this phase on one H100 (700 W) at ROLLOUT_BAKE_MIN answers
+# a side: the A/A gap between the two v0 replicas was 8.8-48.0% (replica
+# TTFT; at 4-6 answers it reached 452.6%, hence the bake of 8), so the
+# gate is at least 2 x 48.0%.  A clean canary against the old side came
+# to +192.2% (replica TTFT): the canary is readmitted into the router's
+# backlog and prefills a burst, which the A/A before the roll does not
+# see.  The slow canary regressed TPOT by +519% to +900% and replica TTFT
+# by +217% to +763%.  300% is 6x the largest A/A gap, 1.6x the largest
+# clean canary gap, and 1.7x under the smallest slow-canary TPOT
+# regression.
+ROLLOUT_GATE_PCT = 300.0
+ROLLOUT_BUDGET_S = 90.0
 
 
 def log(msg: str) -> None:
@@ -1050,12 +1101,13 @@ def _pct(vals, q):
     return vals[min(len(vals) - 1, int(round(q * (len(vals) - 1))))]
 
 
-def _serve_engine() -> LMEngine:
+def _serve_engine(seed: int = 0) -> LMEngine:
     """The serving slice's engine: TransformerLM at lm_long's widths in
-    bf16 with the flash forward, 4 slots, buckets 128/256/512, seed 0."""
+    bf16 with the flash forward, 4 slots, buckets 128/256/512, its
+    weights drawn from ``seed``."""
     cfg = LMConfig(dtype="bfloat16", attn_impl="pallas")
     return LMEngine(cfg, slots=4, prompt_buckets=kv.DEFAULT_PROMPT_BUCKETS,
-                    decode_block=kv.DEFAULT_DECODE_BLOCK, seed=0)
+                    decode_block=kv.DEFAULT_DECODE_BLOCK, seed=seed)
 
 
 def _warm_up(engine: LMEngine) -> None:
@@ -1166,9 +1218,11 @@ def replica_worker(rank: int, out: str, ready: str) -> int:
     return rc
 
 
-def _spawn_fleet(root: str, name: str, fault_rank: int | None) -> list:
+def _spawn_fleet(root: str, name: str, fault_rank: int | None, *,
+                 faults_spec: str | None = None) -> list:
     """FLEET_REPLICAS ``chip_smoke.py --replica-worker`` processes with the
-    fleet's environment; ``fault_rank`` gets replica_crash."""
+    fleet's environment; ``fault_rank`` gets replica_crash, and every
+    replica ``faults_spec``."""
     procs = []
     for rank in range(FLEET_REPLICAS):
         env = dict(os.environ)
@@ -1180,6 +1234,8 @@ def _spawn_fleet(root: str, name: str, fault_rank: int | None) -> list:
         if rank == fault_rank:
             env["TPUFRAME_FAULTS"] = (f"replica_crash:step={FLEET_CRASH_STEP}"
                                       f":rank={rank}")
+        if faults_spec:
+            env["TPUFRAME_FAULTS"] = faults_spec
         base = os.path.join(root, f"{name}.{rank}")
         logf = open(f"{base}.log", "wb")
         proc = subprocess.Popen(
@@ -1191,11 +1247,15 @@ def _spawn_fleet(root: str, name: str, fault_rank: int | None) -> list:
     return procs
 
 
-def _fleet_run(root: str, name: str, reqs: list, procs: list) -> dict:
+def _fleet_run(root: str, name: str, reqs: list, procs: list, *,
+               hedge_ms: float | None = None,
+               queue_limit: int | None = None, on_router=None) -> dict:
     """Serve ``reqs`` through the port's Router over the fleet ``procs``
     (:func:`_spawn_fleet`); the router's events go to the same directory
-    under process id FLEET_ROUTER_PROC, as ``fleet_smoke`` does.  Every
-    worker is drained with SIGTERM (or killed) before this returns."""
+    under process id FLEET_ROUTER_PROC, as ``fleet_smoke`` does.
+    ``on_router(router)``, if given, returns the router loop's ``on_tick``
+    (the rollout controller's seam).  Every worker is drained with
+    SIGTERM (or killed) before this returns."""
     saved = {k: os.environ.get(k) for k in ("TPUFRAME_PROCESS_ID",
                                              "TPUFRAME_TRACE_SAMPLE")}
     try:
@@ -1209,13 +1269,18 @@ def _fleet_run(root: str, name: str, reqs: list, procs: list) -> dict:
         os.environ["TPUFRAME_TRACE_SAMPLE"] = "1"
         events.init(os.path.join(root, name))
         router = router_lib.Router(
-            urls, scrape_interval_s=0.05, scrape_timeout_s=1.0,
-            dispatch_timeout_s=60.0, max_inflight_per_replica=4)
+            urls, queue_limit=queue_limit, hedge_ms=hedge_ms,
+            scrape_interval_s=0.05,
+            scrape_timeout_s=1.0, dispatch_timeout_s=60.0,
+            max_inflight_per_replica=4)
+        on_tick = on_router(router) if on_router is not None else None
         t0 = time.monotonic()
-        out = router.run(reqs, timeout_s=FLEET_RUN_TIMEOUT_S, log=log)
+        out = router.run(reqs, timeout_s=FLEET_RUN_TIMEOUT_S,
+                         on_tick=on_tick, log=log)
         out["serve_s"] = time.monotonic() - t0
         out["ready_s"] = ready_s
         out["tokens"] = {q.rid: q.result["tokens"] for q in router.completed}
+        out["completed"] = list(router.completed)
         out["scrapes"] = {}
         for rank, (p, *_rest) in enumerate(procs):
             if p.poll() is None:
@@ -1251,6 +1316,23 @@ def _fleet_run(root: str, name: str, reqs: list, procs: list) -> dict:
                 p.wait()
 
 
+def _worker_launch_checks(tag: str, workers: dict, num_layers: int) -> list:
+    """Each replica's flash_fwd launches are ``num_layers`` x its prefills,
+    all on the tensor cores, and no other kernel launched."""
+    problems = []
+    for rank, w in workers.items():
+        n = w["launches"]["flash_fwd"]
+        others = {k: v for k, v in w["launches"].items()
+                  if k != "flash_fwd" and v}
+        if (n != num_layers * w["prefills"] or others or w["routes"]
+                != {"tensor_core": n, "cuda_core": 0}):
+            problems.append(f"{tag} replica {rank}: launches "
+                            f"{w['launches']} by route {w['routes']}, want "
+                            f"{num_layers} x {w['prefills']} prefills, all "
+                            f"tensor-core")
+    return problems
+
+
 def _fleet_checks(run: dict, reqs: list, want: dict, *, crash: bool,
                   num_layers: int) -> list:
     problems = []
@@ -1278,16 +1360,7 @@ def _fleet_checks(run: dict, reqs: list, want: dict, *, crash: bool,
     if run["exit_codes"] != codes:
         problems.append(f"{tag} exit codes {run['exit_codes']}, want "
                         f"{codes}")
-    for rank, w in run["workers"].items():
-        n = w["launches"]["flash_fwd"]
-        others = {k: v for k, v in w["launches"].items()
-                  if k != "flash_fwd" and v}
-        if (n != num_layers * w["prefills"] or others or w["routes"]
-                != {"tensor_core": n, "cuda_core": 0}):
-            problems.append(f"{tag} replica {rank}: launches "
-                            f"{w['launches']} by route {w['routes']}, want "
-                            f"{num_layers} x {w['prefills']} prefills, all "
-                            f"tensor-core")
+    problems += _worker_launch_checks(tag, run["workers"], num_layers)
     if not crash:
         for rank in range(FLEET_REPLICAS):
             text = run["scrapes"].get(rank, "")
@@ -1321,6 +1394,21 @@ def _fleet_checks(run: dict, reqs: list, want: dict, *, crash: bool,
         problems.append(f"{tag} traces: " + "; ".join(
             f"[{p['kind']}] {p['detail']}" for p in found[:5]))
     return problems
+
+
+def _reference_tokens(reqs: list, seed: int) -> dict:
+    """``{rid: tokens}`` of ``reqs`` through one in-process engine of phase
+    serve's config on the weights of ``seed``, after its warm-up."""
+    engine = _serve_engine(seed)
+    _warm_up(engine)
+    copies = [loadgen.Request(rid=r.rid, prompt=list(r.prompt),
+                              max_new_tokens=r.max_new_tokens,
+                              arrival_t=r.arrival_t) for r in reqs]
+    loadgen.run_loadgen(engine, copies)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {r.rid: [int(t) for t in r.tokens] for r in copies}
 
 
 def phase_fleet(serve: dict | None = None) -> dict:
@@ -1363,22 +1451,13 @@ def phase_fleet(serve: dict | None = None) -> dict:
         procs = _spawn_fleet(root, "clean", None)
         try:
             # the in-process reference, while the fleet starts
-            ref = _serve_engine()
-            cfg = ref.cfg
-            _warm_up(ref)
-            ref_reqs = [loadgen.Request(rid=r.rid, prompt=list(r.prompt),
-                                        max_new_tokens=r.max_new_tokens,
-                                        arrival_t=r.arrival_t) for r in reqs]
-            loadgen.run_loadgen(ref, ref_reqs)
-            want = {r.rid: [int(t) for t in r.tokens] for r in ref_reqs}
-            del ref
-            gc.collect()
-            torch.cuda.empty_cache()
+            want = _reference_tokens(reqs, 0)
         except BaseException:
             for p, *_rest in procs:
                 p.kill()
                 p.wait()
             raise
+        cfg = LMConfig(dtype="bfloat16", attn_impl="pallas")
         clean = _fleet_run(root, "clean", reqs, procs)
         crash = _fleet_run(root, "crash", reqs,
                            _spawn_fleet(root, "crash", 1))
@@ -1438,6 +1517,350 @@ def phase_fleet(serve: dict | None = None) -> dict:
     log(f"[fleet] phase {phase_s:.1f} s")
     return {"launches": launches, "tokens_per_s": tok_s,
             "ttft_ms": fleet["ttft_ms"], "tpot_ms": served["tpot_ms"]}
+
+
+def _rollout_run(root: str, name: str, reqs: list, procs: list) -> dict:
+    """One live rollout over the fleet ``procs`` (:func:`_fleet_run`, no
+    hedging): a manifest-only ``step_00000001`` sits in a watched
+    directory from the start; once a quarter of ``reqs`` have retired,
+    the A/A gate runs between the two v0 replicas' answers so far and the
+    COMMIT lands, and the controller's ``committed_world`` poll starts the
+    roll to ROLLOUT_SEED's weights (a rollback swaps seed 0's back)."""
+    watch = os.path.join(root, f"{name}.ckpt")
+    step_dir = os.path.join(watch, "step_00000001")
+    os.makedirs(step_dir)
+    Path(step_dir, "manifest.json").write_text(json.dumps(
+        {"step": 1, "world": {"processes": 1, "devices": 1}}))
+    state: dict = {}
+
+    def on_router(router):
+        ctl = rollout_lib.RolloutController(
+            router, watch_dir=watch, watch_interval_s=0.05,
+            current_version=0, canary_frac=ROLLOUT_CANARY_FRAC,
+            gate_pct=ROLLOUT_GATE_PCT, bake_min_samples=ROLLOUT_BAKE_MIN,
+            bake_timeout_s=ROLLOUT_BAKE_TIMEOUT_S,
+            drain_timeout_s=ROLLOUT_DRAIN_TIMEOUT_S, swap_timeout_s=30.0,
+            swap_seed=ROLLOUT_SEED, base_seed=0, seed=0, log=log)
+        state["ctl"] = ctl
+
+        def on_tick():
+            if ("aa" not in state
+                    and router.counters["completed"] >= len(reqs) // 4):
+                if ctl.state != "idle":
+                    raise RuntimeError(f"{name}: the roll started before "
+                                       f"its checkpoint committed")
+                sides = [[q for q in router.completed if q.replica == rep
+                          ][-ROLLOUT_BAKE_MIN:] for rep in ("r0", "r1")]
+                rc, res = rollout_lib.gate_compare(
+                    ctl._gate_events(sides[0]), ctl._gate_events(sides[1]),
+                    pct=ROLLOUT_GATE_PCT)
+                state["aa"] = {"rc": rc, "samples": [len(x) for x in sides],
+                               "p90": _gate_deltas(res)}
+                rollout_lib._commit_fake_checkpoint(watch, 1)
+            return ctl.tick()
+        return on_tick
+
+    # a drained replica's requests wait in the queue while still in
+    # flight, so the router may count one twice
+    run = _fleet_run(root, name, reqs, procs, hedge_ms=0.0,
+                     queue_limit=2 * len(reqs), on_router=on_router)
+    ctl = state["ctl"]
+    run.update(rollout=ctl.summary(), history=list(ctl.history),
+               gate=_gate_deltas(ctl.gate_result), aa=state.get("aa"))
+    return run
+
+
+def _gate_deltas(res: dict | None) -> dict:
+    """``{gate metric: (p90 a, p90 b, % change)}`` of a ``gate_compare``
+    result."""
+    return {m: (e["a"], e["b"], e["delta_pct"])
+            for m, e in (res or {}).get("metrics", {}).items()
+            if m in rollout_lib.GATE_METRICS and "delta_pct" in e}
+
+
+def _aa_gap(p90: dict) -> float | None:
+    """The largest gap of an A/A gate, in % of the smaller side: either
+    replica may be the one a gate would call the canary."""
+    gaps = [100.0 * (max(a, b) / min(a, b) - 1.0)
+            for a, b, _ in p90.values() if min(a, b) > 0]
+    return max(gaps) if gaps else None
+
+
+def _rollout_checks(run: dict, reqs: list, want: dict, *, poisoned: bool,
+                    num_layers: int) -> list:
+    tag = "(b)" if poisoned else "(a)"
+    ro = run["rollout"]
+    problems = []
+    final = 0 if poisoned else 1
+    if ro["state"] != ("aborted" if poisoned else "done"):
+        problems.append(f"{tag} rollout ended {ro['state']} "
+                        f"({ro['abort_metric']}: {ro['abort_reason']})")
+    if poisoned and ro["abort_metric"] not in rollout_lib.GATE_METRICS:
+        problems.append(f"{tag} abort metric {ro['abort_metric']!r} is "
+                        f"not a gate metric")
+    if run["aa"] is None:
+        problems.append(f"{tag} the roll never triggered")
+    if run["lost"] or run["timed_out"] or run["shed"]:
+        problems.append(f"{tag} lost {run['lost']}, shed {run['shed']}, "
+                        f"timed out {run['timed_out']}")
+    if run["requests"] != len(reqs):
+        problems.append(f"{tag} {run['requests']}/{len(reqs)} answered")
+    versions = {rank: router_lib.parse_gauges(
+        run["scrapes"].get(rank, ""), ("tpuframe_weights_version",)).get(
+            "tpuframe_weights_version") for rank in range(FLEET_REPLICAS)}
+    if versions != {rank: float(final) for rank in range(FLEET_REPLICAS)}:
+        problems.append(f"{tag} weights version gauges {versions}, want "
+                        f"{final}")
+    if run["exit_codes"] != [0] * FLEET_REPLICAS:
+        problems.append(f"{tag} exit codes {run['exit_codes']}")
+    # drain -> swapped -> readmitted on each replica that moved, and one
+    # replica in transition at a time
+    phases: dict = {}
+    moving = None
+    for _t, rep, phase in run["history"]:
+        phases.setdefault(rep, []).append(phase)
+        if phase == "drain":
+            if moving is not None:
+                problems.append(f"{tag} {rep} drained while {moving} was "
+                                f"in transition")
+            moving = rep
+        elif phase in ("readmitted", "rolled_back"):
+            moving = None
+    moved = ["r0"] if poisoned else ["r0", "r1"]
+    for rep in moved:
+        core = [p for p in phases.get(rep, [])
+                if p in ("drain", "swapped", "readmitted")]
+        if core != ["drain", "swapped", "readmitted"]:
+            problems.append(f"{tag} {rep} phases {phases.get(rep)}")
+    if sorted(phases) != moved or (
+            poisoned and phases["r0"][-1] != "rolled_back"):
+        problems.append(f"{tag} phases {phases}")
+    # the tokens of every answer: those of one version its replica held
+    # while the request was in its hands: the one it served when the
+    # winning attempt was launched, or one it swapped to before the
+    # answer (a request can wait in a replica's inbox, which the drain's
+    # idle probe does not see, and start after the swap)
+    changes: dict = {}
+    for t, rep, phase in run["history"]:
+        if phase in ("swapped", "rolled_back"):
+            changes.setdefault(rep, []).append(
+                (t, 1 if phase == "swapped" else 0))
+    served = {0: 0, 1: 0}
+    wrong = []
+    for q in run["completed"]:
+        launch = q.submit_t + (q.ttft_ms
+                               - float(q.result.get("ttft_ms") or 0)) / 1e3
+        held = [0]
+        for t, v in changes.get(q.replica, []):
+            if t < launch:
+                held = [v]
+            elif t < q.done_t:
+                held.append(v)
+        match = [v for v in held if q.result["tokens"] == want[v][q.rid]]
+        if match:
+            served[match[0]] += 1
+        else:
+            wrong.append((q.rid, q.replica, held))
+    if wrong:
+        problems.append(f"{tag} (rid, replica, versions held) whose tokens "
+                        f"differ from each such version's in-process "
+                        f"engine: {wrong}")
+    # a promotion needs ROLLOUT_BAKE_MIN answers a side; an abort may
+    # come at the bake's deadline, on fewer canary answers
+    need = 1 if poisoned else ROLLOUT_BAKE_MIN
+    if served[1] < need:
+        problems.append(f"{tag} {served[1]} answers on v1")
+    if (ro["bake_samples"] is None
+            or min(ro["bake_samples"].values()) < need):
+        problems.append(f"{tag} bake samples {ro['bake_samples']}, want "
+                        f"{need} a side")
+    problems += _worker_launch_checks(tag, run["workers"], num_layers)
+    if len(run["workers"]) != FLEET_REPLICAS:
+        problems.append(f"{tag} counts from {sorted(run['workers'])}")
+    found = (tracing.verify_traces(run["events"])
+             + tracing.span_anomalies(run["events"]))
+    if found:
+        problems.append(f"{tag} traces: " + "; ".join(
+            f"[{p['kind']}] {p['detail']}" for p in found[:5]))
+    roots = [sp.closed for tv in tracing.build_traces(run["events"]).values()
+             for sp in tv.roots if sp.name == "rollout"]
+    status = "aborted" if poisoned else "done"
+    if [(r or {}).get("status") for r in roots] != [status]:
+        problems.append(f"{tag} rollout root spans closed {roots}, want "
+                        f"one {status}")
+    return problems
+
+
+def _during_roll(run: dict) -> dict:
+    """Tokens/s and router TTFT of the answers retired between the roll's
+    first and last phase."""
+    t0, t1 = run["history"][0][0], run["history"][-1][0]
+    inside = [q for q in run["completed"] if t0 <= q.done_t <= t1]
+    ttft = [q.ttft_ms for q in inside]
+    tokens = sum(len(q.result["tokens"]) for q in inside)
+    return {"s": t1 - t0, "requests": len(inside),
+            "tokens_per_s": tokens / (t1 - t0) if t1 > t0 else None,
+            "ttft_p50": _pct(ttft, .5) if ttft else None,
+            "ttft_p90": _pct(ttft, .9) if ttft else None}
+
+
+def _rollout_line(run: dict) -> str:
+    """One run's numbers: its end, the A/A and canary p90s beside the
+    gate, bake samples, the mixed-version window, swap ms, and tokens/s
+    and router TTFT during the roll."""
+    ro, aa = run["rollout"], run["aa"] or {}
+
+    def p90s(d):
+        return ", ".join(f"{m} {a:.2f} -> {b:.2f} ms ({pct:+.1f}%)"
+                         for m, (a, b, pct) in d.items())
+
+    text = (f"state {ro['state']}"
+            + (f" on {ro['abort_metric']}" if ro["aborted"] else "")
+            + f"; A/A gate r0 -> r1 on v0 ({aa.get('samples')} answers): "
+            f"rc {aa.get('rc')}, {p90s(aa.get('p90', {}))}; A/A gap "
+            f"{_aa_gap(aa.get('p90', {}))}%; canary gate old -> canary "
+            f"({ro['bake_samples']}): {p90s(run['gate'])} (gate "
+            f"{ROLLOUT_GATE_PCT:g}%); mixed-version window {ro['window_s']}"
+            f" s; swap ms "
+            + ", ".join(f"{rep} {ms:.1f}" for rep, ms in ro["swap_ms"]))
+    if run["history"]:
+        roll = _during_roll(run)
+        text += (f"; during the roll ({roll['s']:.3f} s, "
+                 f"{roll['requests']} answers): {roll['tokens_per_s']} "
+                 f"tokens/s, router TTFT p50 {roll['ttft_p50']} ms p90 "
+                 f"{roll['ttft_p90']} ms")
+    return text + (f"; fleet ready in {run['ready_s']:.1f} s, served in "
+                   f"{run['serve_s']:.3f} s; lost {run['lost']}, exit codes "
+                   f"{run['exit_codes']}")
+
+
+def _start_selfcheck(root: str) -> tuple:
+    """``python -m tpuframe_torch.serve --selfcheck`` on the card, from
+    this checkout, with no JAX, XLA or TPUFRAME variable; its output goes
+    to a file under ``root``."""
+    here = Path(__file__).resolve().parent
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("JAX_", "XLA_", "TPUFRAME_"))}
+    env["PYTHONPATH"] = str(here)
+    out = os.path.join(root, "selfcheck.log")
+    with open(out, "wb") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "tpuframe_torch.serve", "--selfcheck"],
+            cwd=here, env=env, stdout=f, stderr=subprocess.STDOUT)
+    return proc, out, time.monotonic()
+
+
+def _end_selfcheck(selfcheck: tuple) -> float:
+    """Wait for :func:`_start_selfcheck`'s process; raises unless it
+    exited 0 with 0 failures.  Returns its seconds."""
+    proc, out, t0 = selfcheck
+    try:
+        rc = proc.wait(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    text = Path(out).read_text(errors="replace")
+    if rc != 0 or "[serve] selfcheck: 0 failure(s)" not in text:
+        raise RuntimeError(f"rollout (c): selfcheck rc {rc}:\n"
+                           f"{text[-3000:]}")
+    return time.monotonic() - t0
+
+
+def phase_rollout(serve: dict | None = None) -> dict:
+    """The live weight rollout (``serve/rollout.py``, the replicas'
+    ``/swap_weights``, ``LMEngine.swap_params``): phase fleet's replicas
+    on the one card behind the port's Router, ROLLOUT_REQUESTS traced
+    Poisson requests, and the controller rolling them to v1 (the port's
+    init for ROLLOUT_SEED) once step 1 commits:
+
+      (s) ``swap_parity_check`` at full width over buckets 128/256/512:
+          an engine hot-swapped onto seed 1's weights streams the tokens
+          of one cold-started on them, its tensors swapped in place;
+      (a) clean: the A/A gate between the two v0 replicas, then state
+          done; both weights-version gauges 1; lost 0, shed 0; drain ->
+          swapped -> readmitted on each replica, one in transition at a
+          time; every answer's tokens bit-equal to an in-process engine's
+          on the version its replica served at its launch (v1 after the
+          readmission); each replica's flash_fwd launches 12 x its
+          prefills, all on the tensor cores; the merged traces verified
+          and the ``rollout`` root closed done; SIGTERM drains to rc 0;
+      (b) the same with ROLLOUT_SLOW_CANARY: state aborted on a gate
+          metric, the canary rolled back, both gauges 0, lost 0, the
+          tokens checked as in (a);
+      (c) ``python -m tpuframe_torch.serve --selfcheck`` on the card: rc
+          0, 0 failures.
+
+    Prints the A/A and canary gaps beside the gate, bake samples, the
+    mixed-version window, swap ms, and tokens/s and TTFT during each roll.
+    ``serve``: phase serve's summary (None: phase serve runs first)."""
+    if serve is None:
+        serve = phase_serve()[2]
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.monotonic()
+    cfg = LMConfig(dtype="bfloat16", attn_impl="pallas")
+    root = tempfile.mkdtemp(prefix="tpuframe_rollout_")
+    procs = []
+    try:
+        # (c) runs beside (s), the fleet's start-up and the references,
+        # and ends before any timed traffic
+        selfcheck = _start_selfcheck(root)
+        try:
+            t0 = time.monotonic()
+            problems = swap_parity_check(
+                cfg, buckets=kv.DEFAULT_PROMPT_BUCKETS,
+                decode_block=kv.DEFAULT_DECODE_BLOCK, seed=0)
+            gc.collect()
+            torch.cuda.empty_cache()
+            if problems:
+                raise RuntimeError("rollout (s): " + "; ".join(problems))
+            log(f"[rollout] (s) swap parity at full width, buckets "
+                f"{list(kv.DEFAULT_PROMPT_BUCKETS)}, full and ragged "
+                f"prompts: hot swap == cold start, every tensor in place, "
+                f"{time.monotonic() - t0:.1f} s")
+            reqs = loadgen.synthetic_requests(
+                ROLLOUT_REQUESTS, buckets=kv.DEFAULT_PROMPT_BUCKETS,
+                vocab_size=cfg.vocab_size, max_new_tokens=NEW_TOKENS,
+                seed=0, rate=FLEET_RATE)
+            procs = _spawn_fleet(root, "clean", None)
+            # the in-process references, while the fleet starts
+            want = {0: _reference_tokens(reqs, 0),
+                    1: _reference_tokens(reqs, ROLLOUT_SEED)}
+        finally:
+            selfcheck_s = _end_selfcheck(selfcheck)
+        clean = _rollout_run(root, "clean", reqs, procs)
+        procs = _spawn_fleet(root, "poisoned", None,
+                             faults_spec=ROLLOUT_SLOW_CANARY)
+        poisoned = _rollout_run(root, "poisoned", reqs, procs)
+    finally:
+        for p, *_rest in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(root, ignore_errors=True)
+    card = _card_line()
+    for tag, run in (("(a)", clean), ("(b)", poisoned)):
+        log(f"[rollout] {tag} {card}: " + _rollout_line(run))
+    same = [rid for rid in want[0] if want[0][rid] == want[1][rid]]
+    problems = ([f"v0 and v1 give the same tokens for rids {same}"]
+                if same else [])
+    problems += (_rollout_checks(clean, reqs, want, poisoned=False,
+                                 num_layers=cfg.num_layers)
+                 + _rollout_checks(poisoned, reqs, want, poisoned=True,
+                                   num_layers=cfg.num_layers))
+    if problems:
+        raise RuntimeError("rollout: " + "; ".join(problems))
+    phase_s = time.monotonic() - t_phase
+    log(f"[rollout] (c) python -m tpuframe_torch.serve --selfcheck: rc 0, "
+        f"0 failures, {selfcheck_s:.1f} s")
+    log(f"[rollout] phase {phase_s:.1f} s (budget {ROLLOUT_BUDGET_S:g} s)")
+    workers = [w for run in (clean, poisoned)
+               for w in run["workers"].values()]
+    return {"launches": {name: sum(w["launches"][name] for w in workers)
+                         for name in launch_counts()},
+            "routes": {route: sum(w["routes"][route] for w in workers)
+                       for route in ("tensor_core", "cuda_core")}}
 
 
 def phase_grad_parity() -> None:
@@ -2114,11 +2537,14 @@ def _bert_delta_case(b, glue, split, gen) -> dict:
             "bound_ms": 1e3 * max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "ops": ops, "bytes": nbytes}
+    # the profiler can miss a short window of the hand-written kernels
+    # late in a long process (PERF.md §7): the share is then not shown
+    share = (f"{case['bound_ms'] / dev:.3f} of it by device time" if dev > 0
+             else "device time not recorded")
     log(f"[bert-delta] {name}, route {case['route']}: err {err:.2e} (tol "
         f"{DELTA_TOL} x max|plain| {scale:.2e}); kernel {ms:.4f} ms (device "
         f"{dev:.4f}), plain {plain:.4f} ms, bound {case['bound_ms']:.5f} ms "
-        f"({case['bound_by']}; {case['bound_ms'] / dev:.3f} of it by "
-        f"device time)")
+        f"({case['bound_by']}; {share})")
     return case
 
 
@@ -3724,6 +4150,7 @@ def main(argv=None) -> int:
     phase_parity()
     serve_launches, serve_routes, serve_summary = phase_serve()
     fleet = phase_fleet(serve_summary)
+    rollout = phase_rollout(serve_summary)
     phase_grad_parity()
     phase_grad_parity_bf16()
     train = phase_train()
@@ -3741,6 +4168,7 @@ def main(argv=None) -> int:
 
     by_path = {name: {"serve": serve_launches[name],
                       "fleet": fleet["launches"][name],
+                      "rollout": rollout["launches"][name],
                       "lm_train": train["launches"][name],
                       "resnet_train": resnet["launches"][name],
                       "probe": probe["launches"][name],
@@ -3791,6 +4219,7 @@ def main(argv=None) -> int:
                             "16/32/256, on the CUDA cores")
             row["device_ms"] = cases["train"]["device_ms"]
             row["routes_by_path"] = {"serve": serve_routes,
+                                     "rollout": rollout["routes"],
                                      "lm_train": train["fwd_routes"],
                                      "bert_serve": bert_serve["routes"],
                                      "bert_train": bert_train["routes"]}
@@ -3838,7 +4267,7 @@ def main(argv=None) -> int:
 
 PHASES = {"kernels": phase_kernels, "backward": phase_backward,
           "probe": phase_probe, "parity": phase_parity, "serve": phase_serve,
-          "fleet": phase_fleet,
+          "fleet": phase_fleet, "rollout": phase_rollout,
           "grad_parity": phase_grad_parity,
           "grad_parity_bf16": phase_grad_parity_bf16, "train": phase_train,
           "conv_bn": phase_conv_bn,

@@ -2,10 +2,16 @@
 
 In a fresh interpreter whose import system refuses ``jax``, ``jaxlib``,
 ``flax`` and ``tpuframe``, every module of ``tpuframe_torch`` and
-``chip_smoke.py`` (with its whole import graph) must import.
+``chip_smoke.py`` (with its whole import graph) must import.  Nor may
+they name a module of the JAX package in a string (``"-m",
+"tpuframe.obs"`` in a subprocess, ``importlib.import_module``): that
+would run the JAX package beside the port, where the card's machine has
+no JAX.
 """
 
+import ast
 import os
+import re
 import subprocess
 import sys
 
@@ -63,6 +69,9 @@ FLEET_SLICE = {"tpuframe_torch.obs.heartbeat", "tpuframe_torch.obs.tracing",
                "tpuframe_torch.obs.exporter", "tpuframe_torch.obs.slo",
                "tpuframe_torch.obs.goodput", "tpuframe_torch.serve.replica",
                "tpuframe_torch.serve.router"}
+# The rest of the serving fleet: rollout and the analyzer's CLI.
+ROLLOUT_SLICE = {"tpuframe_torch.serve.rollout", "tpuframe_torch.obs.__main__",
+                 "tpuframe_torch.serve.__main__"}
 
 
 def test_port_and_chip_smoke_import_without_jax():
@@ -77,3 +86,24 @@ def test_port_and_chip_smoke_import_without_jax():
     assert CKPT_SLICE <= names, CKPT_SLICE - names
     assert HVD_SLICE <= names, HVD_SLICE - names
     assert FLEET_SLICE <= names, FLEET_SLICE - names
+    assert ROLLOUT_SLICE <= names, ROLLOUT_SLICE - names
+
+
+def _sources():
+    yield os.path.join(REPO, "chip_smoke.py")
+    for root, _dirs, files in os.walk(os.path.join(REPO, "tpuframe_torch")):
+        yield from (os.path.join(root, f) for f in sorted(files)
+                    if f.endswith(".py"))
+
+
+def test_no_string_names_a_jax_package_module():
+    found = []
+    for path in _sources():
+        tree = ast.parse(open(path).read(), path)
+        for node in ast.walk(tree):
+            if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                    and re.match(r"(jax|jaxlib|flax|tpuframe)\.",
+                                 node.value.strip())):
+                found.append(f"{os.path.relpath(path, REPO)}:{node.lineno}: "
+                             f"{node.value!r:.60}")
+    assert not found, "\n".join(found)

@@ -6,8 +6,16 @@
   - the scheduler's admit / retire / EOS behaviour mirrors
     tests/test_serve.py over the same fake engine;
   - run_loadgen completes every request on the real (tiny) engine;
-  - an engine asked for CUDA on a host without it raises.
+  - an engine asked for CUDA on a host without it raises;
+  - a hot swap: ``swap_parity_check`` on the tiny config, and the port's
+    engine swapped onto the JAX init of ``key(seed + 1)`` (converted)
+    streams the JAX engine's tokens after its own swap;
+  - ``python -m tpuframe_torch.serve --selfcheck --device cpu`` exits 0.
 """
+
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -15,6 +23,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
 
 from tpuframe.models import transformer_lm as jax_lm  # noqa: E402
 from tpuframe.serve import kv_cache as jax_kv  # noqa: E402
@@ -24,7 +33,8 @@ from tpuframe_torch.models.transformer_lm import LMConfig  # noqa: E402
 from tpuframe_torch.serve import kv_cache as kv  # noqa: E402
 from tpuframe_torch.serve import loadgen  # noqa: E402
 from tpuframe_torch.serve.engine import (LMEngine,  # noqa: E402
-                                         golden_parity_check)
+                                         golden_parity_check,
+                                         swap_parity_check)
 from tpuframe_torch.serve.scheduler import Request, Scheduler  # noqa: E402
 
 BUCKETS = (16, 32)
@@ -153,6 +163,54 @@ def test_golden_parity_every_bucket():
                                decode_tokens=4, device="cpu") == []
     assert any("exceeds capacity" in p for p in golden_parity_check(
         cfg, buckets=(32,), capacity=32, device="cpu"))
+
+
+def test_swap_parity_on_the_tiny_config():
+    assert swap_parity_check(LMConfig.tiny(), buckets=BUCKETS,
+                             decode_tokens=4, seed=0, device="cpu") == []
+
+
+def test_hot_swap_onto_jax_weights_streams_the_jax_tokens():
+    """Both engines start on the JAX init of ``key(0)`` and swap onto that
+    of ``key(1)``: the port's swap (of the converted weights) and the JAX
+    swap give the same streams, which differ from the old weights'."""
+    cfg = jax_lm.LMConfig.tiny()
+    kw = dict(slots=2, prompt_buckets=BUCKETS, decode_block=BLOCK,
+              max_context=max(BUCKETS) + DECODE_TOKENS)
+    jax_engine = JaxLMEngine(cfg, seed=0, enable_persistent_cache=False,
+                             **kw)
+    port = LMEngine(LMConfig.tiny(), params_from_jax(
+        jax.tree.map(np.asarray, jax_engine.params)), device="cpu", **kw)
+    rng = np.random.default_rng(5)
+    prompts = [list(rng.integers(0, 512, n)) for n in (32, 13)]
+    before = _stream(port, prompts)
+    new = jax_engine.model.init(jax.random.key(1),
+                                jnp.zeros((1, min(BUCKETS)), jnp.int32)
+                                )["params"]
+    jax_engine.swap_params(new)
+    port.swap_params(params_from_jax(jax.tree.map(np.asarray, new)))
+    after = _stream(port, prompts)
+    assert after == _stream(jax_engine, prompts)
+    assert after != before
+
+
+def test_selfcheck_on_the_cpu():
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("JAX_", "XLA_", "TPUFRAME_"))}
+    env["PYTHONPATH"] = repo
+    proc = subprocess.run(
+        [sys.executable, "-m", "tpuframe_torch.serve", "--selfcheck",
+         "--device", "cpu"], cwd=repo, env=env, capture_output=True,
+        text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    lines = proc.stdout.splitlines()
+    assert lines[-1] == "[serve] selfcheck: 0 failure(s)"
+    for needle in ("[serve] parity: 2 buckets, 0 problem(s)",
+                   "serving: 8 request(s)", "[serve] bert classify",
+                   "no compile cache in eager PyTorch",
+                   "exit codes [0, 42]"):
+        assert any(needle in line for line in lines), needle
 
 
 def test_engine_without_device_raises_on_a_host_without_cuda(monkeypatch):

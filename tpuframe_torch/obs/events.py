@@ -250,3 +250,22 @@ def merge(directory: str) -> list[dict]:
         records.extend(read_file(path))
     return sorted(records,
                   key=lambda r: (r.get("t", 0.0), str(r.get("host", ""))))
+
+
+def validate_files(paths) -> list[str]:
+    """Schema-validate whole files (the analyzer's ``--selfcheck``).
+    Strict parsing: a shipped sample with a garbled line is a bug, though
+    a crashed run's last line is not."""
+    problems: list[str] = []
+    for path in paths:
+        try:
+            records = read_file(path, strict=True)
+        except (OSError, ValueError) as e:
+            problems.append(f"{path}: {e}")
+            continue
+        if not records:
+            problems.append(f"{path}: no events")
+        for i, rec in enumerate(records, 1):
+            problems += [f"{os.path.basename(path)}:{i}: {p}"
+                         for p in validate_record(rec)]
+    return problems

@@ -217,6 +217,64 @@ class BertClassifier:
         return int(probs.argmax()), probs
 
 
+def swap_parity_check(cfg, *, buckets, decode_tokens: int = 4,
+                      seed: int = 0, decode_block: int = 16,
+                      device="cuda") -> list:
+    """The hot-swap analogue of :func:`golden_parity_check`
+    (``tpuframe/serve/engine.py``): an engine on the weights of ``seed``,
+    hot-swapped onto those of ``seed + 1`` (the port's init, as a seeded
+    replica swap draws them), must give, for every bucket and a full and
+    a ragged prompt, exactly the token streams of an engine cold-started
+    on the new weights.
+
+    The JAX check also asserts that the swap cost no compile-cache miss:
+    its engine's programs are compiled ahead of time and take the weights
+    as arguments.  Eager PyTorch compiles nothing, so in its place this
+    checks what a recompile would be here, new storage: the swap copies
+    into the served tensors in place, so every one keeps its
+    ``data_ptr()``.  Returns problem
+    strings; [] means the swap is transparent."""
+    buckets = tuple(sorted(buckets))
+    max_context = max(buckets) + decode_tokens + decode_block
+    kw = dict(slots=2, prompt_buckets=buckets, decode_block=decode_block,
+              max_context=max_context, device=device)
+    hot = LMEngine(cfg, seed=seed, **kw)
+    new_params = TransformerLM(cfg, device=hot.device,
+                               seed=seed + 1).state_dict()
+    cold = LMEngine(cfg, new_params, **kw)
+
+    before = {k: v.data_ptr() for k, v in hot.model.state_dict().items()}
+    hot.swap_params(new_params)
+    problems = []
+    moved = sorted(k for k, v in hot.model.state_dict().items()
+                   if v.data_ptr() != before[k])
+    if moved:
+        problems.append(f"swap reallocated {len(moved)} served tensor(s) "
+                        f"({', '.join(moved[:3])}) — the hot swap must "
+                        f"copy in place")
+
+    def stream(engine, ids):
+        engine.reset()
+        first, pcache, length = engine.prefill(ids)
+        engine.insert(0, pcache, length, first)
+        toks = [first]
+        for _ in range(decode_tokens):
+            toks.append(int(engine.decode_step()[0]))
+        return toks
+
+    gen = torch.Generator().manual_seed(seed)
+    for bucket in buckets:
+        for prompt_len in sorted({bucket, max(2, bucket - 3)}):
+            ids = torch.randint(0, cfg.vocab_size, (prompt_len,),
+                                generator=gen).tolist()
+            got, want = stream(hot, ids), stream(cold, ids)
+            if got != want:
+                problems.append(
+                    f"bucket {bucket} prompt_len {prompt_len}: "
+                    f"hot-swapped stream {got} != cold-start {want}")
+    return problems
+
+
 def golden_parity_check(cfg, *, buckets, capacity: int,
                         decode_tokens: int = 4, seed: int = 0,
                         atol: float = 2e-5, device="cuda") -> list:

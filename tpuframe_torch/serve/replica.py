@@ -15,8 +15,9 @@ telemetry exporter (``obs/exporter.py``):
                  ``{"rid", "tokens", "ttft_ms", "tpot_ms", "proc"}``
   ``/swap_weights``
                  POST ``{"version"[, "seed"]}`` → blocks until the main
-                 loop applies the hot swap through the engine's
-                 ``swap_params`` seam, returns ``{"version",
+                 loop, with no request left in its hands, applies the hot
+                 swap through the engine's ``swap_params`` seam, returns
+                 ``{"version",
                  "compile_cache_misses"}``.  The replica also publishes
                  the label-free ``tpuframe_weights_version`` gauge on
                  ``/metrics``, which the router scrapes.
@@ -266,10 +267,18 @@ class Replica:
 
     def _apply_swaps(self) -> None:
         """Apply queued weight swaps on the MAIN loop, between scheduler
-        steps.  The ``crash_during_swap`` seam fires after the swap was
-        accepted but before the version flips — the window where a kill
-        must leave the supervisor relaunching on the NEW version."""
+        steps, and only while the replica holds no accepted work: nothing
+        in its inbox, queued or in a slot.  The rollout's drain probe
+        reads the queue and slot gauges, which miss a request in the
+        inbox or in its prefill; the JAX replica applies the swap at the
+        next step all the same, and the request then decodes on both
+        versions (ROADMAP.md queue 3).  The ``crash_during_swap`` seam
+        fires after the swap was accepted but before the version flips —
+        the window where a kill must leave the supervisor relaunching on
+        the NEW version."""
         with self._inbox_lock:
+            if self._inbox or self.scheduler.has_work():
+                return
             jobs, self._swap_inbox = self._swap_inbox, []
         for job in jobs:
             try:

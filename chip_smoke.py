@@ -42,7 +42,7 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
      drains to rc 0; (b) the same with ``replica_crash`` on replica 1:
      nothing lost, a drain and a redispatch;
  7c. the live rollout (``rollout``): swap parity at full width (a hot swap
-     streams a cold start's tokens); then phase fleet's replicas, 112
+     streams a cold start's tokens); then phase fleet's replicas, 128
      traced requests, and the controller rolling them to seed 1's weights
      once step 1 commits into a watched directory: (a) clean, after an
      A/A gate between the two v0 replicas: done, both on v1, nothing
@@ -500,15 +500,16 @@ FLEET_ROUTER_PROC = FLEET_REPLICAS + 90   # the router's event-file id
 # v1, the port's init for ROLLOUT_SEED (v0 is seed 0).  With two replicas
 # the canary takes half of the placements, what either replica gets
 # without one; the gate compares once each side has ROLLOUT_BAKE_MIN
-# answers (the slow canary answers 4 at a time, one wave of 16 tokens at
-# ~0.28 s each, so two waves; ROLLOUT_REQUESTS keeps a backlog queued
-# that long, and the router's queue holds them all: nothing is shed).  The A/A gate compares each v0 replica's last
-# ROLLOUT_BAKE_MIN answers before the roll: the gate's noise at the
-# bake's sample size.  Hedging is off in these runs: a hedge races a slow
+# answers, past the canary's first wave (the slow canary answers 4 at a
+# time, one wave of 16 tokens at ~0.28 s each, so three waves;
+# ROLLOUT_REQUESTS keeps a backlog queued that long, and the router's
+# queue holds them all: nothing is shed).  The A/A gate compares each v0
+# replica's last ROLLOUT_BAKE_MIN answers before the roll: the gate's
+# noise at the bake's sample size.  Hedging is off in these runs: a hedge races a slow
 # canary's request against the old side, which wins, and the gate then
 # never sees the canary's answers.  The drain may wait for a slow
 # canary's wave.
-ROLLOUT_REQUESTS = 112
+ROLLOUT_REQUESTS = 128
 ROLLOUT_SEED = 1
 ROLLOUT_CANARY_FRAC = 0.5
 ROLLOUT_BAKE_MIN = 8
@@ -517,18 +518,33 @@ ROLLOUT_DRAIN_TIMEOUT_S = 30.0
 ROLLOUT_SLOW_CANARY = "slow_canary:times=1000:delay_s=0.25"
 # The promotion gate's threshold, in % on the p90 of router TTFT, replica
 # TTFT and TPOT (the library default is the JAX package's 25%), set from
-# seven runs of this phase on one H100 (700 W) at ROLLOUT_BAKE_MIN answers
-# a side: the A/A gap between the two v0 replicas was 8.8-48.0% (replica
-# TTFT; at 4-6 answers it reached 452.6%, hence the bake of 8), so the
-# gate is at least 2 x 48.0%.  A clean canary against the old side came
-# to +192.2% (replica TTFT): the canary is readmitted into the router's
-# backlog and prefills a burst, which the A/A before the roll does not
-# see.  The slow canary regressed TPOT by +519% to +900% and replica TTFT
-# by +217% to +763%.  300% is 6x the largest A/A gap, 1.6x the largest
-# clean canary gap, and 1.7x under the smallest slow-canary TPOT
-# regression.
-ROLLOUT_GATE_PCT = 300.0
+# runs of this phase on one H100 (700 W) at ROLLOUT_BAKE_MIN answers a
+# side.  The A/A gap between the two v0 replicas: 3.3-48.6% in every run
+# (replica TTFT; at 4-6 answers it reached 452.6%, hence the bake of 8).
+# A clean canary, its first wave not counted: +75.8% at most over ten
+# runs (replica TTFT; when the gate still counted the burst the canary
+# prefills out of the router's backlog at readmission, +192.2%).  The
+# slow canary regressed TPOT by +513.9% to +900%.  200% is 4.1x the
+# largest A/A gap, 2.6x the largest clean-canary gap, and 2.6x under the
+# smallest slow-canary TPOT regression.
+ROLLOUT_GATE_PCT = 200.0
 ROLLOUT_BUDGET_S = 90.0
+
+
+# device_time's record check: the sentinel kernel (torch.cuda._sleep's)
+# and its spin, and the device symbols of the hand-written kernels, one
+# event for each counted launch (the conv+BN wrapper launches one da
+# kernel, and dW kernels beside it; the CUDA-core delta pass is the dq
+# kernel).  A window of kernel launches alone is taken up to PROFILE_TRIES
+# times for a whole record.  PROFILE_WINDOWS counts the records taken, the
+# incomplete ones, and the windows left not measured.
+PROFILE_TRIES = 3
+SENTINEL_KERNEL = "spin_kernel"
+SENTINEL_CYCLES = 1000
+HAND_WRITTEN_EVENT = re.compile(
+    r"flash_fwd(_tc)?_kernel|flash_bwd_(dq|dkv|delta)(_tc)?_kernel"
+    r"|(?<![A-Za-z_])da(_tc)?_kernel|probe_kernel")
+PROFILE_WINDOWS = {"records": 0, "incomplete": 0, "not_measured": 0}
 
 
 def log(msg: str) -> None:
@@ -680,11 +696,11 @@ def _flash_case(s, dtype, causal, masked, gen):
         qt, kt, vt, attn_mask=attn_mask, is_causal=causal), 100)
     # Device time alone (the times above include the host's launch cost
     # wherever that is the larger).
-    dev_ms = sum(ms for _, ms, _ in device_time(
-        lambda: fa.flash_mha_lse(q, k, v, mask=mask, causal=causal), 10)) / 10
-    lib_dev_ms = sum(ms for _, ms, _ in device_time(
+    dev_ms = device_ms(
+        lambda: fa.flash_mha_lse(q, k, v, mask=mask, causal=causal), 10)
+    lib_dev_ms = device_ms(
         lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=attn_mask, is_causal=causal), 10)) / 10
+            qt, kt, vt, attn_mask=attn_mask, is_causal=causal), 10)
 
     ops = 4 * d * _pairs(s, s, b, n, mask, causal)  # QK^T and PV
     nbytes = (3 * q.numel() * q.element_size() + out.numel()
@@ -698,9 +714,9 @@ def _flash_case(s, dtype, causal, masked, gen):
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "ops": ops, "bytes": nbytes}
     log(f"[flash] {name}: err {err:.2e} (tol {tol['out']}), lse err "
-        f"{err_lse:.2e}; kernel {ms:.4f} ms (device {dev_ms:.4f}), plain "
+        f"{err_lse:.2e}; kernel {ms:.4f} ms (device {_dev(dev_ms, '.4f')}), plain "
         f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms (device "
-        f"{lib_dev_ms:.4f}), bound {case['bound_ms']:.5f} ms "
+        f"{_dev(lib_dev_ms, '.4f')}), bound {case['bound_ms']:.5f} ms "
         f"({case['bound_by']})")
     return case
 
@@ -759,7 +775,7 @@ def _flash_train_case(gen) -> dict:
     sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
         qt, kt, vt, is_causal=True)
     lib_ms = cuda_ms(sdpa, 10)
-    lib_dev = sum(t for _, t, _ in device_time(sdpa, 3)) / 3
+    lib_dev = device_ms(sdpa, 3)
     ops = 4 * d * _pairs(s, s, b, n, None, True)
     nbytes = 4 * q.numel() * 2 + b * n * s * 4
     t_ops, t_bytes = ops / PEAK_OPS_S[dtype], nbytes / PEAK_BYTES_S
@@ -781,7 +797,7 @@ def _flash_train_case(gen) -> dict:
                                f"max|out diff| {err:.3e}, max|lse diff| "
                                f"{err_lse:.3e}")
         ms = cuda_ms(launch, 20 if route == "tensor_core" else 3)
-        dev_ms = sum(t for _, t, _ in device_time(launch, 3)) / 3
+        dev_ms = device_ms(launch, 3)
         smem, blocks = fa.fwd_kernel_info(dtype, d, route)
         res[route] = {"route": route, "max_abs_err": err,
                       "max_abs_err_lse": err_lse, "ms": ms,
@@ -793,9 +809,10 @@ def _flash_train_case(gen) -> dict:
                       "smem_bytes": smem, "blocks_per_sm": blocks}
         log(f"[flash] B={b} S={s} N={n} D={d} bf16 causal (training shape),"
             f" route {route}: err {err:.2e}, lse err {err_lse:.2e}; kernel "
-            f"{ms:.4f} ms (device {dev_ms:.4f}, {ops / ms / 1e9:.2f} "
+            f"{ms:.4f} ms (device {_dev(dev_ms, '.4f')}, {ops / ms / 1e9:.2f} "
             f"TFLOP/s, {smem} B smem, {blocks} blocks/SM), plain "
-            f"{plain_ms:.1f} ms, sdpa {lib_ms:.4f} ms (device {lib_dev:.4f})"
+            f"{plain_ms:.1f} ms, sdpa {lib_ms:.4f} ms (device "
+            f"{_dev(lib_dev, '.4f')})"
             f", bound {1e3 * max(t_ops, t_bytes):.4f} ms "
             f"({res[route]['bound_by']})")
     case = dict(res["tensor_core"])
@@ -899,8 +916,7 @@ def _sdpa_backward_ms(tensors, causal):
     call = lambda: torch.autograd.grad(out, (qt, kt, vt), dot,  # noqa: E731
                                        retain_graph=True)
     ms = cuda_ms(call, 10)
-    dev = sum(t for _, t, _ in device_time(call, 3)) / 3
-    return ms, dev
+    return ms, device_ms(call, 3)
 
 
 def _bwd_train_shape(dtype, gen) -> dict:
@@ -927,7 +943,7 @@ def _bwd_train_shape(dtype, gen) -> dict:
              fa.flash_bwd_dkv_reference, tensors)):
         launch = (lambda w=which: fa._launch_bwd(w, *tensors, mask, True))
         ms = cuda_ms(launch, 10)
-        dev = sum(t for _, t, _ in device_time(launch, 3)) / 3
+        dev = device_ms(launch, 3)
         plain = cuda_ms(lambda f=fn, a=ins: _by_row(f, a, mask, True), 1)
         ops = flops_per_pair * pairs
         nbytes = qkvo + rows + out_bytes
@@ -951,14 +967,14 @@ def _bwd_train_shape(dtype, gen) -> dict:
         f"route {route}: err delta {errs['delta']:.2e} (tol {DELTA_TOL} x "
         f"max|plain|) dq {errs['dq']:.2e} dk {errs['dk']:.2e} dv "
         f"{errs['dv']:.2e} (tol {BWD_TOL[dtype]} x max|plain|); "
-        + "; ".join(f"{w} {r['ms']:.3f} ms (device {r['device_ms']:.3f}, "
+        + "; ".join(f"{w} {r['ms']:.3f} ms (device {_dev(r['device_ms'])}, "
                     f"{r['tflops']:.2f} TFLOP/s, {r['smem_bytes']} B smem, "
                     f"{r['blocks_per_sm']} blocks/SM), plain "
                     f"{r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms "
                     f"({r['bound_by']}; {r['bound_ms'] / r['ms']:.3f} of it)"
                     for w, r in res.items())
         + f"; pair {pair:.3f} ms, with the delta pass {whole:.3f} ms; sdpa "
-          f"backward {lib:.3f} ms (device {lib_dev:.3f}), pair / sdpa "
+          f"backward {lib:.3f} ms (device {_dev(lib_dev)}), pair / sdpa "
           f"{pair / lib:.2f}, with the delta pass {whole / lib:.2f}")
     return res
 
@@ -1540,7 +1556,7 @@ def _rollout_run(root: str, name: str, reqs: list, procs: list) -> dict:
             gate_pct=ROLLOUT_GATE_PCT, bake_min_samples=ROLLOUT_BAKE_MIN,
             bake_timeout_s=ROLLOUT_BAKE_TIMEOUT_S,
             drain_timeout_s=ROLLOUT_DRAIN_TIMEOUT_S, swap_timeout_s=30.0,
-            swap_seed=ROLLOUT_SEED, base_seed=0, seed=0, log=log)
+            swap_seed=ROLLOUT_SEED, seed=0, log=log)
         state["ctl"] = ctl
 
         def on_tick():
@@ -2023,23 +2039,23 @@ def phase_train() -> dict:
     step = lambda: float(harness.train_step(harness.state, batch)["loss"])  # noqa: E731
     wall_step = wall_ms(step, 1)
     kernels = device_time(step)
-    busy = sum(ms for _, ms, _ in kernels)
-    split = {which: sum(ms for k, ms, _ in kernels
-                        if f"flash_bwd_{which}_tc_kernel" in k)
-             for which in ("delta", "dq", "dkv")}
-    pair = sum(split.values())
-    fwd = sum(ms for k, ms, _ in kernels if "flash_fwd" in k)
-    log(f"[profile] training step: wall {wall_step:.1f} ms, "
-        f"{sum(c for *_, c in kernels)} kernels, device {busy:.1f} ms, idle "
-        f"share {1 - busy / wall_step:.3f}; flash forward {fwd:.1f} ms "
-        f"({fwd / busy:.3f} of device time), backward {pair:.1f} ms "
-        f"({pair / busy:.3f}): "
-        + ", ".join(f"{w} {ms:.1f} ms" for w, ms in split.items())
-        + "; top: "
-        + "; ".join(f"{k[:60]} {ms:.1f} ms x{c}" for k, ms, c in kernels[:8]))
+    busy, idle, text = _busy(kernels, wall_step)
+    split = None
+    if kernels is not None:
+        split = {which: sum(ms for k, ms, _ in kernels
+                            if f"flash_bwd_{which}_tc_kernel" in k)
+                 for which in ("delta", "dq", "dkv")}
+        pair = sum(split.values())
+        fwd = sum(ms for k, ms, _ in kernels if "flash_fwd" in k)
+        text += (f"; flash forward {fwd:.1f} ms ({fwd / busy:.3f} of "
+                 f"device time), backward {pair:.1f} ms ({pair / busy:.3f}"
+                 f"): " + ", ".join(f"{w} {ms:.1f} ms"
+                                    for w, ms in split.items()))
+    log(f"[profile] training step: wall {wall_step:.1f} ms, {text}; top: "
+        + _top(kernels, 8))
     return {"launches": launches, "step_ms_p50": p50, "mfu": mfu,
             "peak_bytes": peak, "routes": routes, "fwd_routes": fwd_routes,
-            "device_ms": busy, "idle_share": 1 - busy / wall_step,
+            "device_ms": busy, "idle_share": idle,
             "backward_device_ms": split}
 
 
@@ -2126,9 +2142,8 @@ def _conv_bn_library_ms(n, h, w, args, iters):
     dy4 = dy.view(n, h, w, c).permute(0, 3, 1, 2)
     lib = cuda_ms(lambda: torch.autograd.grad(
         y, (a4, wt, gamma, beta), dy4, retain_graph=True), iters)
-    dev = sum(t for _, t, _ in device_time(lambda: torch.autograd.grad(
-        y, (a4, wt, gamma, beta), dy4, retain_graph=True), 2)) / 2
-    return lib, dev
+    return lib, device_ms(lambda: torch.autograd.grad(
+        y, (a4, wt, gamma, beta), dy4, retain_graph=True), 2)
 
 
 def phase_conv_bn() -> dict:
@@ -2169,9 +2184,10 @@ def phase_conv_bn() -> dict:
             errs = _conv_bn_check(f"M={m} K={k} C={c}", args, route)
             launch = lambda r=route: fcb._launch(*args, route=r)  # noqa: E731
             ms = cuda_ms(launch, 10)
-            kernels = device_time(launch, 3)
-            dev = sum(t for _, t, _ in kernels) / 3
-            for name, t, _ in kernels:
+            kernels = device_time(launch, 3, PROFILE_TRIES)
+            dev = (None if kernels is None
+                   else sum(t for _, t, _ in kernels) / 3)
+            for name, t, _ in kernels or []:
                 found = re.search(r"\w+_kernel(<[^>]*>)?", name)
                 short = found.group(0) if found else name[:40]
                 split[route][short] = (split[route].get(short, 0.0)
@@ -2187,17 +2203,20 @@ def phase_conv_bn() -> dict:
                              ("bound_ms", case["bound_ms"]),
                              ("ops_ms", t_ops), ("bytes_ms", t_bytes),
                              ("flops", flops), ("bytes", nbytes)):
-                tots[route][key] += calls * val
+                # a total with a time not measured is not measured
+                tots[route][key] = (None if val is None
+                                    or tots[route][key] is None
+                                    else tots[route][key] + calls * val)
             for g in ("da", "dw"):
                 worst[route][g] = max(worst[route][g], errs[g])
         tc, cc = case["tensor_core"], case["cuda_core"]
         log(f"[conv-bn] M={m} K={k} C={c} x{calls}: tensor cores err da "
             f"{tc['max_abs_err_da']:.2e} dw {tc['max_abs_err_dw']:.2e}, "
-            f"{tc['ms']:.3f} ms (device {tc['device_ms']:.3f}, "
+            f"{tc['ms']:.3f} ms (device {_dev(tc['device_ms'])}, "
             f"{tc['tflops']:.2f} TFLOP/s, {tc['splits']} dW splits); CUDA "
-            f"cores {cc['ms']:.3f} ms (device {cc['device_ms']:.3f}); plain "
+            f"cores {cc['ms']:.3f} ms (device {_dev(cc['device_ms'])}); plain "
             f"{plain:.3f} ms, cuDNN conv+BN backward {lib:.3f} ms (device "
-            f"{lib_dev:.3f}), bound {case['bound_ms']:.4f} ms "
+            f"{_dev(lib_dev)}), bound {case['bound_ms']:.4f} ms "
             f"({case['bound_by']})")
         cases.append(case)
         del args
@@ -2210,13 +2229,17 @@ def phase_conv_bn() -> dict:
                            else "bytes")
         tot["max_abs_err"] = max(worst[route].values())
         tot["route"] = route
+        if tot["device_ms"] is None:
+            split[route] = "not measured"   # some window was incomplete
         log(f"[conv-bn] one ResNet-50 step's 36 calls ({len(cases)} shapes,"
             f" {tot['flops']:.3e} FLOPs, {tot['bytes'] / 1e9:.2f} GB), "
             f"route {route}: kernel {tot['ms']:.2f} ms (device "
-            f"{tot['device_ms']:.2f}, {tot['flops'] / tot['ms'] / 1e9:.2f} "
+            f"{_dev(tot['device_ms'], '.2f')}, "
+            f"{tot['flops'] / tot['ms'] / 1e9:.2f} "
             f"TFLOP/s), plain {tot['plain_ms']:.2f} ms, cuDNN conv+BN "
             f"backward {tot['library_ms']:.2f} ms (device "
-            f"{tot['library_device_ms']:.2f}), bound {tot['bound_ms']:.3f} "
+            f"{_dev(tot['library_device_ms'], '.2f')}), bound "
+            f"{tot['bound_ms']:.3f} "
             f"ms (operations {tot['ops_ms']:.3f}, bytes "
             f"{tot['bytes_ms']:.3f}); worst err {worst[route]}; device ms "
             f"by kernel {split[route]}")
@@ -2442,17 +2465,16 @@ def phase_resnet_train() -> dict:
     step = lambda: float(harness.train_step(harness.state, batch)["loss"])  # noqa: E731
     wall_step = wall_ms(step, 1)
     kernels = device_time(step)
-    busy = sum(ms for _, ms, _ in kernels)
-    conv_bn = sum(ms for k, ms, _ in kernels
-                  if re.search(r"\b(da|dw)(_tc)?_kernel|dw_reduce", k))
+    busy, idle, text = _busy(kernels, wall_step)
+    if kernels is not None:
+        conv_bn = sum(ms for k, ms, _ in kernels
+                      if re.search(r"\b(da|dw)(_tc)?_kernel|dw_reduce", k))
+        text += f"; fused conv+BN kernels {conv_bn:.1f} ms"
     log(f"[profile] ResNet-50 training step: wall {wall_step:.1f} ms, "
-        f"{sum(c for *_, c in kernels)} kernels, device {busy:.1f} ms, idle "
-        f"share {1 - busy / wall_step:.3f}; fused conv+BN kernels "
-        f"{conv_bn:.1f} ms; top: "
-        + "; ".join(f"{k[:60]} {ms:.1f} ms x{c}" for k, ms, c in kernels[:10]))
+        f"{text}; top: {_top(kernels, 10)}")
     return {"launches": launches, "step_ms_p50": p50, "mfu": mfu,
             "peak_bytes": peak, "routes": conv_routes, "device_ms": busy,
-            "idle_share": 1 - busy / wall_step, "losses": losses}
+            "idle_share": idle, "losses": losses}
 
 
 @contextlib.contextmanager
@@ -2525,7 +2547,7 @@ def _bert_delta_case(b, glue, split, gen) -> dict:
         raise RuntimeError(f"delta pass {name}: max|diff| {err:.3e} vs tol "
                            f"{DELTA_TOL} x max|plain| {scale:.3e}")
     ms = cuda_ms(call, 100)
-    dev = sum(t for _, t, _ in device_time(call, 10)) / 10
+    dev = device_ms(call, 10)
     plain = cuda_ms(lambda: _by_row(fa.flash_bwd_delta_reference, args,
                                     mask, False), 3)
     ops = 4 * d * _pairs(BERT_SEQ, BERT_SEQ, b, n, mask, False)
@@ -2537,14 +2559,12 @@ def _bert_delta_case(b, glue, split, gen) -> dict:
             "bound_ms": 1e3 * max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "ops": ops, "bytes": nbytes}
-    # the profiler can miss a short window of the hand-written kernels
-    # late in a long process (PERF.md §7): the share is then not shown
-    share = (f"{case['bound_ms'] / dev:.3f} of it by device time" if dev > 0
-             else "device time not recorded")
+    share = ("" if dev is None
+             else f"; {case['bound_ms'] / dev:.3f} of it by device time")
     log(f"[bert-delta] {name}, route {case['route']}: err {err:.2e} (tol "
         f"{DELTA_TOL} x max|plain| {scale:.2e}); kernel {ms:.4f} ms (device "
-        f"{dev:.4f}), plain {plain:.4f} ms, bound {case['bound_ms']:.5f} ms "
-        f"({case['bound_by']}; {share})")
+        f"{_dev(dev, '.4f')}), plain {plain:.4f} ms, bound "
+        f"{case['bound_ms']:.5f} ms ({case['bound_by']}{share})")
     return case
 
 
@@ -2677,7 +2697,7 @@ def _flash_bert_eval_case(gen) -> dict:
     out, lse, err, err_lse = _flash_check(name, q, k, v, mask, False)
     call = lambda: fa.flash_mha_lse(q, k, v, mask=mask)  # noqa: E731
     ms = cuda_ms(call, 100)
-    dev_ms = sum(t for _, t, _ in device_time(call, 10)) / 10
+    dev_ms = device_ms(call, 10)
     plain_ms = cuda_ms(lambda: fa.flash_mha_reference(q, k, v, mask=mask),
                        10)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -2685,7 +2705,7 @@ def _flash_bert_eval_case(gen) -> dict:
     sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
         qt, kt, vt, attn_mask=bool_mask)
     lib_ms = cuda_ms(sdpa, 100)
-    lib_dev = sum(t for _, t, _ in device_time(sdpa, 10)) / 10
+    lib_dev = device_ms(sdpa, 10)
     ops = 4 * d * _pairs(s, s, b, n, mask, False)
     nbytes = (4 * q.numel() * 2 + lse.numel() * 4 + mask.numel() * 4)
     t_ops, t_bytes = ops / PEAK_OPS_S[torch.bfloat16], nbytes / PEAK_BYTES_S
@@ -2697,9 +2717,10 @@ def _flash_bert_eval_case(gen) -> dict:
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "ops": ops, "bytes": nbytes}
     log(f"[flash] {name}, route {case['route']}: err {err:.2e}, lse err "
-        f"{err_lse:.2e}; kernel {ms:.4f} ms (device {dev_ms:.4f}, "
+        f"{err_lse:.2e}; kernel {ms:.4f} ms (device {_dev(dev_ms, '.4f')}, "
         f"{ops / ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.4f} ms, sdpa "
-        f"(same boolean mask) {lib_ms:.4f} ms (device {lib_dev:.4f}), bound "
+        f"(same boolean mask) {lib_ms:.4f} ms (device "
+        f"{_dev(lib_dev, '.4f')}), bound "
         f"{case['bound_ms']:.5f} ms ({case['bound_by']})")
     return case
 
@@ -2858,11 +2879,9 @@ def phase_bert_train() -> dict:
             harness.train_step(harness.state, batch)["loss"])
         wall_step = wall_ms(step, 3)
         kernels = device_time(step)
-    busy = sum(ms for _, ms, _ in kernels)
+    busy, idle, text = _busy(kernels, wall_step)
     log(f"[profile] glue_bert training step: wall {wall_step:.2f} ms, "
-        f"{sum(c for *_, c in kernels)} kernels, device {busy:.2f} ms, idle "
-        f"share {1 - busy / wall_step:.3f}; top: "
-        + "; ".join(f"{k[:60]} {ms:.2f} ms x{c}" for k, ms, c in kernels[:8]))
+        f"{text}; top: {_top(kernels, 8)}")
     del harness
 
     tasks = {}
@@ -2884,7 +2903,7 @@ def phase_bert_train() -> dict:
             f"losses {[round(x, 4) for x in m['losses']]}, eval {shown}")
     return {"launches": launches, "routes": routes, "step_ms_p50": p50,
             "mfu": mfu, "peak_bytes": peak, "device_ms": busy,
-            "idle_share": 1 - busy / wall_step, "tasks": tasks}
+            "idle_share": idle, "tasks": tasks}
 
 
 def _no_kernel_launches(launches: dict, what: str) -> None:
@@ -2895,7 +2914,9 @@ def _no_kernel_launches(launches: dict, what: str) -> None:
 
 def _profile_steps(harness, calls: int):
     """``calls`` more training steps of ``harness`` on one batch: wall ms
-    a step, the kernels (largest first) and device ms a step."""
+    a step, the kernels (largest first; None when the profiler's record
+    is incomplete) and :func:`_busy`'s ``(device ms a step, idle share,
+    log text)``."""
     batch = next(iter(harness.train_loader))
     step = lambda: float(harness.train_step(harness.state, batch)["loss"])  # noqa: E731
     wall_step = wall_ms(step, calls)
@@ -2905,8 +2926,7 @@ def _profile_steps(harness, calls: int):
             step()
 
     kernels = device_time(window)
-    busy = sum(ms for _, ms, _ in kernels) / calls
-    return wall_step, kernels, busy
+    return wall_step, kernels, _busy(kernels, wall_step, calls)
 
 
 def phase_mnist_train() -> dict:
@@ -2959,17 +2979,12 @@ def phase_mnist_train() -> dict:
         f"{MNIST_BATCH / p50 * 1e3:.1f} images/s; peak memory "
         f"{peak / 2**30:.3f} GiB")
     cfg = get_config("mnist_single").with_overrides(**MNIST_CUTS)
-    wall_step, kernels, busy = _profile_steps(train_lib.build_harness(cfg),
-                                              20)
+    wall_step, kernels, (busy, idle, text) = _profile_steps(
+        train_lib.build_harness(cfg), 20)
     log(f"[profile] mnist_single training step (20 steps): wall "
-        f"{wall_step:.3f} ms a step, {sum(c for *_, c in kernels) // 20} "
-        f"kernels a step, device {busy:.3f} ms a step, idle share "
-        f"{1 - busy / wall_step:.3f}; top: "
-        + "; ".join(f"{k[:50]} {ms / 20:.3f} ms x{c // 20}"
-                    for k, ms, c in kernels[:6]))
+        f"{wall_step:.3f} ms a step, {text}; top: {_top(kernels, 6, 20)}")
     return {"launches": launches, "step_ms_p50": p50, "peak_bytes": peak,
-            "device_ms": busy, "idle_share": 1 - busy / wall_step,
-            "eval_accuracy": acc}
+            "device_ms": busy, "idle_share": idle, "eval_accuracy": acc}
 
 
 def _f32_conv_precision(tf32: bool) -> float:
@@ -3038,14 +3053,12 @@ def phase_cifar_train() -> dict:
         f"{peak / 2**30:.2f} GiB; f32 convolutions in f32 (cudnn.allow_tf32 "
         f"{tf32_flag}): max relative error to f64 {off:.2e}, against "
         f"{on:.2e} with TF32 on")
-    wall_step, kernels, busy = _profile_steps(harness, 1)
+    wall_step, kernels, (busy, idle, text) = _profile_steps(harness, 1)
     log(f"[profile] cifar10_resnet18 training step: wall {wall_step:.2f} ms,"
-        f" {sum(c for *_, c in kernels)} kernels, device {busy:.2f} ms, idle "
-        f"share {1 - busy / wall_step:.3f}; top: "
-        + "; ".join(f"{k[:60]} {ms:.2f} ms x{c}" for k, ms, c in kernels[:8]))
+        f" {text}; top: {_top(kernels, 8)}")
     return {"launches": launches, "step_ms_p50": p50, "mfu": mfu,
             "peak_bytes": peak, "device_ms": busy,
-            "idle_share": 1 - busy / wall_step, "conv_rel_err": off,
+            "idle_share": idle, "conv_rel_err": off,
             "conv_rel_err_tf32": on}
 
 
@@ -3619,8 +3632,9 @@ def hvd_worker_nccl(out: str) -> None:
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     checks = _hvd_world1_verbs()
-    nccl = [(k, c) for k, _, c in device_time(_hvd_world1_verbs)
-            if "nccl" in k.lower()]
+    kernels = device_time(_hvd_world1_verbs)
+    nccl = (None if kernels is None
+            else [(k, c) for k, _, c in kernels if "nccl" in k.lower()])
     reset_launches()
     metrics = train_lib.main(RESNET_ARGS + ["--set", "grad_reduce='adasum'"])
     torch.cuda.synchronize()
@@ -3631,6 +3645,11 @@ def hvd_worker_nccl(out: str) -> None:
                    "step_ms": metrics["step_ms"],
                    "launches": launch_counts(),
                    "routes": dict(fcb.ROUTES)}, f)
+    # the group goes before the interpreter: one run's rank aborted at
+    # its exit ("terminate called without an active exception") with
+    # the NCCL group still up
+    torch.cuda.synchronize()
+    hvd.shutdown()
 
 
 def hvd_worker_probe(out: str) -> None:
@@ -3804,7 +3823,7 @@ def hvd_worker_cifar(out: str) -> None:
             h.state.model, batch,
             step_lib.dropout_seed(h.state.seed, 0, rank))
     again = statistics.mean(hvd.allgather_object(float(again)))
-    wall_step, kernels, busy = _profile_steps(h, 1)
+    wall_step, kernels, (busy, _idle, _text) = _profile_steps(h, 1)
     if rank == 0:
         with open(out, "w") as f:
             json.dump({"verbs": verbs, "losses": metrics["losses"],
@@ -3814,7 +3833,8 @@ def hvd_worker_cifar(out: str) -> None:
                        "eval_accuracy": metrics["eval_accuracy"],
                        "digests": digests, "wall_step": wall_step,
                        "device_ms": busy,
-                       "top": [(k[:60], ms, c) for k, ms, c in kernels[:8]]},
+                       "top": [(k[:60], ms, c)
+                               for k, ms, c in (kernels or [])[:8]]},
                       f)
 
 
@@ -3999,11 +4019,13 @@ def phase_hvd(resnet_losses: list | None = None,
     if problems:
         raise RuntimeError("hvd: " + "; ".join(problems))
     p50 = statistics.median(b["step_ms"][1:])
-    idle = 1 - b["device_ms"] / b["wall_step"]
+    idle = (None if b["device_ms"] is None
+            else 1 - b["device_ms"] / b["wall_step"])
     log(f"[hvd] {card}: (a) world of one over NCCL: group in "
         f"{a['group_s']:.2f} s, first collective at "
         f"{a['first_collective_s']:.2f} s; {len(a['checks'])} verb checks "
-        f"held; NCCL kernels in the verbs {a['nccl_kernels']}; "
+        f"held; NCCL kernels in the verbs "
+        f"{_dev(a['nccl_kernels'], '')}; "
         f"imagenet_resnet50 bn=fused grad_reduce=adasum losses "
         f"{a['losses']} equal phase 12's (max |diff| {diff:.3e}); step ms "
         f"{[round(x, 1) for x in a['step_ms']]}; launches {a['launches']}; "
@@ -4016,9 +4038,11 @@ def phase_hvd(resnet_losses: list | None = None,
         f"{b['eval_loss']:.4f} accuracy {b['eval_accuracy']:.4f}; final "
         f"states bit-identical ({b['digests'][0][:16]}); step 1 against "
         f"the plain data-parallel step: max error {dp_err:.3e} ({worst}); "
-        f"step ms p50 {p50:.2f} and rank 0's idle share {idle:.3f}, both "
+        f"step ms p50 {p50:.2f} and rank 0's idle share "
+        f"{_dev(idle)}, both "
         f"gloo through the host (not NCCL's cost); profiled step: wall "
-        f"{b['wall_step']:.2f} ms, rank 0's device {b['device_ms']:.2f} "
+        f"{b['wall_step']:.2f} ms, rank 0's device "
+        f"{_dev(b['device_ms'], '.2f')} "
         f"ms; top: " + "; ".join(f"{k} {ms:.2f} ms x{c}"
                                  for k, ms, c in b["top"]))
     log(f"[hvd] hvd verbs on CUDA under gloo: {b['verbs']}")
@@ -4084,35 +4108,97 @@ def wall_ms(fn, calls: int) -> float:
     return 1e3 * (time.monotonic() - t) / calls
 
 
-def device_time(fn, calls: int = 1):
+def device_time(fn, calls: int = 1, tries: int = 1):
     """Kernels that ``calls`` calls of ``fn`` run on the card, by
     torch.profiler: a list of ``(name, device ms, count)``, largest
     first.  Only device-side events count (the CPU ops that launched
-    them carry the same time again)."""
+    them carry the same time again).
+
+    None when the profiler's record of the window is not whole: it must
+    hold both sentinel kernels (``torch.cuda._sleep``, launched first and
+    last inside the window) and one event for each launch of a
+    hand-written kernel that the wrappers counted in it.  On the H100
+    machines this runs on, some records lose kernels, most often the
+    last (PERF.md §6).  A window whose ``fn`` only launches kernels (no
+    state it changes) may be taken again, ``tries`` times in all."""
+    for _ in range(tries - 1):
+        kernels = _device_time(fn, calls, quiet=True)
+        if kernels is not None:
+            return kernels
+    return _device_time(fn, calls)
+
+
+def _device_time(fn, calls: int, quiet: bool = False):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
+    before = sum(launch_counts().values())
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(SENTINEL_CYCLES)
         for _ in range(calls):
             fn()
+        torch.cuda._sleep(SENTINEL_CYCLES)
         torch.cuda.synchronize()
-    return sorted(((e.key, e.self_device_time_total / 1e3, e.count)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA
-                   and e.self_device_time_total > 0),
+    launched = sum(launch_counts().values()) - before
+    events = [(e.key, e.self_device_time_total / 1e3, e.count)
+              for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    sentinels = sum(c for k, _, c in events if SENTINEL_KERNEL in k)
+    recorded = sum(c for k, _, c in events if HAND_WRITTEN_EVENT.search(k))
+    PROFILE_WINDOWS["records"] += 1
+    if sentinels != 2 or recorded != launched:
+        PROFILE_WINDOWS["incomplete"] += 1
+        if not quiet:
+            PROFILE_WINDOWS["not_measured"] += 1
+            log(f"[profile] incomplete record, device time not measured: "
+                f"sentinel kernels {sentinels} of 2, hand-written kernels "
+                f"{recorded} of {launched} launches")
+        return None
+    return sorted((e for e in events if SENTINEL_KERNEL not in e[0]),
                   key=lambda k: -k[1])
+
+
+def device_ms(fn, calls: int) -> float | None:
+    """Device ms a call of ``fn``, a function that only launches kernels
+    (:func:`device_time` with PROFILE_TRIES; None when no record was
+    whole)."""
+    kernels = device_time(fn, calls, PROFILE_TRIES)
+    return None if kernels is None else sum(
+        ms for _, ms, _ in kernels) / calls
+
+
+def _dev(ms: float | None, spec: str = ".3f") -> str:
+    """A device time for a log line."""
+    return "not measured" if ms is None else format(ms, spec)
+
+
+def _busy(kernels, wall: float, per: int = 1) -> tuple:
+    """``(device ms, idle share, log text)`` of a profiled window of
+    ``per`` steps over ``wall`` ms a step; (None, None, "...not
+    measured") when :func:`device_time` returned None."""
+    if kernels is None:
+        return None, None, ("device not measured (incomplete profiler "
+                            "record), idle share not measured")
+    busy = sum(ms for _, ms, _ in kernels) / per
+    return busy, 1 - busy / wall, (
+        f"{sum(c for *_, c in kernels) // per} kernels"
+        + (" a step" if per > 1 else "") + f", device {busy:.3f} ms"
+        + (" a step" if per > 1 else "") + f", idle share "
+        f"{1 - busy / wall:.3f}")
+
+
+def _top(kernels, n: int, per: int = 1) -> str:
+    return "; ".join(f"{k[:60]} {ms / per:.3f} ms x{c // per}"
+                     for k, ms, c in (kernels or [])[:n])
 
 
 def profile_window(name: str, fn, wall: float) -> None:
     kernels = device_time(fn)
-    busy = sum(ms for _, ms, _ in kernels)
-    log(f"[profile] {name}: wall {wall:.3f} ms, {sum(c for *_, c in kernels)}"
-        f" kernels, device {busy:.3f} ms, idle share "
-        f"{1 - busy / wall:.3f}; top: "
-        + "; ".join(f"{k[:50]} {ms:.3f} ms x{c}"
-                    for k, ms, c in kernels[:4]))
+    log(f"[profile] {name}: wall {wall:.3f} ms, {_busy(kernels, wall)[2]}; "
+        f"top: {_top(kernels, 4)}")
 
 
 def main(argv=None) -> int:
@@ -4257,6 +4343,10 @@ def main(argv=None) -> int:
                 "library_ms", "max_abs_err")}
         elif row["name"] == "precision_probe":
             row["modes"] = probe["modes"]
+    log(f"[profile] {PROFILE_WINDOWS['records']} profiler records, "
+        f"{PROFILE_WINDOWS['incomplete']} incomplete; "
+        f"{PROFILE_WINDOWS['not_measured']} windows' device times not "
+        f"measured")
     log(f"[done] {time.monotonic() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

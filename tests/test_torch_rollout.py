@@ -26,7 +26,7 @@ import time
 
 import pytest
 
-pytest.importorskip("torch")
+torch = pytest.importorskip("torch")
 
 from tpuframe.serve import replica as jax_replica  # noqa: E402
 from tpuframe.serve import rollout as jax_rollout  # noqa: E402
@@ -107,14 +107,15 @@ def test_env_knobs_resolve_as_jax(monkeypatch, frac, gate, watch):
 # ---------------------------------------------------------------------------
 
 def _sim(pkg, *, n=3, poisoned_ttft_ms=None, gate_pct=50.0,
-         canary_frac=0.5):
+         canary_frac=0.5, fleet=None):
     """``_drive_sim_rollout`` of either package, both on the port's
     virtual clock (1 µs a loop): on the wall clock a loaded host's queue
     waits reach the gate's router TTFT, and the JAX helper's clean roll
-    can then abort."""
+    can then abort.  ``fleet`` replaces the package's ``_SimFleet``."""
     mod, router_cls = PKGS[pkg]
     now = [0.0]
-    fleet = mod._SimFleet(n, poisoned_ttft_ms=poisoned_ttft_ms)
+    if fleet is None:
+        fleet = mod._SimFleet(n, poisoned_ttft_ms=poisoned_ttft_ms)
     router = router_cls(list(fleet.reps), transport=fleet.transport,
                         queue_limit=10_000, hedge_ms=0.0,
                         scrape_interval_s=0.0, scrape_timeout_s=0.2,
@@ -234,39 +235,87 @@ def test_watch_ignores_partial_checkpoints_as_jax_does(tmp_path):
                    {"step": 4, "processes": 1, "devices": 1})
 
 
-def test_rollback_sends_the_base_seed():
-    """With ``base_seed`` the rollback's swap carries the old weights'
-    seed, so a real engine goes back to them; without it the rollback is
-    metadata-only, as the JAX controller's."""
-    for base_seed, want in ((None, [{"version": 1, "seed": 7},
-                                    {"version": 0}]),
-                            (0, [{"version": 1, "seed": 7},
-                                 {"version": 0, "seed": 0}])):
-        fleet = rollout._SimFleet(2, poisoned_ttft_ms=500.0)
-        payloads = []
+def _roll_payloads(pkg, fleet):
+    """The ``/swap_weights`` payloads of one roll of ``pkg``'s controller
+    (``swap_seed=7``) on the stub ``fleet``, and the controller."""
+    mod, router_cls = PKGS[pkg]
+    payloads = []
 
-        def transport(url, payload, timeout_s, fleet=fleet):
-            if url.endswith("/swap_weights"):
-                payloads.append(dict(payload))
-            return fleet.transport(url, payload, timeout_s)
+    def transport(url, payload, timeout_s):
+        if url.endswith("/swap_weights"):
+            payloads.append(dict(payload))
+        return fleet.transport(url, payload, timeout_s)
 
-        router = Router(list(fleet.reps), transport=transport,
+    router = router_cls(list(fleet.reps), transport=transport,
                         queue_limit=10_000, hedge_ms=0.0,
                         scrape_interval_s=0.0)
-        ctl = rollout.RolloutController(
-            router, transport=transport, canary_frac=0.5, gate_pct=50.0,
-            bake_min_samples=4, poll_interval_s=0.0, swap_seed=7,
-            base_seed=base_seed)
-        ctl.start(1)
-        for rid in range(4000):
-            if ctl.done():
-                break
-            router.submit(rid, [1, 2, 3])
-            router.step()
-            ctl.tick()
-        assert ctl.state == "aborted" and payloads == want
-        assert [rep for rep, _ms in ctl.summary()["swap_ms"]] == ["r0", "r0"]
-        assert min(ctl.summary()["bake_samples"].values()) >= 4
+    ctl = mod.RolloutController(
+        router, transport=transport, canary_frac=0.5, gate_pct=50.0,
+        bake_min_samples=4, poll_interval_s=0.0, swap_seed=7)
+    ctl.start(1)
+    for rid in range(4000):
+        if ctl.done():
+            break
+        router.submit(rid, [1, 2, 3])
+        router.step()
+        ctl.tick()
+    return payloads, ctl
+
+
+def test_rollback_names_only_the_version_as_jax_does():
+    """The roll's swap carries the new weights' seed, the rollback's only
+    the old version, as the JAX controller's; the replica restores the
+    weights it served under that version
+    (``test_rollback_restores_the_weights_the_replica_served``)."""
+    got, ctl = _roll_payloads("port", rollout._SimFleet(
+        2, poisoned_ttft_ms=500.0))
+    want, _ = _roll_payloads("jax", jax_rollout._SimFleet(
+        2, poisoned_ttft_ms=500.0))
+    assert got == want == [{"version": 1, "seed": 7}, {"version": 0}]
+    assert ctl.state == "aborted"
+    assert [rep for rep, _ms in ctl.summary()["swap_ms"]] == ["r0", "r0"]
+    assert min(ctl.summary()["bake_samples"].values()) >= 4
+
+
+class _BurstFleet:
+    """Stub fleet whose new-version replica takes its first ``wave``
+    requests together (each waits until all have arrived) and answers
+    them 500x slower, then answers as fast as the old version: the
+    readmission burst, and nothing wrong with the weights."""
+
+    def __init__(self, mod, wave):
+        self.sim = mod._SimFleet(2)
+        self.reps = self.sim.reps
+        self.swaps = self.sim.swaps
+        self.wave = threading.Barrier(wave, timeout=30.0)
+        self.left = wave
+        self.lock = threading.Lock()
+
+    def transport(self, url, payload, timeout_s):
+        base = url.rpartition("/")[0]
+        burst = False
+        if url.endswith("/generate") and self.reps[base]["version"] > 0:
+            with self.lock:
+                burst, self.left = self.left > 0, self.left - 1
+        status, body = self.sim.transport(url, payload, timeout_s)
+        if burst:
+            self.wave.wait()
+            body = dict(body, ttft_ms=500.0, tpot_ms=125.0)
+        return status, body
+
+
+def test_bake_skips_the_canarys_first_wave():
+    """The gate skips the canary's first wave (what it was handed before
+    its first answer), so a burst at readmission does not roll back a
+    clean canary; the JAX gate counts the burst and rolls it back.  A canary
+    slow on every answer is still rolled back (``test_sim_rollout_
+    matches_jax``, ``test_slow_canary_is_rolled_back``)."""
+    got = _sim("port", fleet=_BurstFleet(rollout, 4))
+    want = _sim("jax", fleet=_BurstFleet(jax_rollout, 4))
+    assert got["state"] == "done" and got["lost"] == 0
+    assert set(got["versions"].values()) == {1}
+    assert want["state"] == "aborted"
+    assert want["abort_metric"] in rollout.GATE_METRICS
 
 
 def test_check_is_clean():
@@ -333,6 +382,112 @@ def test_swap_waits_for_the_request_in_the_replicas_hands(monkeypatch):
     jax_seen, _g, jax_out = _swap_during_prefill(jax_replica, monkeypatch)
     assert jax_seen[0] == 0 and jax_seen[-1] == 1
     assert jax_out["gen"][0] == 200
+
+
+def _pumped(replica):
+    pump = threading.Thread(target=replica.run,
+                            kwargs=dict(max_idle_s=30.0), daemon=True)
+    pump.start()
+    return pump
+
+
+def _swap(replica, **msg):
+    status, body = replica.handle_swap(json.dumps(msg).encode())
+    return status, json.loads(body)
+
+
+def test_rollback_restores_the_weights_the_replica_served(monkeypatch):
+    """A swap back to the version a seeded swap replaced, with no seed,
+    puts the weights served under it back bit for bit; a seeded POST of
+    what the replica serves already (a late retry) changes nothing; a
+    version it holds no weights of is refused."""
+    from tpuframe_torch.models.transformer_lm import LMConfig
+    from tpuframe_torch.serve.engine import LMEngine
+
+    monkeypatch.delenv("TPUFRAME_METRICS_PORT", raising=False)
+    monkeypatch.delenv("TPUFRAME_METRICS_TEXTFILE", raising=False)
+    kw = dict(slots=2, prompt_buckets=(16, 32), decode_block=16,
+              max_context=64, device="cpu")
+    engine = LMEngine(LMConfig.tiny(), **kw)
+    rep = port_replica.Replica(engine, handler_timeout_s=30.0)
+    pump = _pumped(rep)
+
+    def served():
+        return {k: v.clone() for k, v in engine.model.state_dict().items()}
+
+    def same(a, b):
+        return all(torch.equal(a[k], b[k]) for k in a)
+
+    try:
+        v0 = served()
+        v1 = LMEngine(LMConfig.tiny(), seed=7, **kw).model.state_dict()
+        assert _swap(rep, version=1, seed=7) == (
+            200, {"version": 1, "compile_cache_misses": 0})
+        assert same(served(), v1) and not same(served(), v0)
+        assert _swap(rep, version=1, seed=7)[0] == 200     # late retry
+        assert _swap(rep, version=0) == (
+            200, {"version": 0, "compile_cache_misses": 0})
+        assert same(served(), v0)
+        status, body = _swap(rep, version=5)
+        assert status == 500 and "no weights of version 5" in body["error"]
+        assert rep.weights_version == 0 and same(served(), v0)
+        assert _swap(rep, version=1)[0] == 200      # the roll again
+        assert same(served(), v1)
+    finally:
+        rep.drain()
+        pump.join(30.0)
+
+
+def test_a_retried_swap_joins_the_queued_one(monkeypatch):
+    """Two POSTs of one swap while the replica holds a request (the
+    controller's RetryPolicy after a timeout) queue one job, and both
+    answer once it is applied."""
+    monkeypatch.delenv("TPUFRAME_METRICS_PORT", raising=False)
+    monkeypatch.delenv("TPUFRAME_METRICS_TEXTFILE", raising=False)
+    in_prefill, release = threading.Event(), threading.Event()
+    applied = []
+
+    class Engine(port_replica.FakeEngine):
+        def prefill(self, ids):
+            in_prefill.set()
+            release.wait(30.0)
+            return super().prefill(ids)
+
+    rep = port_replica.Replica(Engine(slots=2), handler_timeout_s=30.0)
+    real_fire = port_replica.faults.fire
+
+    def fire(seam):
+        if seam == "crash_during_swap":
+            applied.append(rep.weights_version)
+        return real_fire(seam)
+
+    monkeypatch.setattr(port_replica.faults, "fire", fire)
+    pump = _pumped(rep)
+    out = []
+    gen = threading.Thread(target=rep.handle_generate, args=(json.dumps(
+        {"rid": 0, "prompt": [1, 2, 3], "max_new_tokens": 4}).encode(),))
+    posts = [threading.Thread(target=lambda: out.append(
+        _swap(rep, version=1))) for _ in range(2)]
+    try:
+        gen.start()
+        assert in_prefill.wait(30.0)
+        for t in posts:
+            t.start()
+        deadline = time.monotonic() + 30.0
+        while time.monotonic() < deadline and sum(
+                len(job["done"]._cond._waiters)
+                for job in list(rep._swap_inbox)) < 2:
+            time.sleep(0.005)      # until both POSTs wait on a job
+        assert len(rep._swap_inbox) == 1
+        release.set()
+        for t in (gen, *posts):
+            t.join(30.0)
+    finally:
+        release.set()
+        rep.drain()
+        pump.join(30.0)
+    assert out == [(200, {"version": 1, "compile_cache_misses": 0})] * 2
+    assert applied == [0]
 
 
 # ---------------------------------------------------------------------------

@@ -101,6 +101,21 @@ class LMEngine:
         for key, *_ in self._param_spec:
             served[key].copy_(new_params[key])
 
+    def served_params(self) -> dict:
+        """A copy of the served weights as served (after the serving
+        cast), which :meth:`restore_params` puts back bit for bit."""
+        return {k: v.detach().clone()
+                for k, v in self.model.state_dict().items()}
+
+    def restore_params(self, held: dict) -> None:
+        """Copy a :meth:`served_params` copy of this engine back into
+        the served weights, in place (the swap seam's contract)."""
+        served = self.model.state_dict()
+        if sorted(held) != sorted(served):
+            raise ValueError("restore_params: not this engine's weights")
+        for key, value in held.items():
+            served[key].copy_(value)
+
     def reset(self) -> None:
         """Fresh (zeroed) decode cache; every slot becomes free."""
         self._layers, self._lengths = kv.init_cache(self.spec, self.device)

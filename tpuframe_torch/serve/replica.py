@@ -151,6 +151,14 @@ class Replica:
         self.weights_version = int(weights_version)
         self._launch_version = int(weights_version)
         self._swap_inbox: list = []          # swap jobs (dicts)
+        # (version, seed, weights) the last seeded swap replaced, as
+        # served: a swap back to that version with no seed (the rollout's
+        # rollback) restores them.  The JAX replica keeps no weights: its
+        # rollback moves the version gauge and leaves the new weights
+        # serving.  ``_seed`` is the seed of the served weights (None: the
+        # launch weights).
+        self._held: tuple | None = None
+        self._seed: int | None = None
         self.exporter = obs_exporter.start_from_env(health=self.healthy)
         if self.exporter is not None:
             self.exporter.add_handler("/generate", self.handle_generate)
@@ -239,12 +247,16 @@ class Replica:
     def handle_swap(self, body: bytes):
         """POST /swap_weights — runs on an exporter HTTP worker thread.
         Like /generate it only parses, enqueues and waits: the MAIN loop
-        owns the engine, so the swap is applied between scheduler steps
-        (never mid-decode) and the only-main-thread-touches-the-engine
-        contract holds.  With a ``seed`` the new weights are the port's
+        owns the engine, so the swap is applied once the replica holds no
+        request (:meth:`_apply_swaps`) and the only-main-thread-touches-
+        the-engine contract holds.  A POST of a swap already queued (the
+        caller's retry after a timeout) waits on that job and queues no
+        second one.  With a ``seed`` the new weights are the port's
         random init drawn from it (``TransformerLM(cfg, seed=seed)``, a
         ``torch.Generator`` seeded with it), not the JAX package's init
-        for the same seed."""
+        for the same seed.  Without one, a real engine goes back to the
+        weights it served under ``version`` before its last seeded swap,
+        and refuses a version it holds no weights of."""
         try:
             msg = json.loads(body.decode() or "{}")
             version = int(msg["version"])
@@ -252,10 +264,14 @@ class Replica:
             seed = None if seed is None else int(seed)
         except (KeyError, ValueError, TypeError) as e:
             return 400, json.dumps({"error": f"bad swap: {e}"}).encode()
-        job = {"version": version, "seed": seed, "result": None,
-               "done": threading.Event()}
         with self._inbox_lock:
-            self._swap_inbox.append(job)
+            job = next((j for j in self._swap_inbox
+                        if (j["version"], j["seed"]) == (version, seed)),
+                       None)
+            if job is None:
+                job = {"version": version, "seed": seed, "result": None,
+                       "done": threading.Event()}
+                self._swap_inbox.append(job)
         if not job["done"].wait(self.handler_timeout_s):
             return 504, json.dumps(
                 {"error": "timed out waiting for the swap"}).encode()
@@ -284,7 +300,10 @@ class Replica:
             try:
                 faults.fire("crash_during_swap")
                 misses0 = _compile_misses()
-                if job["seed"] is not None:
+                if (job["version"], job["seed"]) == (self.weights_version,
+                                                     self._seed):
+                    pass    # served already: a retry that came too late
+                elif job["seed"] is not None:
                     # Real-weights path: regenerate params (stand-in for
                     # a checkpoint restore) and hot-swap them through
                     # the engine's one seam.  The port's init drawn from
@@ -295,7 +314,22 @@ class Replica:
                     new_params = TransformerLM(
                         self.engine.cfg, device=self.engine.device,
                         seed=job["seed"]).state_dict()
+                    held = self.engine.served_params()
                     self.engine.swap_params(new_params)
+                    self._held = (self.weights_version, self._seed, held)
+                    self._seed = job["seed"]
+                elif (hasattr(self.engine, "served_params")
+                      and job["version"] != self.weights_version):
+                    if self._held is None or self._held[0] != job["version"]:
+                        raise ValueError(
+                            f"no weights of version {job['version']} here "
+                            f"(serving v{self.weights_version}); a swap to "
+                            f"new weights names their seed")
+                    _v, seed, weights = self._held
+                    self._held = (self.weights_version, self._seed,
+                                  self.engine.served_params())
+                    self.engine.restore_params(weights)
+                    self._seed = seed
                 self.weights_version = job["version"]
                 job["result"] = {
                     "version": self.weights_version,

@@ -11,11 +11,12 @@ The state machine::
 
     idle --watch sees a committed step--> canary: drain -> swap ->
     readmit (+ a seeded share of the traffic) --> bake: old-vs-new
-    TTFT/TPOT through ``obs compare``'s thresholds --rc 0--> roll the
+    TTFT/TPOT, past the canary's first wave, through ``obs compare``'s
+    thresholds --rc 0--> roll the
     rest, one replica at a time (drain -> swap -> readmit) --> done
                                           `--rc 1 (or a starved gate)-->
-    abort: drain the canary, swap the OLD version back, readmit -->
-    aborted
+    abort: drain the canary, swap the OLD version back (the replica
+    restores the weights it served under it), readmit --> aborted
 
 Invariants:
 
@@ -132,6 +133,19 @@ class RolloutController:
     non-blocking state machine, so request traffic keeps flowing — and
     keeps being measured — all the way through the roll.  The only
     blocking call is the swap POST itself, bounded by its RetryPolicy.
+
+    A replica applies a swap only once it holds no request, so the POST
+    waits for whatever the drain left in its hands: ``swap_timeout_s``
+    must cover one wave of its requests (a retried POST joins the swap
+    already queued, it does not queue a second).
+
+    The bake's gate skips the canary's first wave: of the canary's
+    answers it counts only those to requests the router handed it at or
+    after its first answer.  The canary is readmitted into the backlog
+    that built up while it was out and takes a full wave of it at once;
+    that burst's TTFT is the readmission's, not the new weights'.  The
+    old side counts every answer after the readmission, as the JAX
+    controller counts both.
     """
 
     def __init__(self, router: Router, *, transport=None,
@@ -145,8 +159,7 @@ class RolloutController:
                  swap_timeout_s: float = 10.0,
                  relaunch_timeout_s: float = 30.0,
                  poll_interval_s: float = 0.05,
-                 swap_seed: int | None = None,
-                 base_seed: int | None = None, seed: int = 0, log=None):
+                 swap_seed: int | None = None, seed: int = 0, log=None):
         self.router = router
         self._transport = transport or router._transport
         self._clock = clock
@@ -169,13 +182,6 @@ class RolloutController:
         # regenerate — None means a metadata-only swap (FakeEngine).
         self.seed = seed
         self.swap_seed = swap_seed
-        # ``base_seed``: the seed of the weights the fleet serves now,
-        # sent with a rollback's swap so a real-engine replica goes back
-        # to them.  The JAX controller sends no seed on a rollback, which
-        # moves a real engine's version gauge back but leaves its new
-        # weights serving; None keeps that metadata-only rollback (what a
-        # FakeEngine fleet needs).
-        self.base_seed = base_seed
         self._log = log or (lambda *_a: None)
         self._swap_policy = RetryPolicy(
             max_attempts=2, base_delay_s=0.02, max_delay_s=0.25,
@@ -369,11 +375,11 @@ class RolloutController:
             if idle:
                 self._enter_phase("swap")
             elif now - self._phase_t > self.drain_timeout_s:
-                # Proceed anyway: the router already redispatched the
-                # replica's in-flight work, and a swap between scheduler
-                # steps is safe — loud, not silent.
+                # Post the swap anyway, loud, not silent: the replica
+                # applies it only once it holds no request, so the POST
+                # waits for that work (``swap_timeout_s`` must cover it).
                 self._log(f"rollout: {name} drain timed out after "
-                          f"{self.drain_timeout_s}s; swapping anyway")
+                          f"{self.drain_timeout_s}s; posting the swap")
                 self._enter_phase("swap")
             return
         if self._phase == "swap":
@@ -400,9 +406,10 @@ class RolloutController:
     def _do_swap(self, name: str) -> None:
         rep = self.router._replica(name)
         payload = {"version": self._swap_to}
-        seed = self.base_seed if self._rollback else self.swap_seed
-        if seed is not None:
-            payload["seed"] = seed
+        # A rollback names only the version: the replica restores the
+        # weights it served under it (``serve/replica.py``).
+        if self.swap_seed is not None and not self._rollback:
+            payload["seed"] = self.swap_seed
         t0 = self._clock()
         try:
             status, body = self._swap_policy.call(
@@ -514,13 +521,24 @@ class RolloutController:
 
     def _tick_bake(self, now: float) -> None:
         baked = self.router.completed[self._bake_start_idx:]
-        new_side = [r for r in baked if r.replica == self._canary_name]
+        canary = [r for r in baked if r.replica == self._canary_name]
+        # The canary's first wave out of the readmission backlog is not
+        # counted (class docstring): only what it was handed at or after
+        # its first answer.
+        new_side = [r for r in canary
+                    if r.last_launch_t is not None
+                    and r.last_launch_t >= canary[0].done_t]
         old_side = [r for r in baked if r.replica != self._canary_name]
         enough = (len(new_side) >= self.bake_min_samples
                   and len(old_side) >= self.bake_min_samples)
         starved = now - self._bake_start_t > self.bake_timeout_s
         if not enough and not starved:
             return
+        if not enough:
+            # At the deadline the gate reads every canary answer, the
+            # first wave too: a starved bake never promotes, so the wave
+            # can only name the metric of the rollback.
+            new_side = canary
         rc, res = gate_compare(self._gate_events(old_side),
                                self._gate_events(new_side),
                                pct=self.gate_pct)

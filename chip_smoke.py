@@ -133,13 +133,21 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
      and op on CUDA tensors against its plain expectation, then
      imagenet_resnet50 at RESNET_CUTS with ``grad_reduce="adasum"``, its
      losses equal to phase 12's and every fused conv+BN launch on the
-     tensor cores (path ``hvd_resnet``); (b) cifar10_resnet18 as two
-     processes on the one card over gloo (HVD_CIFAR_CUTS): final states
-     bit-identical across ranks, step 1 against the plain data-parallel
-     step, the loss falling, step p50 and idle share (gloo through the
+     tensor cores (path ``hvd_resnet``), and ``hvd.DistributedOptimizer``
+     through the fusion buckets bit-equal to the per-tensor path; (b)
+     cifar10_resnet18 as two processes on the one card over gloo
+     (HVD_CIFAR_CUTS), with TPUFRAME_FUSION_THRESHOLD unset, at 64 MiB
+     and at 4 MiB, twice each, under TPUFRAME_CHECK_SPMD=1: final states
+     bit-identical across ranks and across thresholds, step 1 against the
+     plain data-parallel step, the all_reduce calls of every step equal
+     to the bucket census, buckets started inside the backward, the loss
+     falling, step p50 and idle share by threshold (gloo through the
      host); (c) ``adasum_combine`` at ResNet-50's leaf shapes against
      float64; (d) probes written down: raw gloo verbs on CUDA tensors, and
-     two NCCL ranks on one card.
+     two NCCL ranks on one card; (e) imagenet_resnet50 bn="fused" as two
+     processes, unset and at 4 MiB, every fused conv+BN launch on the
+     tensor cores (path ``hvd_resnet50_x2``); (f) a divergent threshold
+     under TPUFRAME_CHECK_SPMD=1 failing both ranks before step 1.
 
 Phases 13-15 run with ``TPUFRAME_ATTN_IMPL=pallas`` and restore it after.
 The harness turns TF32 off (f32 convolutions and matmuls run in f32), and
@@ -199,6 +207,7 @@ from tpuframe_torch.ops import flash_attention as fa  # noqa: E402
 from tpuframe_torch.ops import fused_conv_bn as fcb  # noqa: E402
 from tpuframe_torch.ops import precision_probe as pp  # noqa: E402
 from tpuframe_torch.parallel import bootstrap, collectives, hvd  # noqa: E402
+from tpuframe_torch.parallel import fusion  # noqa: E402
 from tpuframe_torch.parallel import step as step_lib  # noqa: E402
 from tpuframe_torch.serve import kv_cache as kv  # noqa: E402
 from tpuframe_torch.resilience import faults  # noqa: E402
@@ -511,6 +520,27 @@ HVD_DP_RTOL = 1e-4
 # bf16 leaf is rounded to bf16 once at the end: one bf16 step, 2^-8 of
 # the entry (so at most 2^-8 of the largest), on top of f32's 1e-5.
 HVD_COMBINE_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -8 + 1e-5}
+# (b) the fusion buckets (TPUFRAME_FUSION_THRESHOLD): unset (one
+# collective a tensor, 104 a step), Horovod's default 64 MiB (one gradient
+# bucket: 62 leaves, 44.7 MB) and 4 MiB (12 gradient buckets, so the
+# staged pass has buckets to start during the backward), each run twice,
+# alternating, in one world of two processes, every run with
+# TPUFRAME_CHECK_SPMD=1.  A fused run's final state must equal the first
+# unfused run's bit for bit, or lie within the two unfused runs' measured
+# difference (max |diff| over every leaf).  These runs take cuDNN's
+# deterministic algorithms (torch.backends.cudnn.deterministic), so that
+# difference is that of the reduction alone.
+HVD_FUSION_SETTINGS = (None, 64 << 20, 4 << 20) * 2
+# (e) imagenet_resnet50 bn="fused" as two processes (RESNET_CUTS on a
+# data=2 mesh: batch 256, 128 a rank, 4 steps): unset, 4 MiB (161 leaves
+# in 32 gradient buckets), unset again for the unfused runs' difference.
+HVD_RESNET_ARGS = RESNET_ARGS + ["--set", "mesh={'data': 2}"]
+HVD_RESNET_SETTINGS = (None, 4 << 20, None)
+# (f) the program check: TPUFRAME_CHECK_SPMD=1 with rank r's threshold
+# HVD_SPMD_THRESHOLDS[r]; both ranks must exit non-zero before step 1.
+HVD_SPMD_THRESHOLDS = (4 << 20, 64 << 20)
+# (a) hvd.DistributedOptimizer over NCCL with the knob at this threshold.
+HVD_OPT_THRESHOLD = 4 << 20
 
 # The serving fleet (phase ``fleet``): phase serve's engine in each of
 # FLEET_REPLICAS replica processes behind the port's router.  Seeded
@@ -3976,11 +4006,55 @@ def _hvd_world1_verbs() -> dict:
     return checks
 
 
+def _hvd_fused_optimizer() -> dict:
+    """(a) ``hvd.DistributedOptimizer`` (Average) over NCCL on ResNet-50's
+    161 parameters with random gradients, the knob unset and at
+    HVD_OPT_THRESHOLD: the all_reduce calls of each ``step()`` (one a
+    tensor; one a bucket of the census of the gradients in the
+    optimizer's order) and whether the parameters after it are bit-equal
+    to the per-tensor path's."""
+    cfg = get_config("imagenet_resnet50").with_overrides(
+        model_kwargs={"bn": "fused"})
+    base = get_model(cfg.model, dtype=cfg.compute_dtype, device="cuda",
+                     seed=cfg.seed, **cfg.model_kwargs)
+    init = {k: v.clone() for k, v in base.state_dict().items()}
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    grads = [torch.randn(p.shape, device="cuda", generator=gen)
+             for p in base.parameters()]
+    out, finals = {}, {}
+    for threshold in (None, HVD_OPT_THRESHOLD):
+        if threshold is None:
+            os.environ.pop(fusion.ENV_VAR, None)
+        else:
+            os.environ[fusion.ENV_VAR] = str(threshold)
+        base.load_state_dict(init)
+        opt = hvd.DistributedOptimizer(build_optimizer(cfg, base))
+        for p, g in zip(base.parameters(), grads):
+            p.grad = g.clone()
+        calls, restore = _counting_all_reduce()
+        try:
+            opt.step()
+            torch.cuda.synchronize()
+        finally:
+            restore()
+            os.environ.pop(fusion.ENV_VAR, None)
+        finals[threshold] = [p.detach().clone() for p in base.parameters()]
+        out[str(threshold)] = calls[0]
+    out["want_fused"] = fusion.bucket_census(
+        grads, HVD_OPT_THRESHOLD)["n_buckets"]
+    out["leaves"] = len(grads)
+    out["bit_equal"] = all(torch.equal(a, b) for a, b in zip(
+        finals[None], finals[HVD_OPT_THRESHOLD]))
+    return out
+
+
 def hvd_worker_nccl(out: str) -> None:
     """(a) The one rank of a world of one over NCCL: init and first
-    collective seconds, every verb, the NCCL kernels they ran, then
-    imagenet_resnet50 (RESNET_CUTS) with grad_reduce="adasum" through
-    ``tpuframe_torch.train.main``, its launches read around it."""
+    collective seconds, every verb, the NCCL kernels they ran,
+    ``hvd.DistributedOptimizer`` through the fusion buckets
+    (:func:`_hvd_fused_optimizer`), then imagenet_resnet50 (RESNET_CUTS)
+    with grad_reduce="adasum" through ``tpuframe_torch.train.main``, its
+    launches read around it."""
     t0 = time.perf_counter()
     hvd.init()
     group_s = time.perf_counter() - t0
@@ -3992,12 +4066,16 @@ def hvd_worker_nccl(out: str) -> None:
     kernels = device_time(_hvd_world1_verbs)
     nccl = (None if kernels is None
             else [(k, c) for k, _, c in kernels if "nccl" in k.lower()])
+    fused_opt = _hvd_fused_optimizer()
+    gc.collect()
+    torch.cuda.empty_cache()
     reset_launches()
     metrics = train_lib.main(RESNET_ARGS + ["--set", "grad_reduce='adasum'"])
     torch.cuda.synchronize()
     with open(out, "w") as f:
         json.dump({"group_s": group_s, "first_collective_s": first_s,
                    "checks": checks, "nccl_kernels": nccl,
+                   "fused_opt": fused_opt,
                    "losses": metrics["losses"],
                    "step_ms": metrics["step_ms"],
                    "launches": launch_counts(),
@@ -4135,16 +4213,194 @@ def _bcast(x):
     return sd["t"]
 
 
+def _counting_all_reduce():
+    """``torch.distributed.all_reduce`` wrapped to count its calls
+    (``calls[0]``); returns ``(calls, restore)``."""
+    import torch.distributed as dist
+    real, calls = dist.all_reduce, [0]
+
+    def counting(*a, **k):
+        calls[0] += 1
+        return real(*a, **k)
+
+    dist.all_reduce = counting
+    return calls, lambda: setattr(dist, "all_reduce", real)
+
+
+def _max_diff(got: dict, want: dict) -> float:
+    """Max |got - want| over the tensor leaves of two host copies."""
+    return max((float((got[n].double() - w.double()).abs().max())
+                for n, w in want.items() if isinstance(w, torch.Tensor)
+                and w.numel()), default=0.0)
+
+
+def _hvd_train_runs(args: list, settings, capture: str | None,
+                    profile: bool) -> list:
+    """``tpuframe_torch.train.main(args)`` once for each
+    TPUFRAME_FUSION_THRESHOLD of ``settings`` (None: unset) in this
+    world.  Per run: losses and step ms, the all_reduce calls and the
+    buckets started before ``backward()`` returned of every step, the
+    census the step is held to (the reducer's gradient buckets plus the
+    statistics-and-metrics buckets; unfused, one a tensor), launches and
+    conv+BN routes, every rank's final-state digest, the final state's
+    max |diff| from the first run's, and, with ``profile``, one more
+    step profiled.  ``capture`` (a path stem): run 0's batch and init on
+    every rank, and rank 0's state after step 1 of every run, saved
+    there."""
+    rank = hvd.rank()
+    # Deterministic cuDNN algorithms: the runs then differ only by the
+    # reduction, so a fused run's state can be held to the unfused one's
+    # bit for bit (the unfused runs' difference reads 0).
+    torch.backends.cudnn.deterministic = True
+    calls, restore = _counting_all_reduce()
+    build = train_lib.build_harness
+    runs, ref, step1s = [], None, []
+    try:
+        for k, threshold in enumerate(settings):
+            if threshold is None:
+                os.environ.pop(fusion.ENV_VAR, None)
+            else:
+                os.environ[fusion.ENV_VAR] = str(threshold)
+            got = {"steps": []}
+
+            def capturing_build(cfg, device="cuda"):
+                h = build(cfg, device)
+                step = h.train_step
+
+                def train_step(state, batch):
+                    first = not got["steps"]
+                    if first:
+                        got["batch"] = _state_digest(batch)
+                        if capture and k == 0:
+                            got["batch_t"] = _cpu_tree(batch)
+                            got["init"] = _cpu_tree(state.to_tree())
+                    calls[0] = 0
+                    metrics = step(state, batch)
+                    red = step.reducer
+                    got["steps"].append({
+                        "calls": calls[0],
+                        "early": None if red is None else red.early})
+                    if first:
+                        got["metrics"] = list(metrics.values())
+                        if capture and rank == 0:
+                            step1s.append(_cpu_tree(state.to_tree()))
+                    return metrics
+
+                h.train_step = train_step
+                got["harness"] = h
+                got["reducer"] = lambda: step.reducer
+                return h
+
+            train_lib.build_harness = capturing_build
+            reset_launches()
+            try:
+                metrics = train_lib.main(args)
+            finally:
+                train_lib.build_harness = build
+            torch.cuda.synchronize()
+            launches, routes = launch_counts(), dict(fcb.ROUTES)
+            h = got.pop("harness")
+            model = h.state.model
+            stats = [b for b in model.buffers() if b.is_floating_point()]
+            # the step's metrics: loss, accuracy and grad_norm (not reduced)
+            reduced = stats + got["metrics"][:-1]
+            red = got["reducer"]()
+            if threshold is None:
+                want = (sum(1 for p in model.parameters() if p.requires_grad)
+                        + len(reduced))
+            else:
+                want = (red.census()["n_buckets"] + fusion.bucket_census(
+                    reduced, threshold)["n_buckets"])
+            final = _host_copy(h.state.to_tree())
+            digests = hvd.allgather_object(_state_digest(h.state.to_tree()))
+            diff = 0.0 if ref is None else _max_diff(final, ref)
+            ref = final if ref is None else ref
+            run = {"threshold": threshold, "losses": metrics["losses"],
+                   "step_ms": metrics["step_ms"],
+                   "eval_loss": metrics.get("eval_loss"),
+                   "eval_accuracy": metrics.get("eval_accuracy"),
+                   "steps": list(got["steps"]), "want_calls": want,
+                   "grad_buckets": None if red is None
+                   else red.census()["n_buckets"],
+                   "batch": got["batch"], "launches": launches,
+                   "routes": routes, "digests": digests, "diff": diff,
+                   "all_launches": hvd.allgather_object(launches),
+                   "all_routes": hvd.allgather_object(routes)}
+            if k == 0 and capture:
+                run["harness"] = h
+                run["captured"] = {"batch": got["batch_t"],
+                                   "init": got["init"]}
+            if profile:
+                restore()
+                wall_step, kernels, (busy, idle, _) = _profile_steps(h, 1)
+                calls, restore = _counting_all_reduce()
+                run.update(wall_step=wall_step, device_ms=busy, idle=idle,
+                           top=[(n[:60], ms, c)
+                                for n, ms, c in (kernels or [])[:8]])
+            runs.append(run)
+            del h, model, stats, reduced
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        restore()
+        os.environ.pop(fusion.ENV_VAR, None)
+    if capture:
+        torch.save({**runs[0].pop("captured"), "step1": step1s},
+                   f"{capture}.{rank}.pt")
+    return runs
+
+
 def hvd_worker_cifar(out: str) -> None:
     """(b) A rank of the gloo world of two: the hvd verbs on CUDA tensors
     under gloo, then cifar10_resnet18 (HVD_CIFAR_ARGS) through
-    ``tpuframe_torch.train.main`` with its step 1 captured (the rank's
-    batch, the state before and after), the final state's digest gathered
-    from every rank, and one more step profiled."""
+    ``tpuframe_torch.train.main`` once for each threshold of
+    HVD_FUSION_SETTINGS with TPUFRAME_CHECK_SPMD=1 (:func:`_hvd_train_runs`,
+    step 1 captured, a step profiled after each run); after the first
+    run, step 1's batch under its final parameters."""
     hvd.init()
     rank = hvd.rank()
     verbs = _gloo_verbs_on_cuda()
-    captured = {}
+    os.environ["TPUFRAME_CHECK_SPMD"] = "1"
+    try:
+        runs = _hvd_train_runs(HVD_CIFAR_ARGS, HVD_FUSION_SETTINGS, out, True)
+    finally:
+        os.environ.pop("TPUFRAME_CHECK_SPMD", None)
+    h = runs[0].pop("harness")
+    # step 1's batches again under the first run's final parameters (its
+    # profiled step moved them once more), with step 1's augmentation:
+    # the loss falls on the same data
+    batch = {k: v.to(h.device) for k, v in torch.load(
+        f"{out}.{rank}.pt")["batch"].items()}
+    with torch.no_grad():
+        again, _ = train_lib.make_loss_fn(h.cfg)(
+            h.state.model, batch,
+            step_lib.dropout_seed(h.state.seed, 0, rank))
+    again = statistics.mean(hvd.allgather_object(float(again)))
+    if rank == 0:
+        with open(out, "w") as f:
+            json.dump({"verbs": verbs, "step1_again": again, "runs": runs},
+                      f)
+
+
+def hvd_worker_resnet2(out: str) -> None:
+    """(e) A rank of the gloo world of two: imagenet_resnet50 bn="fused"
+    (HVD_RESNET_ARGS) once for each threshold of HVD_RESNET_SETTINGS."""
+    hvd.init()
+    runs = _hvd_train_runs(HVD_RESNET_ARGS, HVD_RESNET_SETTINGS, None,
+                           False)
+    if hvd.rank() == 0:
+        with open(out, "w") as f:
+            json.dump({"runs": runs}, f)
+
+
+def hvd_worker_spmd(out: str) -> None:
+    """(f) A rank of the gloo world of two with TPUFRAME_CHECK_SPMD=1 and
+    this rank's threshold, HVD_SPMD_THRESHOLDS[rank]: cifar10_resnet18
+    through ``tpuframe_torch.train.main``, which must raise the
+    divergence before any step (a step writes ``out.<rank>.stepped``)."""
+    rank = int(os.environ["TPUFRAME_PROCESS_ID"])
+    os.environ[fusion.ENV_VAR] = str(HVD_SPMD_THRESHOLDS[rank])
+    os.environ["TPUFRAME_CHECK_SPMD"] = "1"
     build = train_lib.build_harness
 
     def capturing_build(cfg, device="cuda"):
@@ -4152,47 +4408,14 @@ def hvd_worker_cifar(out: str) -> None:
         step = h.train_step
 
         def train_step(state, batch):
-            if "step1" in captured:
-                return step(state, batch)
-            captured["batch"] = _cpu_tree(batch)
-            captured["init"] = _cpu_tree(state.to_tree())
-            metrics = step(state, batch)
-            captured["step1"] = _cpu_tree(state.to_tree())
-            return metrics
+            Path(f"{out}.{rank}.stepped").write_text("stepped")
+            return step(state, batch)
 
         h.train_step = train_step
-        captured["harness"] = h
         return h
 
     train_lib.build_harness = capturing_build
-    try:
-        metrics = train_lib.main(HVD_CIFAR_ARGS)
-    finally:
-        train_lib.build_harness = build
-    h = captured.pop("harness")
-    digests = hvd.allgather_object(_state_digest(h.state.to_tree()))
-    torch.save(captured, f"{out}.{rank}.pt")
-    # step 1's batches again under the final parameters, with step 1's
-    # augmentation: the loss falls on the same data
-    batch = {k: v.to(h.device) for k, v in captured["batch"].items()}
-    with torch.no_grad():
-        again, _ = train_lib.make_loss_fn(h.cfg)(
-            h.state.model, batch,
-            step_lib.dropout_seed(h.state.seed, 0, rank))
-    again = statistics.mean(hvd.allgather_object(float(again)))
-    wall_step, kernels, (busy, _idle, _text) = _profile_steps(h, 1)
-    if rank == 0:
-        with open(out, "w") as f:
-            json.dump({"verbs": verbs, "losses": metrics["losses"],
-                       "step1_again": again,
-                       "step_ms": metrics["step_ms"],
-                       "eval_loss": metrics["eval_loss"],
-                       "eval_accuracy": metrics["eval_accuracy"],
-                       "digests": digests, "wall_step": wall_step,
-                       "device_ms": busy,
-                       "top": [(k[:60], ms, c)
-                               for k, ms, c in (kernels or [])[:8]]},
-                      f)
+    train_lib.main(HVD_CIFAR_ARGS)
 
 
 def _hvd_plain_dp_step(batches: list, init: dict) -> dict:
@@ -4275,30 +4498,103 @@ def _adasum_combine_check() -> dict:
     return out
 
 
+def _fused_run_problems(tag: str, runs: list) -> tuple:
+    """Hold the runs of :func:`_hvd_train_runs`: every run's ranks
+    bit-identical and the same batches; every step's all_reduce calls
+    equal to its census; a fused run's final state bit-equal to the first
+    unfused run's, or within the unfused runs' difference; at a
+    threshold of several gradient buckets, a bucket started before the
+    backward ended in every step.  Returns ``(problems, noise)``."""
+    problems = []
+    unfused = [r for r in runs if r["threshold"] is None]
+    noise = max(r["diff"] for r in unfused)
+    for k, run in enumerate(runs):
+        name = f"{tag} run {k} (threshold {run['threshold']})"
+        if len(set(run["digests"])) != 1:
+            problems.append(f"{name}: the ranks' final states differ: "
+                            f"{run['digests']}")
+        if run["batch"] != runs[0]["batch"]:
+            problems.append(f"{name}: step 1's batch is not run 0's")
+        calls = [st["calls"] for st in run["steps"]]
+        if set(calls) != {run["want_calls"]}:
+            problems.append(f"{name}: all_reduce calls a step {calls}, want "
+                            f"{run['want_calls']} (the census)")
+        if run["threshold"] is not None:
+            if not (run["diff"] == 0.0 or run["diff"] <= noise):
+                problems.append(
+                    f"{name}: final state off the unfused run's by "
+                    f"{run['diff']:.3e}, beyond the unfused runs' "
+                    f"difference {noise:.3e}")
+            if run["grad_buckets"] > 1 and not all(
+                    st["early"] >= 1 for st in run["steps"]):
+                problems.append(
+                    f"{name}: buckets started before backward() returned, "
+                    f"a step: {[st['early'] for st in run['steps']]}; want "
+                    f"at least 1 of {run['grad_buckets']}")
+    return problems, noise
+
+
+def _setting_line(runs: list, threshold) -> str:
+    """A threshold's collectives a step, early buckets, step p50 and
+    spread (p10-p90 over both runs' steps after the first), idle share."""
+    mine = [r for r in runs if r["threshold"] == threshold]
+    ms = sorted(x for r in mine for x in r["step_ms"][1:])
+    q = statistics.quantiles(ms, n=10)
+    early = sorted({st["early"] for r in mine for st in r["steps"]
+                    if st["early"] is not None})
+    idle = [_dev(r.get("idle")) for r in mine]
+    label = ("unset" if threshold is None
+             else f"{threshold / 2**20:g} MiB")
+    return (f"{label}: {mine[0]['want_calls']} all_reduce a step"
+            + (f" (gradient buckets {mine[0]['grad_buckets']}, started "
+               f"before backward() returned {early})"
+               if threshold is not None else "")
+            + f", step ms p50 {statistics.median(ms):.2f} (p10-p90 "
+            f"{q[0]:.2f}-{q[-1]:.2f}; each run's p50 "
+            f"{[round(statistics.median(r['step_ms'][1:]), 2) for r in mine]})"
+            + (f", rank 0's idle share {idle}" if "idle" in mine[0] else ""))
+
+
 def phase_hvd(resnet_losses: list | None = None,
               resnet_noise: float = 0.0) -> dict:
     """The Horovod slice (``tpuframe_torch.parallel.hvd``, ``bootstrap``,
-    ``launch.launcher``), run in processes that LocalCluster starts with
-    the launcher's environment:
+    ``launch.launcher``, ``fusion``), run in processes that LocalCluster
+    starts with the launcher's environment:
 
       (a) a world of one over NCCL: every hvd verb and op on CUDA
           tensors against its plain expectation, the seconds to the
-          group and to the first collective, then imagenet_resnet50 at
-          RESNET_CUTS with grad_reduce="adasum": its losses equal phase
-          12's (``resnet_losses``; within ``resnet_noise``, the measured
+          group and to the first collective; ``hvd.DistributedOptimizer``
+          with TPUFRAME_FUSION_THRESHOLD at HVD_OPT_THRESHOLD reducing
+          ResNet-50's gradients in fusion buckets, bit-equal to the
+          per-tensor path; then imagenet_resnet50 at RESNET_CUTS with
+          grad_reduce="adasum": its losses equal phase 12's
+          (``resnet_losses``; within ``resnet_noise``, the measured
           difference of two straight runs, when that is not 0), every
           fused conv+BN launch on the tensor cores;
       (b) cifar10_resnet18 as two processes on the one card over gloo
-          (HVD_CIFAR_CUTS): the hvd verbs on CUDA tensors under gloo (the
-          collectives gloo does not take on CUDA refused); the ranks'
-          final states bit-identical; step 1 against the plain
-          data-parallel step (HVD_DP_RTOL); the loss falls; step p50 and
-          rank 0's idle share, which are gloo's copies through the host,
-          not NCCL's cost;
+          (HVD_CIFAR_CUTS), with TPUFRAME_CHECK_SPMD=1, once for each
+          threshold of HVD_FUSION_SETTINGS: the hvd verbs on CUDA tensors
+          under gloo (the collectives gloo does not take on CUDA
+          refused); every run's ranks bit-identical; every run's step 1
+          against the plain data-parallel step (HVD_DP_RTOL); a fused
+          run's final state bit-equal to the first unfused run's, or
+          within the two unfused runs' difference; every step's
+          all_reduce count equal to its census; at 4 MiB a bucket started
+          before the backward ended; the loss falls; each threshold's
+          step p50, spread and rank 0's idle share (gloo through the
+          host, not NCCL's cost);
       (c) ``adasum_combine`` at ResNet-50's leaf shapes against float64;
       (d) probes: each raw torch.distributed verb on CUDA tensors under
           gloo, and an NCCL world of two on the one card (NCCL's own
-          error expected); written down, not held.
+          error expected); written down, not held;
+      (e) imagenet_resnet50 bn="fused" as two processes over gloo
+          (HVD_RESNET_ARGS) for each threshold of HVD_RESNET_SETTINGS,
+          held as (b)'s runs are, and per rank and run
+          ``fused_conv_bn_bwd`` launched 36 times a step, all on the
+          tensor cores (path ``hvd_resnet50_x2``);
+      (f) the program check: TPUFRAME_CHECK_SPMD=1 with the ranks'
+          thresholds HVD_SPMD_THRESHOLDS: both ranks exit non-zero with
+          the divergence message before step 1, within HVD_TIMEOUT_S.
 
     ``resnet_losses`` None: phase 12 runs first for its losses."""
     if resnet_losses is None:
@@ -4307,22 +4603,38 @@ def phase_hvd(resnet_losses: list | None = None,
     torch.cuda.empty_cache()
     card = _card_line()
     root = tempfile.mkdtemp(prefix="tpuframe_hvd_")
+    gloo = {"TPUFRAME_DIST_BACKEND": "gloo"}
     try:
         t0 = time.monotonic()
         _hvd_launch("nccl", 1, os.path.join(root, "nccl.json"))
         a = json.loads(Path(root, "nccl.json").read_text())
         a_wall = time.monotonic() - t0
         t0 = time.monotonic()
-        _hvd_launch("cifar", 2, os.path.join(root, "cifar.json"),
-                    {"TPUFRAME_DIST_BACKEND": "gloo"})
+        _hvd_launch("cifar", 2, os.path.join(root, "cifar.json"), gloo)
         b = json.loads(Path(root, "cifar.json").read_text())
         ranks = [torch.load(os.path.join(root, f"cifar.json.{r}.pt"))
                  for r in range(2)]
         b_wall = time.monotonic() - t0
         plain = _hvd_plain_dp_step([rk["batch"] for rk in ranks],
                                    ranks[0]["init"])
+        step1s = ranks[0]["step1"]
+        del ranks
         combine = _adasum_combine_check()
         probes = _hvd_probes(root)
+        t0 = time.monotonic()
+        _hvd_launch("resnet2", 2, os.path.join(root, "resnet2.json"), gloo)
+        e = json.loads(Path(root, "resnet2.json").read_text())
+        e_wall = time.monotonic() - t0
+        t0 = time.monotonic()
+        spmd_out = os.path.join(root, "spmd")
+        try:
+            _hvd_launch("spmd", 2, spmd_out, gloo)
+            spmd = "both ranks exited 0"
+        except RuntimeError as err:
+            spmd = str(err)
+        f_wall = time.monotonic() - t0
+        stepped = [r for r in range(2)
+                   if os.path.exists(f"{spmd_out}.{r}.stepped")]
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -4330,6 +4642,13 @@ def phase_hvd(resnet_losses: list | None = None,
     bad = [k for k, ok in a["checks"].items() if not ok]
     if bad:
         problems.append(f"(a) NCCL world of one: {bad} failed")
+    fo = a["fused_opt"]
+    if (fo["None"] != fo["leaves"] or fo[str(HVD_OPT_THRESHOLD)]
+            != fo["want_fused"] or not fo["bit_equal"]):
+        problems.append(f"(a) hvd.DistributedOptimizer with the fusion knob "
+                        f"over NCCL: {fo}; want one all_reduce a tensor "
+                        f"unset, one a bucket at {HVD_OPT_THRESHOLD}, "
+                        f"bit-equal parameters")
     diff = max(abs(x - y) for x, y in zip(a["losses"], resnet_losses))
     if len(a["losses"]) != len(resnet_losses) or not diff <= resnet_noise:
         problems.append(f"(a) adasum losses {a['losses']} vs phase 12's "
@@ -4346,62 +4665,102 @@ def phase_hvd(resnet_losses: list | None = None,
     bad = {k: v for k, v in b["verbs"].items() if v not in ("ok", "refused")}
     if bad:
         problems.append(f"(b) hvd verbs on CUDA under gloo: {bad}")
-    if len(set(b["digests"])) != 1:
-        problems.append(f"(b) the ranks' final states differ: "
-                        f"{b['digests']}")
-    step1 = ranks[0]["step1"]
-    got = {n: t for n, t in ckpt_mod._flatten(step1)}
-    dp_err, worst = 0.0, None
-    for name, ref in plain.items():
-        if not isinstance(ref, torch.Tensor):
-            if got[name] != ref:
-                problems.append(f"(b) step 1 {name}: {got[name]} vs {ref}")
-            continue
-        scale = ref.double().abs().max().item()
-        err = (got[name].double() - ref.double()).abs().max().item() / (
-            scale if scale > 0 else 1.0)
-        if err > dp_err:
-            dp_err, worst = err, name
-    if not dp_err <= HVD_DP_RTOL:
-        problems.append(f"(b) step 1 against the plain data-parallel step: "
-                        f"{worst} off by {dp_err:.3e} of its largest entry "
-                        f"(tolerance {HVD_DP_RTOL:g})")
-    losses = b["losses"]
+    runs = b["runs"]
+    found, b_noise = _fused_run_problems("(b)", runs)
+    problems += found
+    dp_errs = []
+    for k, step1 in enumerate(step1s):
+        got = {n: t for n, t in ckpt_mod._flatten(step1)}
+        dp_err, worst = 0.0, None
+        for name, ref in plain.items():
+            if not isinstance(ref, torch.Tensor):
+                if got[name] != ref:
+                    problems.append(f"(b) run {k} step 1 {name}: "
+                                    f"{got[name]} vs {ref}")
+                continue
+            scale = ref.double().abs().max().item()
+            err = (got[name].double() - ref.double()).abs().max().item() / (
+                scale if scale > 0 else 1.0)
+            if err > dp_err:
+                dp_err, worst = err, name
+        dp_errs.append((dp_err, worst))
+        if not dp_err <= HVD_DP_RTOL:
+            problems.append(
+                f"(b) run {k} (threshold {runs[k]['threshold']}) step 1 "
+                f"against the plain data-parallel step: {worst} off by "
+                f"{dp_err:.3e} of its largest entry (tolerance "
+                f"{HVD_DP_RTOL:g})")
+    if len(step1s) != len(runs):
+        problems.append(f"(b) {len(step1s)} step-1 captures for "
+                        f"{len(runs)} runs")
+    losses = runs[0]["losses"]
     if (len(losses) != HVD_CIFAR_CUTS["total_steps"]
             or not b["step1_again"] < losses[0]
-            or not all(math.isfinite(x) for x in losses)):
+            or not all(math.isfinite(x) for r in runs
+                       for x in r["losses"])):
         problems.append(f"(b) losses {losses}, step 1's batches again at "
                         f"the end {b['step1_again']}: want every step's "
                         f"finite, and the loss on step 1's batches fallen")
-    if problems:
-        raise RuntimeError("hvd: " + "; ".join(problems))
-    p50 = statistics.median(b["step_ms"][1:])
-    idle = (None if b["device_ms"] is None
-            else 1 - b["device_ms"] / b["wall_step"])
+    found, e_noise = _fused_run_problems("(e)", e["runs"])
+    problems += found
+    e_steps = len(e["runs"][0]["losses"])
+    for k, run in enumerate(e["runs"]):
+        for r, (ln, rt) in enumerate(zip(run["all_launches"],
+                                         run["all_routes"])):
+            if (ln["fused_conv_bn_bwd"] != 36 * e_steps
+                    or rt != {"tensor_core": 36 * e_steps, "cuda_core": 0}):
+                problems.append(f"(e) run {k} rank {r}: launches {ln} by "
+                                f"route {rt}, want {36 * e_steps} "
+                                f"fused_conv_bn_bwd, all tensor-core")
+    exits = re.findall(r"--- rank (\d) \(exit (-?\d+)\) ---", spmd)
+    told = [part for part in re.split(r"(?=--- rank \d \(exit)", spmd)
+            if part.startswith("--- rank")
+            and "SPMD divergence in 'train_step:program'" in part]
+    if (sorted(int(r) for r, c in exits if int(c) != 0) != [0, 1]
+            or len(told) != 2 or stepped or "timed out" in spmd
+            or not f_wall < HVD_TIMEOUT_S):
+        problems.append(f"(f) divergent thresholds {HVD_SPMD_THRESHOLDS} "
+                        f"under TPUFRAME_CHECK_SPMD=1: exits {exits}, ranks "
+                        f"that stepped {stepped}, {f_wall:.1f} s; want both "
+                        f"ranks non-zero with the divergence message before "
+                        f"step 1: {spmd[-1500:]}")
+    run0 = runs[0]
+    p50 = statistics.median(run0["step_ms"][1:])
+    idle = run0["idle"]
     log(f"[hvd] {card}: (a) world of one over NCCL: group in "
         f"{a['group_s']:.2f} s, first collective at "
         f"{a['first_collective_s']:.2f} s; {len(a['checks'])} verb checks "
         f"held; NCCL kernels in the verbs "
-        f"{_dev(a['nccl_kernels'], '')}; "
-        f"imagenet_resnet50 bn=fused grad_reduce=adasum losses "
+        f"{_dev(a['nccl_kernels'], '')}; hvd.DistributedOptimizer over "
+        f"ResNet-50's {fo['leaves']} gradients: {fo['None']} all_reduce "
+        f"unset, {fo[str(HVD_OPT_THRESHOLD)]} at "
+        f"{HVD_OPT_THRESHOLD >> 20} MiB (the census's buckets), parameters "
+        f"bit-equal; imagenet_resnet50 bn=fused grad_reduce=adasum losses "
         f"{a['losses']} equal phase 12's (max |diff| {diff:.3e}); step ms "
         f"{[round(x, 1) for x in a['step_ms']]}; launches {a['launches']}; "
         f"{a_wall:.1f} s")
     log(f"[hvd] {card}: (b) cifar10_resnet18, two processes on one card "
-        f"over gloo, batch 256 (128 a rank), {len(losses)} steps in "
-        f"{b_wall:.1f} s: losses {[round(x, 4) for x in losses[:3]]}..."
+        f"over gloo, batch 256 (128 a rank), {len(runs)} runs of "
+        f"{len(losses)} steps with TPUFRAME_CHECK_SPMD=1 in {b_wall:.1f} s: "
+        f"run 0's losses {[round(x, 4) for x in losses[:3]]}..."
         f"{[round(x, 4) for x in losses[-3:]]} (step 1's batches again at "
         f"the end: {b['step1_again']:.4f}), eval loss "
-        f"{b['eval_loss']:.4f} accuracy {b['eval_accuracy']:.4f}; final "
-        f"states bit-identical ({b['digests'][0][:16]}); step 1 against "
-        f"the plain data-parallel step: max error {dp_err:.3e} ({worst}); "
-        f"step ms p50 {p50:.2f} and rank 0's idle share "
-        f"{_dev(idle)}, both "
-        f"gloo through the host (not NCCL's cost); profiled step: wall "
-        f"{b['wall_step']:.2f} ms, rank 0's device "
-        f"{_dev(b['device_ms'], '.2f')} "
-        f"ms; top: " + "; ".join(f"{k} {ms:.2f} ms x{c}"
-                                 for k, ms, c in b["top"]))
+        f"{run0['eval_loss']:.4f} accuracy {run0['eval_accuracy']:.4f}; "
+        f"every run's final states bit-identical across ranks "
+        f"({run0['digests'][0][:16]}); step 1 against the plain "
+        f"data-parallel step: max error "
+        f"{[format(x, '.3e') for x, _ in dp_errs]} ({dp_errs[0][1]}); final "
+        f"state "
+        f"against run 0's, max |diff| by run "
+        f"{[format(r['diff'], '.3e') for r in runs]} (unfused runs' "
+        f"difference "
+        f"{b_noise:.3e}); step ms p50 {p50:.2f} and rank 0's idle share "
+        f"{_dev(idle)} in run 0, both gloo through the host (not NCCL's "
+        f"cost); its profiled step: wall {run0['wall_step']:.2f} ms, rank "
+        f"0's device {_dev(run0['device_ms'], '.2f')} ms; top: "
+        + "; ".join(f"{k} {ms:.2f} ms x{c}" for k, ms, c in run0["top"]))
+    for threshold in dict.fromkeys(HVD_FUSION_SETTINGS):
+        log(f"[hvd] {card}: (b) " + _setting_line(runs, threshold))
     log(f"[hvd] hvd verbs on CUDA under gloo: {b['verbs']}")
     log(f"[hvd] {card}: (c) adasum_combine at ResNet-50's "
         f"{combine['leaves']} leaf shapes ({combine['elements']} entries) "
@@ -4413,9 +4772,30 @@ def phase_hvd(resnet_losses: list | None = None,
     log(f"[hvd] probes: raw torch.distributed verbs on CUDA tensors under "
         f"gloo: {probes['gloo_cuda']}; NCCL world of two on one card: "
         f"{probes['nccl_pair']}")
-    return {"launches": a["launches"], "nccl": a, "cifar_p50": p50,
-            "cifar_idle": idle, "dp_err": dp_err, "combine": combine,
-            "probes": probes}
+    er = e["runs"]
+    log(f"[hvd] {card}: (e) imagenet_resnet50 bn=fused, two processes on "
+        f"one card over gloo, batch 256 (128 a rank), {len(er)} runs of "
+        f"{e_steps} steps in {e_wall:.1f} s: losses by run "
+        f"{[[round(x, 4) for x in r['losses']] for r in er]}; ranks "
+        f"bit-identical; final state against run 0's, max |diff| by run "
+        f"{[format(r['diff'], '.3e') for r in er]} (unfused runs' "
+        f"difference "
+        f"{e_noise:.3e}); fused_conv_bn_bwd {36 * e_steps} a rank and run, "
+        f"all tensor-core")
+    for threshold in dict.fromkeys(HVD_RESNET_SETTINGS):
+        log(f"[hvd] {card}: (e) " + _setting_line(er, threshold))
+    log(f"[hvd] (f) TPUFRAME_CHECK_SPMD=1, rank thresholds "
+        f"{HVD_SPMD_THRESHOLDS}: both ranks exited non-zero (exits "
+        f"{exits}) with \"SPMD divergence in 'train_step:program'\" "
+        f"before step 1, {f_wall:.1f} s")
+    if problems:
+        raise RuntimeError("hvd: " + "; ".join(problems))
+    launches_2 = {name: sum(ln[name] for r in er
+                            for ln in r["all_launches"])
+                  for name in launch_counts()}
+    return {"launches": a["launches"], "launches_2proc": launches_2,
+            "nccl": a, "cifar_p50": p50, "cifar_idle": idle,
+            "dp_err": dp_errs[0][0], "combine": combine, "probes": probes}
 
 
 def _hvd_probes(root: str) -> dict:
@@ -4453,7 +4833,8 @@ def _hvd_probes(root: str) -> dict:
 
 
 HVD_WORKERS = {"nccl": hvd_worker_nccl, "probe": hvd_worker_probe,
-               "nccl_pair": hvd_worker_nccl_pair, "cifar": hvd_worker_cifar}
+               "nccl_pair": hvd_worker_nccl_pair, "cifar": hvd_worker_cifar,
+               "resnet2": hvd_worker_resnet2, "spmd": hvd_worker_spmd}
 
 
 def wall_ms(fn, calls: int) -> float:
@@ -4635,7 +5016,8 @@ def main(argv=None) -> int:
                       "ckpt_resnet_resume":
                           ckpt_run["resnet"]["launches"][name],
                       "supervise": supervise["launches"][name],
-                      "hvd_resnet": hvd_run["launches"][name]}
+                      "hvd_resnet": hvd_run["launches"][name],
+                      "hvd_resnet50_x2": hvd_run["launches_2proc"][name]}
                for name in launch_counts()}
     attn = "B=8 S=4096 N=12 D=64 bf16 causal"
     ops = "tpuframe/ops/"

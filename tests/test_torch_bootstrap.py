@@ -50,7 +50,7 @@ from tpuframe_torch.data import datasets  # noqa: E402
 from tpuframe_torch.data.pipeline import ShardedLoader  # noqa: E402
 from tpuframe_torch.launch import launcher  # noqa: E402
 from tpuframe_torch.models.convert import convnet_from_jax  # noqa: E402
-from tpuframe_torch.parallel import bootstrap, collectives  # noqa: E402
+from tpuframe_torch.parallel import bootstrap, collectives, fusion  # noqa: E402
 from tpuframe_torch.parallel import step as port_step  # noqa: E402
 from tpuframe_torch.utils.config import get_config  # noqa: E402
 from tpuframe_torch.utils.optim import build_optimizer  # noqa: E402
@@ -105,8 +105,22 @@ def test_no_coordinator_is_a_no_op_and_idempotent(clean_env):
 @pytest.mark.parametrize("var", ["HOROVOD_FUSION_THRESHOLD",
                                  "TPUFRAME_FUSION_THRESHOLD"])
 def test_fusion_threshold_is_refused_naming_item_12(clean_env, var):
+    """Horovod's knob, which the JAX package never reads, is refused and
+    the message names the port's; the port's (the JAX package's) is
+    accepted and resolved, and a value that does not parse raises."""
     clean_env.setenv(var, "67108864")
-    with pytest.raises(NotImplementedError, match=f"{var}.*item 12"):
+    if var == "HOROVOD_FUSION_THRESHOLD":
+        with pytest.raises(NotImplementedError,
+                           match=f"{var}.*TPUFRAME_FUSION_THRESHOLD"):
+            bootstrap.initialize(device="cpu")
+        assert not bootstrap.is_initialized()
+        return
+    bootstrap.initialize(device="cpu")
+    assert bootstrap.is_initialized()
+    assert fusion.resolve() == (67108864, "env")
+    bootstrap.shutdown()
+    clean_env.setenv(var, "64MiB")
+    with pytest.raises(ValueError, match=var):
         bootstrap.initialize(device="cpu")
     assert not bootstrap.is_initialized()
 

@@ -77,6 +77,9 @@ RUN_SLICE = {"tpuframe_torch.obs.metrics", "tpuframe_torch.obs.tensorboard",
              "tpuframe_torch.obs.flight", "tpuframe_torch.obs.devmem",
              "tpuframe_torch.obs.timeline", "tpuframe_torch.obs.flops",
              "tpuframe_torch.launch.__main__"}
+# The fusion buckets and the cross-rank program check.
+FUSION_SLICE = {"tpuframe_torch.parallel.fusion",
+                "tpuframe_torch.obs.spmd_check"}
 
 
 def test_port_and_chip_smoke_import_without_jax():
@@ -93,6 +96,7 @@ def test_port_and_chip_smoke_import_without_jax():
     assert FLEET_SLICE <= names, FLEET_SLICE - names
     assert ROLLOUT_SLICE <= names, ROLLOUT_SLICE - names
     assert RUN_SLICE <= names, RUN_SLICE - names
+    assert FUSION_SLICE <= names, FUSION_SLICE - names
 
 
 def _sources():

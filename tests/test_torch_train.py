@@ -412,7 +412,6 @@ def test_distributed_false_trains_with_no_collective(tmp_path):
     ({}, {"TPUFRAME_REMAT_POLICY": "dots"}, 1, "remat policies.*item 14"),
     ({}, {"TPUFRAME_BENCH_REMAT": "1"}, 1, "remat policies.*item 14"),
     ({}, {"TPUFRAME_PROFILER_PORT": "9012"}, 1, "profiler server.*item 11"),
-    ({}, {"TPUFRAME_CHECK_SPMD": "1"}, 1, "program check.*item 11"),
 ])
 def test_unported_features_refuse_loudly(overrides, env, world, match,
                                          monkeypatch):
@@ -422,6 +421,27 @@ def test_unported_features_refuse_loudly(overrides, env, world, match,
         mesh={"data": 1, "seq": 1}).with_overrides(**overrides)
     with pytest.raises(NotImplementedError, match=match):
         port_train._refuse_unported(cfg, world)
+
+
+def test_horovod_fusion_threshold_names_the_port_knob(monkeypatch):
+    monkeypatch.setenv("HOROVOD_FUSION_THRESHOLD", "67108864")
+    cfg = port_train.get_config("lm_smoke").with_overrides(
+        mesh={"data": 1, "seq": 1})
+    with pytest.raises(NotImplementedError,
+                       match="HOROVOD_FUSION_THRESHOLD.*reads "
+                             "TPUFRAME_FUSION_THRESHOLD"):
+        port_train._refuse_unported(cfg, 1)
+
+
+@pytest.mark.parametrize("env", [{"TPUFRAME_CHECK_SPMD": "1"},
+                                 {"TPUFRAME_FUSION_THRESHOLD": "4194304"}])
+def test_the_program_check_and_the_fusion_knob_are_ported(env, monkeypatch):
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    cfg = port_train.get_config("lm_smoke").with_overrides(
+        mesh={"data": 2, "seq": 1})
+    sizes = port_train._refuse_unported(cfg, 2)
+    assert (sizes["data"], sizes["seq"]) == (2, 1)
 
 
 def test_model_registry_names_are_the_jax_registrys():

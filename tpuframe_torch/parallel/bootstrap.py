@@ -38,11 +38,11 @@ import torch
 import torch.distributed as dist
 
 from tpuframe_torch import _device
-from tpuframe_torch.parallel import collectives
+from tpuframe_torch.parallel import collectives, fusion
 
 ITEM_12 = "ROADMAP.md queue 1, item 12 (beyond-DP parallelism)"
-# Horovod's tensor-fusion knob and the JAX package's name for it: bucketed
-# fusion, which the port does not have yet.
+# Horovod's tensor-fusion knob, which the JAX package never reads, and the
+# JAX package's, which the port reads (parallel/fusion.py).
 FUSION_ENV = ("HOROVOD_FUSION_THRESHOLD", "TPUFRAME_FUSION_THRESHOLD")
 
 # owned: this module made the default group (and destroys it at shutdown);
@@ -82,15 +82,18 @@ class DistConfig:
         )
 
 
-def refuse_fusion_env() -> None:
-    """Raise ``NotImplementedError`` when a fusion threshold is set: the
-    JAX package's bootstrap applies it (``tuning.apply_from_env``), and
-    ignoring it would run another reduction than the one asked for."""
-    for var in FUSION_ENV:
-        val = os.environ.get(var, "").strip()
-        if val:
-            raise NotImplementedError(f"{var}={val!r}: bucketed fusion is "
-                                      f"not ported yet ({ITEM_12})")
+def check_fusion_env() -> None:
+    """``TPUFRAME_FUSION_THRESHOLD`` must parse (``ValueError`` naming it
+    otherwise).  ``HOROVOD_FUSION_THRESHOLD`` raises
+    ``NotImplementedError``: the JAX package never reads it, and ignoring
+    it would run another reduction than the one asked for."""
+    val = os.environ.get(FUSION_ENV[0], "").strip()
+    if val:
+        raise NotImplementedError(
+            f"{FUSION_ENV[0]}={val!r}: the port's bucketed fusion reads "
+            f"{FUSION_ENV[1]} (the JAX package's knob), not Horovod's; set "
+            f"that instead")
+    fusion.threshold_from_env()
 
 
 def initialize(config: DistConfig | None = None, device="cuda") -> None:
@@ -105,7 +108,7 @@ def initialize(config: DistConfig | None = None, device="cuda") -> None:
     CUDA sets its device.  Every rank calls this collectively."""
     if _STATE["initialized"]:
         return
-    refuse_fusion_env()
+    check_fusion_env()
     cfg = config or DistConfig.from_env(device)
     if cfg.coordinator_address is not None:
         if cfg.num_processes is None or cfg.process_id is None:

@@ -223,14 +223,15 @@ class _DistributedOptimizer:
         if self.op is Adasum:
             collectives.adasum_(grads, grp)
             return
-        mode = "mean" if self.op is Average else "sum"
-        for g in grads:
-            wire = g
-            if self.compression == "bf16" and g.dtype == torch.float32:
-                wire = g.to(torch.bfloat16)
-            out = collectives.allreduce(wire, grp, mode)
-            if out is not g:
-                g.copy_(out)
+        # the bf16 wire copies are what is reduced (and packed, with the
+        # fusion knob set), as the JAX package compresses, then averages
+        wires = [g.to(torch.bfloat16) if self.compression == "bf16"
+                 and g.dtype == torch.float32 else g for g in grads]
+        collectives.reduce_gradients_(
+            wires, grp, "mean" if self.op is Average else "sum")
+        for g, wire in zip(grads, wires):
+            if wire is not g:
+                g.copy_(wire)
 
     def step(self) -> torch.Tensor:
         """Reduce the gradients, then the inner optimizer's step; returns
@@ -253,9 +254,11 @@ def DistributedOptimizer(opt: Optimizer, *, average: bool | None = None,
     (the JAX package's quantized wire) is not ported; Adasum's norm-based
     combine takes no compression, as in Horovod.
 
-    Horovod overlaps each gradient's reduction with the rest of the
-    backward through per-gradient hooks; here the reduction runs in
-    ``step()``, one collective a tensor."""
+    The reduction runs in ``step()``: one collective a tensor, or, with
+    ``TPUFRAME_FUSION_THRESHOLD`` set above 0, one a fusion bucket
+    (``parallel/fusion.py``), as in the JAX package.  The trainer's step
+    overlaps its buckets with the backward (``fusion.StagedReducer``);
+    this wrapper sees the gradients only once the backward is done."""
     op = _resolve_op(average, op)
     if op not in (Average, Sum, Adasum):
         raise ValueError(f"DistributedOptimizer supports Average/Sum/Adasum, "

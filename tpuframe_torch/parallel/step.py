@@ -27,6 +27,14 @@ of one.  The same contract holds:
 With ``distributed=False`` the steps run no collective even in a process
 group: each process trains alone, as the JAX package's unmapped step on
 one device does.
+
+With ``fusion_threshold`` (``TPUFRAME_FUSION_THRESHOLD``) the mean runs in
+fusion buckets (``parallel/fusion.py``): the gradients through a
+``StagedReducer`` whose buckets start from gradient hooks during the last
+microbatch's backward, then the statistics and the metrics through
+``fused_mean_`` at the same threshold (the eager counterpart of XLA's
+combiner on the JAX step's per-leaf ``pmean``).  The values are those of
+the per-tensor path.
 """
 
 from __future__ import annotations
@@ -38,7 +46,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from tpuframe_torch.parallel import collectives
+from tpuframe_torch.parallel import collectives, fusion
 from tpuframe_torch.utils.optim import Optimizer
 
 # loss_fn(model, batch, dropout_seed) -> (loss, {metric: tensor})
@@ -84,7 +92,8 @@ def dropout_seed(seed: int, step: int, rank: int, micro: int = 0) -> int:
 
 
 def make_train_step(loss_fn: LossFn, *, accum_steps: int = 1,
-                    grad_reduce: str = "mean", distributed: bool = True):
+                    grad_reduce: str = "mean", distributed: bool = True,
+                    fusion_threshold: int | None = None):
     """``train_step(state, batch) -> metrics``: forward, backward, the
     world's gradient reduction (none unless ``distributed``): the mean,
     or Adasum with ``grad_reduce="adasum"``, and the optimizer update, in
@@ -94,17 +103,39 @@ def make_train_step(loss_fn: LossFn, *, accum_steps: int = 1,
     Adasum needs each rank's own gradients, so its loss must be local (no
     reduction inside the loss function); with ``accum_steps`` the
     microbatches' gradients are accumulated locally in the parameters'
-    f32 and one Adasum runs at the end, as in the JAX step."""
+    f32 and one Adasum runs at the end, as in the JAX step.
+
+    ``fusion_threshold``: the byte size of the fusion buckets of the mean
+    (module docstring; <= 0 is a bucket a tensor, through the same staged
+    pass); None reduces one tensor at a time.  The step's ``reducer`` is
+    the ``StagedReducer`` of its last run (None before one), for its
+    ``early`` count and its census.  Adasum takes no threshold, as in the
+    JAX step."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     if grad_reduce not in ("mean", "adasum"):
         raise ValueError(f"grad_reduce must be 'mean' or 'adasum', "
                          f"got {grad_reduce!r}")
+    if grad_reduce == "adasum" and fusion_threshold is not None:
+        raise ValueError("grad_reduce='adasum' does not compose with "
+                         "fusion_threshold — the butterfly is its own wire "
+                         "pattern")
+
+    def staged(model: nn.Module, grp) -> fusion.StagedReducer:
+        reducer = train_step.reducer
+        if reducer is None or reducer.model is not model:
+            if reducer is not None:
+                reducer.remove()
+            reducer = train_step.reducer = fusion.StagedReducer(
+                model, grp, threshold_bytes=fusion_threshold)
+        return reducer
 
     def train_step(state: TrainState, batch: dict) -> dict:
         model = state.model
         grp = collectives.group() if distributed else None
         rank = collectives.world()[1] if distributed else 0
+        reducer = (staged(model, grp) if fusion_threshold is not None
+                   and grp is not None else None)
         for p in model.parameters():
             p.grad = None
         n = next(iter(batch.values())).shape[0]
@@ -117,6 +148,8 @@ def make_train_step(loss_fn: LossFn, *, accum_steps: int = 1,
             micro = {k: v[i * m:(i + 1) * m] for k, v in batch.items()}
             loss, metrics = loss_fn(model, micro, dropout_seed(
                 state.seed, state.step, rank, i))
+            if reducer is not None and i == accum_steps - 1:
+                reducer.arm()
             (loss / accum_steps).backward()
             loss_sum = loss_sum + loss.detach()
             for k, v in metrics.items():
@@ -125,7 +158,11 @@ def make_train_step(loss_fn: LossFn, *, accum_steps: int = 1,
         stats = [b for b in model.buffers() if b.is_floating_point()]
         out = {k: v / accum_steps for k, v in metric_sums.items()}
         out["loss"] = loss_sum / accum_steps
-        if grad_reduce == "adasum":
+        if reducer is not None:
+            reducer.finish()
+            fusion.fused_mean_(stats + list(out.values()), grp,
+                               threshold_bytes=fusion_threshold)
+        elif grad_reduce == "adasum":
             collectives.adasum_(grads, grp)
             collectives.mean_(stats + list(out.values()), grp)
         else:
@@ -134,6 +171,7 @@ def make_train_step(loss_fn: LossFn, *, accum_steps: int = 1,
         state.step += 1
         return out
 
+    train_step.reducer = None
     return train_step
 
 

@@ -41,11 +41,16 @@ workloads (``lm_text`` data, ``transformer-lm``) and the GLUE tasks
 ``bert-base``; cross-entropy, or MSE when ``num_classes`` is 1; Pearson
 and Matthews correlation at eval) train here.  What the JAX harness has
 and the port does not yet refuses loudly, naming its ROADMAP.md item:
-the profiler server and the cross-host program check (item 11), named
-remat policies (item 14), pipeline, fsdp, tensor and expert
-parallelism, ZeRO-1, quantized or hierarchical collectives, bucketed
-fusion, sequence parallelism (a seq degree above 1) and elastic
+the profiler server (item 11), named remat policies (item 14), pipeline,
+fsdp, tensor and expert parallelism, ZeRO-1, quantized or hierarchical
+collectives, sequence parallelism (a seq degree above 1) and elastic
 resizing.  ``grad_reduce="adasum"`` reduces the gradients by Adasum.
+``TPUFRAME_FUSION_THRESHOLD`` (bytes) reduces the mean in fusion buckets
+whose collectives start during the backward (``parallel/fusion.py``);
+Horovod's ``HOROVOD_FUSION_THRESHOLD`` is refused, as the JAX harness
+never reads it.  ``TPUFRAME_CHECK_SPMD=1`` checks, before the first step,
+that every rank built the same config and step program
+(``obs/spmd_check.py``).
 
 Run telemetry, as in the JAX harness: with ``TPUFRAME_EVENTS_DIR`` (or
 ``--events-dir``) the run writes ``run_start`` (with the step's model
@@ -115,6 +120,7 @@ from tpuframe_torch.obs import exporter as exporter_lib
 from tpuframe_torch.obs import flight
 from tpuframe_torch.obs import flops as obs_flops
 from tpuframe_torch.obs import goodput
+from tpuframe_torch.obs import spmd_check
 from tpuframe_torch.obs import metrics as obs_metrics
 from tpuframe_torch.obs.heartbeat import Heartbeat
 from tpuframe_torch.obs.metrics import MetricLogger, RateMeter
@@ -123,6 +129,7 @@ from tpuframe_torch.obs.timeline import (StepTimeline, parse_trace_steps,
 from tpuframe_torch.ops import fused_xent as fx
 from tpuframe_torch.parallel import bootstrap
 from tpuframe_torch.parallel import collectives
+from tpuframe_torch.parallel import fusion
 from tpuframe_torch.parallel import hvd
 from tpuframe_torch.parallel import step as step_lib
 from tpuframe_torch.resilience import faults
@@ -130,8 +137,8 @@ from tpuframe_torch.resilience.preempt import RC_PREEMPTED, PreemptionGuard
 from tpuframe_torch.utils.config import TrainConfig, get_config
 from tpuframe_torch.utils.optim import build_optimizer
 
-ITEM_11 = ("ROADMAP.md queue 1, item 11 (the profiler server, the cross-host "
-           "program check, the GPU-VM launcher)")
+ITEM_11 = ("ROADMAP.md queue 1, item 11 (the profiler server, the GPU-VM "
+           "launcher)")
 ITEM_12 = bootstrap.ITEM_12
 ITEM_14 = "ROADMAP.md queue 1, item 14 (elastic, mem, tune, analysis)"
 RC_STALLED = 13
@@ -152,16 +159,13 @@ _UNPORTED_ENV = {
     "TPUFRAME_BENCH_REMAT": ("0", f"named remat policies, {ITEM_14}"),
     # the JAX harness's on-demand profiler server, which PyTorch lacks
     "TPUFRAME_PROFILER_PORT": (None, f"the profiler server, {ITEM_11}"),
-    # the JAX harness acts only on "1"
-    "TPUFRAME_CHECK_SPMD": ("0", f"the cross-host program check, "
-                                 f"{ITEM_11}"),
 }
 
 
 def _refuse_unported(cfg: TrainConfig, world: int) -> dict:
     """Raise ``NotImplementedError`` for anything the port cannot run;
     returns the mesh degrees on ``world`` ranks."""
-    bootstrap.refuse_fusion_env()
+    bootstrap.check_fusion_env()
     for var, (off, what) in _UNPORTED_ENV.items():
         val = os.environ.get(var, "").strip()
         if val and val != off:
@@ -199,6 +203,8 @@ class Harness:
     world: int
     manager: ckpt_lib.CheckpointManager | None = None
     start_step: int = 0
+    # the step's fusion threshold and its source (``_resolved_fusion``)
+    fusion_threshold: tuple = (None, "default")
 
 
 def _group(cfg: TrainConfig):
@@ -207,18 +213,36 @@ def _group(cfg: TrainConfig):
     return collectives.group() if cfg.distributed else None
 
 
+def _resolved_fusion(cfg: TrainConfig) -> tuple:
+    """The step's fusion threshold with its provenance, ``(bytes | None,
+    "env" | "default")``: ``TPUFRAME_FUSION_THRESHOLD``, else None (one
+    reduction a tensor).  The JAX harness's tuning-DB and quantized-wire
+    legs have no counterpart (both are refused).  One resolution for
+    :func:`build_harness` and :func:`_lm_reduce`, so that the bucketed
+    step and its local loss cannot disagree about whether fusion is
+    on."""
+    model_tag = cfg.model.replace("-", "_")
+    return fusion.resolve(program=f"train_{model_tag}_b{cfg.global_batch}",
+                          family="fusion_threshold")
+
+
 def _lm_reduce(cfg: TrainConfig):
     """The group of the global valid-token mean (``losses.masked_mean``).
-    Gradient accumulation differentiates a local loss per microbatch, and
-    Adasum needs each rank's own gradients, so both take a local loss; a
-    per-rank valid-token mean would be biased by unequal padding, so
-    ``padded_docs`` is refused with them, as in the JAX harness."""
-    if cfg.accum_steps > 1 or cfg.grad_reduce == "adasum":
+    Gradient accumulation differentiates a local loss per microbatch,
+    Adasum needs each rank's own gradients, and the fusion buckets reduce
+    the gradients themselves (a collective inside the loss would run in
+    the backward before the buckets), so all three take a local loss, as
+    the JAX harness's explicit step modes do; a per-rank valid-token mean
+    would be biased by unequal padding, so ``padded_docs`` is refused
+    with them."""
+    if (cfg.accum_steps > 1 or cfg.grad_reduce == "adasum"
+            or _resolved_fusion(cfg)[0] is not None):
         if cfg.distributed and cfg.dataset_kwargs.get("padded_docs"):
             raise ValueError(
-                "padded_docs with accum_steps>1 or grad_reduce='adasum': "
-                "these paths need a local loss, and a per-rank valid-token "
-                "mean would be biased by unequal padding across ranks")
+                "padded_docs with TPUFRAME_FUSION_THRESHOLD, accum_steps>1 "
+                "or grad_reduce='adasum': these paths need a local loss, and"
+                " a per-rank valid-token mean would be biased by unequal "
+                "padding across ranks")
         return None
     return _group(cfg)
 
@@ -444,13 +468,15 @@ def build_harness(cfg: TrainConfig, device="cuda") -> Harness:
                                 opt=build_optimizer(cfg, model),
                                 seed=cfg.seed + 1)
     manager = _resume(cfg, state)
+    threshold, source = _resolved_fusion(cfg)
     return Harness(
         cfg=cfg, device=dev, state=state, manager=manager,
-        start_step=state.step,
+        start_step=state.step, fusion_threshold=(threshold, source),
         train_step=step_lib.make_train_step(make_loss_fn(cfg),
                                             accum_steps=cfg.accum_steps,
                                             grad_reduce=cfg.grad_reduce,
-                                            distributed=cfg.distributed),
+                                            distributed=cfg.distributed,
+                                            fusion_threshold=threshold),
         eval_step=step_lib.make_eval_step(make_metric_fn(cfg),
                                           distributed=cfg.distributed),
         train_loader=train_loader, eval_loader=eval_loader, world=world)
@@ -691,6 +717,8 @@ def _train(cfg: TrainConfig, device, guard: PreemptionGuard,
         hang_rank = int(os.environ.get("TPUFRAME_HANG_RANK", "-1") or "-1")
         if hang_rank >= 0 and bootstrap.process_index() != hang_rank:
             hang_step = 0
+        if os.environ.get("TPUFRAME_CHECK_SPMD") == "1":
+            _check_spmd(cfg, h)
         heartbeat = _stall_watchdog(tel)
         tel.open_sinks(cfg, log_file, health=lambda: not heartbeat.stalled)
         try:
@@ -717,6 +745,21 @@ def _train(cfg: TrainConfig, device, guard: PreemptionGuard,
         raise
     finally:
         tel.close()
+
+
+def _check_spmd(cfg: TrainConfig, h: Harness) -> None:
+    """Debug mode (``TPUFRAME_CHECK_SPMD=1``): every rank checks that it
+    built the same config and the same step program before the first
+    step's collectives (``obs/spmd_check.py``); a divergent rank raises on
+    every rank."""
+    spmd_check.assert_uniform_across_hosts("config", repr(cfg))
+    metric = "mse" if (_is_text_task(cfg)
+                       and _is_regression_task(cfg)) else "accuracy"
+    spmd_check.check_step_program(
+        h.state.model, "train_step", grad_reduce=cfg.grad_reduce,
+        accum_steps=cfg.accum_steps,
+        fusion_threshold=h.fusion_threshold[0],
+        metric_names=(metric, "loss"))
 
 
 def _run_start(cfg: TrainConfig, h: Harness, tel: _Telemetry,
@@ -748,7 +791,8 @@ def _run_start(cfg: TrainConfig, h: Harness, tel: _Telemetry,
             generation=tel.generation, flops_per_step=tel.flops,
             flops_source=src, bytes_per_step=None)
         # What the step program runs with, in the JAX records' shape: the
-        # port has one value of each (the others refuse, items 12 and 14).
+        # port has one value of each but the fusion threshold (the others
+        # refuse, items 12 and 14).
         events.emit("remat_policy", policy="none", source="default",
                     predicted_bytes_per_step=None)
         events.emit("weight_update", mode="replicated", source="default",
@@ -756,7 +800,8 @@ def _run_start(cfg: TrainConfig, h: Harness, tel: _Telemetry,
         events.emit("wire_format", format="fp", source="default",
                     format_dcn="fp", source_dcn="default", hier="flat",
                     hier_source="default")
-        events.emit("fusion_threshold", threshold=None, source="default")
+        events.emit("fusion_threshold", threshold=h.fusion_threshold[0],
+                    source=h.fusion_threshold[1])
         tel.devmem = devmem_lib.DevmemSampler(
             interval_s=float(os.environ.get("TPUFRAME_DEVMEM_INTERVAL_S",
                                             "30")),

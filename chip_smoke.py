@@ -529,12 +529,16 @@ HVD_COMBINE_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -8 + 1e-5}
 # unfused run's bit for bit, or lie within the two unfused runs' measured
 # difference (max |diff| over every leaf).  These runs take cuDNN's
 # deterministic algorithms (torch.backends.cudnn.deterministic), so that
-# difference is that of the reduction alone.
+# difference is that of the reduction alone.  One more unset run on
+# cuDNN's default algorithms, the configuration the trainer runs (its step
+# p50 is the two-process metric of earlier records), is held to the
+# ranks' bit-identity and the census, not to the other runs' state.
 HVD_FUSION_SETTINGS = (None, 64 << 20, 4 << 20) * 2
 # (e) imagenet_resnet50 bn="fused" as two processes (RESNET_CUTS on a
 # data=2 mesh: batch 256, 128 a rank, 4 steps): unset, 4 MiB (161 leaves
 # in 32 gradient buckets), unset again for the unfused runs' difference.
 HVD_RESNET_ARGS = RESNET_ARGS + ["--set", "mesh={'data': 2}"]
+HVD_RANK_BATCH = RESNET_BATCH // 2     # each rank's share of (e)'s batch
 HVD_RESNET_SETTINGS = (None, 4 << 20, None)
 # (f) the program check: TPUFRAME_CHECK_SPMD=1 with rank r's threshold
 # HVD_SPMD_THRESHOLDS[r]; both ranks must exit non-zero before step 1.
@@ -2311,6 +2315,27 @@ def phase_conv_bn() -> dict:
     log(f"[conv-bn] tensor-core kernels (dynamic smem bytes, blocks an SM): "
         f"{info}")
 
+    # Phase hvd (e)'s calls: ResNet-50 as two processes, HVD_RANK_BATCH
+    # images a rank, so every M is half the batch-256 one and dW may take
+    # other splits (fcb.dw_splits depends on M).  Each through the public
+    # wrapper, on the tensor cores, against the plain version.
+    rworst, rsplits = {"da": 0.0, "dw": 0.0}, {}
+    rshapes = resnet_conv_bn_shapes(batch=HVD_RANK_BATCH)
+    for n, h, w, k, c in rshapes:
+        m = n * h * w
+        if fcb.conv_bn_route(dtype, k, c) != "tensor_core":
+            raise RuntimeError(f"rank batch M={m} K={k} C={c} is not on the "
+                               f"tensor-core route")
+        errs = _conv_bn_check(f"rank batch M={m} K={k} C={c}",
+                              _conv_bn_inputs(m, k, c, dtype, gen))
+        for g in rworst:
+            rworst[g] = max(rworst[g], errs[g])
+        rsplits[f"M={m} K={k} C={c}"] = fcb.dw_splits(
+            m, k, c, "tensor_core")[0]
+    log(f"[conv-bn] phase hvd (e)'s {len(rshapes)} shapes ({HVD_RANK_BATCH} "
+        f"images a rank), bf16 on the tensor cores against the plain "
+        f"version: worst max abs err {rworst}; dW splits {rsplits}")
+
     # Correctness sweep: f32 at path widths; ragged M, K and C in both
     # dtypes (the CUDA-core route); ragged M and tile mixes on the tensor
     # cores; and the autograd op over a strided downsample.
@@ -2338,6 +2363,7 @@ def phase_conv_bn() -> dict:
     out = dict(tots["tensor_core"])
     out["cuda_core"] = tots["cuda_core"]
     out["kernel_info"] = info
+    out["rank_batch_max_abs_err"] = rworst
     return out
 
 
@@ -4235,7 +4261,7 @@ def _max_diff(got: dict, want: dict) -> float:
 
 
 def _hvd_train_runs(args: list, settings, capture: str | None,
-                    profile: bool) -> list:
+                    profile: bool, deterministic: bool = True) -> list:
     """``tpuframe_torch.train.main(args)`` once for each
     TPUFRAME_FUSION_THRESHOLD of ``settings`` (None: unset) in this
     world.  Per run: losses and step ms, the all_reduce calls and the
@@ -4246,12 +4272,12 @@ def _hvd_train_runs(args: list, settings, capture: str | None,
     max |diff| from the first run's, and, with ``profile``, one more
     step profiled.  ``capture`` (a path stem): run 0's batch and init on
     every rank, and rank 0's state after step 1 of every run, saved
-    there."""
+    there.  ``deterministic`` (cuDNN's deterministic algorithms): the
+    runs then differ only by the reduction, so a fused run's state can be
+    held to the unfused one's bit for bit (the unfused runs' difference
+    reads 0); False runs cuDNN's defaults, as the trainer does."""
     rank = hvd.rank()
-    # Deterministic cuDNN algorithms: the runs then differ only by the
-    # reduction, so a fused run's state can be held to the unfused one's
-    # bit for bit (the unfused runs' difference reads 0).
-    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.deterministic = deterministic
     calls, restore = _counting_all_reduce()
     build = train_lib.build_harness
     runs, ref, step1s = [], None, []
@@ -4355,14 +4381,17 @@ def hvd_worker_cifar(out: str) -> None:
     under gloo, then cifar10_resnet18 (HVD_CIFAR_ARGS) through
     ``tpuframe_torch.train.main`` once for each threshold of
     HVD_FUSION_SETTINGS with TPUFRAME_CHECK_SPMD=1 (:func:`_hvd_train_runs`,
-    step 1 captured, a step profiled after each run); after the first
-    run, step 1's batch under its final parameters."""
+    step 1 captured, a step profiled after each run), then once unset on
+    cuDNN's default algorithms; after the first run, step 1's batch under
+    its final parameters."""
     hvd.init()
     rank = hvd.rank()
     verbs = _gloo_verbs_on_cuda()
     os.environ["TPUFRAME_CHECK_SPMD"] = "1"
     try:
         runs = _hvd_train_runs(HVD_CIFAR_ARGS, HVD_FUSION_SETTINGS, out, True)
+        default = _hvd_train_runs(HVD_CIFAR_ARGS, (None,), None, True,
+                                  deterministic=False)[0]
     finally:
         os.environ.pop("TPUFRAME_CHECK_SPMD", None)
     h = runs[0].pop("harness")
@@ -4378,8 +4407,8 @@ def hvd_worker_cifar(out: str) -> None:
     again = statistics.mean(hvd.allgather_object(float(again)))
     if rank == 0:
         with open(out, "w") as f:
-            json.dump({"verbs": verbs, "step1_again": again, "runs": runs},
-                      f)
+            json.dump({"verbs": verbs, "step1_again": again, "runs": runs,
+                       "default_algos": default}, f)
 
 
 def hvd_worker_resnet2(out: str) -> None:
@@ -4582,7 +4611,10 @@ def phase_hvd(resnet_losses: list | None = None,
           all_reduce count equal to its census; at 4 MiB a bucket started
           before the backward ended; the loss falls; each threshold's
           step p50, spread and rank 0's idle share (gloo through the
-          host, not NCCL's cost);
+          host, not NCCL's cost); then one unset run on cuDNN's default
+          algorithms (the runs above take its deterministic ones), held
+          to its ranks' bit-identity and census, for the step p50 of the
+          configuration the trainer runs;
       (c) ``adasum_combine`` at ResNet-50's leaf shapes against float64;
       (d) probes: each raw torch.distributed verb on CUDA tensors under
           gloo, and an NCCL world of two on the one card (NCCL's own
@@ -4701,6 +4733,16 @@ def phase_hvd(resnet_losses: list | None = None,
         problems.append(f"(b) losses {losses}, step 1's batches again at "
                         f"the end {b['step1_again']}: want every step's "
                         f"finite, and the loss on step 1's batches fallen")
+    default = b["default_algos"]
+    found, _ = _fused_run_problems("(b) on cuDNN's default algorithms",
+                                   [default])
+    problems += found
+    if (default["batch"] != runs[0]["batch"]
+            or len(default["losses"]) != len(losses)
+            or not all(math.isfinite(x) for x in default["losses"])):
+        problems.append(f"(b) on cuDNN's default algorithms: losses "
+                        f"{default['losses']}; want {len(losses)} finite, "
+                        f"from run 0's batches")
     found, e_noise = _fused_run_problems("(e)", e["runs"])
     problems += found
     e_steps = len(e["runs"][0]["losses"])
@@ -4761,6 +4803,10 @@ def phase_hvd(resnet_losses: list | None = None,
         + "; ".join(f"{k} {ms:.2f} ms x{c}" for k, ms, c in run0["top"]))
     for threshold in dict.fromkeys(HVD_FUSION_SETTINGS):
         log(f"[hvd] {card}: (b) " + _setting_line(runs, threshold))
+    log(f"[hvd] {card}: (b) on cuDNN's default algorithms (the trainer's "
+        f"configuration; every run above is on deterministic ones), "
+        + _setting_line([default], None) + f"; losses off run 0's by at "
+        f"most {max(abs(x - y) for x, y in zip(default['losses'], losses)):.3e}")
     log(f"[hvd] hvd verbs on CUDA under gloo: {b['verbs']}")
     log(f"[hvd] {card}: (c) adasum_combine at ResNet-50's "
         f"{combine['leaves']} leaf shapes ({combine['elements']} entries) "
@@ -4795,6 +4841,8 @@ def phase_hvd(resnet_losses: list | None = None,
                   for name in launch_counts()}
     return {"launches": a["launches"], "launches_2proc": launches_2,
             "nccl": a, "cifar_p50": p50, "cifar_idle": idle,
+            "cifar_default_p50": statistics.median(
+                default["step_ms"][1:]),
             "dp_err": dp_errs[0][0], "combine": combine, "probes": probes}
 
 

@@ -121,27 +121,6 @@ def mean_(tensors, grp) -> None:
         t.div_(n)
 
 
-def reduce_gradients_(tensors: Sequence[torch.Tensor], grp,
-                      op: str = "mean") -> None:
-    """Each tensor summed (``op="sum"``) or averaged over ``grp``, in
-    place: the ``hvd`` optimizer's reduction.  With
-    ``TPUFRAME_FUSION_THRESHOLD`` set above 0 the list goes through the
-    fusion buffers (``fusion.fused_sum_``), as the JAX package's
-    ``average_gradients`` does with the knob set; otherwise one
-    :func:`allreduce` a tensor."""
-    from tpuframe_torch.parallel import fusion
-
-    threshold = fusion.threshold_from_env()
-    if grp is not None and threshold is not None and threshold > 0:
-        fusion.fused_sum_(tensors, grp, threshold_bytes=threshold,
-                          mean=op == "mean")
-        return
-    for t in tensors:
-        out = allreduce(t, grp, op)
-        if out is not t:
-            t.copy_(out)
-
-
 def allreduce(t: torch.Tensor, grp, op: str = "sum") -> torch.Tensor:
     """``t`` reduced over ``grp`` elementwise by ``op``: ``sum``, ``mean``
     (the sum over the world size), ``min`` or ``max``."""

@@ -148,7 +148,7 @@ def fused_sum_(tensors: Sequence[torch.Tensor], grp, *, threshold_bytes: int,
     for bucket in plan(tensors, threshold_bytes):
         members = [tensors[i] for i in bucket]
         flat = _pack(members)
-        dist.all_reduce(flat, group=grp)
+        collectives.allreduce_start_(flat, grp).wait()
         if mean:
             flat.div_(n)
         _unpack_(flat, members)

@@ -30,7 +30,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from tpuframe_torch.parallel import bootstrap, collectives
+from tpuframe_torch.parallel import bootstrap, collectives, fusion
 from tpuframe_torch.utils.optim import Optimizer
 
 
@@ -223,12 +223,14 @@ class _DistributedOptimizer:
         if self.op is Adasum:
             collectives.adasum_(grads, grp)
             return
-        # the bf16 wire copies are what is reduced (and packed, with the
-        # fusion knob set), as the JAX package compresses, then averages
+        # the bf16 wire copies are what is reduced (and packed), as the
+        # JAX package compresses, then averages; with the fusion knob
+        # unset or <= 0, one bucket (one all_reduce) a tensor
         wires = [g.to(torch.bfloat16) if self.compression == "bf16"
                  and g.dtype == torch.float32 else g for g in grads]
-        collectives.reduce_gradients_(
-            wires, grp, "mean" if self.op is Average else "sum")
+        threshold = max(fusion.threshold_from_env() or 0, 0)
+        fusion.fused_sum_(wires, grp, threshold_bytes=threshold,
+                          mean=self.op is Average)
         for g, wire in zip(grads, wires):
             if wire is not g:
                 g.copy_(wire)

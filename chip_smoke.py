@@ -192,6 +192,7 @@ from tpuframe_torch import train as train_lib  # noqa: E402
 from tpuframe_torch.ckpt import checkpoint as ckpt_mod  # noqa: E402
 from tpuframe_torch.launch.launcher import LocalCluster  # noqa: E402
 from tpuframe_torch.data import datasets  # noqa: E402
+from tpuframe_torch.data.pipeline import ShardedLoader  # noqa: E402
 from tpuframe_torch.models import get_model  # noqa: E402
 from tpuframe_torch.models.bert import BertConfig  # noqa: E402
 from tpuframe_torch.models.transformer_lm import LMConfig  # noqa: E402
@@ -206,8 +207,10 @@ from tpuframe_torch.ops import attention as attn  # noqa: E402
 from tpuframe_torch.ops import flash_attention as fa  # noqa: E402
 from tpuframe_torch.ops import fused_conv_bn as fcb  # noqa: E402
 from tpuframe_torch.ops import precision_probe as pp  # noqa: E402
+from tpuframe_torch.ops import seq_parallel as sp  # noqa: E402
 from tpuframe_torch.parallel import bootstrap, collectives, hvd  # noqa: E402
 from tpuframe_torch.parallel import fusion  # noqa: E402
+from tpuframe_torch.parallel import mesh as mesh_lib  # noqa: E402
 from tpuframe_torch.parallel import step as step_lib  # noqa: E402
 from tpuframe_torch.serve import kv_cache as kv  # noqa: E402
 from tpuframe_torch.resilience import faults  # noqa: E402
@@ -545,6 +548,55 @@ HVD_RESNET_SETTINGS = (None, 4 << 20, None)
 HVD_SPMD_THRESHOLDS = (4 << 20, 64 << 20)
 # (a) hvd.DistributedOptimizer over NCCL with the knob at this threshold.
 HVD_OPT_THRESHOLD = 4 << 20
+
+# Sequence parallelism (phase ``seq``): lm_long as its own recipe trains
+# it, on its own mesh and sequence: hidden 768, 12 layers, 12 heads of
+# 64, vocab 32000, bf16, remat, the fused xent head, flash attention, S
+# 32768, data=2 x seq=2 (four ranks, gloo: NCCL refuses two ranks on one
+# card).  Cut for the time limit: the steps (3, with one eval batch at
+# the end) and the global batch, 8 -> 4, so each rank holds [2, 16384]
+# tokens.  At batch 8 a step took 20.5 s (ring) and 18.5 s (Ulysses),
+# bound by the seq group's bytes through gloo's host copies, and the
+# phase 334.5 s.
+SEQ_RANKS = 4
+SEQ_MESH = {"data": 2, "seq": 2}
+SEQ_STEPS = 3
+SEQ_EVAL_BATCHES = 1
+SEQ_GLOBAL_BATCH = 4
+SEQ_LAYERS = 12
+SEQ_CUTS = {"mesh": SEQ_MESH, "total_steps": SEQ_STEPS,
+            "eval_every": SEQ_STEPS, "eval_batches": SEQ_EVAL_BATCHES,
+            "log_every": 1, "global_batch": SEQ_GLOBAL_BATCH}
+SEQ_MODES = ("ring", "ulysses")
+SEQ_TIMEOUT_S = 900
+# (c)'s shape: a rank's attention at lm_long's uncut batch, batch 8 /
+# data 2, sequence 32768 / seq 2.
+SEQ_RING_SHAPE = (4, 16384, 12, 64)
+# Step 1 of the four-rank run against one process on the same global
+# batch and weights (seq 1): the loss and the gradient norm of each, held
+# as phase grad_parity_bf16 holds bf16: the seq run's distance from the
+# one-process f32 step at most BF16_NOISE_FACTOR times the one-process
+# bf16 step's own (its rounding noise), or within SEQ_PARITY_RTOL of the
+# f32 value.  The ring rounds each stage's output to bf16 before the
+# merge and Ulysses runs the kernels on other head groups, so the seq
+# runs carry bf16 noise of their own.
+SEQ_PARITY_RTOL = 1e-3
+# (c) The flash-stage ring against the plain-stage ring at
+# SEQ_RING_SHAPE (bf16 in, causal): the plain stages compute in f32 and
+# round once at the end; the flash stages round P to bf16 inside the
+# kernel (TOL's reason) and round each stage's output to bf16 before the
+# f32 merge, a second 2^-9 relative rounding of outputs up to ~4: the
+# output within 2e-2.  The gradients: the backward kernels' own rounding
+# (BWD_TOL) plus the stage cotangents w_i * dO rounded to bf16 before
+# the kernels take them: max |diff| within 2e-2 of max |plain|.
+SEQ_RING_TOL = {"out": 2e-2, "grad": 2e-2}
+# (c) ``flash_mha_lse`` through its kernels against its plain versions at
+# SEQ_RING_SHAPE with a random N(0, 1) lse cotangent: the same kernels
+# and rounding as phases kernels and backward (TOL, BWD_TOL); the lse
+# cotangent enters the backward only as ``delta - dlse``, in f32.
+SEQ_DLSE_TOL = {"out": TOL[torch.bfloat16]["out"],
+                "lse": TOL[torch.bfloat16]["lse"],
+                "grad": BWD_TOL[torch.bfloat16]}
 
 # The serving fleet (phase ``fleet``): phase serve's engine in each of
 # FLEET_REPLICAS replica processes behind the port's router.  Seeded
@@ -4880,6 +4932,423 @@ def _hvd_probes(root: str) -> dict:
     return {"gloo_cuda": found, "nccl_pair": p_status}
 
 
+def _seq_args(mode: str, cuts: dict = SEQ_CUTS) -> list:
+    """``train.main`` arguments of lm_long with ``cuts`` and its model's
+    ``seq_mode`` set to ``mode``."""
+    model = dict(get_config("lm_long").model_kwargs, seq_mode=mode)
+    sets = {**cuts, "model_kwargs": model}
+    return ["--config", "lm_long"] + [
+        a for k, v in sets.items() for a in ("--set", f"{k}={v!r}")]
+
+
+def _seq_global_batch(cfg) -> dict:
+    """Step 1's global batch of the four-rank run: each data rank's rows
+    as its loader draws them, stacked in data order (every seq rank of a
+    data rank takes its block of the same rows)."""
+    ds, _ = datasets.build(cfg.dataset, None, **cfg.dataset_kwargs)
+    parts = [next(iter(ShardedLoader(ds, cfg.global_batch, device="cuda",
+                                     seed=cfg.seed,
+                                     world=SEQ_MESH["data"], rank=r)))
+             for r in range(SEQ_MESH["data"])]
+    return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
+
+
+def _seq_reference() -> dict:
+    """Step 1 of lm_long as one process (seq 1) on the four-rank run's
+    global batch and weights, in bf16 (the run's own dtype) and in f32
+    (the noise floor's yardstick): loss and gradient norm of each."""
+    cfg = get_config("lm_long").with_overrides(
+        mesh={"data": 1, "seq": 1}, global_batch=SEQ_GLOBAL_BATCH)
+    batch = _seq_global_batch(cfg)
+    out = {}
+    for dtype in ("bfloat16", "float32"):
+        t0 = time.monotonic()
+        h = train_lib.build_harness(cfg.with_overrides(compute_dtype=dtype),
+                                    device="cuda")
+        m = h.train_step(h.state, batch)
+        out[dtype] = {"loss": float(m["loss"]),
+                      "grad_norm": float(m["grad_norm"]),
+                      "s": time.monotonic() - t0}
+        del h, m
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _seq_dlse_check() -> dict:
+    """(c) ``flash_mha_lse`` at SEQ_RING_SHAPE (bf16, causal) through its
+    kernels, with cotangents on the output and on the lse rows (a random
+    N(0, 1) ``dlse``), against its plain versions: the plain forward and
+    the plain delta pass, dq and dkv from the plain lse with ``delta -
+    dlse``, one batch row and head at a time.  Max |diff| of out and lse,
+    and of each gradient over max |plain|."""
+    b, s, n, d = SEQ_RING_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    q, k, v, _ = _flash_inputs(b, s, n, d, torch.bfloat16, False, gen)
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+    dlse = torch.randn((b, n, s), generator=gen, device="cuda")
+    before = dict(fa.BWD_ROUTES)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out, lse = fa.flash_mha_lse(*leaves, causal=True)
+    grads = torch.autograd.grad((out, lse), leaves, (do, dlse))
+    torch.cuda.synchronize()
+    ran = {r: fa.BWD_ROUTES[r] - before[r] for r in before}
+    ref = {key: [] for key in ("out", "lse", "dq", "dk", "dv")}
+    for i in range(b):
+        for h in range(n):
+            qi, ki, vi, doi = (t[i:i + 1, :, h:h + 1] for t in (q, k, v, do))
+            o_r, l_r = fa.flash_mha_reference(qi, ki, vi, causal=True)
+            delta = (fa.flash_bwd_delta_reference(qi, ki, vi, doi, l_r,
+                                                  causal=True)
+                     - dlse[i:i + 1, h:h + 1])
+            dq = fa.flash_bwd_dq_reference(qi, ki, vi, doi, l_r, delta,
+                                           causal=True)
+            dk, dv = fa.flash_bwd_dkv_reference(qi, ki, vi, doi, l_r, delta,
+                                                causal=True)
+            for key, t in (("out", o_r), ("lse", l_r), ("dq", dq),
+                           ("dk", dk), ("dv", dv)):
+                ref[key].append(t)
+    full = {}
+    for key, parts in ref.items():
+        axis = 1 if key == "lse" else 2
+        rows = [torch.cat(parts[i * n:(i + 1) * n], dim=axis)
+                for i in range(b)]
+        full[key] = torch.cat(rows)
+    out = out.detach()
+    errs = {"out": float((out.float() - full["out"].float()).abs().max()),
+            "lse": float((lse - full["lse"]).abs().max())}
+    for key, got in zip(("dq", "dk", "dv"), grads):
+        want = full[key].float()
+        errs[key] = float((got.float() - want).abs().max()
+                          / want.abs().max().clamp_min(1e-30))
+    bad = []
+    if ran != {"tensor_core": 3, "cuda_core": 0}:
+        bad.append(f"backward launches by route {ran}, want 3 on the tensor "
+                   f"cores")
+    tols = {"out": SEQ_DLSE_TOL["out"], "lse": SEQ_DLSE_TOL["lse"],
+            **{g: SEQ_DLSE_TOL["grad"] for g in ("dq", "dk", "dv")}}
+    for key, tol in tols.items():
+        if not errs[key] <= tol:
+            bad.append(f"{key} {errs[key]:.3e} > {tol}")
+    log(f"[seq] (c) flash_mha_lse at {list(SEQ_RING_SHAPE)} bf16 causal "
+        f"with a random lse cotangent, kernels vs plain versions: max|diff| "
+        f"out {errs['out']:.3e} lse {errs['lse']:.3e}; max|diff| / "
+        f"max|plain| dq {errs['dq']:.3e} dk {errs['dk']:.3e} dv "
+        f"{errs['dv']:.3e} (tolerances {SEQ_DLSE_TOL}); backward routes "
+        f"{ran}")
+    del q, k, v, do, dlse, leaves, out, lse, grads, ref, full
+    gc.collect()
+    torch.cuda.empty_cache()
+    if bad:
+        raise RuntimeError("seq (c) flash_mha_lse with dlse: "
+                           + "; ".join(bad))
+    return errs
+
+
+def _seq_run(mode: str, rank: int, profile: bool) -> dict:
+    """One lm_long run of this world through ``train.main`` with
+    ``seq_mode=mode``: every step's launches and bytes through the seq
+    group, step 1's loss and gradient norm, the final state's digest,
+    peak memory; then, with ``profile``, one more step, profiled on rank
+    0."""
+    build = train_lib.build_harness
+    got = {"steps": []}
+
+    def capturing_build(cfg, device="cuda"):
+        h = build(cfg, device)
+        step = h.train_step
+
+        def train_step(state, batch):
+            launches0 = launch_counts()
+            bytes0 = sum(collectives.SEQ_BYTES.values())
+            metrics = step(state, batch)
+            launches = launch_counts()
+            got["steps"].append({
+                "launches": {k: launches[k] - launches0[k]
+                             for k in launches},
+                "seq_bytes": sum(collectives.SEQ_BYTES.values()) - bytes0})
+            if len(got["steps"]) == 1:
+                got["step1"] = {"loss": float(metrics["loss"]),
+                                "grad_norm": float(metrics["grad_norm"])}
+            return metrics
+
+        h.train_step = train_step
+        got["harness"] = h
+        return h
+
+    train_lib.build_harness = capturing_build
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    try:
+        metrics = train_lib.main(_seq_args(mode))
+    finally:
+        train_lib.build_harness = build
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = launch_counts()
+    routes = {"fwd": dict(fa.FWD_ROUTES), "bwd": dict(fa.BWD_ROUTES)}
+    peak = torch.cuda.max_memory_allocated()
+    h = got.pop("harness")
+    digest = _state_digest(h.state.to_tree())
+    layout = h.layout
+    prof = {"wall_ms": None, "device_ms": None, "idle": None, "top": []}
+    if profile:
+        # one more step, profiled on rank 0; the others step beside it
+        batch = next(iter(h.train_loader))
+        def step():
+            return float(h.train_step(h.state, batch)["loss"])
+
+        if rank == 0:
+            torch.cuda.synchronize()
+            t1 = time.monotonic()
+            kernels = device_time(step)
+            wall_step = 1e3 * (time.monotonic() - t1)
+            busy, idle, _ = _busy(kernels, wall_step)
+            prof = {"wall_ms": wall_step, "device_ms": busy, "idle": idle,
+                    "top": [(k[:60], ms, c)
+                            for k, ms, c in (kernels or [])[:8]]}
+        else:
+            step()
+        torch.cuda.synchronize()
+    del h
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"mode": mode, "rank": rank, "seq_index": layout.seq_index,
+            "data_index": layout.data_index, "wall_s": wall,
+            "losses": metrics["losses"], "step_ms": metrics["step_ms"],
+            "eval_loss": metrics.get("eval_loss"), "step1": got["step1"],
+            "steps": got["steps"], "launches": launches, "routes": routes,
+            "peak_bytes": peak, "digest": digest, "profile": prof}
+
+
+def _seq_ring_check(rank: int) -> dict | None:
+    """(c) One layer's ring at SEQ_RING_SHAPE on data rank 0's seq ring
+    (ranks 0 and 1; the others wait): the flash-stage ring against the
+    plain-stage ring (``impl="xla"``, f32 stages) on the same bf16
+    inputs, causal, forward and dq/dk/dv.  Each rank draws the whole
+    sequence from one seed and keeps its block."""
+    ring = mesh_lib.seq_group()
+    res = None
+    if ring is not None and rank in ring.ranks and ring.ranks[0] == 0:
+        b, c, n, d = SEQ_RING_SHAPE
+        gen = torch.Generator(device="cuda").manual_seed(13)
+        q, k, v, _ = _flash_inputs(b, c * ring.size, n, d, torch.bfloat16,
+                                   False, gen)
+        g = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+        lo = ring.index * c
+        q, k, v, g = (t[:, lo:lo + c].contiguous() for t in (q, k, v, g))
+        got = {}
+        for impl in ("pallas", "xla"):
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            out = sp.ring_attention(*leaves, seq=ring, causal=True,
+                                    impl=impl)
+            grads = torch.autograd.grad(out, leaves, g)
+            torch.cuda.synchronize()
+            got[impl] = (out.detach(), grads, time.monotonic() - t0)
+        (o_f, g_f, t_f), (o_x, g_x, t_x) = got["pallas"], got["xla"]
+        res = {"out": float((o_f.float() - o_x.float()).abs().max()),
+               "s_flash": t_f, "s_plain": t_x}
+        for key, a, w in zip(("dq", "dk", "dv"), g_f, g_x):
+            res[key] = float((a.float() - w.float()).abs().max()
+                             / w.float().abs().max().clamp_min(1e-30))
+        res["finite"] = bool(torch.isfinite(o_f.float()).all()
+                             and all(torch.isfinite(t.float()).all()
+                                     for t in g_f))
+        del got, q, k, v, g, o_f, g_f, o_x, g_x
+        gc.collect()
+        torch.cuda.empty_cache()
+    bootstrap.host_barrier("seq-ring-check")
+    return res
+
+
+def seq_worker(out: str) -> None:
+    """A rank of phase seq's gloo world of four: lm_long on data=2 x seq=2
+    once for each mode of SEQ_MODES (:func:`_seq_run`), then (c)'s ring
+    check; rank 0 writes every rank's results to ``out``."""
+    bootstrap.initialize(device="cuda")
+    rank = collectives.world()[1]
+    runs = []
+    for mode in SEQ_MODES:
+        runs.append(_seq_run(mode, rank, profile=mode == "ring"))
+    ring = _seq_ring_check(rank)
+    everyone = bootstrap.allgather_object({"runs": runs, "ring": ring})
+    if rank == 0:
+        Path(out).write_text(json.dumps(everyone))
+    bootstrap.shutdown()
+
+
+def _seq_want(mode: str, seq_index: int, steps: int) -> tuple:
+    """Launches a rank must show: (a step's, the eval's) per kernel.  The
+    ring runs ``seq_index + 1`` stages at or below the diagonal a layer
+    (none above), the forward twice a step under remat; Ulysses one
+    whole-sequence stage a layer."""
+    stages = seq_index + 1 if mode == "ring" else 1
+    step = {"flash_fwd": 2 * stages * SEQ_LAYERS,
+            "flash_bwd_delta": stages * SEQ_LAYERS,
+            "flash_bwd_dq": stages * SEQ_LAYERS,
+            "flash_bwd_dkv": stages * SEQ_LAYERS,
+            "fused_conv_bn_bwd": 0, "precision_probe": 0}
+    evals = {k: 0 for k in step}
+    evals["flash_fwd"] = stages * SEQ_LAYERS * SEQ_EVAL_BATCHES
+    return step, evals
+
+
+def _seq_parity(run: dict, ref: dict) -> list:
+    """Step 1's loss and gradient norm against the one-process steps
+    (SEQ_PARITY_RTOL's rule)."""
+    bad = []
+    for key in ("loss", "grad_norm"):
+        got, b16, f32 = (run["step1"][key], ref["bfloat16"][key],
+                         ref["float32"][key])
+        if abs(got - f32) > max(BF16_NOISE_FACTOR * abs(b16 - f32),
+                                SEQ_PARITY_RTOL * abs(f32)):
+            bad.append(f"step 1 {key} {got} vs one process f32 {f32} (bf16 "
+                       f"{b16}): beyond {BF16_NOISE_FACTOR} x the bf16 "
+                       f"step's distance and {SEQ_PARITY_RTOL} relative")
+    return bad
+
+
+def phase_seq() -> dict:
+    """Sequence parallelism (``parallel/mesh.py``, the seq verbs of
+    ``parallel/collectives.py``, ``ops/seq_parallel.py``): lm_long on its
+    own data=2 x seq=2 mesh at S=32768 in a gloo world of four processes
+    (``--seq-worker``), (a) with ring attention on the flash kernels and
+    (b) with Ulysses: step 1's loss and gradient norm against one process
+    on the same global batch and weights (SEQ_PARITY_RTOL's rule), every
+    rank's final parameters bit-identical, every step's launches on every
+    rank (the ring's ``seq_index + 1`` stages a layer, none above the
+    diagonal; the forward twice under remat) all on the tensor cores;
+    then (c) the flash-stage ring against the plain-stage ring, and
+    ``flash_mha_lse``'s kernels against their plain versions with an lse
+    cotangent, at a rank's shape.  Prints each rank's step p50, tokens/s,
+    peak memory, bytes through the seq group a step and rank 0's idle
+    share from one profiled step."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    card = _card_line()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.monotonic()
+    ref = _seq_reference()
+    ref_s = time.monotonic() - t0
+    log(f"[seq] one process, seq 1, step 1 on the four-rank run's global "
+        f"batch (lm_long, S=32768, batch {SEQ_GLOBAL_BATCH}): bf16 loss "
+        f"{ref['bfloat16']['loss']:.6f} grad norm "
+        f"{ref['bfloat16']['grad_norm']:.6f} ({ref['bfloat16']['s']:.1f} s "
+        f"with the build); f32 loss {ref['float32']['loss']:.6f} grad norm "
+        f"{ref['float32']['grad_norm']:.6f} ({ref['float32']['s']:.1f} s)")
+    dlse = _seq_dlse_check()
+    root = tempfile.mkdtemp(prefix="tpuframe_seq_")
+    try:
+        t0 = time.monotonic()
+        out = os.path.join(root, "seq.json")
+        LocalCluster(SEQ_RANKS, timeout=SEQ_TIMEOUT_S,
+                     extra_env={"TPUFRAME_DIST_BACKEND": "gloo"}).launch(
+            [sys.executable, str(Path(__file__).resolve()), "--seq-worker",
+             out])
+        ranks = json.loads(Path(out).read_text())
+        world_s = time.monotonic() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    problems = []
+    total = {k: 0 for k in launch_counts()}
+    tokens = SEQ_GLOBAL_BATCH * get_config("lm_long").dataset_kwargs[
+        "seq_len"]                      # the global batch's, a step
+    for m, mode in enumerate(SEQ_MODES):
+        runs = [r["runs"][m] for r in ranks]
+        tag = "(a) ring" if mode == "ring" else "(b) ulysses"
+        if len({r["digest"] for r in runs}) != 1:
+            problems.append(f"{tag}: final parameters differ across ranks")
+        problems += [f"{tag}: {p}" for p in _seq_parity(runs[0], ref)]
+        if len({(r["step1"]["loss"], r["step1"]["grad_norm"])
+                for r in runs}) != 1:
+            problems.append(f"{tag}: ranks report different step-1 "
+                            f"metrics {[r['step1'] for r in runs]}")
+        for r in runs:
+            losses = r["losses"]
+            if (len(losses) != SEQ_STEPS
+                    or not all(math.isfinite(x) for x in losses)
+                    or not math.isfinite(r["eval_loss"] or float("nan"))):
+                problems.append(f"{tag} rank {r['rank']}: losses {losses}, "
+                                f"eval {r['eval_loss']}")
+            want_step, want_eval = _seq_want(mode, r["seq_index"],
+                                             SEQ_STEPS)
+            for i, st in enumerate(r["steps"][:SEQ_STEPS]):
+                if st["launches"] != want_step:
+                    problems.append(f"{tag} rank {r['rank']} step {i + 1}: "
+                                    f"launches {st['launches']}, want "
+                                    f"{want_step}")
+            want = {k: SEQ_STEPS * want_step[k] + want_eval[k]
+                    for k in want_step}
+            if r["launches"] != want:
+                problems.append(f"{tag} rank {r['rank']}: run launches "
+                                f"{r['launches']}, want {want}")
+            n_fwd, n_bwd = want["flash_fwd"], 3 * want["flash_bwd_dq"]
+            if (r["routes"]["fwd"] != {"tensor_core": n_fwd, "cuda_core": 0}
+                    or r["routes"]["bwd"] != {"tensor_core": n_bwd,
+                                              "cuda_core": 0}):
+                problems.append(f"{tag} rank {r['rank']}: routes "
+                                f"{r['routes']}, want every launch on the "
+                                f"tensor cores")
+            for k in total:
+                total[k] += r["launches"][k]
+            p50 = statistics.median(r["step_ms"][1:])
+            prof = r["profile"]
+            idle = ("" if r["rank"] or prof["wall_ms"] is None else
+                    f", one profiled step {prof['wall_ms']:.1f} ms wall, "
+                    f"device {_dev(prof['device_ms'], '.1f')} ms, idle share "
+                    f"{_dev(prof['idle'])}; top: "
+                    + "; ".join(f"{k} {ms:.1f} ms x{cnt}"
+                                for k, ms, cnt in prof["top"][:5]))
+            log(f"[seq] {tag} rank {r['rank']} (data {r['data_index']}, seq "
+                f"{r['seq_index']}): losses "
+                f"{[round(x, 4) for x in r['losses']]}, eval "
+                f"{r['eval_loss']:.4f}; step ms "
+                f"{[round(x, 1) for x in r['step_ms']]} (p50 after the "
+                f"first {p50:.1f}, {tokens / p50 * 1e3:.0f} tokens/s of the "
+                f"global batch); peak memory {r['peak_bytes'] / 2**30:.2f} "
+                f"GiB; through the seq group "
+                f"{r['steps'][SEQ_STEPS - 1]['seq_bytes'] / 1e9:.3f} GB a "
+                f"step; run "
+                f"{r['wall_s']:.1f} s{idle}; {card}")
+        log(f"[seq] {tag} step 1: loss {runs[0]['step1']['loss']:.6f} grad "
+            f"norm {runs[0]['step1']['grad_norm']:.6f} against one process "
+            f"bf16 {ref['bfloat16']['loss']:.6f} / "
+            f"{ref['bfloat16']['grad_norm']:.6f}, f32 "
+            f"{ref['float32']['loss']:.6f} / "
+            f"{ref['float32']['grad_norm']:.6f}")
+    ring = [r["ring"] for r in ranks if r["ring"] is not None]
+    if len(ring) != SEQ_MESH["seq"]:
+        problems.append(f"(c) ring check ran on {len(ring)} ranks")
+    worst = {key: max(r[key] for r in ring) for key in
+             ("out", "dq", "dk", "dv")} if ring else {}
+    if ring and not (all(r["finite"] for r in ring)
+                     and worst["out"] <= SEQ_RING_TOL["out"]
+                     and max(worst[g] for g in ("dq", "dk", "dv"))
+                     <= SEQ_RING_TOL["grad"]):
+        problems.append(f"(c) flash-stage ring vs plain-stage ring {worst}, "
+                        f"tolerances {SEQ_RING_TOL}")
+    if ring:
+        log(f"[seq] (c) one layer's ring at {list(SEQ_RING_SHAPE)} a rank, "
+            f"bf16 causal, flash stages vs plain stages: max|diff| out "
+            f"{worst['out']:.3e}; max|diff| / max|plain| dq "
+            f"{worst['dq']:.3e} dk {worst['dk']:.3e} dv {worst['dv']:.3e} "
+            f"(tolerances {SEQ_RING_TOL}); forward + backward "
+            f"{max(r['s_flash'] for r in ring):.2f} s flash, "
+            f"{max(r['s_plain'] for r in ring):.2f} s plain")
+    log(f"[seq] world of {SEQ_RANKS} (two lm_long runs, one profiled step "
+        f"after the ring's, the ring check): {world_s:.1f} s; the "
+        f"one-process steps "
+        f"{ref_s:.1f} s; {card}")
+    if problems:
+        raise RuntimeError("seq: " + "; ".join(problems[:12]))
+    return {"launches": total, "reference": ref, "dlse": dlse,
+            "ring": worst}
+
+
 HVD_WORKERS = {"nccl": hvd_worker_nccl, "probe": hvd_worker_probe,
                "nccl_pair": hvd_worker_nccl_pair, "cifar": hvd_worker_cifar,
                "resnet2": hvd_worker_resnet2, "spmd": hvd_worker_spmd}
@@ -5006,6 +5475,9 @@ def main(argv=None) -> int:
                     metavar=("RANK", "OUT", "READY"),
                     help="run one replica of phase fleet (the phase starts "
                          "these)")
+    ap.add_argument("--seq-worker", metavar="OUT",
+                    help="run one rank of phase seq's world (the phase "
+                         "starts these)")
     ap.add_argument("--train-worker", metavar="OUT",
                     help="run one attempt of phase supervise (its "
                          "supervisor starts these; the trainer's arguments "
@@ -5018,6 +5490,9 @@ def main(argv=None) -> int:
     if args.replica_worker is not None:
         rank, out, ready = args.replica_worker
         return replica_worker(int(rank), out, ready)
+    if args.seq_worker is not None:
+        seq_worker(args.seq_worker)
+        return 0
     phase_card()
     t0 = time.monotonic()
     phase_build()
@@ -5048,6 +5523,7 @@ def main(argv=None) -> int:
     ckpt_run = phase_ckpt(resnet["losses"])
     supervise = phase_supervise(ckpt_run["lm"]["straight"], train["mfu"])
     hvd_run = phase_hvd(resnet["losses"], ckpt_run["resnet"]["noise"])
+    seq_run = phase_seq()
 
     by_path = {name: {"serve": serve_launches[name],
                       "fleet": fleet["launches"][name],
@@ -5065,7 +5541,8 @@ def main(argv=None) -> int:
                           ckpt_run["resnet"]["launches"][name],
                       "supervise": supervise["launches"][name],
                       "hvd_resnet": hvd_run["launches"][name],
-                      "hvd_resnet50_x2": hvd_run["launches_2proc"][name]}
+                      "hvd_resnet50_x2": hvd_run["launches_2proc"][name],
+                      "seq": seq_run["launches"][name]}
                for name in launch_counts()}
     attn = "B=8 S=4096 N=12 D=64 bf16 causal"
     ops = "tpuframe/ops/"
@@ -5166,7 +5643,7 @@ PHASES = {"kernels": phase_kernels, "backward": phase_backward,
           "bert_train": phase_bert_train, "mnist_train": phase_mnist_train,
           "cifar_train": phase_cifar_train,
           "resnet_variants": phase_resnet_variants, "ckpt": phase_ckpt,
-          "supervise": phase_supervise, "hvd": phase_hvd}
+          "supervise": phase_supervise, "hvd": phase_hvd, "seq": phase_seq}
 
 
 if __name__ == "__main__":

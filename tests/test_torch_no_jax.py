@@ -80,6 +80,10 @@ RUN_SLICE = {"tpuframe_torch.obs.metrics", "tpuframe_torch.obs.tensorboard",
 # The fusion buckets and the cross-rank program check.
 FUSION_SLICE = {"tpuframe_torch.parallel.fusion",
                 "tpuframe_torch.obs.spmd_check"}
+# Sequence parallelism: the rank layout and its seq rings, the ring and
+# Ulysses.
+SEQ_SLICE = {"tpuframe_torch.parallel.mesh", "tpuframe_torch.ops.seq_parallel",
+             "tpuframe_torch.parallel.collectives"}
 
 
 def test_port_and_chip_smoke_import_without_jax():
@@ -97,6 +101,7 @@ def test_port_and_chip_smoke_import_without_jax():
     assert ROLLOUT_SLICE <= names, ROLLOUT_SLICE - names
     assert RUN_SLICE <= names, RUN_SLICE - names
     assert FUSION_SLICE <= names, FUSION_SLICE - names
+    assert SEQ_SLICE <= names, SEQ_SLICE - names
 
 
 def _sources():

@@ -408,7 +408,11 @@ def test_distributed_false_trains_with_no_collective(tmp_path):
     ({}, {"HOROVOD_FUSION_THRESHOLD": "67108864"}, 1, "bucketed fusion"),
     ({"model": "transformer-lm-pp"}, {}, 1, "pipeline"),
     ({"mesh": {"data": 1, "fsdp": 2}}, {}, 2, "sharded state"),
-    ({"mesh": {"data": 1, "seq": -1}}, {}, 4, "sequence parallelism"),
+    # sequence parallelism is ported; a seq mesh with sharded state is not
+    # (the case keeps its id)
+    pytest.param({"mesh": {"data": 1, "seq": 2, "fsdp": 2}}, {}, 4,
+                 "sharded state",
+                 id="overrides5-env5-4-sequence parallelism"),
     ({}, {"TPUFRAME_REMAT_POLICY": "dots"}, 1, "remat policies.*item 14"),
     ({}, {"TPUFRAME_BENCH_REMAT": "1"}, 1, "remat policies.*item 14"),
     ({}, {"TPUFRAME_PROFILER_PORT": "9012"}, 1, "profiler server.*item 11"),
@@ -421,6 +425,30 @@ def test_unported_features_refuse_loudly(overrides, env, world, match,
         mesh={"data": 1, "seq": 1}).with_overrides(**overrides)
     with pytest.raises(NotImplementedError, match=match):
         port_train._refuse_unported(cfg, world)
+
+
+@pytest.mark.parametrize("config,world,want", [
+    ("lm_smoke", 8, {"data": 2, "seq": 4}),
+    ("lm_smoke", 4, {"data": 1, "seq": 4}),
+    ("lm_long", 4, {"data": 2, "seq": 2}),
+])
+def test_sequence_parallel_meshes_are_ported(config, world, want):
+    """A seq degree above 1 now passes: the mesh degrees come back."""
+    cfg = port_train.get_config(config)
+    if config == "lm_smoke" and world == 4:
+        cfg = cfg.with_overrides(mesh={"data": 1, "seq": 4})
+    sizes = port_train._refuse_unported(cfg, world)
+    assert {k: sizes[k] for k in want} == want
+    assert all(sizes[k] == 1 for k in sizes if k not in want)
+
+
+def test_a_seq_mesh_needs_a_sharded_sequence_and_a_seq_model():
+    cfg = port_train.get_config("lm_smoke")
+    with pytest.raises(ValueError, match="needs shard_seq=True"):
+        port_train._refuse_unported(cfg.with_overrides(shard_seq=False), 8)
+    with pytest.raises(ValueError, match="seq_mode 'ring' or 'ulysses'"):
+        port_train._refuse_unported(
+            cfg.with_overrides(model_kwargs={"seq_mode": "none"}), 8)
 
 
 def test_horovod_fusion_threshold_names_the_port_knob(monkeypatch):

@@ -11,6 +11,14 @@ the JAX loader does: half the bytes over the link, the same rounding the
 model's first cast would do), and copied to the device one step ahead of
 the consumer on a background thread, through pinned host memory when the
 device is a GPU.
+
+A sequence-parallel run (``seq``: the seq ring's size and this rank's
+index) takes the JAX layout ``P(('data', 'fsdp'), 'seq')``: ``world`` and
+``rank`` are then the data degree and index, so the rows go over the
+data ranks, and each seq rank keeps its ``[i*S/n, (i+1)*S/n)`` columns of
+every column with a sequence dimension (the LM's labels are shifted on
+the host, so no shift crosses ranks).  One-dimensional columns stay
+whole.
 """
 
 from __future__ import annotations
@@ -36,14 +44,18 @@ class ShardedLoader:
     ``global_batch / world`` rows.  ``world`` and ``rank`` default to the
     ``torch.distributed`` group.  The remainder partial batch of an epoch
     is dropped.  ``cast_floats`` (a torch dtype) casts the float model
-    inputs (the ``image`` column) on the host."""
+    inputs (the ``image`` column) on the host.  ``seq`` ``(n, i)``: keep
+    the ``i``-th of ``n`` equal column blocks of the sequence columns
+    (module docstring)."""
 
     def __init__(self, dataset: ArrayDataset, global_batch: int, *,
                  device="cpu", shuffle: bool = True, seed: int = 0,
                  world: int | None = None, rank: int | None = None,
-                 cast_floats: torch.dtype | None = None):
+                 cast_floats: torch.dtype | None = None,
+                 seq: tuple[int, int] = (1, 0)):
         if world is None:
             world, rank = collectives.world()
+        self.seq = seq
         self.global_batch = global_batch
         self.device = torch.device(device)
         self.shuffle = shuffle
@@ -125,9 +137,20 @@ class ShardedLoader:
     def __iter__(self):
         return self.from_step(0)
 
+    def _seq_block(self, v: np.ndarray) -> np.ndarray:
+        n, i = self.seq
+        if n == 1 or v.ndim < 2:
+            return v
+        if v.shape[1] % n:
+            raise ValueError(f"sequence length {v.shape[1]} does not split "
+                             f"over {n} seq ranks")
+        c = v.shape[1] // n
+        return v[:, i * c:(i + 1) * c]
+
     def _to_device(self, batch: dict) -> dict:
         out = {}
         for k, v in batch.items():
+            v = self._seq_block(v)
             t = torch.from_numpy(np.ascontiguousarray(v))
             if (self.cast_floats is not None and k == "image"
                     and t.is_floating_point()):

@@ -17,10 +17,12 @@ Training (``train=True``) adds residual dropout, with masks drawn inside
 each block from ``(dropout_seed, layer, site)`` so that a ``remat``
 recompute draws the same masks, and ``remat`` recomputes each block in the
 backward (``torch.utils.checkpoint``; the JAX model's ``nn.remat`` with no
-policy).  ``seq_mode`` ring or ulysses runs full causal attention: the
-port has no sequence-parallel group yet, which is what the JAX model does
-when its seq axis is unbound; the trainer refuses a seq degree above 1.
-MoE is not ported (see ROADMAP.md).
+policy).  With a seq ring bound (``parallel.mesh.bind``: the trainer binds
+its layout's on a seq degree above 1) ``seq_mode`` ring or ulysses runs
+attention over the ring (``ops/seq_parallel.py``) on this rank's chunk of
+the sequence, whose RoPE positions start at ``seq_index * S_local``; with
+none bound it runs whole-sequence causal attention, as the JAX model does
+when its seq axis is unbound.  MoE is not ported (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -36,6 +38,8 @@ from torch.utils import checkpoint
 
 from tpuframe_torch import _device
 from tpuframe_torch.ops import attention as attn_ops
+from tpuframe_torch.ops import seq_parallel
+from tpuframe_torch.parallel import mesh as mesh_lib
 
 SEQ_MODES = ("none", "ring", "ulysses")
 
@@ -180,8 +184,18 @@ class CausalSelfAttention(nn.Module):
         k = rope(heads(self.key(x)), positions, c.rope_theta)
         v = heads(self.value(x))
         if kv_cache is None:
-            y = attn_ops.multihead_attention(q, k, v, causal=True,
-                                             impl=c.attn_impl)
+            ring = _seq_ring(c)
+            if ring is None:
+                y = attn_ops.multihead_attention(q, k, v, causal=True,
+                                                 impl=c.attn_impl)
+            elif c.seq_mode == "ring":
+                y = seq_parallel.ring_attention(q, k, v, seq=ring,
+                                                causal=True,
+                                                impl=c.attn_impl)
+            else:
+                y = seq_parallel.ulysses_attention(q, k, v, seq=ring,
+                                                   causal=True,
+                                                   impl=c.attn_impl)
         else:
             # Serving path: the cache holds post-RoPE keys and is updated
             # in place (the JAX engine gets the same effect by donating the
@@ -210,6 +224,11 @@ class CausalSelfAttention(nn.Module):
                 y = attn_ops.multihead_attention(q, k, v, causal=True,
                                                  impl=c.attn_impl)
         return self.out(y.reshape(b, s, c.num_heads * c.head_dim))
+
+
+def _seq_ring(cfg: LMConfig):
+    """The bound seq ring a ``seq_mode`` model attends over, else None."""
+    return None if cfg.seq_mode == "none" else mesh_lib.seq_group()
 
 
 class Block(nn.Module):
@@ -317,7 +336,10 @@ class TransformerLM(nn.Module):
         if decode:
             positions = cache_length[:, None]
         else:
-            positions = torch.arange(s, device=input_ids.device)
+            # global positions: this rank's chunk of a sharded sequence
+            ring = _seq_ring(c) if kv_cache is None else None
+            start = 0 if ring is None else ring.index * s
+            positions = start + torch.arange(s, device=input_ids.device)
         if not train:
             dropout_seed = None
         elif c.dropout > 0.0 and dropout_seed is None:

@@ -76,18 +76,21 @@ def image_forward_flops(model: nn.Module, image_shape) -> int:
     return int(counter.get_total_flops())
 
 
-def step_flops(cfg, model: nn.Module, batch: dict) -> tuple[float | None,
-                                                              str | None]:
+def step_flops(cfg, model: nn.Module, batch: dict,
+               seq_shards: int = 1) -> tuple[float | None, str | None]:
     """``(flops of one global step, "model")`` for a config of the
     trainer (``TrainConfig``), its model and one local batch, or
-    ``(None, None)`` when the model has no count here."""
+    ``(None, None)`` when the model has no count here.  ``seq_shards``:
+    the seq ranks the batch's sequence is split over, so that the step
+    counts the whole sequence's tokens and causal pairs once, not a
+    rank's block a rank."""
     from tpuframe_torch.models.bert import BertForSequenceClassification
     from tpuframe_torch.models.transformer_lm import TransformerLM
 
     if isinstance(model, TransformerLM):
         if model.cfg.moe_experts:
             return None, None
-        seq = int(batch["input_ids"].shape[-1])
+        seq = int(batch["input_ids"].shape[-1]) * seq_shards
         return lm_step_flops(model.cfg, cfg.global_batch, seq), SOURCE_MODEL
     if isinstance(model, BertForSequenceClassification):
         mask = batch["attention_mask"]
@@ -104,12 +107,12 @@ def step_flops(cfg, model: nn.Module, batch: dict) -> tuple[float | None,
     return None, None
 
 
-def step_flops_or_fallback(cfg, model: nn.Module, batch: dict | None
-                           ) -> tuple[float, str]:
+def step_flops_or_fallback(cfg, model: nn.Module, batch: dict | None, *,
+                           seq_shards: int = 1) -> tuple[float, str]:
     """:func:`step_flops`, else the dense 6·N·D estimate (``batch`` None:
     no step left to run)."""
-    flops, src = (step_flops(cfg, model, batch) if batch is not None
-                  else (None, None))
+    flops, src = (step_flops(cfg, model, batch, seq_shards)
+                  if batch is not None else (None, None))
     if flops:
         return flops, src
     from tpuframe_torch.obs import goodput
@@ -117,6 +120,6 @@ def step_flops_or_fallback(cfg, model: nn.Module, batch: dict | None
     n_params = sum(p.numel() for p in model.parameters())
     tokens = 1
     if batch is not None and "input_ids" in batch:
-        tokens = int(batch["input_ids"].shape[-1])
+        tokens = int(batch["input_ids"].shape[-1]) * seq_shards
     return goodput.flops_fallback(n_params, cfg.global_batch,
                                   tokens), SOURCE_6ND

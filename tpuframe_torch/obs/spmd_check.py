@@ -13,8 +13,10 @@ The JAX package hashes the step's lowered StableHLO.  An eager PyTorch
 step has no program text, so :func:`step_program` writes down what
 decides the step's collective sequence instead: the parameters' names,
 shapes and dtypes in the staged pass's plan order, ``grad_reduce`` and
-``accum_steps``, the fusion threshold with its bucket census, and the
-statistics-and-metrics reduction (the float buffers and the metric names,
+``accum_steps``, the mesh's degrees and the model's ``seq_mode`` (which
+decide the seq rings' collectives in the forward and the backward), the
+fusion threshold with its bucket census, and the statistics-and-metrics
+reduction (the float buffers and the metric names,
 with its census).  Two ranks whose descriptions agree issue the same
 collectives on tensors of the same sizes; everything else the step does
 is local.
@@ -55,7 +57,8 @@ def assert_uniform_across_hosts(tag: str, payload: bytes | str) -> None:
 
 def step_program(model: nn.Module, *, grad_reduce: str, accum_steps: int,
                  fusion_threshold: int | None,
-                 metric_names: tuple) -> dict:
+                 metric_names: tuple, mesh: dict | None = None,
+                 seq_mode: str = "none") -> dict:
     """What decides the train step's collective sequence (module
     docstring).  The metrics are named, not shaped: they are 0-d, and
     their dtypes follow from the config, which is checked beside this."""
@@ -67,6 +70,8 @@ def step_program(model: nn.Module, *, grad_reduce: str, accum_steps: int,
                    for name, p in params],
         "grad_reduce": grad_reduce,
         "accum_steps": int(accum_steps),
+        "mesh": dict(mesh or {}),
+        "seq_mode": seq_mode,
         "fusion_threshold": fusion_threshold,
         "stats": [(name, tuple(b.shape), str(b.dtype))
                   for name, b in stats],

@@ -17,6 +17,15 @@ identity.  Ranks are the group's, and the group spans the world.
 gloo takes CUDA tensors for some verbs only (:data:`GLOO_CUDA_VERBS`); the
 others (point-to-point: Adasum) raise, naming the verb and the backend,
 and nothing is staged through the host by this module.
+
+The sequence-parallel verbs (:func:`ring_rotate`, :func:`seq_to_heads`,
+:func:`heads_to_seq`, :func:`gather_seq`) run over a seq ring's own group
+(``parallel/mesh.py``) and are differentiable, each the transpose of the
+other's backward as in JAX.  They are built on the verbs gloo takes on
+CUDA, so one code path serves gloo and NCCL: the ring rotation, JAX's
+``lax.ppermute``, is an ``all_to_all_single`` whose splits send the whole
+chunk to the next rank and take the whole of the previous rank's.
+:data:`SEQ_BYTES` counts the bytes each verb sent to other ranks.
 """
 
 from __future__ import annotations
@@ -281,3 +290,164 @@ def masked_broadcast(t: torch.Tensor, grp, ranks: Sequence[int], *,
     _check_ranks(grp, ranks)
     out = broadcast(t, grp, root)
     return out if dist.get_rank(grp) in members else t
+
+
+# Bytes this process sent to other ranks of its seq ring, by verb (the
+# forward and the backward alike): what a run reads as its traffic
+# through the seq group.
+SEQ_BYTES = {"ring_rotate": 0, "all_to_all": 0, "all_gather": 0}
+
+
+def _shift(flat: torch.Tensor, seq, shift: int) -> torch.Tensor:
+    """``flat`` (1-d, contiguous) sent whole to the ring member ``shift``
+    places on; returns the one received from ``shift`` places back."""
+    n = seq.size
+    if n == 1:
+        return flat
+    m = flat.numel()
+    dst, src = (seq.index + shift) % n, (seq.index - shift) % n
+    _check_device("all_to_all", flat, seq.group)
+    out = torch.empty_like(flat)
+    dist.all_to_all_single(out, flat,
+                           [m if j == src else 0 for j in range(n)],
+                           [m if j == dst else 0 for j in range(n)],
+                           group=seq.group)
+    SEQ_BYTES["ring_rotate"] += m * flat.element_size()
+    return out
+
+
+def _shift_all(tensors, seq, shift: int) -> list:
+    """:func:`_shift` of several tensors of one dtype, packed into one
+    collective."""
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    out = _shift(flat, seq, shift)
+    got, at = [], 0
+    for t in tensors:
+        got.append(out[at:at + t.numel()].view(t.shape))
+        at += t.numel()
+    return got
+
+
+class _Rotate(torch.autograd.Function):
+    """The ring rotation of same-dtype tensors: each rank receives the
+    previous rank's and sends its own to the next; the backward sends the
+    cotangents the other way, so a visiting chunk's gradient lands on its
+    owner (the transpose of ``lax.ppermute``)."""
+
+    @staticmethod
+    def forward(ctx, seq, *tensors):
+        ctx.seq = seq
+        return tuple(_shift_all(tensors, seq, 1))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, *_shift_all(grads, ctx.seq, -1))
+
+
+def ring_rotate(tensors, seq) -> list:
+    """``tensors`` (one dtype, the same on every rank) rotated one place
+    round the seq ring ``seq`` (a ``mesh.SeqGroup``), differentiably, in
+    one collective.  A ring of one is the identity."""
+    if seq.size == 1:
+        return list(tensors)
+    return list(_Rotate.apply(seq, *(t.contiguous() for t in tensors)))
+
+
+def _all_to_all(send: torch.Tensor, seq) -> torch.Tensor:
+    """Equal-split all-to-all over dim 0 (one block a ring member)."""
+    _check_device("all_to_all", send, seq.group)
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=seq.group)
+    SEQ_BYTES["all_to_all"] += (send.numel() * send.element_size()
+                                * (seq.size - 1) // seq.size)
+    return recv
+
+
+def _to_heads(x, seq):
+    b, c, nh, d = x.shape
+    n = seq.size
+    send = x.reshape(b, c, n, nh // n, d).permute(2, 0, 1, 3, 4).contiguous()
+    recv = _all_to_all(send, seq)          # [source's seq chunk, B, C, h, D]
+    return recv.permute(1, 0, 2, 3, 4).reshape(b, n * c, nh // n, d)
+
+
+def _to_seq(y, seq):
+    b, s, h, d = y.shape
+    n = seq.size
+    send = y.reshape(b, n, s // n, h, d).permute(1, 0, 2, 3, 4).contiguous()
+    recv = _all_to_all(send, seq)          # [source's head group, B, C, h, D]
+    return recv.permute(1, 2, 0, 3, 4).reshape(b, s // n, n * h, d)
+
+
+class _SeqToHeads(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, seq):
+        ctx.seq = seq
+        return _to_heads(x, seq)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _to_seq(g, ctx.seq), None
+
+
+class _HeadsToSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, seq):
+        ctx.seq = seq
+        return _to_seq(y, seq)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _to_heads(g, ctx.seq), None
+
+
+def seq_to_heads(x: torch.Tensor, seq) -> torch.Tensor:
+    """``[B, S/n, N, D] -> [B, S, N/n, D]`` over the ring ``seq``: rank
+    ``i`` gets head group ``i`` of the whole sequence (JAX's tiled
+    ``all_to_all(split_axis=2, concat_axis=1)``).  ``N % n == 0``."""
+    if x.shape[2] % seq.size:
+        raise ValueError(f"{x.shape[2]} heads do not split over a seq ring "
+                         f"of {seq.size}")
+    return _SeqToHeads.apply(x, seq)
+
+
+def heads_to_seq(y: torch.Tensor, seq) -> torch.Tensor:
+    """The inverse of :func:`seq_to_heads`: ``[B, S, N/n, D] -> [B, S/n,
+    N, D]``."""
+    if y.shape[1] % seq.size:
+        raise ValueError(f"sequence {y.shape[1]} does not split over a seq "
+                         f"ring of {seq.size}")
+    return _HeadsToSeq.apply(y, seq)
+
+
+class _GatherSeq(torch.autograd.Function):
+    """All-gather along dim 1 in ring order; the backward sums each
+    rank's slice of the cotangents over the ring (``psum_scatter``, the
+    transpose of a tiled ``all_gather``)."""
+
+    @staticmethod
+    def forward(ctx, x, seq):
+        ctx.seq = seq
+        _check_device("all_gather", x, seq.group)
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(seq.size)]
+        dist.all_gather(parts, x, group=seq.group)
+        SEQ_BYTES["all_gather"] += (x.numel() * x.element_size()
+                                    * (seq.size - 1))
+        return torch.cat(parts, dim=1)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = ctx.seq.size
+        b, s = g.shape[:2]
+        send = g.reshape(b, n, s // n, *g.shape[2:]).transpose(0, 1)
+        return _all_to_all(send.contiguous(), ctx.seq).sum(dim=0), None
+
+
+def gather_seq(x: torch.Tensor, seq) -> torch.Tensor:
+    """Every ring member's ``[B, S/n, ...]`` joined into ``[B, S, ...]`` in
+    ring order (JAX's tiled ``all_gather(axis=1)``): the key mask's
+    gather of Ulysses."""
+    if seq.size == 1:
+        return x
+    return _GatherSeq.apply(x, seq)

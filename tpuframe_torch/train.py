@@ -6,6 +6,8 @@ CIFAR-10 and ImageNet image workloads, the LM and BERT/GLUE.
         --set 'mesh={"data": 1}'
     python -m tpuframe_torch.train --config lm_long \\
         --set 'mesh={"data": 1, "seq": 1}' --set dataset_kwargs='{"seq_len": 4096}'
+    TPUFRAME_DIST_BACKEND=gloo python -m tpuframe_torch.launch local \\
+        --nprocs 4 -- python -m tpuframe_torch.train --config lm_long
     python -m tpuframe_torch.train --config imagenet_resnet50 \\
         --set 'model_kwargs={"bn": "fused"}' --set 'mesh={"data": 1}' \\
         --set global_batch=256
@@ -26,8 +28,15 @@ from the launcher's environment, as in the JAX harness
 default NCCL on the GPU and gloo on the CPU): the harness starts the world
 itself (``parallel.bootstrap``), one process a card, or joins a default
 group the caller made (torchrun).  ``launch.launcher.LocalCluster`` starts
-N ranks of this command on one host.  The data degree of the config's mesh
-must equal the world size.  A config with ``distributed=False``
+N ranks of this command on one host.  The config's mesh degrees must
+multiply to the world size.  A seq degree above 1 (``shard_seq`` configs,
+an LM with ``seq_mode`` ring or ulysses) lays the ranks out as the JAX
+mesh does (``parallel/mesh.py``: rank = data index x seq + seq index),
+binds each rank's seq ring for the model's attention
+(``ops/seq_parallel.py``), hands each rank its data rows and its block of
+the sequence, and keeps the loss's valid-token mean and the gradient mean
+over the whole world, as the JAX step's ``('data', 'fsdp', 'seq')``
+axes.  A config with ``distributed=False``
 (``mnist_single``) trains on one device with no collective, even in a
 process group, as the JAX harness's config-1 path does.  f32 means f32:
 the harness turns TF32 off for cuDNN's convolutions and for matmuls.
@@ -39,18 +48,17 @@ and uint8 normalisation, label smoothing, top-5 eval for ImageNet), the LM
 workloads (``lm_text`` data, ``transformer-lm``) and the GLUE tasks
 (``glue_sst2``, ``glue_mnli``, ``glue_stsb``, ``glue_cola`` data,
 ``bert-base``; cross-entropy, or MSE when ``num_classes`` is 1; Pearson
-and Matthews correlation at eval) train here.  What the JAX harness has
-and the port does not yet refuses loudly, naming its ROADMAP.md item:
-the profiler server (item 11), named remat policies (item 14), pipeline,
-fsdp, tensor and expert parallelism, ZeRO-1, quantized or hierarchical
-collectives, sequence parallelism (a seq degree above 1) and elastic
-resizing.  ``grad_reduce="adasum"`` reduces the gradients by Adasum.
-``TPUFRAME_FUSION_THRESHOLD`` (bytes) reduces the mean in fusion buckets
-whose collectives start during the backward (``parallel/fusion.py``);
-Horovod's ``HOROVOD_FUSION_THRESHOLD`` is refused, as the JAX harness
-never reads it.  ``TPUFRAME_CHECK_SPMD=1`` checks, before the first step,
-that every rank built the same config and step program
-(``obs/spmd_check.py``).
+and Matthews correlation at eval) train here.  What the JAX harness has and
+the port does not yet refuses loudly, naming its ROADMAP.md item: the
+profiler server (item 11), named remat policies (item 14), pipeline, fsdp,
+tensor and expert parallelism, ZeRO-1, quantized or hierarchical
+collectives and elastic resizing.  ``grad_reduce="adasum"`` reduces the
+gradients by Adasum.  ``TPUFRAME_FUSION_THRESHOLD`` (bytes) reduces the
+mean in fusion buckets whose collectives start during the backward
+(``parallel/fusion.py``); Horovod's ``HOROVOD_FUSION_THRESHOLD`` is
+refused, as the JAX harness never reads it.  ``TPUFRAME_CHECK_SPMD=1``
+checks, before the first step, that every rank built the same config and
+step program (``obs/spmd_check.py``).
 
 Run telemetry, as in the JAX harness: with ``TPUFRAME_EVENTS_DIR`` (or
 ``--events-dir``) the run writes ``run_start`` (with the step's model
@@ -131,6 +139,7 @@ from tpuframe_torch.parallel import bootstrap
 from tpuframe_torch.parallel import collectives
 from tpuframe_torch.parallel import fusion
 from tpuframe_torch.parallel import hvd
+from tpuframe_torch.parallel import mesh as mesh_lib
 from tpuframe_torch.parallel import step as step_lib
 from tpuframe_torch.resilience import faults
 from tpuframe_torch.resilience.preempt import RC_PREEMPTED, PreemptionGuard
@@ -181,11 +190,15 @@ def _refuse_unported(cfg: TrainConfig, world: int) -> dict:
             raise NotImplementedError(f"mesh {axis}={sizes[axis]}: sharded "
                                       f"state and multi-slice meshes are not"
                                       f" ported yet ({ITEM_12})")
-    if sizes["seq"] > 1:
-        raise NotImplementedError(
-            f"mesh seq={sizes['seq']}: sequence parallelism is not ported "
-            f"yet ({ITEM_12}); run with a seq degree of 1, e.g. --set "
-            f"'mesh={{\"data\": {world}, \"seq\": 1}}'")
+    if sizes["seq"] > 1 and not cfg.shard_seq:
+        raise ValueError(f"mesh seq={sizes['seq']} needs shard_seq=True: "
+                         f"the batch's sequence dimension is what the seq "
+                         f"ranks split")
+    if sizes["seq"] > 1 and cfg.model_kwargs.get("seq_mode",
+                                                 "none") == "none":
+        raise ValueError(f"mesh seq={sizes['seq']} needs a model with "
+                         f"seq_mode 'ring' or 'ulysses': seq_mode 'none' "
+                         f"would attend within each rank's chunk only")
     return sizes
 
 
@@ -201,6 +214,7 @@ class Harness:
     train_loader: ShardedLoader
     eval_loader: ShardedLoader
     world: int
+    layout: mesh_lib.Layout | None = None
     manager: ckpt_lib.CheckpointManager | None = None
     start_step: int = 0
     # the step's fusion threshold and its source (``_resolved_fusion``)
@@ -227,14 +241,15 @@ def _resolved_fusion(cfg: TrainConfig) -> tuple:
 
 
 def _lm_reduce(cfg: TrainConfig):
-    """The group of the global valid-token mean (``losses.masked_mean``).
-    Gradient accumulation differentiates a local loss per microbatch,
-    Adasum needs each rank's own gradients, and the fusion buckets reduce
-    the gradients themselves (a collective inside the loss would run in
-    the backward before the buckets), so all three take a local loss, as
-    the JAX harness's explicit step modes do; a per-rank valid-token mean
-    would be biased by unequal padding, so ``padded_docs`` is refused
-    with them."""
+    """The group of the global valid-token mean (``losses.masked_mean``):
+    the world, which spans the data and seq ranks alike (the JAX
+    ``_lm_reduce_axis``'s ``('data', 'fsdp', 'seq')``).  Gradient
+    accumulation differentiates a local loss per microbatch, Adasum needs
+    each rank's own gradients, and the fusion buckets reduce the gradients
+    themselves (a collective inside the loss would run in the backward
+    before the buckets), so all three take a local loss, as the JAX
+    harness's explicit step modes do; a per-rank valid-token mean would be
+    biased by unequal padding, so ``padded_docs`` is refused with them."""
     if (cfg.accum_steps > 1 or cfg.grad_reduce == "adasum"
             or _resolved_fusion(cfg)[0] is not None):
         if cfg.distributed and cfg.dataset_kwargs.get("padded_docs"):
@@ -440,7 +455,10 @@ def make_metric_fn(cfg: TrainConfig):
 def build_harness(cfg: TrainConfig, device="cuda") -> Harness:
     bootstrap.initialize(device=device)
     world, rank = collectives.world() if cfg.distributed else (1, 0)
-    _refuse_unported(cfg, world)
+    sizes = _refuse_unported(cfg, world)
+    # every rank makes every seq ring's group, in the same order
+    layout = mesh_lib.build(sizes, rank)
+    mesh_lib.bind(layout.seq)
     dev = _device.resolve(device)
     # f32 means f32: PyTorch runs cuDNN's f32 convolutions as TF32 unless
     # told otherwise
@@ -458,12 +476,13 @@ def build_harness(cfg: TrainConfig, device="cuda") -> Harness:
     # loader does.
     cast = (None if cfg.compute_dtype == "float32"
             else getattr(torch, cfg.compute_dtype))
+    # rows over the data ranks, sequence blocks over the seq ranks
+    shard = dict(world=layout.data_size, rank=layout.data_index,
+                 seq=(layout.seq_size, layout.seq_index))
     train_loader = ShardedLoader(train_ds, cfg.global_batch, device=dev,
-                                 seed=cfg.seed, cast_floats=cast,
-                                 world=world, rank=rank)
+                                 seed=cfg.seed, cast_floats=cast, **shard)
     eval_loader = ShardedLoader(eval_ds, cfg.global_batch, device=dev,
-                                shuffle=False, cast_floats=cast, world=world,
-                                rank=rank)
+                                shuffle=False, cast_floats=cast, **shard)
     state = step_lib.TrainState(model=model,
                                 opt=build_optimizer(cfg, model),
                                 seed=cfg.seed + 1)
@@ -479,7 +498,8 @@ def build_harness(cfg: TrainConfig, device="cuda") -> Harness:
                                             fusion_threshold=threshold),
         eval_step=step_lib.make_eval_step(make_metric_fn(cfg),
                                           distributed=cfg.distributed),
-        train_loader=train_loader, eval_loader=eval_loader, world=world)
+        train_loader=train_loader, eval_loader=eval_loader, world=world,
+        layout=layout)
 
 
 def _resume(cfg: TrainConfig, state: step_lib.TrainState):
@@ -759,7 +779,8 @@ def _check_spmd(cfg: TrainConfig, h: Harness) -> None:
         h.state.model, "train_step", grad_reduce=cfg.grad_reduce,
         accum_steps=cfg.accum_steps,
         fusion_threshold=h.fusion_threshold[0],
-        metric_names=(metric, "loss"))
+        metric_names=(metric, "loss"), mesh=h.layout.sizes,
+        seq_mode=cfg.model_kwargs.get("seq_mode", "none"))
 
 
 def _run_start(cfg: TrainConfig, h: Harness, tel: _Telemetry,
@@ -775,7 +796,7 @@ def _run_start(cfg: TrainConfig, h: Harness, tel: _Telemetry,
             first = next(data_iter)
             data_iter = itertools.chain([first], data_iter)
         tel.flops, src = obs_flops.step_flops_or_fallback(
-            cfg, h.state.model, first)
+            cfg, h.state.model, first, seq_shards=h.layout.seq_size)
         sizes = cfg.mesh.sizes(h.world)
         # The JAX manifest's keys: jax_version, the tuning DB and the XLA
         # options are null here, beside the torch and CUDA versions.

@@ -249,7 +249,6 @@ def test_ulysses_raises_when_heads_do_not_split():
 
 def test_ring_needs_a_ring():
     x = torch.zeros((1, 4, 2, 8))
-    mesh_lib.bind(None)
     with pytest.raises(ValueError, match="needs a seq ring"):
         sp.ring_attention(x, x, x, causal=True)
 
@@ -263,10 +262,13 @@ def test_rank_layout_is_the_jax_meshs():
                               devices=jax.devices()[:8])
     ids = np.vectorize(lambda d: d.id)(mesh.devices)
     for r in range(8):
-        c = mesh_lib.coords(sizes, r)
-        assert c["data"] * 4 + c["seq"] == r
-        assert ids[tuple(c[a] for a in mesh.axis_names)] == r
-    rings = mesh_lib.seq_rings(sizes)
+        lay = mesh_lib.Layout(sizes=sizes, rank=r)
+        assert lay.data_index * 4 + lay.seq_index == r
+        assert ids[lay.data_index, 0, 0, lay.seq_index, 0, 0] == r
+    assert mesh.axis_names[0] == "data" and mesh.axis_names[3] == "seq"
+    rings = mesh_lib.seq_rings(2, 4)
     assert rings == [tuple(ids[0, 0, 0, :, 0, 0]),
                      tuple(ids[1, 0, 0, :, 0, 0])] == [(0, 1, 2, 3),
                                                        (4, 5, 6, 7)]
+    with pytest.raises(ValueError, match="data x seq meshes only"):
+        mesh_lib.build(dict(sizes, fsdp=2, data=1), 0)

@@ -3,7 +3,7 @@
 Step parity: ``lm_smoke`` (the tiny LM, f32, adamw) with ``seq_mode``
 ring and ulysses, two steps in a gloo world of four CPU processes laid out
 ``data=2 x seq=2`` by the port's trainer (``train.build_harness``: the
-rank layout, the seq rings, the model's binding), from the weights of the
+rank layout, the seq rings, the ring handed to the model), from the weights of the
 JAX init converted with ``params_from_jax``; the JAX harness's step
 (``make_loss_fn``, ``make_train_step`` with the ``_batch_layout`` of a
 ``shard_seq`` config) on a ``data=2 x seq=2`` mesh of the conftest's
@@ -13,12 +13,11 @@ the backward beside the ring's own collectives.  Each rank takes its
 data rank's rows and its seq rank's block of columns, as the JAX layout
 ``P(('data', 'fsdp'), 'seq')`` does.  Losses within 1e-5 and parameters
 within 1e-5 absolute (``test_torch_train.py``'s f32 tolerances: summation
-order only), or, on a tensor where the JAX step itself moves further when
-only its layout changes (the same two steps on a ``data=4`` mesh with no
-sequence split), within twice that move.  Two Adam steps amplify the f32
-summation order of a gradient that nearly cancels between the steps: on
-``blocks.0.attn.key.weight`` the JAX step's two layouts already differ by
-1.5e-5.
+order only), except on the tensors of :data:`LAYOUT_SENSITIVE`, where
+the JAX step itself moves further when only its layout changes (the same
+two steps on a ``data=4`` mesh with no sequence split): those within
+twice that move, measured in the run.  Two Adam steps amplify the f32
+summation order of a gradient that nearly cancels between the steps.
 
 Also: the RoPE positions of a rank's chunk start at ``seq_index x
 S_local``, and ``lm_smoke`` trains through ``train.main`` on its own
@@ -55,6 +54,11 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MESH = {"data": 2, "seq": 2}
 MODES = ("ring", "ulysses")
 STEPS = 2
+# The tensors whose JAX steps on data=4 and on data=2 x seq=2 differ by
+# more than 1e-5, with that difference as measured on the CPU (ring,
+# ulysses): the port's distance from the data=2 x seq=2 step was 1.68e-5
+# and 9.1e-6.  Every other tensor is held to 1e-5.
+LAYOUT_SENSITIVE = {"blocks.0.attn.key.weight": (1.53e-5, 1.12e-5)}
 
 
 def _batches():
@@ -189,10 +193,11 @@ def test_seq_steps_match_the_jax_data2_seq2_mesh(seq_world, run):
                                rtol=0)
     assert set(final) <= set(got[run]["state"])
     for k, w in final.items():
-        floor = float((w - other_layout[k]).abs().max())
+        atol = 1e-5
+        if k in LAYOUT_SENSITIVE:
+            atol = max(atol, 2 * float((w - other_layout[k]).abs().max()))
         np.testing.assert_allclose(np.asarray(got[run]["state"][k]),
-                                   w.numpy(), atol=max(1e-5, 2 * floor),
-                                   rtol=0, err_msg=k)
+                                   w.numpy(), atol=atol, rtol=0, err_msg=k)
 
 
 @pytest.mark.parametrize("seq_mode,index,start", [
@@ -201,7 +206,7 @@ def test_rope_positions_start_at_the_ranks_chunk(seq_mode, index, start,
                                                  monkeypatch):
     """Rank ``index`` of a seq ring of two holds positions ``[index * 32,
     index * 32 + 32)`` of a 64-token sequence; a ``seq_mode="none"``
-    model ignores a bound ring.  The ring's attention is replaced by
+    model ignores the ring set on it.  The ring's attention is replaced by
     whole-chunk attention here: only the positions are under test."""
     seen = []
     real_rope = torch_lm.rope
@@ -219,12 +224,9 @@ def test_rope_positions_start_at_the_ranks_chunk(seq_mode, index, start,
     model = torch_lm.TransformerLM(
         torch_lm.LMConfig.tiny(seq_mode=seq_mode, num_layers=1),
         device="cpu")
-    ring = mesh_lib.SeqGroup(group=None, size=2, index=index, ranks=(0, 1))
-    mesh_lib.bind(ring)
-    try:
-        model(torch.zeros((2, 32), dtype=torch.int64))
-    finally:
-        mesh_lib.bind(None)
+    model.seq = mesh_lib.SeqGroup(group=None, size=2, index=index,
+                                  ranks=(0, 1))
+    model(torch.zeros((2, 32), dtype=torch.int64))
     assert seen and all(torch.equal(p, torch.arange(start, start + 32))
                         for p in seen)
 

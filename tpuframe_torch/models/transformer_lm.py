@@ -17,12 +17,13 @@ Training (``train=True``) adds residual dropout, with masks drawn inside
 each block from ``(dropout_seed, layer, site)`` so that a ``remat``
 recompute draws the same masks, and ``remat`` recomputes each block in the
 backward (``torch.utils.checkpoint``; the JAX model's ``nn.remat`` with no
-policy).  With a seq ring bound (``parallel.mesh.bind``: the trainer binds
-its layout's on a seq degree above 1) ``seq_mode`` ring or ulysses runs
-attention over the ring (``ops/seq_parallel.py``) on this rank's chunk of
-the sequence, whose RoPE positions start at ``seq_index * S_local``; with
-none bound it runs whole-sequence causal attention, as the JAX model does
-when its seq axis is unbound.  MoE is not ported (see ROADMAP.md).
+policy).  With a seq ring set on the model (:attr:`TransformerLM.seq`, a
+``parallel.mesh.SeqGroup``: the trainer sets its layout's on a seq degree
+above 1) ``seq_mode`` ring or ulysses runs attention over the ring
+(``ops/seq_parallel.py``) on this rank's chunk of the sequence, whose RoPE
+positions start at ``seq_index * S_local``; with none set it runs
+whole-sequence causal attention, as the JAX model does when its seq axis
+is unbound.  MoE is not ported (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -39,7 +40,6 @@ from torch.utils import checkpoint
 from tpuframe_torch import _device
 from tpuframe_torch.ops import attention as attn_ops
 from tpuframe_torch.ops import seq_parallel
-from tpuframe_torch.parallel import mesh as mesh_lib
 
 SEQ_MODES = ("none", "ring", "ulysses")
 
@@ -172,8 +172,10 @@ class CausalSelfAttention(nn.Module):
         self.value = Dense(cfg.hidden_size, inner, **kw)
         self.out = Dense(inner, cfg.hidden_size, **kw)
 
-    def forward(self, x, positions, *, kv_cache=None, cache_length=None,
-                decode: bool = False):
+    def forward(self, x, positions, *, ring=None, kv_cache=None,
+                cache_length=None, decode: bool = False):
+        """``ring``: the seq ring this rank's chunk attends over (None:
+        whole-sequence attention)."""
         c = self.cfg
         b, s, _ = x.shape
 
@@ -184,7 +186,6 @@ class CausalSelfAttention(nn.Module):
         k = rope(heads(self.key(x)), positions, c.rope_theta)
         v = heads(self.value(x))
         if kv_cache is None:
-            ring = _seq_ring(c)
             if ring is None:
                 y = attn_ops.multihead_attention(q, k, v, causal=True,
                                                  impl=c.attn_impl)
@@ -226,11 +227,6 @@ class CausalSelfAttention(nn.Module):
         return self.out(y.reshape(b, s, c.num_heads * c.head_dim))
 
 
-def _seq_ring(cfg: LMConfig):
-    """The bound seq ring a ``seq_mode`` model attends over, else None."""
-    return None if cfg.seq_mode == "none" else mesh_lib.seq_group()
-
-
 class Block(nn.Module):
     def __init__(self, cfg: LMConfig, *, layer: int = 0, device=None):
         super().__init__()
@@ -249,12 +245,13 @@ class Block(nn.Module):
         return dropout(h, self.cfg.dropout,
                        _seed_for(dropout_seed, self.layer, site))
 
-    def forward(self, x, positions, dropout_seed=None, *, kv_cache=None,
-                cache_length=None, decode: bool = False):
+    def forward(self, x, positions, dropout_seed=None, *, ring=None,
+                kv_cache=None, cache_length=None, decode: bool = False):
         """``dropout_seed`` (an int) turns residual dropout on: the
         training forward."""
-        h = self.attn(self.attn_ln(x), positions, kv_cache=kv_cache,
-                      cache_length=cache_length, decode=decode)
+        h = self.attn(self.attn_ln(x), positions, ring=ring,
+                      kv_cache=kv_cache, cache_length=cache_length,
+                      decode=decode)
         x = x + self._drop(h, dropout_seed, 0)
         h = self.up(self.mlp_ln(x))
         h = self.down(F.gelu(h, approximate="tanh"))
@@ -283,7 +280,14 @@ class TransformerLM(nn.Module):
     (lecun-normal kernels, an embedding of std ``hidden**-0.5``,
     unit LayerNorm scales); load trained or converted ones with
     ``load_state_dict``.
+
+    ``seq``: the seq ring (``parallel.mesh.SeqGroup``) whose ranks each
+    hold one chunk of every sequence, set by whoever shards the sequence
+    (the trainer); None, the default, is whole-sequence attention.  A
+    ``seq_mode="none"`` model, and the serving path, ignore it.
     """
+
+    seq = None
 
     def __init__(self, cfg: LMConfig = LMConfig(), *, device="cuda",
                  seed: int = 0):
@@ -333,11 +337,12 @@ class TransformerLM(nn.Module):
             if decode and s != 1:
                 raise ValueError(f"decode wants one token per sequence, "
                                  f"got S={s}")
+        # (the KV-cache path has refused a seq_mode above)
+        ring = self.seq if c.seq_mode != "none" else None
         if decode:
             positions = cache_length[:, None]
         else:
             # global positions: this rank's chunk of a sharded sequence
-            ring = _seq_ring(c) if kv_cache is None else None
             start = 0 if ring is None else ring.index * s
             positions = start + torch.arange(s, device=input_ids.device)
         if not train:
@@ -351,9 +356,9 @@ class TransformerLM(nn.Module):
                           cache_length=cache_length, decode=decode)
             elif c.remat and torch.is_grad_enabled():
                 x = checkpoint.checkpoint(block, x, positions, dropout_seed,
-                                          use_reentrant=False)
+                                          ring=ring, use_reentrant=False)
             else:
-                x = block(x, positions, dropout_seed)
+                x = block(x, positions, dropout_seed, ring=ring)
         x = self.final_ln(x)
         if hidden_only:
             return x

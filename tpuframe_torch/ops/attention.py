@@ -32,6 +32,15 @@ from tpuframe_torch.ops import flash_attention
 IMPLS = {"pallas": 0, "xla": 0, "xla_dropout": 0}
 
 
+def resolve_impl(impl=None) -> str:
+    """The attention path: ``impl``, else ``TPUFRAME_ATTN_IMPL``, else
+    ``xla``; raises on any other name."""
+    impl = impl or os.environ.get("TPUFRAME_ATTN_IMPL", "xla")
+    if impl not in ("pallas", "xla"):
+        raise ValueError(f"unknown attention impl {impl!r}")
+    return impl
+
+
 def multihead_attention(q, k, v, *, mask=None, causal=False,
                         dropout_rate: float = 0.0, dropout_seed=None,
                         impl=None):
@@ -41,9 +50,7 @@ def multihead_attention(q, k, v, *, mask=None, causal=False,
     ``dropout_rate > 0`` drops attention probabilities with a mask drawn
     from a generator seeded with ``dropout_seed`` (an int), on the einsum
     path whatever ``impl`` says, as in the JAX package."""
-    impl = impl or os.environ.get("TPUFRAME_ATTN_IMPL", "xla")
-    if impl not in ("pallas", "xla"):
-        raise ValueError(f"unknown attention impl {impl!r}")
+    impl = resolve_impl(impl)
     if impl == "pallas" and dropout_rate == 0.0:
         if mask is not None and mask.ndim != 2:
             raise ValueError(f"the flash kernel takes a [B, S_kv] key mask; "

@@ -17,7 +17,8 @@ positions ``[i*S/n, (i+1)*S/n)``.
     (``ops/attention.py``, the flash kernels on ``pallas``) on ``N/n``
     heads.
 
-``impl`` picks the ring's stages: the explicit argument, else
+``impl`` picks the ring's stages as ``ops/attention.py`` picks its path
+(``attention.resolve_impl``): the explicit argument, else
 ``TPUFRAME_ATTN_IMPL``, else ``xla``.  ``xla`` is the plain f32 stages
 (:func:`_chunk_attn`), each under ``torch.utils.checkpoint`` so the
 backward keeps the rotated chunks and not a stage's scores; ``pallas``
@@ -36,15 +37,12 @@ its scores, so a checkpoint would only run its forward kernel once more.
 
 from __future__ import annotations
 
-import os
-
 import torch
 from torch.utils import checkpoint
 
 from tpuframe_torch.ops import attention as attn_ops
 from tpuframe_torch.ops import flash_attention as fa
 from tpuframe_torch.parallel import collectives
-from tpuframe_torch.parallel import mesh as mesh_lib
 
 NEG_INF = -1e30  # flash_attention.NEG_INF
 
@@ -87,18 +85,10 @@ def _chunk_attn(q, k, v, keep, scale, q_chunk=None):
     return torch.cat(acc, 1), torch.cat(m, -1), torch.cat(l, -1)
 
 
-def _impl(impl):
-    impl = impl or os.environ.get("TPUFRAME_ATTN_IMPL", "xla")
-    if impl not in ("pallas", "xla"):
-        raise ValueError(f"unknown ring attention impl {impl!r}")
-    return impl
-
-
 def _ring(seq):
-    seq = seq if seq is not None else mesh_lib.seq_group()
     if seq is None:
-        raise ValueError("sequence-parallel attention needs a seq ring: "
-                         "pass seq= or bind one (parallel.mesh.bind)")
+        raise ValueError("sequence-parallel attention needs a seq ring "
+                         "(seq=, a parallel.mesh.SeqGroup)")
     return seq
 
 
@@ -110,7 +100,7 @@ def _t(x):
 def ring_attention(q, k, v, *, seq=None, mask=None, causal: bool = False,
                    q_chunk: int | None = 1024, impl: str | None = None):
     """Exact attention over a sequence sharded round the ring ``seq`` (a
-    ``mesh.SeqGroup``; default: the bound one).
+    ``mesh.SeqGroup``; raises without one).
 
     q, k, v ``[B, S/n, N, D]``: this rank's chunk; ``mask`` ``[B, S/n]``
     (nonzero = attend) for its keys.  Returns the local queries'
@@ -124,7 +114,7 @@ def ring_attention(q, k, v, *, seq=None, mask=None, causal: bool = False,
             raise ValueError(f"ring attention takes a [B, S/n] key mask; "
                              f"got {mask.ndim}-d")
         mask = (mask != 0).to(torch.int32)
-    if _impl(impl) == "pallas":
+    if attn_ops.resolve_impl(impl) == "pallas":
         return _ring_flash(q, k, v, seq=seq, mask=mask, causal=causal)
     n, my = seq.size, seq.index
     b, c, heads, d = q.shape
@@ -221,7 +211,7 @@ def _ring_flash(q, k, v, *, seq, mask, causal):
 def ulysses_attention(q, k, v, *, seq=None, mask=None, causal: bool = False,
                       impl: str | None = None):
     """All-to-all (DeepSpeed-Ulysses) sequence-parallel attention over the
-    ring ``seq`` (default: the bound one): re-shard seq -> heads, run
+    ring ``seq`` (raises without one): re-shard seq -> heads, run
     ``ops/attention.multihead_attention`` over the whole sequence on
     ``N/n`` heads (the flash kernels on ``pallas``), re-shard back.
     Raises unless ``heads % n == 0``.  ``mask`` ``[B, S/n]`` is gathered

@@ -1,22 +1,20 @@
-"""The rank layout of a mesh and its sequence sub-groups (the degrees ->
-groups part of ``tpuframe/parallel/mesh.py``).
+"""The rank layout of a data x seq mesh and its sequence sub-groups (the
+degrees -> groups part of ``tpuframe/parallel/mesh.py``).
 
-The JAX package lays its devices out row-major over the axes
-:data:`AXES`, data outermost, and a collective over the ``seq`` axis runs
-among the devices that differ in their ``seq`` coordinate only.  Here a
-rank plays a device: rank ``r``'s coordinates are ``r`` written in the
-mixed radix of the degrees, so with data and seq alone rank ``r`` is
-``data_idx * seq + seq_idx``.  Each seq ring (the ranks that share every
-other coordinate) gets its own ``torch.distributed`` group, made by
-:func:`build` on every rank in the same order, so that the ring's
+The JAX package lays its devices out row-major over its axes, data
+outermost, and a collective over the ``seq`` axis runs among the devices
+that differ in their ``seq`` coordinate only.  Here a rank plays a
+device: of the axes the port runs (data and seq; the trainer refuses every
+other), rank ``r`` is ``data_idx * seq + seq_idx``.  Each seq ring (the
+ranks of one data index) gets its own ``torch.distributed`` group, made
+by :func:`build` on every rank in the same order, so that the ring's
 collectives never share a group with the gradient reduction, which stays
 on the world: the parameters are replicated over both axes, as in the
 JAX step.
 
-The layout a run trains with is bound for the model to read
-(:func:`bind`, :func:`seq_group`), as the JAX model reads whether its seq
-axis is bound inside ``shard_map``.  A world of one, or a seq degree of 1,
-binds no seq group: the model then runs whole-sequence attention.
+A world of one, or a seq degree of 1, has no seq group: the model then
+runs whole-sequence attention.  The trainer hands its layout's ring to
+the model it builds (``TransformerLM.seq``).
 """
 
 from __future__ import annotations
@@ -24,9 +22,6 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch.distributed as dist
-
-# Canonical axis order, the JAX package's (``tpuframe/parallel/mesh.py``).
-AXES = ("data", "fsdp", "pipe", "seq", "expert", "model")
 
 
 @dataclass(frozen=True)
@@ -43,23 +38,22 @@ class SeqGroup:
 
 @dataclass(frozen=True)
 class Layout:
-    """A rank's place in the mesh: the degrees, the rank's coordinates
+    """A rank's place in the mesh: every axis's degree (``sizes``, as
+    ``MeshSpec.sizes`` gives them; all but data and seq are 1), the rank
     and its seq ring (None with a seq degree of 1)."""
 
     sizes: dict
     rank: int
-    coords: dict
     seq: SeqGroup | None = None
 
     @property
     def data_size(self) -> int:
-        """The degree the batch's rows are split over (``data x fsdp``,
-        the JAX package's batch axes)."""
-        return self.sizes["data"] * self.sizes["fsdp"]
+        """The degree the batch's rows are split over."""
+        return self.sizes["data"]
 
     @property
     def data_index(self) -> int:
-        return self.coords["data"] * self.sizes["fsdp"] + self.coords["fsdp"]
+        return self.rank // self.seq_size
 
     @property
     def seq_size(self) -> int:
@@ -67,35 +61,12 @@ class Layout:
 
     @property
     def seq_index(self) -> int:
-        return self.coords["seq"]
+        return self.rank % self.seq_size
 
 
-def coords(sizes: dict, rank: int) -> dict:
-    """``rank``'s coordinate on each axis of :data:`AXES` (row-major, the
-    last axis fastest)."""
-    out, rest = {}, rank
-    for axis in reversed(AXES):
-        rest, out[axis] = divmod(rest, sizes.get(axis, 1))
-    if rest:
-        raise ValueError(f"rank {rank} lies outside the mesh {sizes}")
-    return {axis: out[axis] for axis in AXES}
-
-
-def seq_rings(sizes: dict) -> list[tuple]:
-    """The world ranks of every seq ring, in ring order, the rings in the
-    order of their first member."""
-    stride = 1
-    for axis in AXES[AXES.index("seq") + 1:]:
-        stride *= sizes.get(axis, 1)
-    n = sizes.get("seq", 1)
-    world = 1
-    for axis in AXES:
-        world *= sizes.get(axis, 1)
-    rings = []
-    for r in range(world):
-        if coords(sizes, r)["seq"] == 0:
-            rings.append(tuple(r + i * stride for i in range(n)))
-    return rings
+def seq_rings(data: int, seq: int) -> list[tuple]:
+    """The world ranks of every seq ring, in ring order, by data index."""
+    return [tuple(range(d * seq, (d + 1) * seq)) for d in range(data)]
 
 
 def build(sizes: dict, rank: int) -> Layout:
@@ -103,26 +74,19 @@ def build(sizes: dict, rank: int) -> Layout:
     world their product).  With a seq degree above 1 every rank makes
     every ring's group (``dist.new_group`` is collective over the world)
     and keeps its own."""
+    other = {a: n for a, n in sizes.items()
+             if a not in ("data", "seq") and n != 1}
+    if other:
+        raise ValueError(f"the port lays out data x seq meshes only; got "
+                         f"{other}")
+    data, seq = sizes["data"], sizes["seq"]
+    if not 0 <= rank < data * seq:
+        raise ValueError(f"rank {rank} lies outside the mesh {sizes}")
     mine = None
-    if sizes.get("seq", 1) > 1:
-        for ranks in seq_rings(sizes):
+    if seq > 1:
+        for ranks in seq_rings(data, seq):
             grp = dist.new_group(list(ranks))
             if rank in ranks:
-                mine = SeqGroup(group=grp, size=len(ranks),
+                mine = SeqGroup(group=grp, size=seq,
                                 index=ranks.index(rank), ranks=ranks)
-    return Layout(sizes=dict(sizes), rank=rank, coords=coords(sizes, rank),
-                  seq=mine)
-
-
-_BOUND: dict = {"seq": None}
-
-
-def bind(seq: SeqGroup | None) -> None:
-    """Make ``seq`` the ring the model's attention runs over (None:
-    whole-sequence attention)."""
-    _BOUND["seq"] = seq
-
-
-def seq_group() -> SeqGroup | None:
-    """The bound seq ring, or None."""
-    return _BOUND["seq"]
+    return Layout(sizes=dict(sizes), rank=rank, seq=mine)

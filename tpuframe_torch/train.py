@@ -32,8 +32,8 @@ N ranks of this command on one host.  The config's mesh degrees must
 multiply to the world size.  A seq degree above 1 (``shard_seq`` configs,
 an LM with ``seq_mode`` ring or ulysses) lays the ranks out as the JAX
 mesh does (``parallel/mesh.py``: rank = data index x seq + seq index),
-binds each rank's seq ring for the model's attention
-(``ops/seq_parallel.py``), hands each rank its data rows and its block of
+hands each rank's seq ring to the model's attention
+(``TransformerLM.seq``, ``ops/seq_parallel.py``), hands each rank its data rows and its block of
 the sequence, and keeps the loss's valid-token mean and the gradient mean
 over the whole world, as the JAX step's ``('data', 'fsdp', 'seq')``
 axes.  A config with ``distributed=False``
@@ -458,7 +458,6 @@ def build_harness(cfg: TrainConfig, device="cuda") -> Harness:
     sizes = _refuse_unported(cfg, world)
     # every rank makes every seq ring's group, in the same order
     layout = mesh_lib.build(sizes, rank)
-    mesh_lib.bind(layout.seq)
     dev = _device.resolve(device)
     # f32 means f32: PyTorch runs cuDNN's f32 convolutions as TF32 unless
     # told otherwise
@@ -466,6 +465,9 @@ def build_harness(cfg: TrainConfig, device="cuda") -> Harness:
     torch.backends.cuda.matmul.allow_tf32 = False
     model = models.get_model(cfg.model, dtype=cfg.compute_dtype, device=dev,
                              seed=cfg.seed, **cfg.model_kwargs)
+    if layout.seq is not None:
+        # _refuse_unported let a seq degree through for a seq_mode LM only
+        model.seq = layout.seq
     if cfg.distributed:
         # parameters and buffers (BatchNorm statistics), as the reference
         hvd.broadcast_parameters(model.state_dict(), root_rank=0)

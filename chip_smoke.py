@@ -177,6 +177,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import traceback
 from pathlib import Path
 
 import numpy as np
@@ -486,9 +487,10 @@ SUPERVISE_FAULTS = "host:step=3:kind=hang:once=1,host:step=5:kind=sigterm"
 # The stall timeout: at least 5x the longest gap between two beats of an
 # attempt, which the phase measures on its timeline and checks.  A step
 # is ~0.4 s at these cuts; the longest gap is a process's first async
-# snapshot, which pins its host buffers: 0.6-1.6 s on one H100 (700 W)
-# in this phase's runs.  10 s is 5x a gap of 2 s.
-SUPERVISE_STALL_TIMEOUT_S = 10.0
+# snapshot, which pins its host buffers (~1.6 GB): 0.6-1.6 s on one H100
+# (700 W) in this phase's runs, and more on a host that pins more slowly.
+# 20 s is 5x a gap of 4 s; the hang costs attempt 0 the whole timeout.
+SUPERVISE_STALL_TIMEOUT_S = 20.0
 SUPERVISE_STALL_POLL_S = 0.5
 SUPERVISE_BACKOFF_S = 0.5
 SUPERVISE_TRACE_STEPS = "5:1"      # step 6, inside attempt 2
@@ -3794,22 +3796,29 @@ def _resumed_launches(workers: dict, layers: int) -> list:
     return problems
 
 
-def _longest_beat_gap(timeline: list, by_att: dict) -> float:
-    """The longest gap between two beats of one attempt.  The trainer
-    beats at the end of each ``train_step``, ``eval`` and ``checkpoint``
-    phase of its timeline; an attempt's beats are those inside its span
-    of event records (the hang, after which no beat comes, is no gap)."""
-    ends = sorted(e["ts"] + e["dur"] for e in timeline
-                  if e["ph"] == "X"
-                  and e["name"] in ("train_step", "eval", "checkpoint"))
-    longest = 0.0
-    for recs in by_att.values():
+def _longest_beat_gap(timeline: list, by_att: dict) -> tuple:
+    """``(seconds, where)``: the longest gap between two beats of one
+    attempt, and the attempt and the two beats (timeline phase, step) that
+    bound it.  The trainer beats at the end of each ``train_step``,
+    ``eval`` and ``checkpoint`` phase of its timeline; an attempt's beats
+    are those inside its span of event records (the hang, after which no
+    beat comes, is no gap)."""
+    ends = sorted([(e["ts"] + e["dur"], e["name"],
+                    e.get("args", {}).get("step")) for e in timeline
+                   if e["ph"] == "X"
+                   and e["name"] in ("train_step", "eval", "checkpoint")],
+                  key=lambda beat: beat[0])
+    longest, where = 0.0, "no gap"
+    for att, recs in sorted(by_att.items()):
         lo, hi = (1e6 * min(r["t"] for r in recs) - 1e4,
                   1e6 * max(r["t"] for r in recs) + 1e4)
-        ts = [t for t in ends if lo <= t <= hi]
-        longest = max([longest] + [(b - a) / 1e6
-                                   for a, b in zip(ts, ts[1:])])
-    return longest
+        beats = [b for b in ends if lo <= b[0] <= hi]
+        for a, b in zip(beats, beats[1:]):
+            if (b[0] - a[0]) / 1e6 > longest:
+                longest = (b[0] - a[0]) / 1e6
+                where = (f"attempt {att}, {a[1]} of step {a[2]} to {b[1]} "
+                         f"of step {b[2]}")
+    return longest, where
 
 
 def _artifact_checks(root: str, records: list, timeline: list) -> list:
@@ -3990,11 +3999,11 @@ def phase_supervise(straight: list | None = None,
         timeline = json.load(open(os.path.join(root, "timeline.json")))[
             "traceEvents"]
         problems += _artifact_checks(root, records, timeline)
-        longest = _longest_beat_gap(timeline, by_att)
+        longest, gap_at = _longest_beat_gap(timeline, by_att)
         if SUPERVISE_STALL_TIMEOUT_S < 5 * longest:
             problems.append(f"stall timeout {SUPERVISE_STALL_TIMEOUT_S} s "
                             f"under 5x the longest gap between beats "
-                            f"{longest:.3f} s")
+                            f"{longest:.3f} s ({gap_at})")
         if problems:
             raise RuntimeError("supervise: " + "; ".join(problems)
                                + f"\n--- supervisor ---\n{tail}")
@@ -4016,7 +4025,8 @@ def phase_supervise(straight: list | None = None,
         f"{hang_s:.3f} s against a {SUPERVISE_STALL_TIMEOUT_S:g} s timeout "
         f"(poll {SUPERVISE_STALL_POLL_S:g} s; stall idle "
         f"{stalls[0]['idle_s']:.3f} s; longest gap between beats "
-        f"{longest:.3f} s, x5 {5 * longest:.3f} s); relaunch gaps "
+        f"{longest:.3f} s ({gap_at}), x5 {5 * longest:.3f} s); relaunch "
+        f"gaps "
         f"{[round(x, 3) for x in relaunch]} s; mfu_productive "
         f"{summary.get('mfu_productive')} (run_end) beside phase train's "
         f"{train_mfu}; step losses 1-6 bit-equal to the straight run; "
@@ -5733,4 +5743,13 @@ PHASES = {"kernels": phase_kernels, "backward": phase_backward,
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    except Exception as exc:
+        # A failed check's message can end in a long tail of a child's
+        # output; repeat its head as the last line of stderr, where the
+        # end of a failed run's log shows it.
+        traceback.print_exc()
+        print(f"chip_smoke: FAILED: {type(exc).__name__}: "
+              f"{str(exc)[:2000]}", file=sys.stderr, flush=True)
+        sys.exit(1)

@@ -136,8 +136,8 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
      tensor cores (path ``hvd_resnet``), and ``hvd.DistributedOptimizer``
      through the fusion buckets bit-equal to the per-tensor path; (b)
      cifar10_resnet18 as two processes on the one card over gloo
-     (HVD_CIFAR_CUTS), with TPUFRAME_FUSION_THRESHOLD unset, at 64 MiB
-     and at 4 MiB, twice each, under TPUFRAME_CHECK_SPMD=1: final states
+     (HVD_CIFAR_CUTS), with TPUFRAME_FUSION_THRESHOLD unset, at 64 MiB,
+     at 4 MiB and unset again, under TPUFRAME_CHECK_SPMD=1: final states
      bit-identical across ranks and across thresholds, step 1 against the
      plain data-parallel step, the all_reduce calls of every step equal
      to the bucket census, buckets started inside the backward, the loss
@@ -147,7 +147,18 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
      two NCCL ranks on one card; (e) imagenet_resnet50 bn="fused" as two
      processes, unset and at 4 MiB, every fused conv+BN launch on the
      tensor cores (path ``hvd_resnet50_x2``); (f) a divergent threshold
-     under TPUFRAME_CHECK_SPMD=1 failing both ranks before step 1.
+     under TPUFRAME_CHECK_SPMD=1 failing both ranks before step 1;
+ 21. the ZeRO-1 weight update and the int8-block wire (``zero1``):
+     imagenet_resnet50 bn="fused" as (e)'s two gloo processes, (i) zero1
+     fp unset, (ii) zero1 fp at 4 MiB, (iii) zero1 int8-block, (iv)
+     replicated int8-block, through ``train.main`` with
+     TPUFRAME_WEIGHT_UPDATE and TPUFRAME_WIRE_FORMAT: ranks bit-identical,
+     step 1 against the plain data-parallel step, (i) and (ii) bit-equal
+     to (e)'s unset run, a rank's optimizer state padded_bytes / n, wire
+     bytes and collective calls a step equal to the byte laws and the
+     census, the int8 gradients within 2 x blockmax / 254 of the fp mean
+     and the loss gap bounded, every fused conv+BN launch on the tensor
+     cores (path ``zero1``); step p50, peak memory, idle share.
 
 Phases 13-15 run with ``TPUFRAME_ATTN_IMPL=pallas`` and restore it after.
 The harness turns TF32 off (f32 convolutions and matmuls run in f32), and
@@ -212,7 +223,9 @@ from tpuframe_torch.ops import seq_parallel as sp  # noqa: E402
 from tpuframe_torch.parallel import bootstrap, collectives, hvd  # noqa: E402
 from tpuframe_torch.parallel import fusion  # noqa: E402
 from tpuframe_torch.parallel import mesh as mesh_lib  # noqa: E402
+from tpuframe_torch.parallel import quantwire  # noqa: E402
 from tpuframe_torch.parallel import step as step_lib  # noqa: E402
+from tpuframe_torch.parallel import zero1  # noqa: E402
 from tpuframe_torch.serve import kv_cache as kv  # noqa: E402
 from tpuframe_torch.resilience import faults  # noqa: E402
 from tpuframe_torch.serve import loadgen  # noqa: E402
@@ -223,6 +236,32 @@ from tpuframe_torch.serve.engine import (BertClassifier, LMEngine,  # noqa: E402
                                         parity_diffs, swap_parity_check)
 from tpuframe_torch.utils.config import get_config  # noqa: E402
 from tpuframe_torch.utils.optim import build_optimizer  # noqa: E402
+
+
+def _reuse_synthetic_datasets() -> None:
+    """Build each synthetic dataset once a process.  With no data directory
+    ``datasets.build`` is a pure function of its arguments (seeded
+    templates, the JAX package's bits), and ``train.main`` builds the
+    whole split again at every call: ImageNet's 2048 f32 images at 224 x
+    224 (1.2 GB) took 26 s of host CPU a build, and the ResNet-50 phases
+    call the trainer a dozen times.  The datasets are only read (a rank's
+    shard is a new view), so every call gets the same data as before."""
+    build, cache = datasets.build, {}
+
+    def cached(name, data_dir=None, **kwargs):
+        if data_dir is not None:
+            return build(name, data_dir, **kwargs)
+        key = (name, json.dumps(kwargs, sort_keys=True))
+        if key not in cache:
+            if len(cache) >= 2:             # the latest two configs
+                cache.pop(next(iter(cache)))
+            cache[key] = build(name, None, **kwargs)
+        return cache[key]
+
+    datasets.build = cached
+
+
+_reuse_synthetic_datasets()
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W).
 PEAK_BYTES_S = 3.35e12
@@ -507,8 +546,9 @@ HVD_PROBE_TIMEOUT_S = 90
 # (b) the reference's workload 2, cifar10_resnet18 at its own widths,
 # batch (256 global, 128 a rank) and recipe, as two processes on the one
 # card over gloo (NCCL refuses two ranks on one card).  Cut: steps, 2000
-# -> 20, and one eval batch, as phase 17.
-HVD_CIFAR_CUTS = {"mesh": {"data": 2}, "total_steps": 20, "eval_every": 20,
+# -> 10 (20 until PR 17, whose zero1 phase needed the time), and one eval
+# batch, as phase 17.
+HVD_CIFAR_CUTS = {"mesh": {"data": 2}, "total_steps": 10, "eval_every": 10,
                   "eval_batches": 1, "log_every": 5}
 HVD_CIFAR_ARGS = ["--config", "cifar10_resnet18"] + [
     a for k, v in HVD_CIFAR_CUTS.items() for a in ("--set", f"{k}={v!r}")]
@@ -528,8 +568,9 @@ HVD_COMBINE_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -8 + 1e-5}
 # (b) the fusion buckets (TPUFRAME_FUSION_THRESHOLD): unset (one
 # collective a tensor, 104 a step), Horovod's default 64 MiB (one gradient
 # bucket: 62 leaves, 44.7 MB) and 4 MiB (12 gradient buckets, so the
-# staged pass has buckets to start during the backward), each run twice,
-# alternating, in one world of two processes, every run with
+# staged pass has buckets to start during the backward), then unset again
+# (until PR 17 all three ran twice; the second fused round's time went to
+# phase zero1), in one world of two processes, every run with
 # TPUFRAME_CHECK_SPMD=1.  A fused run's final state must equal the first
 # unfused run's bit for bit, or lie within the two unfused runs' measured
 # difference (max |diff| over every leaf).  These runs take cuDNN's
@@ -538,31 +579,63 @@ HVD_COMBINE_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -8 + 1e-5}
 # cuDNN's default algorithms, the configuration the trainer runs (its step
 # p50 is the two-process metric of earlier records), is held to the
 # ranks' bit-identity and the census, not to the other runs' state.
-HVD_FUSION_SETTINGS = (None, 64 << 20, 4 << 20) * 2
+HVD_FUSION_SETTINGS = (None, 64 << 20, 4 << 20, None)
 # (e) imagenet_resnet50 bn="fused" as two processes (RESNET_CUTS on a
-# data=2 mesh: batch 256, 128 a rank, 4 steps): unset, 4 MiB (161 leaves
-# in 32 gradient buckets), unset again for the unfused runs' difference.
+# data=2 mesh: batch 256, 128 a rank, 4 steps): unset and 4 MiB (161
+# leaves in 32 gradient buckets).  Until PR 17 an unset run went again for
+# the unfused runs' difference; on cuDNN's deterministic algorithms it
+# read 0 in every call, and the repeat's time went to phase zero1: the
+# fused run (and phase zero1's fp runs) is now held to the unset run bit
+# for bit.
 HVD_RESNET_ARGS = RESNET_ARGS + ["--set", "mesh={'data': 2}"]
 HVD_RANK_BATCH = RESNET_BATCH // 2     # each rank's share of (e)'s batch
-HVD_RESNET_SETTINGS = (None, 4 << 20, None)
+HVD_RESNET_SETTINGS = (None, 4 << 20)
 # (f) the program check: TPUFRAME_CHECK_SPMD=1 with rank r's threshold
 # HVD_SPMD_THRESHOLDS[r]; both ranks must exit non-zero before step 1.
 HVD_SPMD_THRESHOLDS = (4 << 20, 64 << 20)
 # (a) hvd.DistributedOptimizer over NCCL with the knob at this threshold.
 HVD_OPT_THRESHOLD = 4 << 20
 
+# The ZeRO-1 weight update and the int8-block wire (phase ``zero1``):
+# imagenet_resnet50 bn="fused" at full width as phase hvd (e)'s two gloo
+# processes on the one card (HVD_RESNET_ARGS: RESNET_CUTS on a data=2
+# mesh, batch 256, 128 a rank, 4 steps + 1 eval batch), on cuDNN's
+# deterministic algorithms as (e), once for each setting: (label, the
+# trainer's environment, TPUFRAME_FUSION_THRESHOLD).
+ZERO1_SETTINGS = (
+    ("(i) zero1 fp, unset", {"TPUFRAME_WEIGHT_UPDATE": "zero1"}, None),
+    ("(ii) zero1 fp, 4 MiB", {"TPUFRAME_WEIGHT_UPDATE": "zero1"}, 4 << 20),
+    ("(iii) zero1 int8-block", {"TPUFRAME_WEIGHT_UPDATE": "zero1",
+                                "TPUFRAME_WIRE_FORMAT": "int8-block"}, None),
+    ("(iv) replicated int8-block",
+     {"TPUFRAME_WIRE_FORMAT": "int8-block"}, None),
+)
+# (i) and (ii) against (e)'s unset replicated run: the gradient norm of
+# step 1 is the chunks' sums of squares plus one scalar all-reduce, where
+# the replicated step sums the whole tensors' squares: f32 sums in
+# another order, ~1e-7 relative over 25.6 M terms.
+ZERO1_NORM_RTOL = 1e-6
+# (iii) and (iv): |loss(int8) - loss(fp)| at every step, against (i) and
+# (e)'s unset run.  Step 1's loss is computed before any update, so it is
+# equal; a later step's parameters differ by the updates' quantization,
+# at most lr x 2 x blockmax / 254 an element a step (lr <= 2e-4 in these
+# warmup steps), far below the bf16 forward's own rounding, which then
+# decides the gap.  The bound is the JAX package's documented acceptance
+# bound for the int8 wire (tests/test_quantwire.py, 2e-3 a step).
+ZERO1_INT8_LOSS_GAP = 2e-3
+
 # Sequence parallelism (phase ``seq``): lm_long as its own recipe trains
 # it, on its own mesh and sequence: hidden 768, 12 layers, 12 heads of
 # 64, vocab 32000, bf16, remat, the fused xent head, flash attention, S
 # 32768, data=2 x seq=2 (four ranks, gloo: NCCL refuses two ranks on one
-# card).  Cut for the time limit: the steps (3, with one eval batch at
-# the end) and the global batch, 8 -> 4, so each rank holds [2, 16384]
-# tokens.  At batch 8 a step took 20.5 s (ring) and 18.5 s (Ulysses),
-# bound by the seq group's bytes through gloo's host copies, and the
-# phase 334.5 s.
+# card).  Cut for the time limit: the steps (2, with one eval batch at
+# the end; 3 until PR 17, whose zero1 phase needed the time) and the
+# global batch, 8 -> 4, so each rank holds [2, 16384] tokens.  At batch 8
+# a step took 20.5 s (ring) and 18.5 s (Ulysses), bound by the seq
+# group's bytes through gloo's host copies, and the phase 334.5 s.
 SEQ_RANKS = 4
 SEQ_MESH = {"data": 2, "seq": 2}
-SEQ_STEPS = 3
+SEQ_STEPS = 2
 SEQ_EVAL_BATCHES = 1
 SEQ_GLOBAL_BATCH = 4
 SEQ_LAYERS = 12
@@ -3056,11 +3129,12 @@ def _no_kernel_launches(launches: dict, what: str) -> None:
                            f"hand-written kernel on this path)")
 
 
-def _profile_steps(harness, calls: int):
+def _profile_steps(harness, calls: int, tries: int = 1):
     """``calls`` more training steps of ``harness`` on one batch: wall ms
     a step, the kernels (largest first; None when the profiler's record
     is incomplete) and :func:`_busy`'s ``(device ms a step, idle share,
-    log text)``."""
+    log text)``.  ``tries``: windows to take until one's record is whole
+    (each window steps the state on)."""
     batch = next(iter(harness.train_loader))
     step = lambda: float(harness.train_step(harness.state, batch)["loss"])  # noqa: E731
     wall_step = wall_ms(step, calls)
@@ -3069,7 +3143,7 @@ def _profile_steps(harness, calls: int):
         for _ in range(calls):
             step()
 
-    kernels = device_time(window)
+    kernels = device_time(window, tries=tries)
     return wall_step, kernels, _busy(kernels, wall_step, calls)
 
 
@@ -4347,7 +4421,8 @@ def _max_diff(got: dict, want: dict) -> float:
 
 
 def _hvd_train_runs(args: list, settings, capture: str | None,
-                    profile: bool, deterministic: bool = True) -> list:
+                    profile: bool, deterministic: bool = True,
+                    finals: str | None = None) -> list:
     """``tpuframe_torch.train.main(args)`` once for each
     TPUFRAME_FUSION_THRESHOLD of ``settings`` (None: unset) in this
     world.  Per run: losses and step ms, the all_reduce calls and the
@@ -4361,7 +4436,9 @@ def _hvd_train_runs(args: list, settings, capture: str | None,
     there.  ``deterministic`` (cuDNN's deterministic algorithms): the
     runs then differ only by the reduction, so a fused run's state can be
     held to the unfused one's bit for bit (the unfused runs' difference
-    reads 0); False runs cuDNN's defaults, as the trainer does."""
+    reads 0); False runs cuDNN's defaults, as the trainer does.
+    ``finals`` (a path stem): rank 0's final state of each unfused run
+    ``k`` saved to ``finals.<k>.pt`` (phase zero1's baseline)."""
     rank = hvd.rank()
     torch.backends.cudnn.deterministic = deterministic
     calls, restore = _counting_all_reduce()
@@ -4394,6 +4471,8 @@ def _hvd_train_runs(args: list, settings, capture: str | None,
                         "early": None if red is None else red.early})
                     if first:
                         got["metrics"] = list(metrics.values())
+                        got["step1"] = {key: float(v)
+                                        for key, v in metrics.items()}
                         if capture and rank == 0:
                             step1s.append(_cpu_tree(state.to_tree()))
                     return metrics
@@ -4424,6 +4503,8 @@ def _hvd_train_runs(args: list, settings, capture: str | None,
                 want = (red.census()["n_buckets"] + fusion.bucket_census(
                     reduced, threshold)["n_buckets"])
             final = _host_copy(h.state.to_tree())
+            if finals and threshold is None and rank == 0:
+                torch.save(final, f"{finals}.{k}.pt")
             digests = hvd.allgather_object(_state_digest(h.state.to_tree()))
             diff = 0.0 if ref is None else _max_diff(final, ref)
             ref = final if ref is None else ref
@@ -4432,6 +4513,7 @@ def _hvd_train_runs(args: list, settings, capture: str | None,
                    "eval_loss": metrics.get("eval_loss"),
                    "eval_accuracy": metrics.get("eval_accuracy"),
                    "steps": list(got["steps"]), "want_calls": want,
+                   "step1": got["step1"],
                    "grad_buckets": None if red is None
                    else red.census()["n_buckets"],
                    "batch": got["batch"], "launches": launches,
@@ -4499,10 +4581,11 @@ def hvd_worker_cifar(out: str) -> None:
 
 def hvd_worker_resnet2(out: str) -> None:
     """(e) A rank of the gloo world of two: imagenet_resnet50 bn="fused"
-    (HVD_RESNET_ARGS) once for each threshold of HVD_RESNET_SETTINGS."""
+    (HVD_RESNET_ARGS) once for each threshold of HVD_RESNET_SETTINGS; rank
+    0's final state of each unfused run ``k`` to ``out.final.<k>.pt``."""
     hvd.init()
     runs = _hvd_train_runs(HVD_RESNET_ARGS, HVD_RESNET_SETTINGS, None,
-                           False)
+                           False, finals=f"{out}.final")
     if hvd.rank() == 0:
         with open(out, "w") as f:
             json.dump({"runs": runs}, f)
@@ -4533,14 +4616,16 @@ def hvd_worker_spmd(out: str) -> None:
     train_lib.main(HVD_CIFAR_ARGS)
 
 
-def _hvd_plain_dp_step(batches: list, init: dict) -> dict:
-    """The plain version of step 1 of (b): one process, the same init;
-    each rank's half-batch through forward and backward in turn (BN
-    statistics restored in between), gradients and statistics averaged,
-    the optimizer's step.  Returns the state's flat host copy."""
+def _hvd_plain_dp_step(batches: list, init: dict, cfg=None) -> dict:
+    """The plain version of step 1 of (b) (or of ``cfg``'s run): one
+    process, the same init; each rank's batch through forward and
+    backward in turn (BN statistics restored in between), gradients and
+    statistics averaged, the optimizer's step.  Returns the state's flat
+    host copy."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = get_config("cifar10_resnet18").with_overrides(**HVD_CIFAR_CUTS)
+    if cfg is None:
+        cfg = get_config("cifar10_resnet18").with_overrides(**HVD_CIFAR_CUTS)
     model = get_model(cfg.model, dtype=cfg.compute_dtype, device="cuda",
                       seed=cfg.seed, **cfg.model_kwargs)
     state = step_lib.TrainState(model, build_optimizer(cfg, model))
@@ -4671,7 +4756,7 @@ def _setting_line(runs: list, threshold) -> str:
 
 
 def phase_hvd(resnet_losses: list | None = None,
-              resnet_noise: float = 0.0) -> dict:
+              resnet_noise: float = 0.0, keep: str | None = None) -> dict:
     """The Horovod slice (``tpuframe_torch.parallel.hvd``, ``bootstrap``,
     ``launch.launcher``, ``fusion``), run in processes that LocalCluster
     starts with the launcher's environment:
@@ -4714,7 +4799,9 @@ def phase_hvd(resnet_losses: list | None = None,
           thresholds HVD_SPMD_THRESHOLDS: both ranks exit non-zero with
           the divergence message before step 1, within HVD_TIMEOUT_S.
 
-    ``resnet_losses`` None: phase 12 runs first for its losses."""
+    ``resnet_losses`` None: phase 12 runs first for its losses.  ``keep``
+    (a directory): (e)'s first unfused run's final state is moved there,
+    ``resnet2_final.pt``, for phase zero1 (the returned ``resnet2``)."""
     if resnet_losses is None:
         resnet_losses = phase_resnet_train()["losses"]
     gc.collect()
@@ -4743,6 +4830,11 @@ def phase_hvd(resnet_losses: list | None = None,
         _hvd_launch("resnet2", 2, os.path.join(root, "resnet2.json"), gloo)
         e = json.loads(Path(root, "resnet2.json").read_text())
         e_wall = time.monotonic() - t0
+        e_final = None
+        if keep is not None:
+            e_final = os.path.join(keep, "resnet2_final.pt")
+            shutil.move(os.path.join(root, "resnet2.json.final.0.pt"),
+                        e_final)
         t0 = time.monotonic()
         spmd_out = os.path.join(root, "spmd")
         try:
@@ -4929,7 +5021,519 @@ def phase_hvd(resnet_losses: list | None = None,
             "nccl": a, "cifar_p50": p50, "cifar_idle": idle,
             "cifar_default_p50": statistics.median(
                 default["step_ms"][1:]),
-            "dp_err": dp_errs[0][0], "combine": combine, "probes": probes}
+            "dp_err": dp_errs[0][0], "combine": combine, "probes": probes,
+            "resnet2": {"final": e_final, "noise": e_noise,
+                        "step1": e["runs"][0]["step1"],
+                        "losses": e["runs"][0]["losses"]}}
+
+
+_VERBS = {"all_reduce": "all_reduce", "all_gather": "all_gather",
+          "all_gather_into_tensor": "all_gather",
+          "all_to_all_single": "all_to_all",
+          "reduce_scatter_tensor": "reduce_scatter",
+          "reduce_scatter_single": "reduce_scatter"}
+_WIRE_KINDS = ("reduce_scatter", "all_gather", "all_to_all", "all_reduce")
+
+
+def _counting_verbs():
+    """The ``torch.distributed`` collectives a rank calls, counted by
+    kind (``calls``): all_reduce, all_gather, all_to_all_single and the
+    reduce-scatter; returns ``(calls, restore)``."""
+    import torch.distributed as dist
+    calls = dict.fromkeys(_WIRE_KINDS, 0)
+    real = {a: getattr(dist, a) for a in _VERBS if hasattr(dist, a)}
+
+    def wrap(fn, kind):
+        def counting(*a, **k):
+            calls[kind] += 1
+            return fn(*a, **k)
+        return counting
+
+    for attr, fn in real.items():
+        setattr(dist, attr, wrap(fn, _VERBS[attr]))
+    return calls, lambda: [setattr(dist, a, f) for a, f in real.items()]
+
+
+def _int8_wire_bytes(padded: int, n: int) -> int:
+    """Bytes of one leg of the int8-block wire for a flat operand of
+    ``padded`` elements over ``n`` ranks: each rank's chunk as s8 blocks
+    of 256 with an f32 scale a block (quantwire.py's formula, written out
+    here)."""
+    return n * -(-(padded // n) // 256) * (256 + 4)
+
+
+def _zero1_laws(model, small: list, n: int, update: str, wire: str,
+                threshold) -> tuple:
+    """``(calls, bytes)`` of one step by kind, from the byte laws and the
+    bucket census: the gradient wire (fp zero1: a reduce-scatter and an
+    all-gather of the padded bytes, no gradient all-reduce; int8: the s8
+    payload and the scales of every leaf of at least 1024 padded
+    elements, fp below), plus the all-reduces of ``small`` (the
+    statistics and metrics: one each, or the census's buckets) and of the
+    zero1 step's gradient norm.  Bytes count the gradient wire only."""
+    calls = dict.fromkeys(_WIRE_KINDS, 0)
+    nbytes = dict.fromkeys(_WIRE_KINDS, 0)
+    calls["all_reduce"] += (len(small) if threshold is None else
+                            fusion.bucket_census(small, threshold)
+                            ["n_buckets"])
+    fp = []
+    for p in model.parameters():
+        size, item = p.numel(), p.element_size()
+        padded = -(-size // n) * n
+        if update == "zero1" and not (wire == "int8-block"
+                                      and padded >= 1024):
+            fp.append(torch.empty(padded, dtype=p.dtype, device="meta"))
+        elif update == "zero1" or size >= 1024:
+            for kind in ("all_to_all", "all_gather"):
+                calls[kind] += 2            # the payload and the scales
+                nbytes[kind] += _int8_wire_bytes(padded, n)
+        else:
+            calls["all_reduce"] += 1
+            nbytes["all_reduce"] += size * item
+    if update == "zero1":
+        calls["all_reduce"] += 1            # the gradient norm's scalar
+        buckets = (len(fp) if threshold is None else
+                   fusion.bucket_census(fp, threshold)["n_buckets"])
+        for kind in ("reduce_scatter", "all_gather"):
+            calls[kind] += buckets
+            nbytes[kind] += sum(f.numel() * f.element_size() for f in fp)
+    return calls, nbytes
+
+
+def _int8_errors(local: list, reduced: list, full: bool) -> dict:
+    """Step 1's gradients over the int8-block wire against the fp mean of
+    the same local gradients, per element, against ``2 * blockmax /
+    254``, blockmax the largest |local gradient| of any rank in the
+    element's block (quantwire.py's error law): ``{"ratio": the worst
+    error over its bound, "abs": the worst error}``.  ``reduced``: the
+    full means (``full``) or this rank's chunks of the padded layout."""
+    import torch.distributed as dist
+    n, idx = dist.get_world_size(), dist.get_rank()
+    ratio = worst = 0.0
+    for g, r in zip(local, reduced):
+        size = g.numel()
+        padded = -(-size // n) * n
+        c = padded // n
+        nb = -(-c // 256)
+        flat = F.pad(g.float().reshape(-1), (0, padded - size))
+        mean = flat.clone()
+        dist.all_reduce(mean)
+        mean /= n
+        blocks = F.pad(flat.view(n, c).abs(), (0, nb * 256 - c)).view(
+            n, nb, 256).amax(dim=-1)
+        dist.all_reduce(blocks, op=dist.ReduceOp.MAX)
+        bound = (2 * blocks / 254).repeat_interleave(256, dim=1)[:, :c]
+        if full:
+            err = (r.float().reshape(-1) - mean[:size]).abs()
+            bound = bound.reshape(-1)[:size]
+        else:
+            err = (r.float() - mean.view(n, c)[idx]).abs()
+            bound = bound[idx]
+        worst = max(worst, float(err.max()))
+        over = err / torch.where(bound > 0, bound, 1.0)
+        # an all-zero block must come back exactly
+        ratio = max(ratio, float(torch.where(bound > 0, over,
+                                             err * 1e30).max()))
+    return {"ratio": ratio, "abs": worst}
+
+
+def _zero1_run(k: int, label: str, threshold, base: dict, out: str) -> dict:
+    """One setting of :func:`hvd_worker_zero1`: ``train.main`` of
+    HVD_RESNET_ARGS, its steps counted (collective calls by kind, wire
+    bytes by kind), step 1's int8 gradients against the fp mean, the
+    final state against (e)'s (``base``), and the run's books."""
+    rank, n = hvd.rank(), hvd.size()
+    calls, restore = _counting_verbs()
+    build = train_lib.build_harness
+    got: dict = {"steps": []}
+    real = {"all_reduce_mean": quantwire.all_reduce_mean,
+            "scatter_grads": zero1.scatter_grads}
+
+    def capturing(fn, full):
+        # step 1's local gradients and their reduction over the wire
+        def wrapped(grads, *a, **kw):
+            res = fn(grads, *a, **kw)
+            if "int8" not in got:
+                out_ = res if full else res[0]
+                got["int8"] = ([g.detach().clone() for g in grads],
+                               [r.detach().clone() for r in out_], full)
+            return res
+        return wrapped
+
+    def capturing_build(cfg, device="cuda"):
+        h = build(cfg, device)
+        step = h.train_step
+
+        def train_step(state, batch):
+            first = not got["steps"]
+            if first:
+                got["batch"] = _state_digest(batch)
+                if k == 0:
+                    got["batch_t"] = _cpu_tree(batch)
+                    got["init"] = {
+                        "model": _cpu_tree(dict(state.model.state_dict())),
+                        "opt": build_optimizer(cfg, state.model)
+                        .state_dict(), "step": 0, "seed": state.seed}
+            for kind in calls:
+                calls[kind] = 0
+            collectives.reset_wire()
+            metrics = step(state, batch)
+            got["steps"].append({"calls": dict(calls),
+                                 "bytes": dict(collectives.WIRE_BYTES)})
+            if first:
+                got["step1"] = {key: float(v) for key, v in metrics.items()}
+                if rank == 0:
+                    tree = state.to_tree()
+                    got["after1"] = {
+                        "model": _cpu_tree(tree["model"]),
+                        "opt": {key: val if key == "count" else
+                                {name: getattr(t, "tensor", t).detach()
+                                 .cpu().clone() for name, t in val.items()}
+                                for key, val in tree["opt"].items()}}
+            return metrics
+
+        h.train_step = train_step
+        got["harness"] = h
+        return h
+
+    train_lib.build_harness = capturing_build
+    if os.environ.get(quantwire.ENV_VAR) == "int8-block":
+        quantwire.all_reduce_mean = capturing(real["all_reduce_mean"], True)
+        zero1.scatter_grads = capturing(real["scatter_grads"], False)
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        metrics = train_lib.main(HVD_RESNET_ARGS)
+        torch.cuda.synchronize()
+    finally:
+        train_lib.build_harness = build
+        quantwire.all_reduce_mean = real["all_reduce_mean"]
+        zero1.scatter_grads = real["scatter_grads"]
+        restore()
+    peak = torch.cuda.max_memory_allocated()
+    launches, routes = launch_counts(), dict(fcb.ROUTES)
+    h = got.pop("harness")
+    steps = list(got["steps"])              # not the profiled step's
+    model, opt = h.state.model, h.state.opt
+    update, wire = h.weight_update[0], h.wire_format[0]
+    stats = [b for b in model.buffers() if b.is_floating_point()]
+    # the step's statistics and metrics (accuracy, loss) its mean reduces
+    small = stats + [torch.empty((), device="meta")] * 2
+    want_calls, want_bytes = _zero1_laws(model, small, n, update, wire,
+                                         threshold)
+    int8 = _int8_errors(*got.pop("int8")) if "int8" in got else None
+    # the final state against (e)'s unset replicated run
+    model_diff = max(float((t.detach().cpu().double()
+                            - base[f"model/{name}"].double()).abs().max())
+                     for name, t in model.state_dict().items()
+                     if t.is_floating_point())
+    moment_diff = 0.0
+    for key, ts in opt.moments.items():
+        for name, p, t in zip(opt.names, opt.params, ts):
+            ref = base[f"opt/{key}/{name}"]
+            if opt.shards is not None:
+                c = t.numel()
+                ref = zero1.flat_pad(ref, n)[rank * c:(rank + 1) * c]
+            moment_diff = max(moment_diff, float(
+                (t.detach().cpu().double() - ref.double()).abs().max()))
+    opt_bytes = sum(t.numel() * t.element_size()
+                    for ts in opt.moments.values() for t in ts)
+    want_opt = (zero1.padded_bytes(model, n) // n if opt.shards is not None
+                else sum(p.numel() * p.element_size()
+                         for p in model.parameters())) * len(opt.moments)
+    digests = hvd.allgather_object(_state_digest(
+        {"model": dict(model.state_dict())}))
+    # step 1's batches again under the final parameters, with step 1's
+    # augmentation: the loss falls on the same data
+    batch = (got["batch_t"] if k == 0
+             else torch.load(f"{out}.{rank}.pt")["batch"])
+    batch = {key: v.to(h.device) for key, v in batch.items()}
+    with torch.no_grad():
+        again, _ = train_lib.make_loss_fn(h.cfg)(
+            model, batch, step_lib.dropout_seed(h.state.seed, 0, rank))
+    again = statistics.mean(hvd.allgather_object(float(again)))
+    if k == 0:
+        torch.save({"batch": got.pop("batch_t"), "init": got.pop("init")},
+                   f"{out}.{rank}.pt")
+    if rank == 0:
+        torch.save(got.pop("after1"), f"{out}.after1.{k}.pt")
+    wall_step, kernels, (busy, idle, _) = _profile_steps(
+        h, 1, tries=PROFILE_TRIES)
+    run = {"label": label, "threshold": threshold, "update": update,
+           "wire": wire, "sources": [h.weight_update[1], h.wire_format[1]],
+           "losses": metrics["losses"], "step_ms": metrics["step_ms"],
+           "eval_loss": metrics.get("eval_loss"), "steps": steps,
+           "want_calls": want_calls, "want_bytes": want_bytes,
+           "batch": got["batch"], "step1": got["step1"],
+           "step1_again": again, "digests": digests,
+           "model_diff": hvd.allgather_object(model_diff),
+           "moment_diff": hvd.allgather_object(moment_diff),
+           "opt_bytes": hvd.allgather_object(opt_bytes),
+           "want_opt_bytes": want_opt,
+           "padded_bytes": zero1.padded_bytes(model, n),
+           "int8": hvd.allgather_object(int8),
+           "launches": hvd.allgather_object(launches),
+           "routes": hvd.allgather_object(routes),
+           "peak": hvd.allgather_object(peak), "wall_step": wall_step,
+           "device_ms": busy, "idle": idle,
+           "top": [(name[:60], ms, c) for name, ms, c in
+                   (kernels or [])[:6]]}
+    del h, model, opt, stats
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run
+
+
+def hvd_worker_zero1(out: str) -> None:
+    """(zero1) A rank of the gloo world of two: imagenet_resnet50
+    bn="fused" (HVD_RESNET_ARGS) through ``tpuframe_torch.train.main`` once
+    for each setting of ZERO1_SETTINGS (:func:`_zero1_run`), against the
+    final state of (e)'s unset replicated run in the host copy
+    ``TPUFRAME_SMOKE_BASELINE`` names.  Rank 0 writes the runs to
+    ``out``; each rank its step-1 batch and the init to ``out.<rank>.pt``;
+    rank 0 its state after step 1 of run ``k`` to ``out.after1.<k>.pt``."""
+    hvd.init()
+    torch.backends.cudnn.deterministic = True
+    base = torch.load(os.environ["TPUFRAME_SMOKE_BASELINE"])
+    runs = []
+    for k, (label, env, threshold) in enumerate(ZERO1_SETTINGS):
+        knobs = {**env, **({} if threshold is None
+                           else {fusion.ENV_VAR: str(threshold)})}
+        os.environ.update(knobs)
+        try:
+            runs.append(_zero1_run(k, label, threshold, base, out))
+        finally:
+            for var in knobs:
+                os.environ.pop(var, None)
+    if hvd.rank() == 0:
+        with open(out, "w") as f:
+            json.dump({"runs": runs}, f)
+
+
+def _zero1_baseline(root: str) -> dict:
+    """(e)'s runs alone (``--hvd-worker resnet2``), for phase zero1 run
+    without phase hvd: the baseline :func:`phase_hvd` hands it."""
+    out = os.path.join(root, "resnet2.json")
+    _hvd_launch("resnet2", 2, out, {"TPUFRAME_DIST_BACKEND": "gloo"})
+    e = json.loads(Path(out).read_text())
+    found, noise = _fused_run_problems("(e)", e["runs"])
+    if found:
+        raise RuntimeError("zero1 baseline: " + "; ".join(found))
+    return {"final": f"{out}.final.0.pt", "noise": noise,
+            "step1": e["runs"][0]["step1"], "losses": e["runs"][0]["losses"]}
+
+
+def _rel_err(got: torch.Tensor, ref: torch.Tensor,
+             scale: float | None = None) -> float:
+    """max |got - ref| over ``scale`` (ref's largest |entry| by default;
+    1 when that is 0)."""
+    if scale is None:
+        scale = ref.double().abs().max().item()
+    return (got.double() - ref.double()).abs().max().item() / (
+        scale if scale > 0 else 1.0)
+
+
+def _zero1_step1_problems(name: str, after1: dict, plain: dict, fp: bool,
+                          n: int) -> tuple:
+    """Rank 0's state after step 1 against the plain data-parallel step:
+    every model tensor, and with the fp wire every moment chunk, within
+    HVD_DP_RTOL of its largest plain entry.  Returns ``(problems, (worst
+    error, tensor))``."""
+    problems, worst = [], (0.0, "")
+    for key, t in after1["model"].items():
+        if not t.is_floating_point():
+            if not torch.equal(t, plain[f"model/{key}"]):
+                problems.append(f"{name} step 1 model/{key}: {t} vs "
+                                f"{plain[f'model/{key}']}")
+            continue
+        err = _rel_err(t, plain[f"model/{key}"])
+        if err > worst[0]:
+            worst = (err, f"model/{key}")
+    for key, val in after1["opt"].items():
+        if key == "count":
+            if val != plain["opt/count"]:
+                problems.append(f"{name} step 1 opt count {val} vs "
+                                f"{plain['opt/count']}")
+            continue
+        if not fp:
+            continue
+        for pname, t in val.items():
+            ref = plain[f"opt/{key}/{pname}"]
+            if t.shape != ref.shape:
+                # rank 0's chunk of the flat layout, against the plain
+                # moment's largest entry
+                err = _rel_err(t, zero1.flat_pad(ref, n)[:t.numel()],
+                               ref.double().abs().max().item())
+            else:
+                err = _rel_err(t, ref)
+            if err > worst[0]:
+                worst = (err, f"opt/{key}/{pname}")
+    if not worst[0] <= HVD_DP_RTOL:
+        problems.append(f"{name} step 1 against the plain data-parallel "
+                        f"step: {worst[1]} off by {worst[0]:.3e} of its "
+                        f"largest entry (tolerance {HVD_DP_RTOL:g})")
+    return problems, worst
+
+
+def phase_zero1(baseline: dict | None = None) -> dict:
+    """The ZeRO-1 weight update and the int8-block wire
+    (``parallel/zero1.py``, ``parallel/quantwire.py``): imagenet_resnet50
+    bn="fused" as two gloo processes on the one card (HVD_RESNET_ARGS),
+    once for each setting of ZERO1_SETTINGS, through
+    ``tpuframe_torch.train.main`` with ``TPUFRAME_WEIGHT_UPDATE`` and
+    ``TPUFRAME_WIRE_FORMAT``.  Held: every run's ranks' final parameters
+    bit-identical; step 1 against the plain data-parallel step
+    (HVD_DP_RTOL; the moments too on the fp wire); (i) and (ii): the final
+    state bit-equal to phase hvd (e)'s unset replicated run
+    (``baseline``), or within (e)'s two unset runs' difference, and step
+    1's gradient norm within ZERO1_NORM_RTOL of (e)'s; each zero1 rank's
+    optimizer-state bytes ``padded_bytes / n`` of the moments; every
+    step's wire bytes by kind equal to the byte laws and its collective
+    calls by kind to the bucket census (:func:`_zero1_laws`); (iii) and
+    (iv): step 1's gradients within ``2 * blockmax / 254`` an element of
+    the fp mean, the loss gap to the fp run under ZERO1_INT8_LOSS_GAP;
+    every run's loss falls on step 1's batches; ``fused_conv_bn_bwd``
+    launched 36 times a step a rank, all on the tensor cores.  Written
+    down: step p50 and p10-p90, peak memory a rank, rank 0's idle share
+    from one profiled step.  ``baseline`` None: (e)'s runs go first."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    card = _card_line()
+    root = tempfile.mkdtemp(prefix="tpuframe_zero1_")
+    try:
+        if baseline is None:
+            baseline = _zero1_baseline(root)
+        t0 = time.monotonic()
+        out = os.path.join(root, "zero1.json")
+        _hvd_launch("zero1", 2, out, {"TPUFRAME_DIST_BACKEND": "gloo",
+                                      "TPUFRAME_SMOKE_BASELINE":
+                                          baseline["final"]})
+        wall = time.monotonic() - t0
+        z = json.loads(Path(out).read_text())
+        ranks = [torch.load(f"{out}.{r}.pt") for r in range(2)]
+        after1 = [torch.load(f"{out}.after1.{k}.pt")
+                  for k in range(len(ZERO1_SETTINGS))]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    cfg = get_config("imagenet_resnet50").with_overrides(
+        **{**RESNET_CUTS, "mesh": {"data": 2}})
+    plain = _hvd_plain_dp_step([rk["batch"] for rk in ranks],
+                               ranks[0]["init"], cfg)
+    del ranks
+    runs = z["runs"]
+    n = 2
+    problems, dp_errs = [], []
+    fp_losses = {"zero1": None, "replicated": baseline["losses"]}
+    for k, run in enumerate(runs):
+        name = run["label"]
+        steps = len(run["losses"])
+        if len(set(run["digests"])) != 1:
+            problems.append(f"{name}: the ranks' final parameters differ: "
+                            f"{run['digests']}")
+        if run["batch"] != runs[0]["batch"]:
+            problems.append(f"{name}: step 1's batch is not run 0's")
+        env = ZERO1_SETTINGS[k][1]
+        want = [env.get(zero1.ENV_VAR, "replicated"),
+                env.get(quantwire.ENV_VAR, "fp")]
+        if [run["update"], run["wire"]] != want:
+            problems.append(f"{name}: the trainer ran {run['update']} "
+                            f"{run['wire']} ({run['sources']}), want "
+                            f"{want}")
+        found, worst = _zero1_step1_problems(name, after1[k], plain,
+                                             run["wire"] == "fp", n)
+        problems += found
+        dp_errs.append(worst)
+        fp_run = run["update"] == "zero1" and run["wire"] == "fp"
+        if fp_run:
+            fp_losses["zero1"] = fp_losses["zero1"] or run["losses"]
+            diffs = run["model_diff"] + run["moment_diff"]
+            if not all(d == 0.0 or d <= baseline["noise"] for d in diffs):
+                problems.append(
+                    f"{name}: final state off (e)'s unset replicated run's "
+                    f"by {max(diffs):.3e} (model {run['model_diff']}, "
+                    f"moments {run['moment_diff']}), beyond (e)'s unset "
+                    f"runs' difference {baseline['noise']:.3e}")
+            ref = baseline["step1"]["grad_norm"]
+            rel = abs(run["step1"]["grad_norm"] - ref) / ref
+            if not rel <= ZERO1_NORM_RTOL:
+                problems.append(f"{name}: step 1 grad_norm "
+                                f"{run['step1']['grad_norm']!r} vs (e)'s "
+                                f"{ref!r}: {rel:.3e} relative (tolerance "
+                                f"{ZERO1_NORM_RTOL:g})")
+        if run["update"] == "zero1" and set(run["opt_bytes"]) != {
+                run["want_opt_bytes"]}:
+            problems.append(f"{name}: optimizer-state bytes a rank "
+                            f"{run['opt_bytes']}, want padded_bytes / n = "
+                            f"{run['want_opt_bytes']}")
+        for i, st in enumerate(run["steps"]):
+            if st["bytes"] != run["want_bytes"]:
+                problems.append(f"{name} step {i + 1}: wire bytes "
+                                f"{st['bytes']}, want {run['want_bytes']}")
+            if st["calls"] != run["want_calls"]:
+                problems.append(f"{name} step {i + 1}: collective calls "
+                                f"{st['calls']}, want {run['want_calls']}")
+        if run["wire"] == "int8-block":
+            if not all(e is not None and e["ratio"] <= 1.0
+                       for e in run["int8"]):
+                problems.append(f"{name}: step 1's gradients off the fp "
+                                f"mean beyond 2 x blockmax / 254: "
+                                f"{run['int8']}")
+            ref = fp_losses[run["update"]]
+            gap = max(abs(a - b) for a, b in zip(run["losses"], ref))
+            run["loss_gap"] = gap
+            if len(run["losses"]) != len(ref) or not (
+                    gap <= ZERO1_INT8_LOSS_GAP):
+                problems.append(f"{name}: losses {run['losses']} vs the fp "
+                                f"run's {ref}: gap {gap:.3e} (bound "
+                                f"{ZERO1_INT8_LOSS_GAP:g})")
+        if not (all(math.isfinite(x) for x in run["losses"])
+                and run["step1_again"] < run["losses"][0]):
+            problems.append(f"{name}: losses {run['losses']}, step 1's "
+                            f"batches again at the end "
+                            f"{run['step1_again']}: want finite, and the "
+                            f"loss on step 1's batches fallen")
+        for r, (ln, rt) in enumerate(zip(run["launches"], run["routes"])):
+            if (ln["fused_conv_bn_bwd"] != 36 * steps
+                    or rt != {"tensor_core": 36 * steps, "cuda_core": 0}):
+                problems.append(f"{name} rank {r}: launches {ln} by route "
+                                f"{rt}, want {36 * steps} fused_conv_bn_bwd,"
+                                f" all tensor-core")
+    for k, run in enumerate(runs):
+        ms = sorted(run["step_ms"][1:])
+        q = statistics.quantiles(ms, n=10)
+        extra = (f"; int8 error (worst over its bound, worst abs) by rank "
+                 f"{[(round(e['ratio'], 4), e['abs']) for e in run['int8']]}"
+                 f", loss gap to fp {run['loss_gap']:.3e}"
+                 if run["wire"] == "int8-block" else "")
+        log(f"[zero1] {card}: {run['label']}: losses "
+            f"{[round(x, 5) for x in run['losses']]} (step 1's batches "
+            f"again {run['step1_again']:.5f}); step 1 grad_norm "
+            f"{run['step1']['grad_norm']!r} ((e) "
+            f"{baseline['step1']['grad_norm']!r}); step ms p50 "
+            f"{statistics.median(ms):.2f} (p10-p90 {q[0]:.2f}-{q[-1]:.2f}); "
+            f"peak memory a rank "
+            f"{[round(b / 2**30, 2) for b in run['peak']]} GiB; optimizer "
+            f"state a rank {run['opt_bytes']} B (padded_bytes "
+            f"{run['padded_bytes']}); wire bytes a step "
+            f"{run['steps'][0]['bytes']}; calls a step "
+            f"{run['steps'][0]['calls']}; final state off (e)'s by model "
+            f"{max(run['model_diff']):.3e}, moments "
+            f"{max(run['moment_diff']):.3e}; step 1 vs the plain step "
+            f"{dp_errs[k][0]:.3e} ({dp_errs[k][1] or 'every tensor'})"
+            f"{extra}; rank 0's "
+            f"profiled step: wall {run['wall_step']:.2f} ms, device "
+            f"{_dev(run['device_ms'], '.2f')} ms, idle share "
+            f"{_dev(run['idle'])}; top: "
+            + "; ".join(f"{kn} {ms_:.2f} ms x{c}"
+                        for kn, ms_, c in run["top"]))
+    log(f"[zero1] {len(runs)} runs of imagenet_resnet50 bn=fused, two "
+        f"processes on one card over gloo, in {wall:.1f} s")
+    if problems:
+        raise RuntimeError("zero1: " + "; ".join(problems))
+    launches = {name: sum(ln[name] for run in runs
+                          for ln in run["launches"])
+                for name in launch_counts()}
+    return {"launches": launches, "runs": runs}
 
 
 def _hvd_probes(root: str) -> dict:
@@ -5447,7 +6051,8 @@ def phase_seq() -> dict:
 
 HVD_WORKERS = {"nccl": hvd_worker_nccl, "probe": hvd_worker_probe,
                "nccl_pair": hvd_worker_nccl_pair, "cifar": hvd_worker_cifar,
-               "resnet2": hvd_worker_resnet2, "spmd": hvd_worker_spmd}
+               "resnet2": hvd_worker_resnet2, "spmd": hvd_worker_spmd,
+               "zero1": hvd_worker_zero1}
 
 
 def wall_ms(fn, calls: int) -> float:
@@ -5597,29 +6202,45 @@ def main(argv=None) -> int:
             PHASES[name]()
         log(f"[done] partial run in {time.monotonic() - t0:.1f} s")
         return 0
-    cases = phase_kernels()
-    bwd = phase_backward()
-    probe = phase_probe()
-    phase_parity()
-    serve_launches, serve_routes, serve_summary = phase_serve()
-    fleet = phase_fleet(serve_summary)
-    rollout = phase_rollout(serve_summary)
-    phase_grad_parity()
-    phase_grad_parity_bf16()
-    train = phase_train()
-    conv_bn = phase_conv_bn()
-    phase_resnet_grad_parity()
-    resnet = phase_resnet_train()
-    bert_delta = phase_bert_parity()
-    bert_serve = phase_bert_serve()
-    bert_train = phase_bert_train()
-    mnist = phase_mnist_train()
-    cifar = phase_cifar_train()
-    variants = phase_resnet_variants(resnet)
-    ckpt_run = phase_ckpt(resnet["losses"])
-    supervise = phase_supervise(ckpt_run["lm"]["straight"], train["mfu"])
-    hvd_run = phase_hvd(resnet["losses"], ckpt_run["resnet"]["noise"])
-    seq_run = phase_seq()
+    walls = {}
+
+    def timed(name, fn, *a):
+        t = time.monotonic()
+        out = fn(*a)
+        walls[name] = round(time.monotonic() - t, 1)
+        return out
+
+    cases = timed("kernels", phase_kernels)
+    bwd = timed("backward", phase_backward)
+    probe = timed("probe", phase_probe)
+    timed("parity", phase_parity)
+    serve_launches, serve_routes, serve_summary = timed("serve", phase_serve)
+    fleet = timed("fleet", phase_fleet, serve_summary)
+    rollout = timed("rollout", phase_rollout, serve_summary)
+    timed("grad_parity", phase_grad_parity)
+    timed("grad_parity_bf16", phase_grad_parity_bf16)
+    train = timed("train", phase_train)
+    conv_bn = timed("conv_bn", phase_conv_bn)
+    timed("resnet_grad_parity", phase_resnet_grad_parity)
+    resnet = timed("resnet_train", phase_resnet_train)
+    bert_delta = timed("bert_parity", phase_bert_parity)
+    bert_serve = timed("bert_serve", phase_bert_serve)
+    bert_train = timed("bert_train", phase_bert_train)
+    mnist = timed("mnist_train", phase_mnist_train)
+    cifar = timed("cifar_train", phase_cifar_train)
+    variants = timed("resnet_variants", phase_resnet_variants, resnet)
+    ckpt_run = timed("ckpt", phase_ckpt, resnet["losses"])
+    supervise = timed("supervise", phase_supervise,
+                      ckpt_run["lm"]["straight"], train["mfu"])
+    keep = tempfile.mkdtemp(prefix="tpuframe_keep_")
+    try:
+        hvd_run = timed("hvd", phase_hvd, resnet["losses"],
+                        ckpt_run["resnet"]["noise"], keep)
+        zero1_run = timed("zero1", phase_zero1, hvd_run["resnet2"])
+    finally:
+        shutil.rmtree(keep, ignore_errors=True)
+    seq_run = timed("seq", phase_seq)
+    log(f"[done] phase wall s {walls}")
 
     by_path = {name: {"serve": serve_launches[name],
                       "fleet": fleet["launches"][name],
@@ -5638,6 +6259,7 @@ def main(argv=None) -> int:
                       "supervise": supervise["launches"][name],
                       "hvd_resnet": hvd_run["launches"][name],
                       "hvd_resnet50_x2": hvd_run["launches_2proc"][name],
+                      "zero1": zero1_run["launches"][name],
                       "seq": seq_run["launches"][name]}
                for name in launch_counts()}
     attn = "B=8 S=4096 N=12 D=64 bf16 causal"
@@ -5739,7 +6361,8 @@ PHASES = {"kernels": phase_kernels, "backward": phase_backward,
           "bert_train": phase_bert_train, "mnist_train": phase_mnist_train,
           "cifar_train": phase_cifar_train,
           "resnet_variants": phase_resnet_variants, "ckpt": phase_ckpt,
-          "supervise": phase_supervise, "hvd": phase_hvd, "seq": phase_seq}
+          "supervise": phase_supervise, "hvd": phase_hvd,
+          "zero1": phase_zero1, "seq": phase_seq}
 
 
 if __name__ == "__main__":

@@ -14,9 +14,16 @@ Layout of one checkpoint::
 A tree is nested dicts whose leaves are tensors (any device), numpy arrays
 or Python numbers; a leaf's name is its key path joined by ``/`` (dict keys
 in sorted order, as ``jax.tree_util`` flattens them) and its file name the
-same with ``.`` for ``/``.  The port's state is replicated, so each leaf is
-one shard, written by rank 0.  A bf16 tensor is written in the JAX
-package's encoding (an ``np.save`` void record of 2 bytes, manifest dtype
+same with ``.`` for ``/``.  A replicated leaf is one shard, written by
+rank 0.  A :class:`FlatShard` leaf (a ZeRO-1 optimizer moment,
+``parallel/zero1.py``) is its global flat ``[padded]`` vector on disk, one
+shard file a rank, each written by the rank that holds it, with the JAX
+package's shard table (``index`` ``[[lo, hi]]``), so that no rank gathers
+the whole moment; :func:`restore` reads back only the region a
+:class:`FlatShard` target holds, and reshards a flat ``opt`` leaf whose
+padded length changed with the world (a truncate or a zero-pad, as the
+JAX ``restore`` does: the pad region is zero forever).  A bf16 tensor is
+written in the JAX package's encoding (an ``np.save`` void record of 2 bytes, manifest dtype
 ``"bfloat16"``) through an int16 view, so that no numpy bfloat16 type is
 needed.  :func:`restore` returns CPU tensors.
 
@@ -37,6 +44,7 @@ import re
 import threading
 import time
 import zlib
+from dataclasses import dataclass
 from typing import Any
 
 import numpy as np
@@ -54,6 +62,31 @@ _STEP_RE = re.compile(r"^step_(\d{8})$")
 _MANIFEST = "manifest.json"
 _COMMIT = "COMMIT"
 _BF16 = "bfloat16"
+
+
+@dataclass(frozen=True)
+class FlatShard:
+    """Chunk ``index`` of ``n`` equal chunks of a flat vector: a
+    checkpoint leaf whose global shape is ``(len(tensor) * n,)`` and of
+    which this rank holds and writes ``tensor`` (the live tensor)."""
+
+    tensor: torch.Tensor
+    index: int
+    n: int
+
+    @property
+    def shape(self) -> tuple:
+        return (self.tensor.numel() * self.n,)
+
+    @property
+    def offset(self) -> int:
+        return self.tensor.numel() * self.index
+
+    def table(self, base: str) -> list:
+        """The manifest's shard table: chunk ``i`` in file ``i``."""
+        c = self.tensor.numel()
+        return [{"id": i, "index": [[i * c, (i + 1) * c]],
+                 "file": f"{base}.shard_{i}.npy"} for i in range(self.n)]
 
 
 def _crc32(data: bytes, algo: str = "crc32c") -> int:
@@ -95,6 +128,8 @@ def _sanitize(name: str) -> str:
 
 
 def _dtype_str(leaf) -> str:
+    if isinstance(leaf, FlatShard):
+        leaf = leaf.tensor
     if isinstance(leaf, torch.Tensor):
         if leaf.dtype == torch.bfloat16:
             return _BF16
@@ -196,13 +231,21 @@ def _prepare_save(directory: str, step: int, tree: Tree, *, sink=None):
     }
     owned = []
     for name, leaf in pairs:
-        fname = f"{_sanitize(name)}.shard_0.npy"
         dtype = _dtype_str(leaf)
-        manifest["leaves"][name] = {
-            "shape": _shape(leaf), "dtype": dtype, "spec": [],
-            "shards": [{"id": 0, "index": None, "file": fname}]}
-        if rank != 0:
-            continue
+        if isinstance(leaf, FlatShard):
+            # every rank writes its own chunk
+            table = leaf.table(_sanitize(name))
+            manifest["leaves"][name] = {
+                "shape": _shape(leaf), "dtype": dtype, "spec": [["data"]],
+                "shards": table}
+            fname, leaf = table[leaf.index]["file"], leaf.tensor
+        else:
+            fname = f"{_sanitize(name)}.shard_0.npy"
+            manifest["leaves"][name] = {
+                "shape": _shape(leaf), "dtype": dtype, "spec": [],
+                "shards": [{"id": 0, "index": None, "file": fname}]}
+            if rank != 0:
+                continue
         if sink is not None:
             sink([(fname, leaf, dtype)])
         else:
@@ -330,6 +373,26 @@ def _assemble(path: str, entry: dict, crcs: dict, verify_crc: bool,
     return out
 
 
+def _flat_region(path: str, entry: dict, lo: int, hi: int, crcs: dict,
+                 verify_crc: bool, algo: str) -> np.ndarray:
+    """Elements ``[lo, hi)`` of a flat 1-d leaf, read from the shard files
+    that overlap them only; elements past the leaf's length are zeros
+    (the zero-pad of a reshard)."""
+    if not entry["shards"]:
+        raise FileNotFoundError(f"manifest entry has no shard files: "
+                                f"{entry}")
+    length = entry["shape"][0]
+    out = np.zeros(hi - lo, "V2" if entry["dtype"] == _BF16
+                   else entry["dtype"])
+    for sh in entry["shards"]:
+        slo, shi = sh["index"][0] if sh["index"] is not None else (0, length)
+        a, b = max(lo, slo), min(hi, shi)
+        if a < b:
+            data = _load_shard(path, sh["file"], crcs, verify_crc, algo)
+            out[a - lo:b - lo] = data.reshape(-1)[a - slo:b - slo]
+    return out
+
+
 def _to_torch(arr: np.ndarray, dtype: str) -> torch.Tensor:
     """A loaded shard as a CPU tensor of the manifest's dtype (a void
     record of 2 bytes is bf16 through its int16 bits)."""
@@ -347,7 +410,11 @@ def restore(directory: str, step: int, *, target: Tree | None = None,
     tensors.  With ``target`` (a tree of the same structure) the leaf
     names must match (else ValueError), each tensor's shape must match its
     target's, and a leaf whose target is a Python number comes back as
-    one."""
+    one.  A :class:`FlatShard` target comes back as its chunk alone, read
+    from the files that overlap it.  A flat ``opt/...`` leaf whose length
+    differs from its 1-d target's (a ZeRO-1 moment saved at another world
+    size) is resharded: truncated or zero-padded to the target's length;
+    every other shape mismatch raises ValueError."""
     path = gcs.join(directory, f"step_{step:08d}")
     if not gcs.exists(gcs.join(path, _COMMIT)):
         raise FileNotFoundError(f"no committed checkpoint at {path}")
@@ -370,12 +437,25 @@ def restore(directory: str, step: int, *, target: Tree | None = None,
                          f"missing={sorted(missing)} extra={sorted(extra)}")
     out = []
     for name, tgt in pairs:
+        entry = manifest["leaves"][name]
         want = tuple(_shape(tgt))
-        got = tuple(manifest["leaves"][name]["shape"])
-        if got != want:
+        got = tuple(entry["shape"])
+        opt = name.split("/", 1)[0] == "opt"
+        flat = opt and len(got) == 1 and len(want) == 1
+        if got != want and not flat:
             raise ValueError(f"checkpoint leaf {name!r} shape {got} does "
-                             f"not match target shape {want}")
-        t = load(name)
+                             f"not match target shape {want}"
+                             + (" and is not a flat ZeRO-1 optimizer "
+                                "vector: no resharding map applies"
+                                if opt else ""))
+        if isinstance(tgt, FlatShard) or got != want:
+            lo = tgt.offset if isinstance(tgt, FlatShard) else 0
+            hi = lo + (tgt.tensor.numel() if isinstance(tgt, FlatShard)
+                       else want[0])
+            t = _to_torch(_flat_region(path, entry, lo, hi, manifest["crc"],
+                                       verify_crc, algo), entry["dtype"])
+        else:
+            t = load(name)
         if isinstance(tgt, (bool, int, float)):
             t = type(tgt)(t.item())
         out.append((name, t))

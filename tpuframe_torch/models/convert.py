@@ -3,7 +3,8 @@ ResNet parameters and batch statistics, flax BERT parameters and the flax
 MNIST ConvNet's parameters into the port's models, and whole JAX training
 states (a ``TrainState`` checkpoint: parameters, statistics, optimizer
 moments and step) into the port's model and optimizer
-(:func:`train_state_from_jax`).
+(:func:`train_state_from_jax`), a JAX ZeRO-1 state's flat moments to each
+rank's chunks of the port's flat layout and back (:func:`flat_order`).
 
 The flax tree (``{"embed": {"embedding"}, "block_<i>": {...},
 "final_ln": {"scale"}, "lm_head": {"kernel"}}``) arrives as nested dicts of
@@ -236,7 +237,119 @@ _MOMENTS = ("mu", "nu", "trace")
 _JAX_STATE_KEYS = {"step", "params", "opt_state", "model_state", "rng"}
 
 
-def train_state_from_jax(tree, family: str):
+def _param_map(family: str, stats):
+    """The family's map of a flax params tree (or a tree shaped like it)
+    to the port's parameters, by name."""
+    if family == "transformer-lm":
+        return params_from_jax
+    if family.startswith("resnet"):
+        if stats is None:
+            raise ValueError("a ResNet TrainState needs "
+                             "model_state/batch_stats")
+
+        def to_port(p):
+            return {k: v for k, v in resnet_from_jax(p, stats).items()
+                    if not k.endswith(("running_mean", "running_var"))}
+
+        return to_port
+    if family == "bert-base":
+        return bert_params_from_jax
+    if family == "convnet":
+        return convnet_from_jax
+    raise ValueError(f"no JAX TrainState map for model {family!r}")
+
+
+def _paths(tree, prefix=()):
+    if isinstance(tree, dict):
+        for key, sub in tree.items():
+            yield from _paths(sub, (*prefix, key))
+    else:
+        yield prefix, tree
+
+
+def _at(tree, path):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def _build(pairs) -> dict:
+    out: dict = {}
+    for path, leaf in pairs:
+        node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = leaf
+    return out
+
+
+_DIGIT = 4096      # f32 holds every integer below 2^24 exactly
+
+
+def flat_order(params, family: str, batch_stats=None) -> dict:
+    """``{port parameter name: (flax leaf path, order)}``: ``order[k]`` is
+    the index, in the flax leaf flattened row-major, of the port
+    parameter's element ``k`` (flattened in its logical order).  Found by
+    running the family's map over trees of leaf ids and of element
+    indices (as two base-4096 digits, which f32 carries exactly), so it
+    follows every transpose and reshape the map makes."""
+    to_port = _param_map(family, batch_stats)
+    leaves = list(_paths(params))
+
+    def tree(fill):
+        return _build((path, fill(i, np.asarray(leaf)))
+                      for i, (path, leaf) in enumerate(leaves))
+
+    ids = to_port(tree(lambda i, a: np.full(a.shape, i, np.float32)))
+    hi = to_port(tree(lambda i, a: (np.arange(a.size) // _DIGIT)
+                      .reshape(a.shape).astype(np.float32)))
+    lo = to_port(tree(lambda i, a: (np.arange(a.size) % _DIGIT)
+                      .reshape(a.shape).astype(np.float32)))
+    out = {}
+    for name, t in ids.items():
+        leaf = {int(v) for v in t.reshape(-1).tolist()}
+        if len(leaf) != 1:
+            raise ValueError(f"{name} mixes flax leaves {sorted(leaf)}: not "
+                             f"a one-leaf map")
+        order = (hi[name].reshape(-1).long() * _DIGIT
+                 + lo[name].reshape(-1).long())
+        out[name] = (leaves[leaf.pop()][0], order)
+    return out
+
+
+def zero1_moments_from_jax(moment, order: dict, n: int, index: int) -> dict:
+    """One moment of a JAX ZeRO-1 state (a tree shaped like the flax
+    params whose leaves are flat ``[padded]`` vectors, of any world) →
+    rank ``index``'s ``[padded / n]`` chunks of the port's flat layout
+    over ``n`` ranks, by port parameter name (``order`` from
+    :func:`flat_order`)."""
+    out = {}
+    for name, (path, idx) in order.items():
+        v = np.asarray(_at(moment, path)).reshape(-1)
+        full = torch.from_numpy(np.array(v[idx.numpy()], dtype=np.float32))
+        size = full.numel()
+        c = -(-size // n)
+        full = torch.nn.functional.pad(full, (0, c * n - size))
+        out[name] = full[index * c:(index + 1) * c].clone()
+    return out
+
+
+def zero1_moments_to_jax(moments: dict, order: dict, n: int) -> dict:
+    """The inverse of :func:`zero1_moments_from_jax` over whole vectors:
+    the port's flat moments by name (each at least its parameter's size
+    long: a whole ``[padded]`` vector, gathered or read from a
+    checkpoint) → the JAX ZeRO-1 layout over ``n`` ranks, a tree shaped
+    like the flax params of flat f32 ``[padded]`` numpy vectors."""
+    pairs = []
+    for name, (path, idx) in order.items():
+        size = idx.numel()
+        v = np.zeros(-(-size // n) * n, np.float32)
+        v[idx.numpy()] = np.asarray(moments[name], np.float32)[:size]
+        pairs.append((path, v))
+    return _build(pairs)
+
+
+def train_state_from_jax(tree, family: str, *, zero1: tuple | None = None):
     """A JAX ``TrainState`` checkpoint, as ``tpuframe.ckpt.restore(dir,
     step)`` (or the port's ``ckpt.restore``) returns it without a target,
     → ``(model state_dict, optimizer state_dict, step)`` for the port's
@@ -252,7 +365,13 @@ def train_state_from_jax(tree, family: str):
     leaf is dropped: the port draws dropout and augmentation from
     ``dropout_seed(seed, step, rank)``, not from a saved key, so a resumed
     run's draws differ from the JAX run's.  Any other leaf that maps
-    nowhere raises."""
+    nowhere raises.
+
+    ``zero1=(n, index)``: the JAX state is in the ZeRO-1 layout (its
+    moments flat ``[padded]`` vectors, ``tpuframe.parallel.zero1``'s
+    ``make_state``), and the moments come back as rank ``index``'s chunks
+    of the port's layout over ``n`` ranks (:func:`flat_order`), for an
+    optimizer built with ``shards=(n, index)``."""
     params = tree["params"]
     extra = set(tree) - _JAX_STATE_KEYS
     model_state = dict(tree.get("model_state") or {})
@@ -260,24 +379,15 @@ def train_state_from_jax(tree, family: str):
     if extra or model_state:
         raise ValueError(f"unmapped JAX TrainState leaves: "
                          f"{sorted(extra | set(model_state))}")
-    if family == "transformer-lm":
-        to_port = params_from_jax
-    elif family.startswith("resnet"):
-        if stats is None:
-            raise ValueError("a ResNet TrainState needs "
-                             "model_state/batch_stats")
-
-        def to_port(p):
-            return {k: v for k, v in resnet_from_jax(p, stats).items()
-                    if not k.endswith(("running_mean", "running_var"))}
-    elif family == "bert-base":
-        to_port = bert_params_from_jax
-    elif family == "convnet":
-        to_port = convnet_from_jax
-    else:
-        raise ValueError(f"no JAX TrainState map for model {family!r}")
+    to_port = _param_map(family, stats)
     if stats is not None and not family.startswith("resnet"):
         raise ValueError(f"{family}: unmapped model_state/batch_stats")
+    moment_map = to_port
+    if zero1 is not None:
+        order = flat_order(params, family, stats)
+
+        def moment_map(moment):
+            return zero1_moments_from_jax(moment, order, *zero1)
 
     moments: dict = {}
     counts: list[int] = []
@@ -288,7 +398,7 @@ def train_state_from_jax(tree, family: str):
             if key in _MOMENTS and isinstance(sub, dict):
                 if key in moments:
                     raise ValueError(f"two {key} moments under opt_state")
-                moments[key] = to_port(sub)
+                moments[key] = moment_map(sub)
             elif key == "count" and not isinstance(sub, dict):
                 counts.append(int(np.asarray(sub)))
             elif isinstance(sub, dict):

@@ -15,8 +15,9 @@ decides the step's collective sequence instead: the parameters' names,
 shapes and dtypes in the staged pass's plan order, ``grad_reduce`` and
 ``accum_steps``, the mesh's degrees and the model's ``seq_mode`` (which
 decide the seq rings' collectives in the forward and the backward), the
-fusion threshold with its bucket census, and the statistics-and-metrics
-reduction (the float buffers and the metric names,
+fusion threshold with its bucket census, the weight update and the wire
+format (with zero1, the padded flat layout's census), and the
+statistics-and-metrics reduction (the float buffers and the metric names,
 with its census).  Two ranks whose descriptions agree issue the same
 collectives on tensors of the same sizes; everything else the step does
 is local.
@@ -29,7 +30,7 @@ import json
 
 from torch import nn
 
-from tpuframe_torch.parallel import bootstrap, fusion
+from tpuframe_torch.parallel import bootstrap, fusion, zero1
 
 
 def digest(payload: bytes | str) -> str:
@@ -58,7 +59,8 @@ def assert_uniform_across_hosts(tag: str, payload: bytes | str) -> None:
 def step_program(model: nn.Module, *, grad_reduce: str, accum_steps: int,
                  fusion_threshold: int | None,
                  metric_names: tuple, mesh: dict | None = None,
-                 seq_mode: str = "none") -> dict:
+                 seq_mode: str = "none", weight_update: str = "replicated",
+                 wire_format: str = "fp") -> dict:
     """What decides the train step's collective sequence (module
     docstring).  The metrics are named, not shaped: they are 0-d, and
     their dtypes follow from the config, which is checked beside this."""
@@ -73,10 +75,17 @@ def step_program(model: nn.Module, *, grad_reduce: str, accum_steps: int,
         "mesh": dict(mesh or {}),
         "seq_mode": seq_mode,
         "fusion_threshold": fusion_threshold,
+        "weight_update": weight_update,
+        "wire_format": wire_format,
         "stats": [(name, tuple(b.shape), str(b.dtype))
                   for name, b in stats],
         "metrics": sorted(metric_names),
     }
+    if weight_update == "zero1":
+        n = (mesh or {}).get("data", 1)
+        out["zero1_census"] = {
+            k: v for k, v in zero1.padding_census(model, n).items()
+            if k != "leaves"}
     if fusion_threshold is not None:
         out["grad_census"] = fusion.bucket_census(
             [p for _, p in params], fusion_threshold)

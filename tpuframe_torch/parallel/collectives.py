@@ -26,6 +26,13 @@ CUDA, so one code path serves gloo and NCCL: the ring rotation, JAX's
 ``lax.ppermute``, is an ``all_to_all_single`` whose splits send the whole
 chunk to the next rank and take the whole of the previous rank's.
 :data:`SEQ_BYTES` counts the bytes each verb sent to other ranks.
+
+The gradient wire of the ZeRO-1 and int8-block paths (``parallel/zero1.py``,
+``parallel/quantwire.py``) runs on :func:`reduce_scatter_start` (the tiled
+reduce-scatter, JAX's ``psum_scatter(tiled=True)``),
+:func:`all_gather_start` (the tiled all-gather, ``allgather_invariant``),
+:func:`all_to_all_start` and :func:`wire_mean_`, each counted in
+:data:`WIRE_BYTES` and :data:`WIRE_CALLS`.
 """
 
 from __future__ import annotations
@@ -38,11 +45,12 @@ import torch.distributed as dist
 # The verbs this module calls whose gloo implementation takes CUDA
 # tensors.  torch.distributed's backend table lists all_reduce and
 # broadcast; on an H100 with torch 2.11 (chip_smoke.py's hvd phase) gloo
-# also gave the right results for all_gather and all_to_all_single (and
-# reduce, gather, scatter, reduce_scatter_tensor), while its
-# point-to-point sends failed.
+# also gave the right results for all_gather, all_gather_into_tensor and
+# all_to_all_single (and reduce, gather, scatter, reduce_scatter_tensor),
+# while its point-to-point sends failed.  chip_smoke.py's zero1 phase holds
+# the reduce-scatter's results on CUDA tensors under gloo bit for bit.
 GLOO_CUDA_VERBS = frozenset({"all_reduce", "broadcast", "all_gather",
-                             "all_to_all"})
+                             "all_to_all", "reduce_scatter"})
 
 _OPS = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN,
         "max": dist.ReduceOp.MAX}
@@ -451,3 +459,87 @@ def gather_seq(x: torch.Tensor, seq) -> torch.Tensor:
     if seq.size == 1:
         return x
     return _GatherSeq.apply(x, seq)
+
+
+# Bytes and calls of the gradient wire of the zero1 and int8-block paths,
+# by collective, in the JAX budgets' convention
+# (``tpuframe/analysis/budgets.py``): a reduce-scatter, an all-to-all and
+# an all-reduce count their operand's bytes, an all-gather its result's.
+# The statistics', metrics' and gradient norm's reductions are not
+# counted here.
+WIRE_BYTES = {"reduce_scatter": 0, "all_gather": 0, "all_to_all": 0,
+              "all_reduce": 0}
+WIRE_CALLS = dict.fromkeys(WIRE_BYTES, 0)
+
+
+def reset_wire() -> None:
+    """Set every :data:`WIRE_BYTES` and :data:`WIRE_CALLS` count to 0."""
+    for counts in (WIRE_BYTES, WIRE_CALLS):
+        for kind in counts:
+            counts[kind] = 0
+
+
+def _wire(kind: str, t: torch.Tensor) -> None:
+    WIRE_BYTES[kind] += t.numel() * t.element_size()
+    WIRE_CALLS[kind] += 1
+
+
+def reduce_scatter_start(flat: torch.Tensor, grp):
+    """Start the tiled reduce-scatter (sum) of the 1-d ``flat`` over
+    ``grp``: rank ``i`` gets the sum of every rank's chunk ``i`` of
+    ``len(flat) / n`` elements (JAX's ``psum_scatter(tiled=True)``).
+    Returns ``(shard, work)``; the shard holds the sum once ``work`` is
+    done.  Counts ``flat``'s bytes."""
+    n = dist.get_world_size(grp)
+    if flat.dim() != 1 or flat.numel() % n:
+        raise ValueError(f"reduce_scatter: a flat operand whose length is a "
+                         f"multiple of the {n} ranks, got shape "
+                         f"{tuple(flat.shape)}; pad it first (zero1's "
+                         f"pad-to-multiple layout)")
+    _check_device("reduce_scatter", flat, grp)
+    flat = flat.contiguous()
+    shard = flat.new_empty(flat.numel() // n)
+    # reduce_scatter_tensor's successor from torch 2.13 on
+    verb = (getattr(dist, "reduce_scatter_single", None)
+            or dist.reduce_scatter_tensor)
+    work = verb(shard, flat, group=grp, async_op=True)
+    _wire("reduce_scatter", flat)
+    return shard, work
+
+
+def all_gather_start(t: torch.Tensor, grp):
+    """Start the tiled all-gather of ``t`` along dim 0 over ``grp``: every
+    rank's ``t`` concatenated in rank order.  Returns ``(full, work)``.
+    Counts the result's bytes."""
+    _check_device("all_gather", t, grp)
+    n = dist.get_world_size(grp)
+    t = t.contiguous()
+    full = t.new_empty((n * t.shape[0], *t.shape[1:]))
+    work = dist.all_gather_into_tensor(full, t, group=grp, async_op=True)
+    _wire("all_gather", full)
+    return full, work
+
+
+def all_to_all_start(t: torch.Tensor, grp):
+    """Start the equal-split all-to-all of ``t`` along dim 0 over ``grp``
+    (block ``j`` to rank ``j``, the received blocks in rank order).
+    Returns ``(out, work)``.  Counts ``t``'s bytes."""
+    n = dist.get_world_size(grp)
+    if t.shape[0] % n:
+        raise ValueError(f"all_to_all: dim 0 ({t.shape[0]}) does not split "
+                         f"evenly over {n} ranks")
+    _check_device("all_to_all", t, grp)
+    t = t.contiguous()
+    out = torch.empty_like(t)
+    work = dist.all_to_all_single(out, t, group=grp, async_op=True)
+    _wire("all_to_all", t)
+    return out, work
+
+
+def wire_mean_(t: torch.Tensor, grp) -> torch.Tensor:
+    """In-place mean of the contiguous ``t`` over ``grp`` (JAX's
+    ``pmean``: the sum, then divided by the world size), counted as the
+    gradient wire's all-reduce.  Returns ``t``."""
+    allreduce_start_(t, grp).wait()
+    _wire("all_reduce", t)
+    return t.div_(dist.get_world_size(grp))

@@ -42,8 +42,10 @@ Where this module and the JAX one differ:
     seeded HLO positive and the ``shard_map`` leg of its ``check`` are XLA
     artefacts and have no counterpart in an eager step.
 
-The zero1 packing helpers (``pack_for_scatter`` and the splits) wait for
-ZeRO-1 (ROADMAP.md queue 1, item 12).
+:func:`pack_for_scatter`, :func:`split_scattered` and
+:func:`split_gathered` are the shard-aligned packing of the ZeRO-1 seam
+(``parallel/zero1.py``): one reduce-scatter and one all-gather a bucket of
+padded flat gradients.
 """
 
 from __future__ import annotations
@@ -157,6 +159,31 @@ def fused_sum_(tensors: Sequence[torch.Tensor], grp, *, threshold_bytes: int,
 def fused_mean_(tensors: Sequence[torch.Tensor], grp, *,
                 threshold_bytes: int) -> None:
     fused_sum_(tensors, grp, threshold_bytes=threshold_bytes, mean=True)
+
+
+def pack_for_scatter(flats: Sequence[torch.Tensor], n: int) -> torch.Tensor:
+    """Pack padded flat leaves (each a multiple of ``n`` long) so that a
+    reduce-scatter of the result hands rank ``k`` the concatenation of its
+    own per-leaf shards: each leaf as ``(n, len / n)``, joined along dim 1
+    (a plain concatenation would give rank ``k`` a chunk straddling leaf
+    boundaries)."""
+    return torch.cat([f.reshape(n, -1) for f in flats], dim=1).reshape(-1)
+
+
+def split_scattered(shard: torch.Tensor,
+                    chunk_sizes: Sequence[int]) -> list[torch.Tensor]:
+    """Undo :func:`pack_for_scatter` on the scattered side: a rank's shard
+    back into its per-leaf ``[padded / n]`` shards (views)."""
+    return list(torch.split(shard, [int(c) for c in chunk_sizes]))
+
+
+def split_gathered(full: torch.Tensor, n: int,
+                   chunk_sizes: Sequence[int]) -> list[torch.Tensor]:
+    """Undo :func:`pack_for_scatter` after an all-gather of the packed
+    shards: the full vector back into per-leaf ``[padded]`` flats."""
+    rows = full.reshape(n, -1)
+    return [part.reshape(-1) for part in
+            torch.split(rows, [int(c) for c in chunk_sizes], dim=1)]
 
 
 def plan_params(model: nn.Module) -> list[tuple[str, nn.Parameter]]:

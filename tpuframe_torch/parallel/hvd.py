@@ -30,7 +30,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from tpuframe_torch.parallel import bootstrap, collectives, fusion
+from tpuframe_torch.parallel import bootstrap, collectives, fusion, quantwire
 from tpuframe_torch.utils.optim import Optimizer
 
 
@@ -179,8 +179,14 @@ def _unwrap(opt):
 def broadcast_optimizer_state(opt: Optimizer, root_rank: int = 0) -> None:
     """``hvd.broadcast_optimizer_state``: ``root_rank``'s update count and
     every moment of the port's :class:`Optimizer` (or a
-    :func:`DistributedOptimizer` around one), in place on every rank."""
+    :func:`DistributedOptimizer` around one), in place on every rank.  An
+    optimizer in the ZeRO-1 layout is refused: each rank holds its own
+    chunk of every moment, which a broadcast would overwrite."""
     opt = _unwrap(opt)
+    if opt.shards is not None:
+        raise ValueError("broadcast_optimizer_state on an optimizer in the "
+                         "ZeRO-1 layout: each rank's moments are its own "
+                         "chunks, not replicas")
     opt.count = bootstrap.broadcast_object(opt.count, root_rank)
     for moments in opt.moments.values():
         broadcast_parameters(enumerate(moments), root_rank)
@@ -223,6 +229,13 @@ class _DistributedOptimizer:
         if self.op is Adasum:
             collectives.adasum_(grads, grp)
             return
+        if self.compression == "int8":
+            # the quantized wire replaces the reduction outright, with no
+            # size floor: an explicit per-optimizer ask
+            for g, m in zip(grads, quantwire.all_reduce_mean(grads, grp,
+                                                            min_elems=0)):
+                g.copy_(m)
+            return
         # the bf16 wire copies are what is reduced (and packed), as the
         # JAX package compresses, then averages; with the fusion knob
         # unset or <= 0, one bucket (one all_reduce) a tensor
@@ -252,9 +265,11 @@ def DistributedOptimizer(opt: Optimizer, *, average: bool | None = None,
     checkpoints are the inner optimizer's.
 
     ``compression``: ``None`` or ``Compression.fp16`` (``"bf16"``): f32
-    gradients go over the wire in bf16 and come back in f32.  ``"int8"``
-    (the JAX package's quantized wire) is not ported; Adasum's norm-based
-    combine takes no compression, as in Horovod.
+    gradients go over the wire in bf16 and come back in f32.  ``"int8"``:
+    the block-quantized wire, ``quantwire.all_reduce_mean`` with no size
+    floor (``min_elems=0``), a quantized mean, so it needs Average, as in
+    the JAX package.  Adasum's norm-based combine takes no compression,
+    as in Horovod.
 
     The reduction runs in ``step()``: one collective a tensor, or, with
     ``TPUFRAME_FUSION_THRESHOLD`` set above 0, one a fusion bucket
@@ -265,14 +280,13 @@ def DistributedOptimizer(opt: Optimizer, *, average: bool | None = None,
     if op not in (Average, Sum, Adasum):
         raise ValueError(f"DistributedOptimizer supports Average/Sum/Adasum, "
                          f"got {op!r}")
-    if compression == "int8":
-        raise NotImplementedError(
-            f"compression='int8' (the quantized wire) is not ported yet "
-            f"({bootstrap.ITEM_12})")
     if op is Adasum and compression is not None:
         raise ValueError("Adasum's norm-based combine does not compose with "
                          "wire compression")
-    if compression not in (None, "bf16"):
+    if compression == "int8" and op is not Average:
+        raise ValueError("compression='int8' implements a quantized mean; "
+                         "use average=True")
+    if compression not in (None, "bf16", "int8"):
         raise ValueError(f"unknown compression {compression!r}")
     return _DistributedOptimizer(opt, op, compression)
 

@@ -35,6 +35,18 @@ microbatch's backward, then the statistics and the metrics through
 ``fused_mean_`` at the same threshold (the eager counterpart of XLA's
 combiner on the JAX step's per-leaf ``pmean``).  The values are those of
 the per-tensor path.
+
+``weight_update="zero1"`` (``TPUFRAME_WEIGHT_UPDATE``, ``parallel/zero1.py``)
+runs no gradient all-reduce: the local gradients go to
+``zero1.sharded_update`` (reduce-scatter, the update of this rank's chunk,
+all-gather), with ``fusion_threshold`` bucketing both of its collectives;
+the statistics and the metrics keep their mean.  ``wire_format=
+"int8-block"`` (``TPUFRAME_WIRE_FORMAT``, ``parallel/quantwire.py``) sends
+the gradients over the block-quantized wire: ``quantwire.all_reduce_mean``
+on the replicated path, the quantized scatter and delta gather on the
+zero1 one.  Both refuse Adasum, the int8 wire refuses a fusion threshold
+(the buckets pack full-precision payloads) and zero1 needs a world
+(``distributed``; a world of one process is n=1), as the JAX step does.
 """
 
 from __future__ import annotations
@@ -46,7 +58,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from tpuframe_torch.parallel import collectives, fusion
+from tpuframe_torch.ckpt import FlatShard
+from tpuframe_torch.parallel import collectives, fusion, quantwire, zero1
 from tpuframe_torch.utils.optim import Optimizer
 
 # loss_fn(model, batch, dropout_seed) -> (loss, {metric: tensor})
@@ -69,16 +82,27 @@ class TrainState:
         (parameters and buffers, BatchNorm running statistics among
         them), ``opt/count``, ``opt/<mu|nu|trace>/<parameter name>``,
         ``step`` and ``seed``.  The tensors are the live ones, not
-        copies."""
-        return {"model": dict(self.model.state_dict()),
-                "opt": self.opt.state_dict(),
+        copies.  An optimizer in the ZeRO-1 layout gives its moments as
+        ``ckpt.FlatShard`` leaves (this rank's chunk of the global flat
+        vector)."""
+        opt = self.opt.state_dict()
+        if self.opt.shards is not None:
+            n, idx = self.opt.shards
+            opt = {key: val if key == "count" else
+                   {name: FlatShard(t, idx, n) for name, t in val.items()}
+                   for key, val in opt.items()}
+        return {"model": dict(self.model.state_dict()), "opt": opt,
                 "step": self.step, "seed": self.seed}
 
     def load_tree(self, tree: dict) -> None:
         """Take a tree of :meth:`to_tree`'s structure, copying into the
-        live tensors in place."""
+        live tensors in place (a ``FlatShard`` leaf by its tensor)."""
+        opt = {key: val if key == "count" else
+               {name: t.tensor if isinstance(t, FlatShard) else t
+                for name, t in val.items()}
+               for key, val in tree["opt"].items()}
         self.model.load_state_dict(tree["model"])
-        self.opt.load_state_dict(tree["opt"])
+        self.opt.load_state_dict(opt)
         self.step = int(tree["step"])
         self.seed = int(tree["seed"])
 
@@ -93,7 +117,9 @@ def dropout_seed(seed: int, step: int, rank: int, micro: int = 0) -> int:
 
 def make_train_step(loss_fn: LossFn, *, accum_steps: int = 1,
                     grad_reduce: str = "mean", distributed: bool = True,
-                    fusion_threshold: int | None = None):
+                    fusion_threshold: int | None = None,
+                    weight_update: str = "replicated",
+                    wire_format: str = "fp"):
     """``train_step(state, batch) -> metrics``: forward, backward, the
     world's gradient reduction (none unless ``distributed``): the mean,
     or Adasum with ``grad_reduce="adasum"``, and the optimizer update, in
@@ -110,7 +136,14 @@ def make_train_step(loss_fn: LossFn, *, accum_steps: int = 1,
     pass); None reduces one tensor at a time.  The step's ``reducer`` is
     the ``StagedReducer`` of its last run (None before one), for its
     ``early`` count and its census.  Adasum takes no threshold, as in the
-    JAX step."""
+    JAX step.
+
+    ``weight_update`` (``"replicated"`` or ``"zero1"``, whose state comes
+    from ``zero1.make_state``) and ``wire_format`` (``"fp"`` or
+    ``"int8-block"``): see the module docstring.  The zero1 step has no
+    ``reducer``."""
+    wire_format = quantwire.validate_format(wire_format)
+    weight_update = zero1.validate_mode(weight_update)
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     if grad_reduce not in ("mean", "adasum"):
@@ -120,6 +153,25 @@ def make_train_step(loss_fn: LossFn, *, accum_steps: int = 1,
         raise ValueError("grad_reduce='adasum' does not compose with "
                          "fusion_threshold — the butterfly is its own wire "
                          "pattern")
+    if wire_format != "fp":
+        if grad_reduce == "adasum":
+            raise ValueError(f"wire_format={wire_format!r} does not compose "
+                             f"with adasum — the butterfly is its own wire "
+                             f"pattern")
+        if fusion_threshold is not None:
+            raise ValueError(f"wire_format={wire_format!r} does not compose "
+                             f"with fusion_threshold — the fusion buffers "
+                             f"pack full-precision payloads")
+    if weight_update == "zero1":
+        if not distributed:
+            raise ValueError("weight_update='zero1' needs a world "
+                             "(distributed=True) — a step with no "
+                             "collective has nothing to shard the update "
+                             "over")
+        if grad_reduce == "adasum":
+            raise ValueError("weight_update='zero1' does not compose with "
+                             "adasum — the butterfly needs full gradients "
+                             "on every replica")
 
     def staged(model: nn.Module, grp) -> fusion.StagedReducer:
         reducer = train_step.reducer
@@ -135,7 +187,8 @@ def make_train_step(loss_fn: LossFn, *, accum_steps: int = 1,
         grp = collectives.group() if distributed else None
         rank = collectives.world()[1] if distributed else 0
         reducer = (staged(model, grp) if fusion_threshold is not None
-                   and grp is not None else None)
+                   and grp is not None and weight_update == "replicated"
+                   else None)
         for p in model.parameters():
             p.grad = None
         n = next(iter(batch.values())).shape[0]
@@ -158,12 +211,30 @@ def make_train_step(loss_fn: LossFn, *, accum_steps: int = 1,
         stats = [b for b in model.buffers() if b.is_floating_point()]
         out = {k: v / accum_steps for k, v in metric_sums.items()}
         out["loss"] = loss_sum / accum_steps
+        if weight_update == "zero1":
+            # no gradient all-reduce: the reduce-scatter is the one
+            # gradient-sized reduction
+            if fusion_threshold is not None and grp is not None:
+                fusion.fused_mean_(stats + list(out.values()), grp,
+                                   threshold_bytes=fusion_threshold)
+            else:
+                collectives.mean_(stats + list(out.values()), grp)
+            out["grad_norm"] = zero1.sharded_update(
+                state.opt, grp, wire_format=wire_format,
+                fusion_threshold=fusion_threshold)
+            state.step += 1
+            return out
         if reducer is not None:
             reducer.finish()
             fusion.fused_mean_(stats + list(out.values()), grp,
                                threshold_bytes=fusion_threshold)
         elif grad_reduce == "adasum":
             collectives.adasum_(grads, grp)
+            collectives.mean_(stats + list(out.values()), grp)
+        elif wire_format == "int8-block":
+            with torch.no_grad():
+                for g, m in zip(grads, quantwire.all_reduce_mean(grads, grp)):
+                    g.copy_(m)
             collectives.mean_(stats + list(out.values()), grp)
         else:
             collectives.mean_(grads + stats + list(out.values()), grp)

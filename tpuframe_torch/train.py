@@ -51,14 +51,21 @@ workloads (``lm_text`` data, ``transformer-lm``) and the GLUE tasks
 and Matthews correlation at eval) train here.  What the JAX harness has and
 the port does not yet refuses loudly, naming its ROADMAP.md item: the
 profiler server (item 11), named remat policies (item 14), pipeline, fsdp,
-tensor and expert parallelism, ZeRO-1, quantized or hierarchical
-collectives and elastic resizing.  ``grad_reduce="adasum"`` reduces the
-gradients by Adasum.  ``TPUFRAME_FUSION_THRESHOLD`` (bytes) reduces the
-mean in fusion buckets whose collectives start during the backward
-(``parallel/fusion.py``); Horovod's ``HOROVOD_FUSION_THRESHOLD`` is
-refused, as the JAX harness never reads it.  ``TPUFRAME_CHECK_SPMD=1``
-checks, before the first step, that every rank built the same config and
-step program (``obs/spmd_check.py``).
+tensor and expert parallelism, hierarchical collectives and their DCN wire
+(``TPUFRAME_HIER``, ``TPUFRAME_WIRE_FORMAT_DCN``) and elastic resizing.
+``grad_reduce="adasum"`` reduces the gradients by Adasum.
+``TPUFRAME_FUSION_THRESHOLD`` (bytes) reduces the mean in fusion buckets
+whose collectives start during the backward (``parallel/fusion.py``);
+Horovod's ``HOROVOD_FUSION_THRESHOLD`` is refused, as the JAX harness never
+reads it.  ``TPUFRAME_WEIGHT_UPDATE=zero1`` shards the optimizer's update
+and state over the data ranks (``parallel/zero1.py``; each rank holds
+``[padded / n]`` of every moment; an element-wise optimizer only, no seq
+degree above 1), and ``TPUFRAME_WIRE_FORMAT=int8-block`` sends the
+gradients over the block-quantized wire (``parallel/quantwire.py``): an
+env ask that the run cannot serve raises the step's own error, as in the
+JAX harness.  ``TPUFRAME_CHECK_SPMD=1`` checks, before the first step,
+that every rank built the same config and step program
+(``obs/spmd_check.py``).
 
 Run telemetry, as in the JAX harness: with ``TPUFRAME_EVENTS_DIR`` (or
 ``--events-dir``) the run writes ``run_start`` (with the step's model
@@ -140,7 +147,9 @@ from tpuframe_torch.parallel import collectives
 from tpuframe_torch.parallel import fusion
 from tpuframe_torch.parallel import hvd
 from tpuframe_torch.parallel import mesh as mesh_lib
+from tpuframe_torch.parallel import quantwire
 from tpuframe_torch.parallel import step as step_lib
+from tpuframe_torch.parallel import zero1
 from tpuframe_torch.resilience import faults
 from tpuframe_torch.resilience.preempt import RC_PREEMPTED, PreemptionGuard
 from tpuframe_torch.utils.config import TrainConfig, get_config
@@ -156,9 +165,9 @@ RC_STALLED = 13
 # with the value that means "off".
 _UNPORTED_ENV = {
     "TPUFRAME_SPEC": (None, f"declarative parallelism specs, {ITEM_12}"),
-    "TPUFRAME_WEIGHT_UPDATE": ("replicated", f"ZeRO-1, {ITEM_12}"),
-    "TPUFRAME_WIRE_FORMAT": ("fp", f"quantized collectives, {ITEM_12}"),
-    "TPUFRAME_WIRE_FORMAT_DCN": ("fp", f"quantized collectives, {ITEM_12}"),
+    "TPUFRAME_WIRE_FORMAT_DCN": ("fp", f"the DCN leg's wire of the "
+                                       f"hierarchical collectives, "
+                                       f"{ITEM_12}"),
     "TPUFRAME_HIER": ("flat", f"hierarchical collectives, {ITEM_12}"),
     "TPUFRAME_ELASTIC": (None, "elastic resizing, ROADMAP.md queue 1, "
                                "item 14"),
@@ -219,6 +228,10 @@ class Harness:
     start_step: int = 0
     # the step's fusion threshold and its source (``_resolved_fusion``)
     fusion_threshold: tuple = (None, "default")
+    # the weight update and the wire format with their sources
+    # (``_resolved_update``)
+    weight_update: tuple = ("replicated", "default")
+    wire_format: tuple = ("fp", "default")
 
 
 def _group(cfg: TrainConfig):
@@ -238,6 +251,24 @@ def _resolved_fusion(cfg: TrainConfig) -> tuple:
     model_tag = cfg.model.replace("-", "_")
     return fusion.resolve(program=f"train_{model_tag}_b{cfg.global_batch}",
                           family="fusion_threshold")
+
+
+def _resolved_update(sizes: dict) -> tuple:
+    """``((weight_update, source), (wire_format, source))`` of the step:
+    the env knob, else the default.  The JAX harness demotes a tuning-DB
+    pick that the run cannot serve; the port has no DB and its defaults
+    (replicated, fp) serve every run, so only an env ask can be refused,
+    with the step's specific error (no world, Adasum, int8 with a fusion
+    threshold) or, for zero1 with a seq degree above 1, this one."""
+    update = zero1.resolve()
+    wire, _ = quantwire.resolve_legs()
+    if update[0] == "zero1" and sizes["seq"] > 1:
+        raise ValueError(
+            f"{zero1.ENV_VAR}=zero1 with mesh seq={sizes['seq']}: the seq "
+            f"ranks hold replicas of one data shard's update, and the "
+            f"JAX package's zero1 layout and seq layout do not agree there "
+            f"(ROADMAP.md queue 3); use a seq degree of 1")
+    return update, wire
 
 
 def _lm_reduce(cfg: TrainConfig):
@@ -485,19 +516,26 @@ def build_harness(cfg: TrainConfig, device="cuda") -> Harness:
                                  seed=cfg.seed, cast_floats=cast, **shard)
     eval_loader = ShardedLoader(eval_ds, cfg.global_batch, device=dev,
                                 shuffle=False, cast_floats=cast, **shard)
-    state = step_lib.TrainState(model=model,
-                                opt=build_optimizer(cfg, model),
-                                seed=cfg.seed + 1)
-    manager = _resume(cfg, state)
     threshold, source = _resolved_fusion(cfg)
+    update, wire = _resolved_update(sizes)
+    # the step first: it refuses what the state could not serve
+    train_step = step_lib.make_train_step(
+        make_loss_fn(cfg), accum_steps=cfg.accum_steps,
+        grad_reduce=cfg.grad_reduce, distributed=cfg.distributed,
+        fusion_threshold=threshold, weight_update=update[0],
+        wire_format=wire[0])
+    if update[0] == "zero1":
+        # the moments born as this rank's chunks of the flat layout
+        state = zero1.make_state(cfg, model, _group(cfg), seed=cfg.seed + 1)
+    else:
+        state = step_lib.TrainState(model=model,
+                                    opt=build_optimizer(cfg, model),
+                                    seed=cfg.seed + 1)
+    manager = _resume(cfg, state)
     return Harness(
         cfg=cfg, device=dev, state=state, manager=manager,
         start_step=state.step, fusion_threshold=(threshold, source),
-        train_step=step_lib.make_train_step(make_loss_fn(cfg),
-                                            accum_steps=cfg.accum_steps,
-                                            grad_reduce=cfg.grad_reduce,
-                                            distributed=cfg.distributed,
-                                            fusion_threshold=threshold),
+        weight_update=update, wire_format=wire, train_step=train_step,
         eval_step=step_lib.make_eval_step(make_metric_fn(cfg),
                                           distributed=cfg.distributed),
         train_loader=train_loader, eval_loader=eval_loader, world=world,
@@ -782,7 +820,8 @@ def _check_spmd(cfg: TrainConfig, h: Harness) -> None:
         accum_steps=cfg.accum_steps,
         fusion_threshold=h.fusion_threshold[0],
         metric_names=(metric, "loss"), mesh=h.layout.sizes,
-        seq_mode=cfg.model_kwargs.get("seq_mode", "none"))
+        seq_mode=cfg.model_kwargs.get("seq_mode", "none"),
+        weight_update=h.weight_update[0], wire_format=h.wire_format[0])
 
 
 def _run_start(cfg: TrainConfig, h: Harness, tel: _Telemetry,
@@ -813,15 +852,18 @@ def _run_start(cfg: TrainConfig, h: Harness, tel: _Telemetry,
             global_batch=cfg.global_batch, n_params=n_params,
             generation=tel.generation, flops_per_step=tel.flops,
             flops_source=src, bytes_per_step=None)
-        # What the step program runs with, in the JAX records' shape: the
-        # port has one value of each but the fusion threshold (the others
-        # refuse, items 12 and 14).
+        # What the step program runs with, in the JAX records' shape (the
+        # remat policy, the DCN leg and hier have one value each: the
+        # others refuse, items 12 and 14).  n_shards is the data-parallel
+        # degree, whatever the mode, as the JAX record's mesh size.
         events.emit("remat_policy", policy="none", source="default",
                     predicted_bytes_per_step=None)
-        events.emit("weight_update", mode="replicated", source="default",
-                    n_shards=1)
-        events.emit("wire_format", format="fp", source="default",
-                    format_dcn="fp", source_dcn="default", hier="flat",
+        events.emit("weight_update", mode=h.weight_update[0],
+                    source=h.weight_update[1],
+                    n_shards=h.layout.data_size if cfg.distributed else 1)
+        events.emit("wire_format", format=h.wire_format[0],
+                    source=h.wire_format[1], format_dcn="fp",
+                    source_dcn="default", hier="flat",
                     hier_source="default")
         events.emit("fusion_threshold", threshold=h.fusion_threshold[0],
                     source=h.fusion_threshold[1])

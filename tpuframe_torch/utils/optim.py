@@ -23,6 +23,14 @@ parity is at stake:
     rate, which ``torch.optim.SGD`` does not do.  Decay and trust ratio
     share the decay mask.
 
+In the ZeRO-1 layout (``shards=(n, index)``, ``parallel/zero1.py``) each
+moment is this rank's ``[padded / n]`` chunk of the parameter flattened
+and zero-padded to a multiple of ``n``; :meth:`Optimizer.update_shards`
+runs the same chain on such chunks of the parameters and of the reduced
+gradients, each with its parameter's decay flag.  The chain must then be
+element-wise: global-norm clipping and LARS's per-tensor trust ratio
+raise ``ValueError``, as they are out of the JAX ``zero1``'s scope.
+
 No decay on norm scales and biases (``_decay_mask`` in the JAX package
 skips leaves named ``bias``, ``scale`` or ``b``): here by module type,
 since a LayerNorm's or BatchNorm's scale is called ``weight``.  Embedding,
@@ -92,7 +100,8 @@ class Optimizer:
     the data-parallel world), updates the parameters and returns the
     gradients' global norm before clipping."""
 
-    def __init__(self, cfg: TrainConfig, model: nn.Module, schedule):
+    def __init__(self, cfg: TrainConfig, model: nn.Module, schedule,
+                 shards: tuple | None = None):
         named = [(n, p) for n, p in model.named_parameters()]
         mask = decay_mask(model)
         self.cfg = cfg
@@ -101,7 +110,17 @@ class Optimizer:
         self.decay = [mask[n] for n in self.names]
         self.schedule = schedule
         self.count = 0
-        zeros = lambda: [torch.zeros_like(p) for p in self.params]  # noqa: E731
+        # (n, index): the moments are this rank's chunks of the ZeRO-1
+        # flat layout; None: shaped like the parameters
+        self.shards = None if shards is None else tuple(map(int, shards))
+        if self.shards is None:
+            zeros = lambda: [torch.zeros_like(p)  # noqa: E731
+                             for p in self.params]
+        else:
+            _check_elementwise(cfg)
+            n = self.shards[0]
+            zeros = lambda: [p.new_zeros(-(-p.numel() // n))  # noqa: E731
+                             for p in self.params]
         self.moments = ({"mu": zeros(), "nu": zeros()}
                         if cfg.optimizer == "adamw" else {"trace": zeros()})
 
@@ -139,6 +158,9 @@ class Optimizer:
     @torch.no_grad()
     def step(self) -> torch.Tensor:
         cfg = self.cfg
+        if self.shards is not None:
+            raise ValueError("an optimizer in the ZeRO-1 layout updates "
+                             "through parallel.zero1.sharded_update")
         ps = self.params
         gs = [torch.zeros_like(p) if p.grad is None else p.grad for p in ps]
         norm = torch.stack([g.float().square().sum() for g in gs]).sum() \
@@ -150,6 +172,24 @@ class Optimizer:
             div = torch.where(keep, 1.0, norm)
             mul = torch.where(keep, 1.0, cfg.grad_clip_norm)
             gs = [g / div * mul for g in gs]
+        self._apply(ps, gs)
+        return norm
+
+    @torch.no_grad()
+    def update_shards(self, ps: list, gs: list) -> None:
+        """The ZeRO-1 update: the chain (no clipping; element-wise) on
+        this rank's chunks ``ps`` of the parameters, in place, from the
+        chunks ``gs`` of the world's mean gradients, one a parameter in
+        :attr:`params`' order."""
+        if self.shards is None:
+            raise ValueError("update_shards needs an optimizer built in the "
+                             "ZeRO-1 layout (shards=(n, index))")
+        self._apply(ps, gs)
+
+    def _apply(self, ps: list, gs: list) -> None:
+        """Everything of the chain after the clip, in place on ``ps`` and
+        the moments, then the count."""
+        cfg = self.cfg
         lr = self.schedule(self.count)
         dec = [i for i, d in enumerate(self.decay) if d]
         wd = cfg.weight_decay
@@ -196,13 +236,31 @@ class Optimizer:
         torch._foreach_add_(ps, upd,
                             alpha=1.0 if cfg.optimizer == "lars" else -lr)
         self.count += 1
-        return norm
 
 
-def build_optimizer(cfg: TrainConfig, model: nn.Module) -> Optimizer:
+def _check_elementwise(cfg: TrainConfig) -> None:
+    """ZeRO-1 updates each rank's chunk on its own: only an element-wise
+    chain gives the replicated update's values."""
+    if cfg.grad_clip_norm is not None:
+        raise ValueError(
+            f"grad_clip_norm={cfg.grad_clip_norm} with the ZeRO-1 weight "
+            f"update: global-norm clipping couples every element of every "
+            f"leaf, and zero1's update must be element-wise (each rank "
+            f"would clip its own chunk by its own norm)")
+    if cfg.optimizer == "lars":
+        raise ValueError(
+            "optimizer='lars' with the ZeRO-1 weight update: LARS's "
+            "per-tensor trust ratio couples the elements of a leaf, and "
+            "zero1's update must be element-wise")
+
+
+def build_optimizer(cfg: TrainConfig, model: nn.Module,
+                    shards: tuple | None = None) -> Optimizer:
     """``[clip] → optimizer(+wd) → schedule`` over ``model``'s parameters.
     LR linear-scaling rule: peak = base_lr * global_batch / 256 when
-    ``scale_lr_by_batch``."""
+    ``scale_lr_by_batch``.  ``shards=(n, index)`` builds the moments in
+    the ZeRO-1 layout (see the module docstring)."""
     if cfg.optimizer not in ("adamw", "sgd", "lars"):
         raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
-    return Optimizer(cfg, model, lr_schedule(cfg, cfg.global_batch / 256.0))
+    return Optimizer(cfg, model, lr_schedule(cfg, cfg.global_batch / 256.0),
+                     shards)

@@ -546,8 +546,8 @@ HVD_PROBE_TIMEOUT_S = 90
 # (b) the reference's workload 2, cifar10_resnet18 at its own widths,
 # batch (256 global, 128 a rank) and recipe, as two processes on the one
 # card over gloo (NCCL refuses two ranks on one card).  Cut: steps, 2000
-# -> 10 (20 until PR 17, whose zero1 phase needed the time), and one eval
-# batch, as phase 17.
+# -> 10 (20 before phase zero1 needed the time), and one eval batch, as
+# phase 17.
 HVD_CIFAR_CUTS = {"mesh": {"data": 2}, "total_steps": 10, "eval_every": 10,
                   "eval_batches": 1, "log_every": 5}
 HVD_CIFAR_ARGS = ["--config", "cifar10_resnet18"] + [
@@ -569,7 +569,7 @@ HVD_COMBINE_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -8 + 1e-5}
 # collective a tensor, 104 a step), Horovod's default 64 MiB (one gradient
 # bucket: 62 leaves, 44.7 MB) and 4 MiB (12 gradient buckets, so the
 # staged pass has buckets to start during the backward), then unset again
-# (until PR 17 all three ran twice; the second fused round's time went to
+# (all three ran twice before the second fused round's time went to
 # phase zero1), in one world of two processes, every run with
 # TPUFRAME_CHECK_SPMD=1.  A fused run's final state must equal the first
 # unfused run's bit for bit, or lie within the two unfused runs' measured
@@ -582,11 +582,10 @@ HVD_COMBINE_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -8 + 1e-5}
 HVD_FUSION_SETTINGS = (None, 64 << 20, 4 << 20, None)
 # (e) imagenet_resnet50 bn="fused" as two processes (RESNET_CUTS on a
 # data=2 mesh: batch 256, 128 a rank, 4 steps): unset and 4 MiB (161
-# leaves in 32 gradient buckets).  Until PR 17 an unset run went again for
-# the unfused runs' difference; on cuDNN's deterministic algorithms it
-# read 0 in every call, and the repeat's time went to phase zero1: the
-# fused run (and phase zero1's fp runs) is now held to the unset run bit
-# for bit.
+# leaves in 32 gradient buckets).  An unset run used to go again for the
+# unfused runs' difference; on cuDNN's deterministic algorithms it read 0
+# in every call, and the repeat's time went to phase zero1: the fused run
+# (and phase zero1's fp runs) is held to the unset run bit for bit.
 HVD_RESNET_ARGS = RESNET_ARGS + ["--set", "mesh={'data': 2}"]
 HVD_RANK_BATCH = RESNET_BATCH // 2     # each rank's share of (e)'s batch
 HVD_RESNET_SETTINGS = (None, 4 << 20)
@@ -629,8 +628,8 @@ ZERO1_INT8_LOSS_GAP = 2e-3
 # 64, vocab 32000, bf16, remat, the fused xent head, flash attention, S
 # 32768, data=2 x seq=2 (four ranks, gloo: NCCL refuses two ranks on one
 # card).  Cut for the time limit: the steps (2, with one eval batch at
-# the end; 3 until PR 17, whose zero1 phase needed the time) and the
-# global batch, 8 -> 4, so each rank holds [2, 16384] tokens.  At batch 8
+# the end; 3 before phase zero1 needed the time) and the global batch,
+# 8 -> 4, so each rank holds [2, 16384] tokens.  At batch 8
 # a step took 20.5 s (ring) and 18.5 s (Ulysses), bound by the seq
 # group's bytes through gloo's host copies, and the phase 334.5 s.
 SEQ_RANKS = 4

@@ -622,6 +622,13 @@ ZERO1_NORM_RTOL = 1e-6
 # decides the gap.  The bound is the JAX package's documented acceptance
 # bound for the int8 wire (tests/test_quantwire.py, 2e-3 a step).
 ZERO1_INT8_LOSS_GAP = 2e-3
+# (iii): the quantized update-delta gather, at the first step whose
+# learning rate is above 0 (step 2: imagenet_resnet50's warmup starts at
+# lr 0, so step 1's delta is zero), per element against the exact delta:
+# at most half a quantization step, blockmax / 254, times the f32
+# roundings of the scale, the division and the product (together under
+# 3.1e-5 relative; the slack below is 2^-12).
+ZERO1_DELTA_SLACK = 1.0 + 2.0 ** -12
 
 # Sequence parallelism (phase ``seq``): lm_long as its own recipe trains
 # it, on its own mesh and sequence: hidden 768, 12 layers, 12 heads of
@@ -5078,7 +5085,7 @@ def _zero1_laws(model, small: list, n: int, update: str, wire: str,
     fp = []
     for p in model.parameters():
         size, item = p.numel(), p.element_size()
-        padded = -(-size // n) * n
+        padded = zero1.padded_len(size, n)
         if update == "zero1" and not (wire == "int8-block"
                                       and padded >= 1024):
             fp.append(torch.empty(padded, dtype=p.dtype, device="meta"))
@@ -5111,7 +5118,7 @@ def _int8_errors(local: list, reduced: list, full: bool) -> dict:
     ratio = worst = 0.0
     for g, r in zip(local, reduced):
         size = g.numel()
-        padded = -(-size // n) * n
+        padded = zero1.padded_len(size, n)
         c = padded // n
         nb = -(-c // 256)
         flat = F.pad(g.float().reshape(-1), (0, padded - size))
@@ -5136,17 +5143,58 @@ def _int8_errors(local: list, reduced: list, full: bool) -> dict:
     return {"ratio": ratio, "abs": worst}
 
 
+def _delta_errors(calls: list, before: list, after: list, n: int) -> dict:
+    """(iii) The quantized update-delta gather of one step (``calls``: each
+    quantized leaf's ``(this rank's exact delta chunk, the gathered
+    vector)``, in parameter order) against the exact deltas of every rank,
+    per element, against ``blockmax / 254`` (``blockmax`` the largest
+    |exact delta| in the element's block of its rank's chunk): ``{"ratio":
+    the worst error over its bound, "abs": the worst error, "leaves": the
+    leaves gathered, "want": the quantized leaves, "applied": every such
+    parameter after the step is the one before plus its gathered delta,
+    bit for bit}``."""
+    import torch.distributed as dist
+    quantized = [i for i, p in enumerate(before)
+                 if zero1.padded_len(p.numel(), n)
+                 >= quantwire.MIN_QUANT_ELEMS]
+    ratio = worst = 0.0
+    applied = len(calls) == len(quantized)
+    for i, (x, full) in zip(quantized, calls):
+        c = x.numel()
+        exact = x.new_empty(n * c)
+        dist.all_gather_into_tensor(exact, x)
+        exact = exact.view(n, c).double()
+        nb = -(-c // 256)
+        blocks = F.pad(exact.abs(), (0, nb * 256 - c)).view(
+            n, nb, 256).amax(dim=-1)
+        bound = (blocks / 254).repeat_interleave(256, dim=1)[:, :c]
+        err = (full.double().view(n, c) - exact).abs()
+        worst = max(worst, float(err.max()))
+        # an all-zero block must come back exactly
+        ratio = max(ratio, float(torch.where(
+            bound > 0, err / torch.where(bound > 0, bound, 1.0),
+            err * 1e30).max()))
+        p0, p1 = before[i], after[i]
+        applied = applied and torch.equal(
+            p1, p0 + full[:p0.numel()].view(p0.shape).to(p0.dtype))
+    return {"ratio": ratio, "abs": worst, "leaves": len(calls),
+            "want": len(quantized), "applied": bool(applied)}
+
+
 def _zero1_run(k: int, label: str, threshold, base: dict, out: str) -> dict:
     """One setting of :func:`hvd_worker_zero1`: ``train.main`` of
     HVD_RESNET_ARGS, its steps counted (collective calls by kind, wire
     bytes by kind), step 1's int8 gradients against the fp mean, the
-    final state against (e)'s (``base``), and the run's books."""
+    quantized delta gather at the first step with lr > 0 against the exact
+    deltas, the final state against (e)'s (``base``), and the run's
+    books."""
     rank, n = hvd.rank(), hvd.size()
     calls, restore = _counting_verbs()
     build = train_lib.build_harness
     got: dict = {"steps": []}
     real = {"all_reduce_mean": quantwire.all_reduce_mean,
-            "scatter_grads": zero1.scatter_grads}
+            "scatter_grads": zero1.scatter_grads,
+            "all_gather": quantwire.all_gather}
 
     def capturing(fn, full):
         # step 1's local gradients and their reduction over the wire
@@ -5158,6 +5206,13 @@ def _zero1_run(k: int, label: str, threshold, base: dict, out: str) -> dict:
                                [r.detach().clone() for r in out_], full)
             return res
         return wrapped
+
+    def capturing_gather(x, grp):
+        # the zero1 step's quantized delta gather, at the delta step
+        full = real["all_gather"](x, grp)
+        if got.get("in_delta_step"):
+            got["delta"].append((x.detach().clone(), full.detach().clone()))
+        return full
 
     def capturing_build(cfg, device="cuda"):
         h = build(cfg, device)
@@ -5173,10 +5228,22 @@ def _zero1_run(k: int, label: str, threshold, base: dict, out: str) -> dict:
                         "model": _cpu_tree(dict(state.model.state_dict())),
                         "opt": build_optimizer(cfg, state.model)
                         .state_dict(), "step": 0, "seed": state.seed}
+            opt = state.opt
+            delta_step = (quantwire.all_gather is capturing_gather
+                          and "delta" not in got
+                          and opt.schedule(opt.count) > 0)
+            if delta_step:
+                got["delta"], got["in_delta_step"] = [], True
+                before = [p.detach().clone() for p in opt.params]
             for kind in calls:
                 calls[kind] = 0
             collectives.reset_wire()
             metrics = step(state, batch)
+            if delta_step:
+                got["in_delta_step"] = False
+                got["delta_params"] = (
+                    before, [p.detach().clone() for p in opt.params])
+                got["delta_at"] = len(got["steps"]) + 1
             got["steps"].append({"calls": dict(calls),
                                  "bytes": dict(collectives.WIRE_BYTES)})
             if first:
@@ -5199,6 +5266,8 @@ def _zero1_run(k: int, label: str, threshold, base: dict, out: str) -> dict:
     if os.environ.get(quantwire.ENV_VAR) == "int8-block":
         quantwire.all_reduce_mean = capturing(real["all_reduce_mean"], True)
         zero1.scatter_grads = capturing(real["scatter_grads"], False)
+        if os.environ.get(zero1.ENV_VAR) == "zero1":
+            quantwire.all_gather = capturing_gather
     reset_launches()
     torch.cuda.reset_peak_memory_stats()
     try:
@@ -5208,6 +5277,7 @@ def _zero1_run(k: int, label: str, threshold, base: dict, out: str) -> dict:
         train_lib.build_harness = build
         quantwire.all_reduce_mean = real["all_reduce_mean"]
         zero1.scatter_grads = real["scatter_grads"]
+        quantwire.all_gather = real["all_gather"]
         restore()
     peak = torch.cuda.max_memory_allocated()
     launches, routes = launch_counts(), dict(fcb.ROUTES)
@@ -5221,6 +5291,9 @@ def _zero1_run(k: int, label: str, threshold, base: dict, out: str) -> dict:
     want_calls, want_bytes = _zero1_laws(model, small, n, update, wire,
                                          threshold)
     int8 = _int8_errors(*got.pop("int8")) if "int8" in got else None
+    delta = (dict(_delta_errors(got.pop("delta"), *got.pop("delta_params"),
+                                n), step=got["delta_at"])
+             if "delta" in got else None)
     # the final state against (e)'s unset replicated run
     model_diff = max(float((t.detach().cpu().double()
                             - base[f"model/{name}"].double()).abs().max())
@@ -5271,6 +5344,7 @@ def _zero1_run(k: int, label: str, threshold, base: dict, out: str) -> dict:
            "want_opt_bytes": want_opt,
            "padded_bytes": zero1.padded_bytes(model, n),
            "int8": hvd.allgather_object(int8),
+           "delta": hvd.allgather_object(delta),
            "launches": hvd.allgather_object(launches),
            "routes": hvd.allgather_object(routes),
            "peak": hvd.allgather_object(peak), "wall_step": wall_step,
@@ -5391,6 +5465,9 @@ def phase_zero1(baseline: dict | None = None) -> dict:
     calls by kind to the bucket census (:func:`_zero1_laws`); (iii) and
     (iv): step 1's gradients within ``2 * blockmax / 254`` an element of
     the fp mean, the loss gap to the fp run under ZERO1_INT8_LOSS_GAP;
+    (iii): the quantized delta gather at the first step with lr > 0 within
+    ``blockmax / 254`` (x ZERO1_DELTA_SLACK) an element of the exact
+    deltas, every quantized parameter moved by its gathered delta;
     every run's loss falls on step 1's batches; ``fused_conv_bn_bwd``
     launched 36 times a step a rank, all on the tensor cores.  Written
     down: step p50 and p10-p90, peak memory a rank, rank 0's idle share
@@ -5477,6 +5554,15 @@ def phase_zero1(baseline: dict | None = None) -> dict:
                 problems.append(f"{name}: step 1's gradients off the fp "
                                 f"mean beyond 2 x blockmax / 254: "
                                 f"{run['int8']}")
+            if run["update"] == "zero1" and not all(
+                    d is not None and d["ratio"] <= ZERO1_DELTA_SLACK
+                    and d["applied"] and d["leaves"] == d["want"] > 0
+                    for d in run["delta"]):
+                problems.append(f"{name}: the quantized delta gather at the "
+                                f"first step with lr > 0 off the exact "
+                                f"deltas beyond blockmax / 254 (x "
+                                f"{ZERO1_DELTA_SLACK!r}), or not applied "
+                                f"as gathered: {run['delta']}")
             ref = fp_losses[run["update"]]
             gap = max(abs(a - b) for a, b in zip(run["losses"], ref))
             run["loss_gap"] = gap
@@ -5504,6 +5590,12 @@ def phase_zero1(baseline: dict | None = None) -> dict:
                  f"{[(round(e['ratio'], 4), e['abs']) for e in run['int8']]}"
                  f", loss gap to fp {run['loss_gap']:.3e}"
                  if run["wire"] == "int8-block" else "")
+        if run["wire"] == "int8-block" and run["update"] == "zero1":
+            by_rank = [(round(d["ratio"], 4), d["abs"], d["leaves"])
+                       for d in run["delta"]]
+            extra += (f"; delta gather at step {run['delta'][0]['step']} "
+                      f"(worst over blockmax / 254, worst abs, leaves) by "
+                      f"rank {by_rank}, applied as gathered")
         log(f"[zero1] {card}: {run['label']}: losses "
             f"{[round(x, 5) for x in run['losses']]} (step 1's batches "
             f"again {run['step1_again']:.5f}); step 1 grad_norm "

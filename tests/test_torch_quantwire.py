@@ -401,8 +401,7 @@ def test_refusals(monkeypatch):
 def test_resolve_legs_env_over_default(monkeypatch):
     monkeypatch.delenv(quantwire.ENV_VAR, raising=False)
     monkeypatch.delenv(quantwire.ENV_VAR_DCN, raising=False)
-    assert quantwire.resolve_legs(program="p", family="f") == (
-        ("fp", "default"), ("fp", "default"))
+    assert quantwire.resolve_legs() == (("fp", "default"), ("fp", "default"))
     monkeypatch.setenv(quantwire.ENV_VAR, " INT8-Block ")
     assert quantwire.resolve_legs()[0] == ("int8-block", "env")
     assert quantwire.FORMATS == jax_qw.FORMATS

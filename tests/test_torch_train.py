@@ -403,10 +403,12 @@ def test_distributed_false_trains_with_no_collective(tmp_path):
 
 
 @pytest.mark.parametrize("overrides,env,world,match", [
-    # ZeRO-1 is ported; the DCN leg of the wire is not (the case keeps
-    # its id)
-    pytest.param({}, {"TPUFRAME_WIRE_FORMAT_DCN": "int8-block"}, 1,
+    # ZeRO-1 is ported; its int8 DCN leg, like any DCN wire, is not
+    pytest.param({}, {"TPUFRAME_WEIGHT_UPDATE": "zero1",
+                      "TPUFRAME_WIRE_FORMAT_DCN": "int8-block"}, 1,
                  "DCN leg.*hierarchical", id="overrides0-env0-1-ZeRO-1"),
+    pytest.param({}, {"TPUFRAME_WIRE_FORMAT_DCN": "int8-block"}, 1,
+                 "DCN leg.*hierarchical", id="dcn-wire-leg"),
     ({}, {"TPUFRAME_HIER": "hier"}, 1, "hierarchical"),
     ({}, {"HOROVOD_FUSION_THRESHOLD": "67108864"}, 1, "bucketed fusion"),
     ({"model": "transformer-lm-pp"}, {}, 1, "pipeline"),

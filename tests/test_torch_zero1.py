@@ -747,8 +747,7 @@ def test_refusals(clean):
 
 
 def test_resolution_and_check(clean):
-    assert zero1.resolve(program="p", family="f") == ("replicated",
-                                                      "default")
+    assert zero1.resolve() == ("replicated", "default")
     clean.setenv(zero1.ENV_VAR, " ZeRO1 ")
     assert zero1.resolve() == ("zero1", "env")
     assert zero1.check() == []

@@ -346,3 +346,21 @@ def test_the_flat_maps_round_trip(family, n):
         {k: torch.cat(v) for k, v in whole.items()}, order, n)
     for path, w in convert._paths(flat):
         np.testing.assert_array_equal(convert._at(back, path), w)
+
+
+def test_only_a_zero1_moment_is_resharded(tmp_path):
+    """``restore`` reshards a flat ``opt`` leaf saved as a ``FlatShard``
+    (or restored into one); a replicated 1-d moment of another length is
+    no ZeRO-1 vector and raises."""
+    d = str(tmp_path)
+    ckpt.save(d, 1, {"opt": {"trace": {"b": torch.ones(5)}}, "step": 1})
+    target = {"opt": {"trace": {"b": torch.zeros(6)}}, "step": 0}
+    with pytest.raises(ValueError, match="not a flat ZeRO-1 optimizer"):
+        ckpt.restore(d, 1, target=target)
+    ckpt.save(d, 2, {"opt": {"trace": {"b": ckpt.FlatShard(
+        torch.ones(5), 0, 1)}}, "step": 1})
+    got = ckpt.restore(d, 2, target=target)
+    assert got["opt"]["trace"]["b"].tolist() == [1.0] * 5 + [0.0]
+    got = ckpt.restore(d, 1, target={"opt": {"trace": {"b": ckpt.FlatShard(
+        torch.zeros(3), 1, 2)}}, "step": 0})
+    assert got["opt"]["trace"]["b"].tolist() == [1.0, 1.0, 0.0]

@@ -62,6 +62,8 @@ _STEP_RE = re.compile(r"^step_(\d{8})$")
 _MANIFEST = "manifest.json"
 _COMMIT = "COMMIT"
 _BF16 = "bfloat16"
+# the manifest spec of a FlatShard leaf: its one dim split over the data axis
+_FLAT_SPEC = [["data"]]
 
 
 @dataclass(frozen=True)
@@ -236,7 +238,7 @@ def _prepare_save(directory: str, step: int, tree: Tree, *, sink=None):
             # every rank writes its own chunk
             table = leaf.table(_sanitize(name))
             manifest["leaves"][name] = {
-                "shape": _shape(leaf), "dtype": dtype, "spec": [["data"]],
+                "shape": _shape(leaf), "dtype": dtype, "spec": _FLAT_SPEC,
                 "shards": table}
             fname, leaf = table[leaf.index]["file"], leaf.tensor
         else:
@@ -411,10 +413,11 @@ def restore(directory: str, step: int, *, target: Tree | None = None,
     names must match (else ValueError), each tensor's shape must match its
     target's, and a leaf whose target is a Python number comes back as
     one.  A :class:`FlatShard` target comes back as its chunk alone, read
-    from the files that overlap it.  A flat ``opt/...`` leaf whose length
-    differs from its 1-d target's (a ZeRO-1 moment saved at another world
-    size) is resharded: truncated or zero-padded to the target's length;
-    every other shape mismatch raises ValueError."""
+    from the files that overlap it.  A flat ``opt/...`` ZeRO-1 moment (saved
+    as a :class:`FlatShard`, or restored into one) whose length differs
+    from its 1-d target's (a save at another world size) is resharded:
+    truncated or zero-padded to the target's length; every other shape
+    mismatch raises ValueError."""
     path = gcs.join(directory, f"step_{step:08d}")
     if not gcs.exists(gcs.join(path, _COMMIT)):
         raise FileNotFoundError(f"no committed checkpoint at {path}")
@@ -441,7 +444,11 @@ def restore(directory: str, step: int, *, target: Tree | None = None,
         want = tuple(_shape(tgt))
         got = tuple(entry["shape"])
         opt = name.split("/", 1)[0] == "opt"
-        flat = opt and len(got) == 1 and len(want) == 1
+        # a ZeRO-1 moment: saved as one (spec [["data"]]) or restored into
+        # one; a replicated moment of another length is no such vector
+        flat = (opt and len(got) == 1 and len(want) == 1
+                and (entry.get("spec") == _FLAT_SPEC
+                     or isinstance(tgt, FlatShard)))
         if got != want and not flat:
             raise ValueError(f"checkpoint leaf {name!r} shape {got} does "
                              f"not match target shape {want}"

@@ -22,6 +22,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tpuframe_torch.parallel.zero1 import chunk_len, flat_pad, padded_len
+
 
 def params_from_jax(params) -> dict:
     """flax ``params`` (nested dicts of numpy arrays) → the port model's
@@ -327,10 +329,8 @@ def zero1_moments_from_jax(moment, order: dict, n: int, index: int) -> dict:
     for name, (path, idx) in order.items():
         v = np.asarray(_at(moment, path)).reshape(-1)
         full = torch.from_numpy(np.array(v[idx.numpy()], dtype=np.float32))
-        size = full.numel()
-        c = -(-size // n)
-        full = torch.nn.functional.pad(full, (0, c * n - size))
-        out[name] = full[index * c:(index + 1) * c].clone()
+        c = chunk_len(full.numel(), n)
+        out[name] = flat_pad(full, n)[index * c:(index + 1) * c].clone()
     return out
 
 
@@ -343,7 +343,7 @@ def zero1_moments_to_jax(moments: dict, order: dict, n: int) -> dict:
     pairs = []
     for name, (path, idx) in order.items():
         size = idx.numel()
-        v = np.zeros(-(-size // n) * n, np.float32)
+        v = np.zeros(padded_len(size, n), np.float32)
         v[idx.numpy()] = np.asarray(moments[name], np.float32)[:size]
         pairs.append((path, v))
     return _build(pairs)

@@ -34,7 +34,7 @@ of ``padded`` elements over ``n`` ranks is ``n * ceil(padded / n / 256) *
 
 Where this module and the JAX one differ:
 
-  - :func:`resolve_legs` is env > default (the port has no tuning DB), and
+  - :func:`resolve_legs` is env > ``fp`` (the port has no tuning DB), and
     its DCN leg accepts only ``fp``: that leg belongs to the two-level
     lowering (``TPUFRAME_HIER``), which the port does not have yet
     (ROADMAP.md queue 1, item 12);
@@ -87,22 +87,15 @@ def format_from_env_dcn(env=os.environ) -> str | None:
     return validate_format(raw) if raw else None
 
 
-def resolve_legs(program: str | None = None, family: str | None = None,
-                 family_dcn: str | None = None, default: str = "fp",
-                 default_dcn: str = "fp") -> tuple:
+def resolve_legs() -> tuple:
     """``((format, source), (format_dcn, source_dcn))``: each leg the env
-    knob, else its default; ``source`` is ``"env"`` or ``"default"``.
-    ``program`` and the families name the tuning-DB rows in the JAX
-    package; the port has no DB, so they change nothing.  A DCN leg other
-    than ``fp`` raises ``NotImplementedError``: it needs the two-level
-    lowering, which is not ported."""
-    del program, family, family_dcn
+    knob, else ``fp``; ``source`` is ``"env"`` or ``"default"``.  A DCN
+    leg other than ``fp`` raises ``NotImplementedError``: it needs the
+    two-level lowering, which is not ported."""
     env_val = format_from_env()
-    ici = (env_val, "env") if env_val is not None else (
-        validate_format(default), "default")
+    ici = (env_val, "env") if env_val is not None else ("fp", "default")
     env_dcn = format_from_env_dcn()
-    dcn = (env_dcn, "env") if env_dcn is not None else (
-        validate_format(default_dcn), "default")
+    dcn = (env_dcn, "env") if env_dcn is not None else ("fp", "default")
     if dcn[0] != "fp":
         raise NotImplementedError(
             f"{ENV_VAR_DCN}={dcn[0]!r}: the DCN leg's wire rides the "
@@ -111,11 +104,11 @@ def resolve_legs(program: str | None = None, family: str | None = None,
     return ici, dcn
 
 
-def quantize_blocks(flat: torch.Tensor, block: int = DEFAULT_BLOCK):
+def quantize_blocks(flat: torch.Tensor):
     """Symmetric per-block s8 quantization of a flat f32 tensor whose
-    length is a multiple of ``block``: ``(q s8 [m/block, block], scales
-    f32 [m/block])`` with ``scale = max|row| / 127``."""
-    rows = flat.reshape(-1, block)
+    length is a multiple of ``DEFAULT_BLOCK``: ``(q s8 [m/256, 256],
+    scales f32 [m/256])`` with ``scale = max|row| / 127``."""
+    rows = flat.reshape(-1, DEFAULT_BLOCK)
     scales = rows.abs().amax(dim=1) * (1.0 / _QMAX)
     safe = torch.where(scales == 0.0, 1.0, scales)
     q = torch.clamp(torch.round(rows / safe[:, None]), -_QMAX, _QMAX)
@@ -144,23 +137,22 @@ def _pad_to(flat: torch.Tensor, multiple: int) -> torch.Tensor:
     return F.pad(flat, (0, pad)) if pad else flat
 
 
-def _blocks(c: int, block: int) -> int:
-    return -(-c // block)
+def _blocks(c: int) -> int:
+    return -(-c // DEFAULT_BLOCK)
 
 
-def _rs_mean_flat(flat: torch.Tensor, grp, n: int,
-                  block: int) -> torch.Tensor:
+def _rs_mean_flat(flat: torch.Tensor, grp, n: int) -> torch.Tensor:
     """Quantized reduce-scatter (mean) of an f32 ``(n * c,)`` operand:
     this rank's ``(c,)`` mean shard, in f32.  Rank ``i`` owns chunk ``i``,
     as with the fp reduce-scatter."""
     c = flat.numel() // n
-    nb = _blocks(c, block)
+    nb = _blocks(c)
     rows = flat.view(n, c)
-    if nb * block != c:
-        rows = F.pad(rows, (0, nb * block - c))
-    q, scales = quantize_blocks(rows.reshape(-1), block)
+    if nb * DEFAULT_BLOCK != c:
+        rows = F.pad(rows, (0, nb * DEFAULT_BLOCK - c))
+    q, scales = quantize_blocks(rows.reshape(-1))
     # each source's scales travel with its payload: a dequantize a source
-    q, wq = collectives.all_to_all_start(q.view(n, nb, block), grp)
+    q, wq = collectives.all_to_all_start(q.view(n, nb, DEFAULT_BLOCK), grp)
     scales, ws = collectives.all_to_all_start(scales.view(n, nb), grp)
     wq.wait()
     ws.wait()
@@ -168,17 +160,17 @@ def _rs_mean_flat(flat: torch.Tensor, grp, n: int,
     return total.reshape(-1)[:c] / n
 
 
-def _gather_flat(shard: torch.Tensor, grp, block: int) -> torch.Tensor:
+def _gather_flat(shard: torch.Tensor, grp) -> torch.Tensor:
     """Quantized tiled all-gather of an f32 ``(c,)`` shard: the ``(n *
     c,)`` vector every rank reconstructs, in f32."""
     c = shard.numel()
-    nb = _blocks(c, block)
-    q, scales = quantize_blocks(_pad_to(shard, block), block)
+    nb = _blocks(c)
+    q, scales = quantize_blocks(_pad_to(shard, DEFAULT_BLOCK))
     gq, wq = collectives.all_gather_start(q, grp)
     gs, ws = collectives.all_gather_start(scales, grp)
     wq.wait()
     ws.wait()
-    full = dequantize_blocks(gq, gs).view(-1, nb * block)
+    full = dequantize_blocks(gq, gs).view(-1, nb * DEFAULT_BLOCK)
     return full[:, :c].reshape(-1)
 
 
@@ -193,8 +185,7 @@ def _require_flat(x: torch.Tensor, who: str) -> None:
                          f"{tuple(x.shape)}; reshape(-1) first")
 
 
-def reduce_scatter_mean(x: torch.Tensor, grp, *,
-                        block: int = DEFAULT_BLOCK) -> torch.Tensor:
+def reduce_scatter_mean(x: torch.Tensor, grp) -> torch.Tensor:
     """The quantized twin of ``collectives.reduce_scatter_start`` with the
     mean: this rank's chunk of the world's mean of the flat ``x`` (length
     a multiple of the world size), in ``x``'s dtype.  A world of one
@@ -208,22 +199,20 @@ def reduce_scatter_mean(x: torch.Tensor, grp, *,
                          f"is not divisible by the {n} ranks; pad to a "
                          f"multiple of {n} first (zero1's pad-to-multiple "
                          f"layout)")
-    return _rs_mean_flat(x.float(), grp, n, block).to(x.dtype)
+    return _rs_mean_flat(x.float(), grp, n).to(x.dtype)
 
 
-def all_gather(x: torch.Tensor, grp, *,
-               block: int = DEFAULT_BLOCK) -> torch.Tensor:
+def all_gather(x: torch.Tensor, grp) -> torch.Tensor:
     """The quantized twin of the tiled all-gather of a flat shard: every
     rank's ``x`` in rank order, rebuilt from s8 payloads and scales, in
     ``x``'s dtype.  A world of one returns ``x``."""
     if _world(grp) == 1:
         return x
     _require_flat(x, "quantwire.all_gather")
-    return _gather_flat(x.float(), grp, block).to(x.dtype)
+    return _gather_flat(x.float(), grp).to(x.dtype)
 
 
 def all_reduce_mean(tensors: Sequence[torch.Tensor], grp, *,
-                    block: int = DEFAULT_BLOCK,
                     min_elems: int = MIN_QUANT_ELEMS) -> list:
     """The world's mean of each tensor over the int8-block wire: flattened,
     padded to a multiple of the world size, the quantized reduce-scatter,
@@ -241,7 +230,6 @@ def all_reduce_mean(tensors: Sequence[torch.Tensor], grp, *,
                 g.clone(memory_format=torch.contiguous_format), grp))
         else:
             flat = _pad_to(g.float().reshape(-1), n)
-            full = _gather_flat(_rs_mean_flat(flat, grp, n, block), grp,
-                                block)
+            full = _gather_flat(_rs_mean_flat(flat, grp, n), grp)
             out.append(full[:g.numel()].view(g.shape).to(g.dtype))
     return out

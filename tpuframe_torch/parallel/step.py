@@ -58,7 +58,6 @@ import numpy as np
 import torch
 from torch import nn
 
-from tpuframe_torch.ckpt import FlatShard
 from tpuframe_torch.parallel import collectives, fusion, quantwire, zero1
 from tpuframe_torch.utils.optim import Optimizer
 
@@ -83,26 +82,16 @@ class TrainState:
         them), ``opt/count``, ``opt/<mu|nu|trace>/<parameter name>``,
         ``step`` and ``seed``.  The tensors are the live ones, not
         copies.  An optimizer in the ZeRO-1 layout gives its moments as
-        ``ckpt.FlatShard`` leaves (this rank's chunk of the global flat
-        vector)."""
-        opt = self.opt.state_dict()
-        if self.opt.shards is not None:
-            n, idx = self.opt.shards
-            opt = {key: val if key == "count" else
-                   {name: FlatShard(t, idx, n) for name, t in val.items()}
-                   for key, val in opt.items()}
-        return {"model": dict(self.model.state_dict()), "opt": opt,
+        ``ckpt.FlatShard`` leaves (``zero1.opt_tree``)."""
+        return {"model": dict(self.model.state_dict()),
+                "opt": zero1.opt_tree(self.opt),
                 "step": self.step, "seed": self.seed}
 
     def load_tree(self, tree: dict) -> None:
         """Take a tree of :meth:`to_tree`'s structure, copying into the
-        live tensors in place (a ``FlatShard`` leaf by its tensor)."""
-        opt = {key: val if key == "count" else
-               {name: t.tensor if isinstance(t, FlatShard) else t
-                for name, t in val.items()}
-               for key, val in tree["opt"].items()}
+        live tensors in place."""
         self.model.load_state_dict(tree["model"])
-        self.opt.load_state_dict(opt)
+        self.opt.load_state_dict(zero1.load_opt_tree(tree["opt"]))
         self.step = int(tree["step"])
         self.seed = int(tree["seed"])
 

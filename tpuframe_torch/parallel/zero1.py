@@ -42,7 +42,7 @@ as in the JAX package.
 
 Where this module and the JAX one differ:
 
-  - :func:`resolve` is env > default: the port has no tuning DB;
+  - :func:`resolve` is env > ``replicated``: the port has no tuning DB;
   - the world is the data-parallel group of ``torch.distributed``
     (:func:`world_size`), not mesh axes; the two-level ``hier`` lowering
     is not ported (ROADMAP.md queue 1, item 12);
@@ -58,6 +58,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tpuframe_torch.ckpt import FlatShard
 from tpuframe_torch.parallel import collectives, fusion, quantwire
 
 MODES = ("replicated", "zero1")
@@ -78,16 +79,13 @@ def mode_from_env(env=os.environ) -> str | None:
     return validate_mode(raw) if raw else None
 
 
-def resolve(program: str | None = None, family: str | None = None,
-            default: str = "replicated") -> tuple:
-    """``(mode, source)``: the env knob, else ``default``; ``source`` is
-    ``"env"`` or ``"default"``.  ``program`` and ``family`` name the
-    tuning-DB row in the JAX package; the port has no DB."""
-    del program, family
+def resolve() -> tuple:
+    """``(mode, source)``: the env knob, else ``replicated``; ``source``
+    is ``"env"`` or ``"default"``."""
     env_val = mode_from_env()
     if env_val is not None:
         return env_val, "env"
-    return validate_mode(default), "default"
+    return "replicated", "default"
 
 
 def padded_len(size: int, n: int) -> int:
@@ -98,6 +96,33 @@ def padded_len(size: int, n: int) -> int:
     ``padded_len(size, n')`` (``ckpt.restore`` does it)."""
     size, n = int(size), int(n)
     return -(-size // n) * n
+
+
+def chunk_len(size: int, n: int) -> int:
+    """The elements of one rank's chunk of a ``size``-element leaf."""
+    return padded_len(size, n) // int(n)
+
+
+def opt_tree(opt) -> dict:
+    """``opt.state_dict()`` for a checkpoint: in the ZeRO-1 layout each
+    moment as a ``ckpt.FlatShard`` (this rank's chunk of the global flat
+    ``[padded]`` vector, the JAX layout on disk)."""
+    tree = opt.state_dict()
+    if opt.shards is None:
+        return tree
+    n, idx = opt.shards
+    return {key: val if key == "count" else
+            {name: FlatShard(t, idx, n) for name, t in val.items()}
+            for key, val in tree.items()}
+
+
+def load_opt_tree(tree: dict) -> dict:
+    """The inverse of :func:`opt_tree`: a ``FlatShard`` leaf by its
+    tensor, for ``Optimizer.load_state_dict``."""
+    return {key: val if key == "count" else
+            {name: t.tensor if isinstance(t, FlatShard) else t
+             for name, t in val.items()}
+            for key, val in tree.items()}
 
 
 def world_size(grp) -> int:
@@ -181,7 +206,7 @@ def check_state_layout(opt, n: int):
             f"weight_update='zero1'")
     for key, ts in opt.moments.items():
         for name, p, t in zip(opt.names, opt.params, ts):
-            want = padded_len(p.numel(), n) // n
+            want = chunk_len(p.numel(), n)
             if t.dim() != 1 or t.numel() != want:
                 raise ValueError(
                     f"{key} {name}: {tuple(t.shape)} is not a [{want}] "

@@ -118,8 +118,10 @@ class Optimizer:
                              for p in self.params]
         else:
             _check_elementwise(cfg)
+            from tpuframe_torch.parallel.zero1 import chunk_len
+
             n = self.shards[0]
-            zeros = lambda: [p.new_zeros(-(-p.numel() // n))  # noqa: E731
+            zeros = lambda: [p.new_zeros(chunk_len(p.numel(), n))  # noqa: E731
                              for p in self.params]
         self.moments = ({"mu": zeros(), "nu": zeros()}
                         if cfg.optimizer == "adamw" else {"trace": zeros()})

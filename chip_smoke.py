@@ -3140,7 +3140,10 @@ def _profile_steps(harness, calls: int, tries: int = 1):
     a step, the kernels (largest first; None when the profiler's record
     is incomplete) and :func:`_busy`'s ``(device ms a step, idle share,
     log text)``.  ``tries``: windows to take until one's record is whole
-    (each window steps the state on)."""
+    (each window steps the state on); in a world of ranks every rank's
+    record must be whole, so that all ranks take the next window (and its
+    collectives) together."""
+    import torch.distributed as dist
     batch = next(iter(harness.train_loader))
     step = lambda: float(harness.train_step(harness.state, batch)["loss"])  # noqa: E731
     wall_step = wall_ms(step, calls)
@@ -3149,7 +3152,9 @@ def _profile_steps(harness, calls: int, tries: int = 1):
         for _ in range(calls):
             step()
 
-    kernels = device_time(window, tries=tries)
+    agree = (None if not dist.is_initialized() or dist.get_world_size() == 1
+             else lambda whole: all(hvd.allgather_object(whole)))
+    kernels = device_time(window, tries=tries, agree=agree)
     return wall_step, kernels, _busy(kernels, wall_step, calls)
 
 
@@ -6155,7 +6160,7 @@ def wall_ms(fn, calls: int) -> float:
     return 1e3 * (time.monotonic() - t) / calls
 
 
-def device_time(fn, calls: int = 1, tries: int = 1):
+def device_time(fn, calls: int = 1, tries: int = 1, agree=None):
     """Kernels that ``calls`` calls of ``fn`` run on the card, by
     torch.profiler: a list of ``(name, device ms, count)``, largest
     first.  Only device-side events count (the CPU ops that launched
@@ -6167,10 +6172,15 @@ def device_time(fn, calls: int = 1, tries: int = 1):
     hand-written kernel that the wrappers counted in it.  On the H100
     machines this runs on, some records lose kernels, most often the
     last (PERF.md §6).  A window whose ``fn`` only launches kernels (no
-    state it changes) may be taken again, ``tries`` times in all."""
+    state it changes) may be taken again, ``tries`` times in all.
+    ``agree``: where ``fn`` runs collectives, a function from this rank's
+    verdict (True: whole) to all ranks' (True: every rank's record is
+    whole), so that the ranks take a window again together or not at
+    all."""
     for _ in range(tries - 1):
         kernels = _device_time(fn, calls, quiet=True)
-        if kernels is not None:
+        whole = kernels is not None
+        if agree(whole) if agree is not None else whole:
             return kernels
     return _device_time(fn, calls)
 

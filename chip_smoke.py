@@ -158,7 +158,18 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
      bytes and collective calls a step equal to the byte laws and the
      census, the int8 gradients within 2 x blockmax / 254 of the fp mean
      and the loss gap bounded, every fused conv+BN launch on the tensor
-     cores (path ``zero1``); step p50, peak memory, idle share.
+     cores (path ``zero1``); step p50, peak memory, idle share;
+ 22. mixture of experts, expert and tensor parallelism (``moe``):
+     lm_long at its widths with 8 experts, top-2, on every second block
+     (8 layers, S=4096, global batch 2) through ``train.main``, (a) as one
+     process, then (b) on data=1 x expert=2 and (c) on data=1 x model=2 in
+     one world of two gloo processes: step 1 of (b) and (c) against (a) and a
+     one-process f32 step by phase seq's noise rule (loss, aux, gradient
+     norm, every parameter's gradient put together from the ranks'
+     blocks), replicated leaves bit-identical across ranks, every flash
+     launch on the tensor cores ((c)'s on 6 heads), the collectives of
+     every step equal to their law (path ``moe``); step p50 and p10-p90,
+     peak memory and state bytes a rank, bytes a step, idle share.
 
 Phases 13-15 run with ``TPUFRAME_ATTN_IMPL=pallas`` and restore it after.
 The harness turns TF32 off (f32 convolutions and matmuls run in f32), and
@@ -636,15 +647,16 @@ ZERO1_DELTA_SLACK = 1.0 + 2.0 ** -12
 # 32768, data=2 x seq=2 (four ranks, gloo: NCCL refuses two ranks on one
 # card).  Cut for the time limit: the steps (2, with one eval batch at
 # the end; 3 before phase zero1 needed the time) and the global batch,
-# 8 -> 4, so each rank holds [2, 16384] tokens.  At batch 8
-# a step took 20.5 s (ring) and 18.5 s (Ulysses), bound by the seq
-# group's bytes through gloo's host copies, and the phase 334.5 s.
+# 8 -> 4, so each rank holds [2, 16384] tokens, and the depth, 12 -> 4
+# layers (phase moe needed the time; every check a layer stays).  At
+# batch 8 a step took 20.5 s (ring) and 18.5 s (Ulysses), bound by the
+# seq group's bytes through gloo's host copies, and the phase 334.5 s.
 SEQ_RANKS = 4
 SEQ_MESH = {"data": 2, "seq": 2}
 SEQ_STEPS = 2
 SEQ_EVAL_BATCHES = 1
 SEQ_GLOBAL_BATCH = 4
-SEQ_LAYERS = 12
+SEQ_LAYERS = 4
 SEQ_CUTS = {"mesh": SEQ_MESH, "total_steps": SEQ_STEPS,
             "eval_every": SEQ_STEPS, "eval_batches": SEQ_EVAL_BATCHES,
             "log_every": 1, "global_batch": SEQ_GLOBAL_BATCH}
@@ -702,6 +714,26 @@ SEQ_KERNEL_TOL = {"out": 1e-2, "lse": TOL[torch.bfloat16]["lse"],
 SEQ_KERNEL_CASES = (("ring diagonal stage", SEQ_RING_SHAPE, True, True),
                     ("ring off-diagonal stage", SEQ_RING_SHAPE, False, True),
                     ("ulysses", SEQ_ULYSSES_SHAPE, True, False))
+
+# Mixture of experts, expert and tensor parallelism (phase ``moe``): the
+# lm_long recipe at its widths and depth (hidden 768, 12 heads,
+# intermediate 3072, vocab 32000, bf16, remat, fused xent, flash) with
+# Mixtral 8x7B's expert count and k (8 experts, top-2; Jiang et al.,
+# arXiv 2401.04088) on every second block, capacity factor 1.25 and aux
+# weight 0.01 (the defaults), cut to S=4096 and a global batch of 2 (T =
+# 8192 tokens: the router's f32 [T, E, C] tensors are 672 MB each at C =
+# capacity_for(8192, 8, 2, 1.25) = 2564; lm_long's own batch would make
+# them 687 GB) and the depth to 8 layers (4 of them MoE layers; the
+# time limit).  (a) one process; (b) data=1 x expert=2 and (c) data=1 x
+# model=2 in turn in one world of two gloo processes on the card
+# (``--moe-worker``).
+MOE_STEPS = 3
+MOE_EVAL_BATCHES = 1
+MOE_GLOBAL_BATCH = 2
+MOE_DATA = {"seq_len": 4096}
+MOE_MODEL = {"moe_experts": 8, "moe_k": 2, "num_layers": 8}
+MOE_MESHES = {"b": {"data": 1, "expert": 2}, "c": {"data": 1, "model": 2}}
+MOE_TIMEOUT_S = 600
 
 # The serving fleet (phase ``fleet``): phase serve's engine in each of
 # FLEET_REPLICAS replica processes behind the port's router.  Seeded
@@ -5669,7 +5701,8 @@ def _hvd_probes(root: str) -> dict:
 def _seq_args(mode: str, cuts: dict = SEQ_CUTS) -> list:
     """``train.main`` arguments of lm_long with ``cuts`` and its model's
     ``seq_mode`` set to ``mode``."""
-    model = dict(get_config("lm_long").model_kwargs, seq_mode=mode)
+    model = dict(get_config("lm_long").model_kwargs, seq_mode=mode,
+                 num_layers=SEQ_LAYERS)
     sets = {**cuts, "model_kwargs": model}
     return ["--config", "lm_long"] + [
         a for k, v in sets.items() for a in ("--set", f"{k}={v!r}")]
@@ -5705,7 +5738,8 @@ def _seq_reference() -> dict:
     (the noise floor's yardstick): loss, gradient norm and each
     parameter's gradient (on the host) of each."""
     cfg = get_config("lm_long").with_overrides(
-        mesh={"data": 1, "seq": 1}, global_batch=SEQ_GLOBAL_BATCH)
+        mesh={"data": 1, "seq": 1}, global_batch=SEQ_GLOBAL_BATCH,
+        model_kwargs={"num_layers": SEQ_LAYERS})
     batch = _seq_global_batch(cfg)
     out = {}
     for dtype in ("bfloat16", "float32"):
@@ -6145,6 +6179,437 @@ def phase_seq() -> dict:
     return {"launches": total, "kernels": kernels, "ring": worst}
 
 
+def _moe_args(mesh: dict) -> list:
+    """``train.main`` arguments of lm_long with phase moe's model and
+    cuts on ``mesh``."""
+    cfg = get_config("lm_long")
+    sets = {"mesh": mesh, "model_kwargs": dict(cfg.model_kwargs, **MOE_MODEL),
+            "dataset_kwargs": MOE_DATA,
+            "global_batch": MOE_GLOBAL_BATCH, "total_steps": MOE_STEPS,
+            "eval_every": MOE_STEPS, "eval_batches": MOE_EVAL_BATCHES,
+            "log_every": 1}
+    return ["--config", "lm_long"] + [
+        a for k, v in sets.items() for a in ("--set", f"{k}={v!r}")]
+
+
+def _moe_cfg() -> LMConfig:
+    """Phase moe's model."""
+    return LMConfig(**dict(get_config("lm_long").model_kwargs, **MOE_MODEL))
+
+
+def _moe_law(mesh: dict) -> dict:
+    """The sharded-state collectives of one training step of phase moe's
+    model on ``mesh`` (data 1), as ``{verb: (calls, bytes this rank
+    sends)}`` from ``collectives.SHARD_CALLS``/``SHARD_BYTES``.  Every
+    partial result is summed in f32 ([T, H], 4 bytes an element), every
+    ``copy_to``'s cotangent once in the backward; the remat recompute
+    (``torch.utils.checkpoint``) stops once it has rebuilt the last tensor
+    the block's backward saved, so an MLP's or MoE layer's output sum,
+    which only feeds the residual add, runs once a step, and the
+    attention's, under the MLP's LayerNorm, twice.  The embedding's
+    columns and the head's rows are gathered once (outside the blocks),
+    and the global gradient norm sums three numbers.  (b) expert=2: an
+    MoE layer's output sum and its tokens' and combine weights' ([T, E])
+    cotangents.  (c) model=2: each block's attention output sum (x2) and
+    its input's cotangent; a dense MLP's output sum and input cotangent;
+    an MoE layer's as (b)'s."""
+    t = MOE_GLOBAL_BATCH * MOE_DATA["seq_len"]
+    cfg = _moe_cfg()
+    h, e, v = cfg.hidden_size, cfg.moe_experts, cfg.vocab_size
+    layers = cfg.num_layers
+    moe = sum(1 for i in range(layers) if (i + 1) % cfg.moe_every == 0)
+    dense = layers - moe
+    full, weight = t * h * 4, t * e * 4
+    calls, nbytes = 3 * moe + 1, moe * (2 * full + weight) + 12
+    gather = (0, 0)
+    if mesh.get("model", 1) > 1:
+        m = mesh["model"]
+        calls += 3 * layers + 2 * dense
+        nbytes += (3 * layers + 2 * dense) * full
+        gather = (2, t * (h // m) * 4 + (v // m) * h * 4)
+    return {"all_reduce": (calls, nbytes), "all_gather": gather}
+
+
+def _grad_blocks(model) -> dict:
+    """Each parameter's gradient (f32, on the host) with the block of the
+    whole tensor it is (None: whole)."""
+    specs = getattr(model, "shard_specs", {})
+    out = {}
+    for n, p in model.named_parameters():
+        if p.grad is None:
+            continue
+        idx = None
+        if n in specs:
+            from tpuframe_torch.parallel import tp
+
+            idx = tp.shard_leaf(p.grad, specs[n], model.layout).index
+        out[n] = (idx, p.grad.detach().float().cpu())
+    return out
+
+
+def _whole(blocks_by_rank: list) -> dict:
+    """The ranks' gradient blocks put back together."""
+    from tpuframe_torch.parallel import tp
+
+    out = {}
+    for name, (idx, t) in blocks_by_rank[0].items():
+        if idx is None:
+            out[name] = t
+            continue
+        parts = {tuple(map(tuple, r[name][0])): r[name][1]
+                 for r in blocks_by_rank}
+        shape = tuple(max(hi for _, hi in dims) for dims in zip(*parts))
+        out[name] = tp.paste(shape, parts.items())
+    return out
+
+
+def _moe_run(tag: str, mesh: dict, rank: int, profile: bool,
+             tries: int = 1) -> tuple:
+    """One lm_long MoE run of this process (or world) through
+    ``train.main`` on ``mesh``: every step's launches, sharded-state
+    collectives and flash head counts, step 1's metrics, the final
+    replicated leaves' digests, peak memory and state bytes; then, with
+    ``profile``, one step timed outside the profiler and one more
+    profiled on rank 0 (up to ``tries`` times while the profiler's record
+    is not whole: one process only, since the other ranks of a world step
+    once beside it).  Returns that and step 1's reduced gradients as
+    blocks (:func:`_grad_blocks`)."""
+    build = train_lib.build_harness
+    got = {"steps": [], "heads": set()}
+    real_fwd, real_bwd = fa._launch, fa._launch_bwd
+
+    def fwd(q, *a, **kw):
+        got["heads"].add(int(q.shape[2]))
+        return real_fwd(q, *a, **kw)
+
+    def bwd(which, q, *a, **kw):
+        got["heads"].add(int(q.shape[2]))
+        return real_bwd(which, q, *a, **kw)
+
+    def capturing_build(cfg, device="cuda"):
+        h = build(cfg, device)
+        step = h.train_step
+
+        def train_step(state, batch):
+            launches0 = launch_counts()
+            calls0, bytes0 = (dict(collectives.SHARD_CALLS),
+                              dict(collectives.SHARD_BYTES))
+            metrics = step(state, batch)
+            launches = launch_counts()
+            got["steps"].append({
+                "launches": {k: launches[k] - launches0[k]
+                             for k in launches},
+                "calls": {k: collectives.SHARD_CALLS[k] - calls0[k]
+                          for k in calls0},
+                "bytes": {k: collectives.SHARD_BYTES[k] - bytes0[k]
+                          for k in bytes0}})
+            if len(got["steps"]) == 1:
+                got["step1"] = {k: float(metrics[k])
+                                for k in ("loss", "moe_aux", "grad_norm")}
+                got["grads"] = _grad_blocks(state.model)
+            return metrics
+
+        h.train_step = train_step
+        got["harness"] = h
+        return h
+
+    train_lib.build_harness = capturing_build
+    fa._launch, fa._launch_bwd = fwd, bwd
+    reset_launches()
+    collectives.reset_shard()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    try:
+        metrics = train_lib.main(_moe_args(mesh))
+    finally:
+        train_lib.build_harness = build
+        fa._launch, fa._launch_bwd = real_fwd, real_bwd
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = launch_counts()
+    routes = {"fwd": dict(fa.FWD_ROUTES), "bwd": dict(fa.BWD_ROUTES)}
+    peak = torch.cuda.max_memory_allocated()
+    h = got.pop("harness")
+    model = h.state.model
+    specs = getattr(model, "shard_specs", {})
+    replicated = {n: hashlib.sha256(p.detach().cpu().contiguous().view(
+        torch.uint8).numpy().tobytes()).hexdigest()
+        for n, p in model.named_parameters() if n not in specs}
+    state_bytes = sum(p.numel() * p.element_size()
+                      for p in model.parameters()) + sum(
+        t.numel() * t.element_size() for key, ts in h.state.opt.moments
+        .items() for t in ts)
+    prof = {"wall_ms": None, "device_ms": None, "idle": None, "top": []}
+    if profile:
+        batch = next(iter(h.train_loader))
+
+        def step():
+            return float(h.train_step(h.state, batch)["loss"])
+
+        # the wall of one step outside the profiler (whose start-up
+        # would count as idle), then one more step profiled on rank 0
+        torch.cuda.synchronize()
+        t1 = time.monotonic()
+        step()
+        wall_step = 1e3 * (time.monotonic() - t1)
+        if rank == 0:
+            kernels = device_time(step, tries=tries)
+            busy, idle, _ = _busy(kernels, wall_step)
+            prof = {"wall_ms": wall_step, "device_ms": busy, "idle": idle,
+                    "top": [(k[:60], ms, c)
+                            for k, ms, c in (kernels or [])[:8]]}
+        else:
+            step()
+        torch.cuda.synchronize()
+    grads = got.pop("grads")
+    lay = h.layout
+    del h, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"tag": tag, "rank": rank, "coords": lay.coords(),
+            "wall_s": wall, "losses": metrics["losses"],
+            "step_ms": metrics["step_ms"],
+            "eval_loss": metrics.get("eval_loss"), "step1": got["step1"],
+            "steps": got["steps"][:MOE_STEPS], "heads": sorted(got["heads"]),
+            "launches": launches, "routes": routes, "peak_bytes": peak,
+            "state_bytes": state_bytes, "replicated": replicated,
+            "profile": prof}, grads
+
+
+def _moe_reference() -> dict:
+    """Step 1 of phase moe's model as one process in f32, on the same
+    global batch and weights: the noise floor's yardstick (loss, aux,
+    gradient norm, each parameter's gradient on the host)."""
+    cfg = get_config("lm_long").with_overrides(
+        mesh={"data": 1}, global_batch=MOE_GLOBAL_BATCH,
+        dataset_kwargs=MOE_DATA, compute_dtype="float32",
+        model_kwargs=dict(get_config("lm_long").model_kwargs, **MOE_MODEL))
+    t0 = time.monotonic()
+    h = train_lib.build_harness(cfg, device="cuda")
+    batch = next(iter(h.train_loader))
+    m = h.train_step(h.state, batch)
+    out = {"loss": float(m["loss"]), "moe_aux": float(m["moe_aux"]),
+           "grad_norm": float(m["grad_norm"]),
+           "grads": {n: g for n, (_, g) in
+                     _grad_blocks(h.state.model).items()},
+           "s": time.monotonic() - t0}
+    del h, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_worker(out: str) -> None:
+    """A rank of phase moe's gloo world of two: each run of MOE_MESHES in
+    turn through :func:`_moe_run`; each rank saves step 1's gradient
+    blocks beside ``out`` (``grads_<which>.<rank>.pt``), rank 0 writes
+    every rank's results to ``out`` (``{which: [rank 0's, rank 1's]}``)."""
+    bootstrap.initialize(device="cuda")
+    rank = collectives.world()[1]
+    runs = {}
+    for which, mesh in MOE_MESHES.items():
+        run, grads = _moe_run(which, mesh, rank, profile=True)
+        torch.save(grads, Path(out).with_name(f"grads_{which}.{rank}.pt"))
+        runs[which] = bootstrap.allgather_object(run)
+        del grads
+    if rank == 0:
+        Path(out).write_text(json.dumps(runs))
+    bootstrap.shutdown()
+
+
+def _moe_parity(step1: dict, grads: dict, ref: dict) -> tuple:
+    """Step 1 against the one-process steps (SEQ_PARITY_RTOL's rule,
+    phase seq's): loss, aux, gradient norm and each parameter's gradient
+    within BF16_NOISE_FACTOR x run (a)'s own distance from the f32 step.
+    Returns (problems, the worst gradient's ratio to its floor and its
+    name)."""
+    bad = []
+    for key in ("loss", "moe_aux", "grad_norm"):
+        got, b16, f32 = step1[key], ref["bf16"][key], ref["f32"][key]
+        if abs(got - f32) > max(BF16_NOISE_FACTOR * abs(b16 - f32),
+                                SEQ_PARITY_RTOL * abs(f32)):
+            bad.append(f"step 1 {key} {got} vs one process f32 {f32} (bf16 "
+                       f"{b16})")
+    want, noise = ref["f32"]["grads"], ref["bf16"]["grads"]
+    if set(grads) != set(want):
+        bad.append(f"step 1 gradients of {sorted(set(grads) ^ set(want))} "
+                   f"on one side only")
+    worst, where = 0.0, ""
+    for name in sorted(set(grads) & set(want)):
+        got, floor = _rel(grads[name], want[name]), _rel(noise[name],
+                                                         want[name])
+        ratio = got / max(floor, 1e-30)
+        if ratio > worst:
+            worst, where = ratio, name
+        if not got <= BF16_NOISE_FACTOR * floor:
+            bad.append(f"step 1 gradient {name}: {got:.2e} from the one-"
+                       f"process f32 step (noise floor {floor:.2e})")
+    return bad, (worst, where)
+
+
+def _moe_checks(tag: str, r: dict, want_heads: int, law: dict | None) -> list:
+    """A run's launches a step and in all (phase train's count: the
+    forward twice a layer and step under remat, once a layer and eval
+    batch; each backward kernel once a layer and step), every one on the
+    tensor cores, on ``want_heads`` heads; its collectives a step equal to
+    ``law``; finite losses and eval loss."""
+    bad = []
+    steps, layers = MOE_STEPS, _moe_cfg().num_layers
+    want_step = {"flash_fwd": 2 * layers, "flash_bwd_delta": layers,
+                 "flash_bwd_dq": layers, "flash_bwd_dkv": layers,
+                 "fused_conv_bn_bwd": 0, "precision_probe": 0}
+    want = dict(want_step, flash_fwd=(2 * steps + MOE_EVAL_BATCHES) * layers,
+                flash_bwd_delta=steps * layers, flash_bwd_dq=steps * layers,
+                flash_bwd_dkv=steps * layers)
+    for i, st in enumerate(r["steps"]):
+        if st["launches"] != want_step:
+            bad.append(f"step {i + 1} launches {st['launches']}, want "
+                       f"{want_step}")
+        if law is not None:
+            got = {k: (st["calls"][k], st["bytes"][k]) for k in law}
+            if got != law:
+                bad.append(f"step {i + 1} collectives {got}, want the law "
+                           f"{law}")
+    if r["launches"] != want:
+        bad.append(f"run launches {r['launches']}, want {want}")
+    n_bwd = 3 * steps * layers
+    if (r["routes"]["fwd"] != {"tensor_core": want["flash_fwd"],
+                               "cuda_core": 0}
+            or r["routes"]["bwd"] != {"tensor_core": n_bwd, "cuda_core": 0}):
+        bad.append(f"routes {r['routes']}, want every launch on the tensor "
+                   f"cores")
+    if r["heads"] != [want_heads]:
+        bad.append(f"flash launches on {r['heads']} heads, want "
+                   f"{want_heads}")
+    if (len(r["losses"]) != steps
+            or not all(math.isfinite(x) for x in r["losses"])
+            or not math.isfinite(r["eval_loss"] or float("nan"))):
+        bad.append(f"losses {r['losses']}, eval {r['eval_loss']}")
+    return [f"{tag} rank {r['rank']}: {b}" for b in bad]
+
+
+def _moe_line(tag: str, r: dict, card: str) -> str:
+    ms = r["step_ms"][1:] or r["step_ms"]
+    q = statistics.quantiles(ms, n=10) if len(ms) > 1 else [ms[0]] * 9
+    st = r["steps"][-1]
+    prof = r["profile"]
+    idle = ("" if prof["wall_ms"] is None else
+            f"; one profiled step {prof['wall_ms']:.1f} ms wall, device "
+            f"{_dev(prof['device_ms'], '.1f')} ms, idle share "
+            f"{_dev(prof['idle'])}; top: "
+            + "; ".join(f"{k} {ms_:.1f} ms x{c}"
+                        for k, ms_, c in prof["top"][:4]))
+    return (f"[moe] {tag} rank {r['rank']} {r['coords']}: losses "
+            f"{[round(x, 4) for x in r['losses']]}, eval "
+            f"{r['eval_loss']:.4f}; step ms "
+            f"{[round(x, 1) for x in r['step_ms']]} (p50 after the first "
+            f"{statistics.median(ms):.1f}, p10-p90 {q[0]:.1f}-{q[-1]:.1f});"
+            f" peak memory {r['peak_bytes'] / 2**30:.2f} GiB, state "
+            f"{r['state_bytes'] / 1e9:.3f} GB; sharded-state collectives a "
+            f"step {st['calls']} calls, {st['bytes']} bytes; run "
+            f"{r['wall_s']:.1f} s{idle}; {card}")
+
+
+def phase_moe() -> dict:
+    """Mixture of experts, expert and tensor parallelism
+    (``models/transformer_lm.py``'s ``MoEMLP``, ``parallel/tp.py``, the
+    sharded-state layout of ``parallel/mesh.py``): phase moe's lm_long
+    MoE model through ``train.main`` (a) as one process, then (b) on
+    data=1 x expert=2 and (c) on data=1 x model=2 in turn in one world of
+    two gloo processes (``--moe-worker``).  Step 1 of (b) and (c) against (a) and a
+    one-process f32 step (SEQ_PARITY_RTOL's rule): loss, aux, gradient
+    norm and every parameter's gradient (the ranks' blocks put together);
+    replicated leaves bit-identical across the ranks (step-1 gradients and
+    final values); every flash launch on the tensor cores, the count a
+    rank the path's, (c)'s on 6 heads; the sharded-state collectives of
+    every step equal to :func:`_moe_law`.  Prints each run's step p50 and
+    p10-p90, peak memory and state bytes a rank, bytes a step and rank
+    0's idle share from one profiled step."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    card = _card_line()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.monotonic()
+    ref_f32 = _moe_reference()
+    a, grads_a = _moe_run("(a) one process", {"data": 1}, 0, profile=True,
+                          tries=PROFILE_TRIES)
+    ref = {"f32": ref_f32, "bf16": {**a["step1"], "grads": {
+        n: g for n, (_, g) in grads_a.items()}}}
+    one_s = time.monotonic() - t0
+    heads = _moe_cfg().num_heads
+    problems = _moe_checks("(a)", a, heads, None)
+    runs = {"a": [a]}
+    root = tempfile.mkdtemp(prefix="tpuframe_moe_")
+    try:
+        out = os.path.join(root, "moe.json")
+        LocalCluster(2, timeout=MOE_TIMEOUT_S,
+                     extra_env={"TPUFRAME_DIST_BACKEND": "gloo"}).launch(
+            [sys.executable, str(Path(__file__).resolve()), "--moe-worker",
+             out])
+        runs.update(json.loads(Path(out).read_text()))
+        for which, mesh in MOE_MESHES.items():
+            blocks = [torch.load(os.path.join(root, f"grads_{which}.{r}.pt"))
+                      for r in range(2)]
+            tag = ("(b) expert=2" if which == "b" else "(c) model=2")
+            for name, (idx, g) in blocks[0].items():
+                if idx is None and not torch.equal(g, blocks[1][name][1]):
+                    problems.append(f"{tag}: step-1 gradient of replicated "
+                                    f"{name} differs across ranks")
+            grads = _whole(blocks)
+            law = _moe_law(mesh)
+            for r in runs[which]:
+                problems += _moe_checks(tag, r,
+                                        heads // mesh.get("model", 1), law)
+            r0, r1 = runs[which]
+            if r0["replicated"] != r1["replicated"]:
+                diff = [n for n in r0["replicated"]
+                        if r0["replicated"][n] != r1["replicated"].get(n)]
+                problems.append(f"{tag}: final replicated leaves differ "
+                                f"across ranks: {diff[:6]}")
+            if r0["step1"] != r1["step1"]:
+                problems.append(f"{tag}: ranks report different step-1 "
+                                f"metrics {r0['step1']}, {r1['step1']}")
+            bad, (ratio, where) = _moe_parity(r0["step1"], grads, ref)
+            problems += [f"{tag}: {p}" for p in bad]
+            runs[which + "_parity"] = (ratio, where)
+            del blocks, grads
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    world_s = time.monotonic() - t0 - one_s
+    log(f"[moe] lm_long + {MOE_MODEL} (every second block), "
+        f"S={MOE_DATA['seq_len']}, "
+        f"global batch {MOE_GLOBAL_BATCH}, {MOE_STEPS} steps + "
+        f"{MOE_EVAL_BATCHES} eval batch; one-process f32 step 1: loss "
+        f"{ref_f32['loss']:.6f} aux {ref_f32['moe_aux']:.6f} grad norm "
+        f"{ref_f32['grad_norm']:.6f} ({ref_f32['s']:.1f} s with the build)")
+    log(_moe_line("(a) one process", a, card))
+    total = dict(a["launches"])
+    for which in MOE_MESHES:
+        tag = "(b) expert=2" if which == "b" else "(c) model=2"
+        for r in runs[which]:
+            log(_moe_line(tag, r, card))
+            for k in total:
+                total[k] += r["launches"][k]
+        ratio, where = runs[which + "_parity"]
+        s1 = runs[which][0]["step1"]
+        log(f"[moe] {tag} step 1: loss {s1['loss']:.6f} aux "
+            f"{s1['moe_aux']:.6f} grad norm {s1['grad_norm']:.6f} against "
+            f"(a) {a['step1']['loss']:.6f} / {a['step1']['moe_aux']:.6f} / "
+            f"{a['step1']['grad_norm']:.6f} and f32 "
+            f"{ref_f32['loss']:.6f} / {ref_f32['moe_aux']:.6f} / "
+            f"{ref_f32['grad_norm']:.6f}; per-parameter gradients against "
+            f"the f32 step: worst {ratio:.2f} x (a)'s own distance "
+            f"({where}; limit {BF16_NOISE_FACTOR}); law "
+            f"{_moe_law(MOE_MESHES[which])}")
+    log(f"[moe] (a) and the f32 step {one_s:.1f} s, the world of (b) and "
+        f"(c) {world_s:.1f} s; {card}")
+    if problems:
+        raise RuntimeError("moe: " + "; ".join(problems[:12]))
+    return {"launches": total}
+
+
 HVD_WORKERS = {"nccl": hvd_worker_nccl, "probe": hvd_worker_probe,
                "nccl_pair": hvd_worker_nccl_pair, "cifar": hvd_worker_cifar,
                "resnet2": hvd_worker_resnet2, "spmd": hvd_worker_spmd,
@@ -6280,6 +6745,9 @@ def main(argv=None) -> int:
     ap.add_argument("--seq-worker", metavar="OUT",
                     help="run one rank of phase seq's world (the phase "
                          "starts these)")
+    ap.add_argument("--moe-worker", metavar="OUT",
+                    help="run one rank of phase moe's world (the phase "
+                         "starts these)")
     ap.add_argument("--train-worker", metavar="OUT",
                     help="run one attempt of phase supervise (its "
                          "supervisor starts these; the trainer's arguments "
@@ -6294,6 +6762,9 @@ def main(argv=None) -> int:
         return replica_worker(int(rank), out, ready)
     if args.seq_worker is not None:
         seq_worker(args.seq_worker)
+        return 0
+    if args.moe_worker is not None:
+        moe_worker(args.moe_worker)
         return 0
     phase_card()
     t0 = time.monotonic()
@@ -6341,6 +6812,7 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(keep, ignore_errors=True)
     seq_run = timed("seq", phase_seq)
+    moe_run = timed("moe", phase_moe)
     log(f"[done] phase wall s {walls}")
 
     by_path = {name: {"serve": serve_launches[name],
@@ -6361,7 +6833,8 @@ def main(argv=None) -> int:
                       "hvd_resnet": hvd_run["launches"][name],
                       "hvd_resnet50_x2": hvd_run["launches_2proc"][name],
                       "zero1": zero1_run["launches"][name],
-                      "seq": seq_run["launches"][name]}
+                      "seq": seq_run["launches"][name],
+                      "moe": moe_run["launches"][name]}
                for name in launch_counts()}
     attn = "B=8 S=4096 N=12 D=64 bf16 causal"
     ops = "tpuframe/ops/"
@@ -6463,7 +6936,7 @@ PHASES = {"kernels": phase_kernels, "backward": phase_backward,
           "cifar_train": phase_cifar_train,
           "resnet_variants": phase_resnet_variants, "ckpt": phase_ckpt,
           "supervise": phase_supervise, "hvd": phase_hvd,
-          "zero1": phase_zero1, "seq": phase_seq}
+          "zero1": phase_zero1, "seq": phase_seq, "moe": phase_moe}
 
 
 if __name__ == "__main__":

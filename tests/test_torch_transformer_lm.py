@@ -19,7 +19,8 @@ import torch.nn.functional as F  # noqa: E402
 
 from tpuframe.models import transformer_lm as jax_lm  # noqa: E402
 from tpuframe_torch.models import transformer_lm as torch_lm  # noqa: E402
-from tpuframe_torch.models.convert import params_from_jax  # noqa: E402
+from tpuframe_torch.models.convert import (lm_params_to_jax,  # noqa: E402
+                                           params_from_jax)
 
 LOGIT_ATOL = 1e-4
 
@@ -77,10 +78,34 @@ def test_params_from_jax_round_trips_every_leaf(jax_params):
 
 def test_params_from_jax_rejects_other_trees(jax_params):
     extra = dict(jax_params)
-    extra["block_0"] = dict(extra["block_0"], moe={"router": {
-        "kernel": np.zeros((64, 4), np.float32)}})
-    with pytest.raises(ValueError, match="not a dense TransformerLM"):
+    extra["block_0"] = dict(extra["block_0"], adapter={"kernel": np.zeros(
+        (64, 4), np.float32)})
+    with pytest.raises(ValueError, match="not a TransformerLM tree"):
         params_from_jax(extra)
+
+
+def test_moe_params_round_trip_through_the_port():
+    """An MoE tree (every second block's MLP an ``MoEMLP``) maps leaf for
+    leaf: the router kernel transposed, the expert tensors as they are;
+    ``lm_params_to_jax`` gives the flax tree back bit for bit."""
+    cfg = jax_lm.LMConfig.tiny(moe_experts=4, num_layers=4)
+    params = jax.tree.map(np.asarray, jax_lm.TransformerLM(cfg).init(
+        jax.random.key(2), jnp.zeros((1, 8), jnp.int32))["params"])
+    sd = params_from_jax(params)
+    model = torch_lm.TransformerLM(torch_lm.LMConfig.tiny(
+        moe_experts=4, num_layers=4), device="cpu")
+    assert set(sd) == set(model.state_dict())
+    model.load_state_dict(sd)
+    moe = params["block_1"]["moe"]
+    np.testing.assert_array_equal(sd["blocks.1.moe.router.weight"].numpy(),
+                                  moe["router"]["kernel"].T)
+    np.testing.assert_array_equal(sd["blocks.3.moe.up_experts"].numpy(),
+                                  params["block_3"]["moe"]["up_experts"])
+    back = lm_params_to_jax(model.state_dict(), cfg.num_heads)
+    flat = jax.tree_util.tree_flatten_with_path(params)[0]
+    assert jax.tree.structure(back) == jax.tree.structure(params)
+    for (path, want), got in zip(flat, jax.tree.leaves(back)):
+        np.testing.assert_array_equal(got, want, err_msg=str(path))
 
 
 @pytest.mark.parametrize("impl", ["pallas", "xla"])

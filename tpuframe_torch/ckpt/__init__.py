@@ -4,6 +4,7 @@ package's on-disk contract: see :mod:`tpuframe_torch.ckpt.checkpoint`."""
 from tpuframe_torch.ckpt.checkpoint import (  # noqa: F401
     CheckpointManager,
     FlatShard,
+    Shard,
     committed_world,
     in_flight_step,
     latest_step,

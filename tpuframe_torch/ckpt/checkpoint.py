@@ -15,14 +15,22 @@ A tree is nested dicts whose leaves are tensors (any device), numpy arrays
 or Python numbers; a leaf's name is its key path joined by ``/`` (dict keys
 in sorted order, as ``jax.tree_util`` flattens them) and its file name the
 same with ``.`` for ``/``.  A replicated leaf is one shard, written by
-rank 0.  A :class:`FlatShard` leaf (a ZeRO-1 optimizer moment,
-``parallel/zero1.py``) is its global flat ``[padded]`` vector on disk, one
-shard file a rank, each written by the rank that holds it, with the JAX
-package's shard table (``index`` ``[[lo, hi]]``), so that no rank gathers
-the whole moment; :func:`restore` reads back only the region a
-:class:`FlatShard` target holds, and reshards a flat ``opt`` leaf whose
-padded length changed with the world (a truncate or a zero-pad, as the
-JAX ``restore`` does: the pad region is zero forever).  A bf16 tensor is
+rank 0.  A :class:`Shard` leaf (a parameter or moment split over the
+expert and model axes, ``parallel/tp.py``) is this rank's block of a leaf
+of its global shape: the manifest holds the JAX shard table (every
+distinct block's per-dim ``index``, in sorted order, one file each), and
+each block's file is written by the lowest rank that holds it, as the
+JAX package writes a sharded array; :func:`restore` reads back only the
+files that overlap the block a :class:`Shard` target holds, so a save
+restores onto any layout of the same model.  A :class:`FlatShard` leaf
+(a ZeRO-1 optimizer moment, ``parallel/zero1.py``) is its global flat
+``[padded]`` vector on disk, one shard file a rank, each written by the
+rank that holds it, with the JAX package's shard table (``index``
+``[[lo, hi]]``), so that no rank gathers the whole moment;
+:func:`restore` reads back only the region a :class:`FlatShard` target
+holds, and reshards a flat ``opt`` leaf whose padded length changed with
+the world (a truncate or a zero-pad, as the JAX ``restore`` does: the
+pad region is zero forever).  A bf16 tensor is
 written in the JAX package's encoding (an ``np.save`` void record of 2 bytes, manifest dtype
 ``"bfloat16"``) through an int16 view, so that no numpy bfloat16 type is
 needed.  :func:`restore` returns CPU tensors.
@@ -90,6 +98,42 @@ class FlatShard:
         return [{"id": i, "index": [[i * c, (i + 1) * c]],
                  "file": f"{base}.shard_{i}.npy"} for i in range(self.n)]
 
+    def as_shard(self) -> "Shard":
+        """The general :class:`Shard` of this chunk (spec ``data``; every
+        rank writes its own)."""
+        c = self.tensor.numel()
+        return Shard(tensor=self.tensor, shape=self.shape,
+                     index=((self.offset, self.offset + c),),
+                     blocks=tuple(((i * c, (i + 1) * c),)
+                                  for i in range(self.n)),
+                     spec=(("data",),), writer=True)
+
+
+@dataclass(frozen=True)
+class Shard:
+    """This rank's block ``tensor`` of a leaf of global ``shape``:
+    ``index`` is the block's ``((lo, hi), ...)`` a dim, ``blocks`` every
+    distinct block of the leaf in sorted order (the shard table), ``spec``
+    the axes each dim is split over (a tuple of names or None, a dim) and
+    ``writer`` whether this rank writes the block's file (the lowest rank
+    that holds it)."""
+
+    tensor: torch.Tensor
+    shape: tuple
+    index: tuple
+    blocks: tuple
+    spec: tuple
+    writer: bool
+
+    def table(self, base: str) -> list:
+        return [{"id": i, "index": [list(b) for b in blk],
+                 "file": f"{base}.shard_{i}.npy"}
+                for i, blk in enumerate(self.blocks)]
+
+    @property
+    def file_id(self) -> int:
+        return self.blocks.index(self.index)
+
 
 def _crc32(data: bytes, algo: str = "crc32c") -> int:
     if algo == "crc32":     # honoured if a manifest records zlib's crc32
@@ -130,7 +174,7 @@ def _sanitize(name: str) -> str:
 
 
 def _dtype_str(leaf) -> str:
-    if isinstance(leaf, FlatShard):
+    if isinstance(leaf, (FlatShard, Shard)):
         leaf = leaf.tensor
     if isinstance(leaf, torch.Tensor):
         if leaf.dtype == torch.bfloat16:
@@ -235,12 +279,19 @@ def _prepare_save(directory: str, step: int, tree: Tree, *, sink=None):
     for name, leaf in pairs:
         dtype = _dtype_str(leaf)
         if isinstance(leaf, FlatShard):
-            # every rank writes its own chunk
+            leaf = leaf.as_shard()
+        if isinstance(leaf, Shard):
+            # the block's file, written by the lowest rank that holds it
             table = leaf.table(_sanitize(name))
             manifest["leaves"][name] = {
-                "shape": _shape(leaf), "dtype": dtype, "spec": _FLAT_SPEC,
+                "shape": list(leaf.shape), "dtype": dtype,
+                "spec": [None if a is None else
+                         list(a) if isinstance(a, tuple) else [a]
+                         for a in leaf.spec],
                 "shards": table}
-            fname, leaf = table[leaf.index]["file"], leaf.tensor
+            if not leaf.writer:
+                continue
+            fname, leaf = table[leaf.file_id]["file"], leaf.tensor
         else:
             fname = f"{_sanitize(name)}.shard_0.npy"
             manifest["leaves"][name] = {
@@ -395,6 +446,32 @@ def _flat_region(path: str, entry: dict, lo: int, hi: int, crcs: dict,
     return out
 
 
+def _region(path: str, entry: dict, index: tuple, crcs: dict,
+            verify_crc: bool, algo: str) -> np.ndarray:
+    """The block ``index`` (``((lo, hi), ...)``) of a leaf, read from the
+    shard files that overlap it only."""
+    shape = tuple(entry["shape"])
+    if not entry["shards"]:
+        raise FileNotFoundError(f"manifest entry has no shard files: "
+                                f"{entry}")
+    out = None
+    for sh in entry["shards"]:
+        idx = sh["index"] or [(0, d) for d in shape]
+        over = [(max(lo, slo), min(hi, shi))
+                for (lo, hi), (slo, shi) in zip(index, idx)]
+        if any(a >= b for a, b in over):
+            continue
+        data = _load_shard(path, sh["file"], crcs, verify_crc, algo)
+        if out is None:
+            out = np.empty([hi - lo for lo, hi in index], data.dtype)
+        dst = tuple(slice(a - lo, b - lo)
+                    for (a, b), (lo, _) in zip(over, index))
+        src = tuple(slice(a - slo, b - slo)
+                    for (a, b), (slo, _) in zip(over, idx))
+        out[dst] = data.reshape([shi - slo for slo, shi in idx])[src]
+    return out
+
+
 def _to_torch(arr: np.ndarray, dtype: str) -> torch.Tensor:
     """A loaded shard as a CPU tensor of the manifest's dtype (a void
     record of 2 bytes is bf16 through its int16 bits)."""
@@ -412,12 +489,13 @@ def restore(directory: str, step: int, *, target: Tree | None = None,
     tensors.  With ``target`` (a tree of the same structure) the leaf
     names must match (else ValueError), each tensor's shape must match its
     target's, and a leaf whose target is a Python number comes back as
-    one.  A :class:`FlatShard` target comes back as its chunk alone, read
-    from the files that overlap it.  A flat ``opt/...`` ZeRO-1 moment (saved
-    as a :class:`FlatShard`, or restored into one) whose length differs
-    from its 1-d target's (a save at another world size) is resharded:
-    truncated or zero-padded to the target's length; every other shape
-    mismatch raises ValueError."""
+    one.  A :class:`FlatShard` or :class:`Shard` target comes back as its
+    chunk or block alone, read from the files that overlap it (the leaf's
+    global shape must be the target's).  A flat ``opt/...`` ZeRO-1 moment
+    (saved as a :class:`FlatShard`, or restored into one) whose length
+    differs from its 1-d target's (a save at another world size) is
+    resharded: truncated or zero-padded to the target's length; every
+    other shape mismatch raises ValueError."""
     path = gcs.join(directory, f"step_{step:08d}")
     if not gcs.exists(gcs.join(path, _COMMIT)):
         raise FileNotFoundError(f"no committed checkpoint at {path}")
@@ -441,6 +519,15 @@ def restore(directory: str, step: int, *, target: Tree | None = None,
     out = []
     for name, tgt in pairs:
         entry = manifest["leaves"][name]
+        if isinstance(tgt, Shard):
+            if tuple(entry["shape"]) != tuple(tgt.shape):
+                raise ValueError(f"checkpoint leaf {name!r} shape "
+                                 f"{tuple(entry['shape'])} does not match "
+                                 f"target shape {tuple(tgt.shape)}")
+            out.append((name, _to_torch(_region(
+                path, entry, tgt.index, manifest["crc"], verify_crc, algo),
+                entry["dtype"])))
+            continue
         want = tuple(_shape(tgt))
         got = tuple(entry["shape"])
         opt = name.split("/", 1)[0] == "opt"

@@ -27,8 +27,11 @@ from tpuframe_torch.parallel.zero1 import chunk_len, flat_pad, padded_len
 
 def params_from_jax(params) -> dict:
     """flax ``params`` (nested dicts of numpy arrays) → the port model's
-    ``state_dict`` (f32 tensors on the CPU).  Raises on a tree that holds
-    leaves the dense model does not have (MoE, for one)."""
+    ``state_dict`` (f32 tensors on the CPU).  An MoE block's ``moe``
+    leaves map to ``moe.router.weight`` (the ``[H, E]`` kernel
+    transposed), ``moe.up_experts`` ``[E, H, I]`` and
+    ``moe.down_experts`` ``[E, I, H]`` as they are.  Raises on a tree
+    that holds leaves the model does not have."""
     sd = {"embed.weight": params["embed"]["embedding"],
           "final_ln.weight": params["final_ln"]["scale"],
           "lm_head.weight": np.asarray(params["lm_head"]["kernel"]).T}
@@ -44,17 +47,72 @@ def params_from_jax(params) -> dict:
         sd[pre + "attn.out.weight"] = k.reshape(-1, k.shape[-1]).T
         sd[pre + "attn_ln.weight"] = blk["attn_ln"]["scale"]
         sd[pre + "mlp_ln.weight"] = blk["mlp_ln"]["scale"]
-        sd[pre + "up.weight"] = np.asarray(blk["up"]["kernel"]).T
-        sd[pre + "down.weight"] = np.asarray(blk["down"]["kernel"]).T
-        n_leaves += 8
+        if "moe" in blk and "up" not in blk:
+            moe = blk["moe"]
+            sd[pre + "moe.router.weight"] = np.asarray(
+                moe["router"]["kernel"]).T
+            sd[pre + "moe.up_experts"] = moe["up_experts"]
+            sd[pre + "moe.down_experts"] = moe["down_experts"]
+            n_leaves += 9
+        else:
+            sd[pre + "up.weight"] = np.asarray(blk["up"]["kernel"]).T
+            sd[pre + "down.weight"] = np.asarray(blk["down"]["kernel"]).T
+            n_leaves += 8
         i += 1
     total = sum(1 for _ in _leaves(params))
     if total != n_leaves:
-        raise ValueError(f"params hold {total} leaves, the dense model "
-                         f"{n_leaves}: not a dense TransformerLM tree")
+        raise ValueError(f"params hold {total} leaves, the model "
+                         f"{n_leaves}: not a TransformerLM tree")
     # np.array copies: arrays that come from jax are read-only.
     return {k: torch.from_numpy(np.array(v, dtype=np.float32))
             for k, v in sd.items()}
+
+
+def lm_params_to_jax(sd: dict, num_heads: int) -> dict:
+    """The inverse of :func:`params_from_jax` for a model of
+    ``num_heads`` heads: a whole (unsharded) ``TransformerLM``
+    ``state_dict`` (tensors or arrays) → flax ``params``, nested dicts of
+    f32 numpy arrays.  Raises on a name it does not map."""
+    def a(name):
+        v = sd[name]
+        v = v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else v
+        return np.array(v, dtype=np.float32)
+
+    used = set()
+
+    def take(name):
+        used.add(name)
+        return a(name)
+
+    out = {"embed": {"embedding": take("embed.weight")},
+           "final_ln": {"scale": take("final_ln.weight")},
+           "lm_head": {"kernel": take("lm_head.weight").T}}
+    i = 0
+    while f"blocks.{i}.attn_ln.weight" in sd:
+        pre = f"blocks.{i}."
+        attn = {}
+        for name in ("query", "key", "value"):
+            w = take(pre + f"attn.{name}.weight")            # [N*D, H]
+            attn[name] = {"kernel": w.T.reshape(w.shape[1], num_heads, -1)}
+        w = take(pre + "attn.out.weight")                    # [H, N*D]
+        attn["out"] = {"kernel": w.T.reshape(num_heads, -1, w.shape[0])}
+        blk = {"attn": attn,
+               "attn_ln": {"scale": take(pre + "attn_ln.weight")},
+               "mlp_ln": {"scale": take(pre + "mlp_ln.weight")}}
+        if pre + "moe.router.weight" in sd:
+            blk["moe"] = {
+                "router": {"kernel": take(pre + "moe.router.weight").T},
+                "up_experts": take(pre + "moe.up_experts"),
+                "down_experts": take(pre + "moe.down_experts")}
+        else:
+            blk["up"] = {"kernel": take(pre + "up.weight").T}
+            blk["down"] = {"kernel": take(pre + "down.weight").T}
+        out[f"block_{i}"] = blk
+        i += 1
+    if set(sd) != used:
+        raise ValueError(f"unmapped TransformerLM leaves: "
+                         f"{sorted(set(sd) - used)}")
+    return out
 
 
 def _leaves(tree):

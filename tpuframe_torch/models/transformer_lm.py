@@ -23,7 +23,29 @@ above 1) ``seq_mode`` ring or ulysses runs attention over the ring
 (``ops/seq_parallel.py``) on this rank's chunk of the sequence, whose RoPE
 positions start at ``seq_index * S_local``; with none set it runs
 whole-sequence causal attention, as the JAX model does when its seq axis
-is unbound.  MoE is not ported (see ROADMAP.md).
+is unbound.
+
+Mixture of experts: with ``moe_experts > 0`` every ``moe_every``-th block
+(``(i + 1) % moe_every == 0``) swaps its MLP for :class:`MoEMLP`, top-k
+routing with a capacity (``ops/moe.py``).  The router is an f32 ``Dense``
+on f32 tokens, the four expert einsums run in the compute dtype with the
+tanh GELU between them, and each MoE layer's load-balance loss is handed
+out per forward: ``forward(..., aux_out=list)`` appends the layers'
+values (the JAX model's ``sow``), and nothing outlives the call.
+
+Tensor and expert parallelism (``parallel/tp.py``): with a layout set on
+the model (:attr:`TransformerLM.layout`, a ``parallel.mesh.Layout`` in
+the sharded-state mode, whose parameters ``tp.shard_`` cut to the rank's
+blocks) each block runs its rank's heads and intermediate columns and the
+experts of its expert index, with Megatron's collectives over the model
+group (the MoE layer's over the shard group), the embedding's columns
+gathered and the head's rows gathered before the loss.  The router then
+routes the whole batch: each rank's tokens take the queue positions of
+rows ``[d * T, (d + 1) * T)`` of the global token order over the data
+group, with the capacity of the global token count, and the aux loss's
+means are global (the JAX trainer's sharded-state mode, whose logical
+program routes the global batch).  Without a layout the routing is this
+rank's own (the JAX shard_map step's per-device routing).
 """
 
 from __future__ import annotations
@@ -39,7 +61,9 @@ from torch.utils import checkpoint
 
 from tpuframe_torch import _device
 from tpuframe_torch.ops import attention as attn_ops
+from tpuframe_torch.ops import moe as moe_ops
 from tpuframe_torch.ops import seq_parallel
+from tpuframe_torch.parallel import collectives
 
 SEQ_MODES = ("none", "ring", "ulysses")
 
@@ -173,14 +197,18 @@ class CausalSelfAttention(nn.Module):
         self.out = Dense(inner, cfg.hidden_size, **kw)
 
     def forward(self, x, positions, *, ring=None, kv_cache=None,
-                cache_length=None, decode: bool = False):
+                cache_length=None, decode: bool = False, model=None):
         """``ring``: the seq ring this rank's chunk attends over (None:
-        whole-sequence attention)."""
+        whole-sequence attention).  ``model``: the model group whose
+        ranks each hold a block of the heads (None: all of them)."""
         c = self.cfg
         b, s, _ = x.shape
+        # this rank's heads: query/key/value are column-parallel
+        n = self.query.weight.shape[0] // c.head_dim
+        x = collectives.copy_to(x, model)
 
         def heads(t):
-            return t.view(b, s, c.num_heads, c.head_dim)
+            return t.view(b, s, n, c.head_dim)
 
         q = rope(heads(self.query(x)), positions, c.rope_theta)
         k = rope(heads(self.key(x)), positions, c.rope_theta)
@@ -224,7 +252,85 @@ class CausalSelfAttention(nn.Module):
                 v_cache[:, :s] = v.to(v_cache.dtype)
                 y = attn_ops.multihead_attention(q, k, v, causal=True,
                                                  impl=c.attn_impl)
-        return self.out(y.reshape(b, s, c.num_heads * c.head_dim))
+        # out is row-parallel: the ranks' partial products summed
+        return collectives.reduce_from(
+            self.out(y.reshape(b, s, n * c.head_dim)), model)
+
+
+def _lecun_normal_(w, fan_in: int, gen) -> None:
+    """flax's ``lecun_normal``: a normal truncated at 2 sigma, its std
+    rescaled so that the variance is ``1 / fan_in``."""
+    std = 1.0 / math.sqrt(fan_in) / .87962566103423978
+    nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=gen)
+
+
+class MoEMLP(nn.Module):
+    """Top-k routed expert FFN (``MoEMLP`` of the JAX model): the router
+    (``router.weight`` ``[E, H]``, f32), ``up_experts`` ``[E, H, I]`` and
+    ``down_experts`` ``[E, I, H]``; under expert and tensor parallelism a
+    rank holds experts ``[e * E/n, (e + 1) * E/n)`` and its block of their
+    intermediate dim.  Tokens past an expert's capacity get no MLP
+    contribution from it; the residual carries them."""
+
+    def __init__(self, cfg: LMConfig, *, device=None):
+        super().__init__()
+        self.cfg = cfg
+        e, h, inter = cfg.moe_experts, cfg.hidden_size, cfg.intermediate_size
+        self.router = Dense(h, e, device=device)
+        self.up_experts = nn.Parameter(torch.empty((e, h, inter),
+                                                   device=device))
+        self.down_experts = nn.Parameter(torch.empty((e, inter, h),
+                                                     device=device))
+
+    def forward(self, x, par=None):
+        """``(y, aux)`` of ``x`` ``[B, S, H]``.  ``par``: the model's
+        layout in the sharded-state mode (global routing over its data
+        group; the experts of its expert index; partial results summed
+        over its shard group), or None."""
+        c = self.cfg
+        b, s, h = x.shape
+        e = c.moe_experts
+        tokens = x.reshape(b * s, h)
+        logits = self.router(tokens.float())
+        route_grp = None if par is None else par.data
+        shard_grp = None if par is None else par.shard
+        n_route = 1 if route_grp is None else route_grp.size
+        cap = moe_ops.capacity_for(b * s * n_route, e, c.moe_k,
+                                   c.moe_capacity_factor)
+        prior = None
+        if route_grp is not None:
+            def prior(counts):
+                # every data rank's counts, in data order
+                every = collectives.group_gather(counts, route_grp)
+                return (every[:route_grp.index].sum(dim=0),
+                        every.sum(dim=0))
+        r = moe_ops.route(logits, k=c.moe_k, capacity=cap, prior=prior)
+        me, ce = r.me, r.ce
+        if route_grp is not None:
+            # the global batch's means: the mean of the data ranks' means
+            me = collectives.group_sum(me, route_grp) / n_route
+            ce = collectives.group_sum(ce, route_grp) / n_route
+        aux = moe_ops.aux_loss(me, ce)
+        lo, hi = 0, e
+        if par is not None and par.expert is not None:
+            per = e // par.expert.size
+            lo, hi = par.expert.index * per, (par.expert.index + 1) * per
+        dtype = c.torch_dtype
+        # this rank's experts use part of the tokens and weights: their
+        # cotangents are summed over the shard group in the backward
+        tokens = collectives.copy_to(tokens, shard_grp)
+        weight = collectives.copy_to(r.weight, shard_grp)
+        dispatch = r.dispatch(lo, hi).to(dtype)
+        combine = r.combine(lo, hi, weight=weight).to(dtype)
+        expert_in = torch.einsum("tec,th->ech", dispatch, tokens.to(dtype))
+        hmid = F.gelu(torch.einsum("ech,ehi->eci", expert_in,
+                                   self.up_experts.to(dtype)),
+                      approximate="tanh")
+        expert_out = torch.einsum("eci,eih->ech", hmid,
+                                  self.down_experts.to(dtype))
+        y = torch.einsum("tec,ech->th", combine, expert_out)
+        y = collectives.reduce_from(y, shard_grp)
+        return y.reshape(b, s, h), aux
 
 
 class Block(nn.Module):
@@ -236,8 +342,14 @@ class Block(nn.Module):
         self.attn_ln = LayerNorm(cfg.hidden_size, device=device)
         self.attn = CausalSelfAttention(cfg, device=device)
         self.mlp_ln = LayerNorm(cfg.hidden_size, device=device)
-        self.up = Dense(cfg.hidden_size, cfg.intermediate_size, **kw)
-        self.down = Dense(cfg.intermediate_size, cfg.hidden_size, **kw)
+        # the JAX Block's choice
+        self.use_moe = (cfg.moe_experts > 0
+                        and (layer + 1) % cfg.moe_every == 0)
+        if self.use_moe:
+            self.moe = MoEMLP(cfg, device=device)
+        else:
+            self.up = Dense(cfg.hidden_size, cfg.intermediate_size, **kw)
+            self.down = Dense(cfg.intermediate_size, cfg.hidden_size, **kw)
 
     def _drop(self, h, dropout_seed, site: int):
         if dropout_seed is None or self.cfg.dropout == 0.0:
@@ -246,15 +358,26 @@ class Block(nn.Module):
                        _seed_for(dropout_seed, self.layer, site))
 
     def forward(self, x, positions, dropout_seed=None, *, ring=None,
-                kv_cache=None, cache_length=None, decode: bool = False):
+                kv_cache=None, cache_length=None, decode: bool = False,
+                par=None, aux_out: list | None = None):
         """``dropout_seed`` (an int) turns residual dropout on: the
-        training forward."""
+        training forward.  ``par``: the model's layout in the
+        sharded-state mode, or None.  ``aux_out`` (a list) takes the MoE
+        layer's aux loss."""
+        model = None if par is None else par.model
         h = self.attn(self.attn_ln(x), positions, ring=ring,
                       kv_cache=kv_cache, cache_length=cache_length,
-                      decode=decode)
+                      decode=decode, model=model)
         x = x + self._drop(h, dropout_seed, 0)
-        h = self.up(self.mlp_ln(x))
-        h = self.down(F.gelu(h, approximate="tanh"))
+        if self.use_moe:
+            h, aux = self.moe(self.mlp_ln(x), par)
+            if aux_out is not None:
+                aux_out.append(aux)
+        else:
+            # up column-parallel, down row-parallel
+            h = self.up(collectives.copy_to(self.mlp_ln(x), model))
+            h = collectives.reduce_from(
+                self.down(F.gelu(h, approximate="tanh")), model)
         return x + self._drop(h, dropout_seed, 1)
 
 
@@ -285,16 +408,24 @@ class TransformerLM(nn.Module):
     hold one chunk of every sequence, set by whoever shards the sequence
     (the trainer); None, the default, is whole-sequence attention.  A
     ``seq_mode="none"`` model, and the serving path, ignore it.
+
+    ``layout``: the ``parallel.mesh.Layout`` of the sharded-state mode,
+    set with ``shard_specs`` by :func:`shard` (tensor and expert
+    parallelism, global MoE routing; the module docstring); None, the
+    default, holds every parameter whole.  ``aux_out`` (a list) collects
+    the MoE layers' aux losses of the call.
     """
 
     seq = None
+    layout = None
+    shard_specs: dict = {}
 
     def __init__(self, cfg: LMConfig = LMConfig(), *, device="cuda",
                  seed: int = 0):
         super().__init__()
-        if cfg.moe_experts > 0:
-            raise NotImplementedError(
-                "MoE is not ported yet (ROADMAP.md queue 1, item 12)")
+        if cfg.moe_experts > 0 and not 1 <= cfg.moe_k <= cfg.moe_experts:
+            raise ValueError(f"moe_k={cfg.moe_k} must lie in [1, "
+                             f"moe_experts={cfg.moe_experts}]")
         if cfg.seq_mode not in SEQ_MODES:
             raise ValueError(f"unknown seq_mode {cfg.seq_mode!r}")
         device = _device.resolve(device)
@@ -315,20 +446,31 @@ class TransformerLM(nn.Module):
         self.embed.weight.normal_(0.0, 1.0 / math.sqrt(h), generator=gen)
         for mod in self.modules():
             if isinstance(mod, Dense):
-                # lecun_normal: truncated at 2 sigma, std rescaled so the
-                # variance is 1 / fan_in.
-                std = 1.0 / math.sqrt(mod.in_features) / .87962566103423978
-                nn.init.trunc_normal_(mod.weight, 0.0, std, -2 * std,
-                                      2 * std, generator=gen)
+                _lecun_normal_(mod.weight, mod.in_features, gen)
+            elif isinstance(mod, MoEMLP):
+                # flax's fan-in of an [E, in, out] kernel is in * E
+                for w in (mod.up_experts, mod.down_experts):
+                    _lecun_normal_(w, w.shape[0] * w.shape[1], gen)
+
+    def head_weight(self) -> torch.Tensor:
+        """``lm_head``'s whole ``[V, H]`` weight: under tensor parallelism
+        every rank's rows gathered, each rank keeping its rows'
+        gradient."""
+        par = self.layout
+        return collectives.gather_along(self.lm_head.weight,
+                                        None if par is None else par.model,
+                                        0)
 
     def forward(self, input_ids, *, train: bool = False,
                 hidden_only: bool = False, dropout_seed: int | None = None,
-                kv_cache=None, cache_length=None, decode: bool = False):
+                kv_cache=None, cache_length=None, decode: bool = False,
+                aux_out: list | None = None):
         c = self.cfg
         s = input_ids.shape[-1]
+        par = self.layout
         if kv_cache is not None:
-            if c.seq_mode != "none" or train:
-                raise ValueError("the KV-cache path serves dense "
+            if c.seq_mode != "none" or train or par is not None:
+                raise ValueError("the KV-cache path serves unsharded, "
                                  "batch-parallel configs only, not in "
                                  "train mode")
             if len(kv_cache) != c.num_layers:
@@ -349,20 +491,30 @@ class TransformerLM(nn.Module):
             dropout_seed = None
         elif c.dropout > 0.0 and dropout_seed is None:
             raise ValueError("train=True with dropout needs a dropout_seed")
-        x = self.embed(input_ids).to(c.torch_dtype)
+        # the embedding's columns are split over the model group
+        x = collectives.gather_along(
+            self.embed(input_ids), None if par is None else par.model,
+            -1).to(c.torch_dtype)
         for i, block in enumerate(self.blocks):
+            # a list a block: a remat recompute appends its value again
+            aux = []
             if kv_cache is not None:
                 x = block(x, positions, kv_cache=kv_cache[i],
                           cache_length=cache_length, decode=decode)
             elif c.remat and torch.is_grad_enabled():
                 x = checkpoint.checkpoint(block, x, positions, dropout_seed,
-                                          ring=ring, use_reentrant=False)
+                                          ring=ring, par=par, aux_out=aux,
+                                          use_reentrant=False)
             else:
-                x = block(x, positions, dropout_seed, ring=ring)
+                x = block(x, positions, dropout_seed, ring=ring, par=par,
+                          aux_out=aux)
+            if aux and aux_out is not None:
+                aux_out.append(aux[0])
         x = self.final_ln(x)
         if hidden_only:
             return x
-        logits = self.lm_head(x)
+        w = self.head_weight()
+        logits = F.linear(x.float(), w.float())
         if kv_cache is not None:
             return logits, kv_cache
         return logits

@@ -107,6 +107,21 @@ def step_flops(cfg, model: nn.Module, batch: dict,
     return None, None
 
 
+def param_count(model: nn.Module) -> int:
+    """The model's parameters, each counted whole where this rank holds a
+    block of it (tensor and expert parallelism: ``shard_specs``)."""
+    specs = getattr(model, "shard_specs", {})
+    layout = getattr(model, "layout", None)
+    total = 0
+    for name, p in model.named_parameters():
+        n = p.numel()
+        for axis in (specs.get(name) or ()) if layout is not None else ():
+            if axis is not None:
+                n *= layout.sizes.get(axis, 1)
+        total += n
+    return total
+
+
 def step_flops_or_fallback(cfg, model: nn.Module, batch: dict | None, *,
                            seq_shards: int = 1) -> tuple[float, str]:
     """:func:`step_flops`, else the dense 6·N·D estimate (``batch`` None:
@@ -117,7 +132,7 @@ def step_flops_or_fallback(cfg, model: nn.Module, batch: dict | None, *,
         return flops, src
     from tpuframe_torch.obs import goodput
 
-    n_params = sum(p.numel() for p in model.parameters())
+    n_params = param_count(model)
     tokens = 1
     if batch is not None and "input_ids" in batch:
         tokens = int(batch["input_ids"].shape[-1]) * seq_shards

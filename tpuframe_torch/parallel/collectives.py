@@ -543,3 +543,134 @@ def wire_mean_(t: torch.Tensor, grp) -> torch.Tensor:
     allreduce_start_(t, grp).wait()
     _wire("all_reduce", t)
     return t.div_(dist.get_world_size(grp))
+
+
+# The verbs of tensor and expert parallelism (``parallel/tp.py``, the MoE
+# layer of ``models/transformer_lm.py``): calls and bytes this process
+# sent into them, by verb, the forward and the backward alike (what a run
+# reads as its sharded-state traffic).  A group of one runs and counts
+# nothing.
+SHARD_CALLS = {"all_reduce": 0, "all_gather": 0}
+SHARD_BYTES = dict.fromkeys(SHARD_CALLS, 0)
+
+
+def reset_shard() -> None:
+    for d in (SHARD_CALLS, SHARD_BYTES):
+        for k in d:
+            d[k] = 0
+
+
+def _shard_sum_(t: torch.Tensor, grp) -> torch.Tensor:
+    """In-place sum of ``t`` (contiguous) over a sub-group, counted."""
+    _check_device("all_reduce", t, grp.group)
+    dist.all_reduce(t, group=grp.group)
+    SHARD_CALLS["all_reduce"] += 1
+    SHARD_BYTES["all_reduce"] += t.numel() * t.element_size()
+    return t
+
+
+def _shard_gather(t: torch.Tensor, grp, dim: int) -> torch.Tensor:
+    """Every member's ``t`` concatenated along ``dim`` in group order,
+    counted."""
+    t = t.contiguous()
+    _check_device("all_gather", t, grp.group)
+    parts = [torch.empty_like(t) for _ in range(grp.size)]
+    dist.all_gather(parts, t, group=grp.group)
+    SHARD_CALLS["all_gather"] += 1
+    SHARD_BYTES["all_gather"] += t.numel() * t.element_size()
+    return torch.cat(parts, dim=dim)
+
+
+class _CopyTo(torch.autograd.Function):
+    """Megatron's ``f``: the identity forward into a region whose members
+    each use part of ``x``; the backward sums the members' partial
+    cotangents (in f32)."""
+
+    @staticmethod
+    def forward(ctx, x, grp):
+        ctx.grp = grp
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _shard_sum_(g.float().contiguous(), ctx.grp).to(g.dtype), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    """Megatron's ``g``: the sum of the members' partial results (in f32,
+    one rounding back to ``x``'s dtype); the backward is the identity."""
+
+    @staticmethod
+    def forward(ctx, x, grp):
+        return _shard_sum_(x.float().contiguous().clone(), grp).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Gather(torch.autograd.Function):
+    """A tensor split along ``dim`` made whole on every member; the
+    backward keeps this member's block of the (replicated) cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, grp, dim):
+        ctx.grp, ctx.dim, ctx.n = grp, dim, x.shape[dim]
+        return _shard_gather(x, grp, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        lo = ctx.grp.index * ctx.n
+        return g.narrow(ctx.dim, lo, ctx.n).contiguous(), None, None
+
+
+class _GroupSum(torch.autograd.Function):
+    """``psum`` over a sub-group: the sum forward and backward."""
+
+    @staticmethod
+    def forward(ctx, x, grp):
+        ctx.grp = grp
+        return _shard_sum_(x.contiguous().clone(), grp)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _shard_sum_(g.contiguous().clone(), ctx.grp), None
+
+
+def copy_to(x: torch.Tensor, grp) -> torch.Tensor:
+    """:class:`_CopyTo` over ``grp`` (a ``mesh.Group``; None or a group of
+    one: the identity)."""
+    if grp is None or grp.size == 1:
+        return x
+    return _CopyTo.apply(x, grp)
+
+
+def reduce_from(x: torch.Tensor, grp) -> torch.Tensor:
+    """:class:`_ReduceFrom` over ``grp`` (None or one member: identity)."""
+    if grp is None or grp.size == 1:
+        return x
+    return _ReduceFrom.apply(x, grp)
+
+
+def gather_along(x: torch.Tensor, grp, dim: int) -> torch.Tensor:
+    """:class:`_Gather` of ``x`` along ``dim`` over ``grp`` (None or one
+    member: identity)."""
+    if grp is None or grp.size == 1:
+        return x
+    return _Gather.apply(x, grp, dim % x.dim())
+
+
+def group_sum(x: torch.Tensor, grp) -> torch.Tensor:
+    """The sum of ``x`` over ``grp``, differentiable with the sum as its
+    backward too (``psum``), counted; None or one member: identity."""
+    if grp is None or grp.size == 1:
+        return x
+    return _GroupSum.apply(x, grp)
+
+
+def group_gather(x: torch.Tensor, grp) -> torch.Tensor:
+    """Every member's ``x`` stacked on a new leading dim, in group order
+    (no gradient), counted; None or one member: ``x[None]``."""
+    if grp is None or grp.size == 1:
+        return x[None]
+    return _shard_gather(x.detach()[None], grp, 0)

@@ -1,20 +1,29 @@
-"""The rank layout of a data x seq mesh and its sequence sub-groups (the
-degrees -> groups part of ``tpuframe/parallel/mesh.py``).
+"""The rank layout of a data x seq x expert x model mesh and its
+sub-groups (the degrees -> groups part of ``tpuframe/parallel/mesh.py``).
 
-The JAX package lays its devices out row-major over its axes, data
-outermost, and a collective over the ``seq`` axis runs among the devices
-that differ in their ``seq`` coordinate only.  Here a rank plays a
-device: of the axes the port runs (data and seq; the trainer refuses every
-other), rank ``r`` is ``data_idx * seq + seq_idx``.  Each seq ring (the
-ranks of one data index) gets its own ``torch.distributed`` group, made
-by :func:`build` on every rank in the same order, so that the ring's
-collectives never share a group with the gradient reduction, which stays
-on the world: the parameters are replicated over both axes, as in the
-JAX step.
+The JAX package lays its devices out row-major over its axes (``AXES``:
+data, fsdp, pipe, seq, expert, model), data outermost, and a collective
+over an axis runs among the devices that differ in that coordinate only.
+Here a rank plays a device: of the axes the port runs (the trainer
+refuses fsdp, pipe and slices), rank ``r`` is
+``((data_idx * seq + seq_idx) * expert + expert_idx) * model + model_idx``.
+Each sub-group gets its own ``torch.distributed`` group, made by
+:func:`build` on every rank in the same order:
 
-A world of one, or a seq degree of 1, has no seq group: the model then
-runs whole-sequence attention.  The trainer hands its layout's ring to
-the model it builds (``TransformerLM.seq``).
+  - a **seq ring** (the ranks that differ in their seq coordinate only)
+    with a seq degree above 1, for ring attention and Ulysses;
+  - with an expert or model degree above 1 (the JAX trainer's
+    sharded-state mode): the **model** group (tensor parallelism), the
+    **expert** group (expert parallelism), the **shard** group (the
+    ranks that share a data index: expert x model, over which an MoE
+    layer's partial outputs are summed) and the **data** group (the
+    ranks that hold the same shard of every leaf and different batch
+    rows: the group each leaf's gradient is averaged over, and the one
+    global MoE routing counts tokens over).
+
+The batch's rows shard over data only (the JAX ``BATCH_AXES``): ranks
+that differ only in their expert or model coordinate take the same rows.
+A world of one, or a degree of 1, has no group for that axis.
 """
 
 from __future__ import annotations
@@ -23,11 +32,15 @@ from dataclasses import dataclass
 
 import torch.distributed as dist
 
+# the JAX package's axis order, data outermost
+AXES = ("data", "fsdp", "pipe", "seq", "expert", "model")
+SHARD_AXES = ("expert", "model")
+
 
 @dataclass(frozen=True)
-class SeqGroup:
-    """One seq ring: its group, its size, this rank's place in it
-    (``index``, the seq coordinate) and its members' world ranks in ring
+class Group:
+    """A sub-group of the mesh: its ``torch.distributed`` group, its size,
+    this rank's place in it (``index``) and its members' world ranks in
     order."""
 
     group: object
@@ -36,15 +49,39 @@ class SeqGroup:
     ranks: tuple
 
 
+# a seq ring is one such group (its index the seq coordinate)
+SeqGroup = Group
+
+
 @dataclass(frozen=True)
 class Layout:
     """A rank's place in the mesh: every axis's degree (``sizes``, as
-    ``MeshSpec.sizes`` gives them; all but data and seq are 1), the rank
-    and its seq ring (None with a seq degree of 1)."""
+    ``MeshSpec.sizes`` gives them), the rank, and its groups (None where
+    the axis has a degree of 1, and for expert, model, shard and data
+    outside the sharded-state mode)."""
 
     sizes: dict
     rank: int
-    seq: SeqGroup | None = None
+    seq: Group | None = None
+    expert: Group | None = None
+    model: Group | None = None
+    shard: Group | None = None
+    data: Group | None = None
+
+    def coords(self) -> dict:
+        """This rank's coordinate on every axis."""
+        out, r = {}, self.rank
+        for axis in reversed(AXES):
+            n = self.sizes.get(axis, 1)
+            out[axis] = r % n
+            r //= n
+        return out
+
+    @property
+    def sharded(self) -> bool:
+        """The JAX trainer's sharded-state mode: an expert or model degree
+        above 1."""
+        return any(self.sizes.get(a, 1) > 1 for a in SHARD_AXES)
 
     @property
     def data_size(self) -> int:
@@ -53,7 +90,7 @@ class Layout:
 
     @property
     def data_index(self) -> int:
-        return self.rank // self.seq_size
+        return self.coords()["data"]
 
     @property
     def seq_size(self) -> int:
@@ -61,32 +98,82 @@ class Layout:
 
     @property
     def seq_index(self) -> int:
-        return self.rank % self.seq_size
+        return self.coords()["seq"]
+
+
+def rank_of(sizes: dict, coords: dict) -> int:
+    """The world rank at ``coords`` (row-major over :data:`AXES`)."""
+    r = 0
+    for axis in AXES:
+        r = r * sizes.get(axis, 1) + coords.get(axis, 0)
+    return r
+
+
+def axis_groups(sizes: dict, axes: tuple) -> list[tuple]:
+    """Every group of ranks that differ only in their coordinates on
+    ``axes``, each in row-major order over those axes; the groups in the
+    order of their lowest rank."""
+    world = 1
+    for a in AXES:
+        world *= sizes.get(a, 1)
+    seen, out = set(), []
+    for r in range(world):
+        if r in seen:
+            continue
+        base = Layout(sizes=sizes, rank=r).coords()
+        members = [dict(base)]
+        for axis in axes:
+            members = [dict(m, **{axis: i}) for m in members
+                       for i in range(sizes.get(axis, 1))]
+        ranks = tuple(rank_of(sizes, m) for m in members)
+        seen.update(ranks)
+        out.append(ranks)
+    return out
 
 
 def seq_rings(data: int, seq: int) -> list[tuple]:
-    """The world ranks of every seq ring, in ring order, by data index."""
-    return [tuple(range(d * seq, (d + 1) * seq)) for d in range(data)]
+    """The world ranks of every seq ring, in ring order, by data index
+    (a data x seq mesh)."""
+    return axis_groups({"data": data, "seq": seq}, ("seq",))
+
+
+def _groups(sizes: dict, axes: tuple, rank: int) -> Group:
+    """Make every group over ``axes`` (collective over the world: every
+    rank calls this in the same order) and return this rank's."""
+    mine = None
+    for ranks in axis_groups(sizes, axes):
+        grp = dist.new_group(list(ranks))
+        if rank in ranks:
+            mine = Group(group=grp, size=len(ranks),
+                         index=ranks.index(rank), ranks=ranks)
+    return mine
 
 
 def build(sizes: dict, rank: int) -> Layout:
     """``rank``'s layout on a mesh of ``sizes`` (every axis's degree, the
-    world their product).  With a seq degree above 1 every rank makes
-    every ring's group (``dist.new_group`` is collective over the world)
-    and keeps its own."""
+    world their product).  Makes the seq rings with a seq degree above 1,
+    and, in the sharded-state mode, the expert, model, shard and data
+    groups of the axes whose degree (or, for data and shard, whose
+    group's size) is above 1."""
     other = {a: n for a, n in sizes.items()
-             if a not in ("data", "seq") and n != 1}
+             if a not in ("data", "seq", *SHARD_AXES) and n != 1}
     if other:
-        raise ValueError(f"the port lays out data x seq meshes only; got "
-                         f"{other}")
-    data, seq = sizes["data"], sizes["seq"]
-    if not 0 <= rank < data * seq:
+        raise ValueError(f"the port lays out data x seq meshes only, with "
+                         f"their expert and model axes; got {other}")
+    world = 1
+    for a in AXES:
+        world *= sizes.get(a, 1)
+    if not 0 <= rank < world:
         raise ValueError(f"rank {rank} lies outside the mesh {sizes}")
-    mine = None
-    if seq > 1:
-        for ranks in seq_rings(data, seq):
-            grp = dist.new_group(list(ranks))
-            if rank in ranks:
-                mine = SeqGroup(group=grp, size=seq,
-                                index=ranks.index(rank), ranks=ranks)
-    return Layout(sizes=dict(sizes), rank=rank, seq=mine)
+    groups = {}
+    if sizes["seq"] > 1:
+        groups["seq"] = _groups(sizes, ("seq",), rank)
+    if any(sizes.get(a, 1) > 1 for a in SHARD_AXES):
+        for name, axes in (("expert", ("expert",)), ("model", ("model",)),
+                           ("shard", SHARD_AXES), ("data", ("data",))):
+            n = 1
+            for a in axes:
+                n *= sizes.get(a, 1)
+            if n > 1:
+                groups[name] = _groups(sizes, axes, rank)
+    return Layout(sizes=dict(sizes), rank=rank, **groups)

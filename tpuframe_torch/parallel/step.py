@@ -58,7 +58,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from tpuframe_torch.parallel import collectives, fusion, quantwire, zero1
+from tpuframe_torch.parallel import (collectives, fusion, quantwire, tp,
+                                     zero1)
 from tpuframe_torch.utils.optim import Optimizer
 
 # loss_fn(model, batch, dropout_seed) -> (loss, {metric: tensor})
@@ -82,10 +83,21 @@ class TrainState:
         them), ``opt/count``, ``opt/<mu|nu|trace>/<parameter name>``,
         ``step`` and ``seed``.  The tensors are the live ones, not
         copies.  An optimizer in the ZeRO-1 layout gives its moments as
-        ``ckpt.FlatShard`` leaves (``zero1.opt_tree``)."""
-        return {"model": dict(self.model.state_dict()),
-                "opt": zero1.opt_tree(self.opt),
-                "step": self.step, "seed": self.seed}
+        ``ckpt.FlatShard`` leaves (``zero1.opt_tree``); a model cut by
+        ``tp.shard_`` gives its split parameters and their moments as
+        ``ckpt.Shard`` leaves."""
+        model = dict(self.model.state_dict())
+        opt = zero1.opt_tree(self.opt)
+        specs = getattr(self.model, "shard_specs", {})
+        layout = getattr(self.model, "layout", None)
+        if specs and layout is not None:
+            # tensor and expert parallelism: each split parameter and its
+            # moments are this rank's block (``ckpt.Shard``)
+            model = tp.ckpt_tree(model, specs, layout)
+            opt = {k: v if k == "count" else tp.ckpt_tree(v, specs, layout)
+                   for k, v in opt.items()}
+        return {"model": model, "opt": opt, "step": self.step,
+                "seed": self.seed}
 
     def load_tree(self, tree: dict) -> None:
         """Take a tree of :meth:`to_tree`'s structure, copying into the
@@ -104,11 +116,15 @@ def dropout_seed(seed: int, step: int, rank: int, micro: int = 0) -> int:
                .generate_state(1, np.uint64)[0] >> 1)
 
 
+WORLD = "world"
+
+
 def make_train_step(loss_fn: LossFn, *, accum_steps: int = 1,
                     grad_reduce: str = "mean", distributed: bool = True,
                     fusion_threshold: int | None = None,
                     weight_update: str = "replicated",
-                    wire_format: str = "fp"):
+                    wire_format: str = "fp", group=WORLD,
+                    replica: int | None = None, global_micro: bool = False):
     """``train_step(state, batch) -> metrics``: forward, backward, the
     world's gradient reduction (none unless ``distributed``): the mean,
     or Adasum with ``grad_reduce="adasum"``, and the optimizer update, in
@@ -130,7 +146,19 @@ def make_train_step(loss_fn: LossFn, *, accum_steps: int = 1,
     ``weight_update`` (``"replicated"`` or ``"zero1"``, whose state comes
     from ``zero1.make_state``) and ``wire_format`` (``"fp"`` or
     ``"int8-block"``): see the module docstring.  The zero1 step has no
-    ``reducer``."""
+    ``reducer``.
+
+    ``group``: the group the gradients, statistics and metrics are
+    averaged over, by default the world; the sharded-state mode's data
+    group (``parallel/mesh.py``; None for a data degree of 1), whose
+    ranks hold the same block of every parameter.  ``replica``: the index
+    the dropout seeds take in place of the world rank (the data index
+    there, so that ranks holding other blocks of the same rows draw the
+    same masks).  ``global_micro``: with ``accum_steps``, microbatch ``i``
+    is rows ``[i B / a, (i + 1) B / a)`` of the global batch (the ranks'
+    batches of ``group``, in group order), each rank taking its block of
+    them, as the JAX jit step splits its logical batch; by default each
+    rank splits its own rows."""
     wire_format = quantwire.validate_format(wire_format)
     weight_update = zero1.validate_mode(weight_update)
     if accum_steps < 1:
@@ -173,8 +201,10 @@ def make_train_step(loss_fn: LossFn, *, accum_steps: int = 1,
 
     def train_step(state: TrainState, batch: dict) -> dict:
         model = state.model
-        grp = collectives.group() if distributed else None
-        rank = collectives.world()[1] if distributed else 0
+        grp = (None if not distributed else
+               collectives.group() if group is WORLD else group)
+        rank = (0 if not distributed else
+                collectives.world()[1] if replica is None else replica)
         reducer = (staged(model, grp) if fusion_threshold is not None
                    and grp is not None and weight_update == "replicated"
                    else None)
@@ -185,6 +215,8 @@ def make_train_step(loss_fn: LossFn, *, accum_steps: int = 1,
             raise ValueError(f"accum_steps={accum_steps} does not divide "
                              f"the per-rank batch {n}")
         m = n // accum_steps
+        if global_micro and accum_steps > 1 and grp is not None:
+            batch = _global_micro(batch, grp, accum_steps)
         loss_sum, metric_sums = 0.0, {}
         for i in range(accum_steps):
             micro = {k: v[i * m:(i + 1) * m] for k, v in batch.items()}
@@ -235,17 +267,35 @@ def make_train_step(loss_fn: LossFn, *, accum_steps: int = 1,
     return train_step
 
 
+def _global_micro(batch: dict, grp, accum_steps: int) -> dict:
+    """This rank's rows of each global microbatch, in microbatch order:
+    the group's batches gathered (rank order: the global batch), then
+    block ``r`` of each of the ``accum_steps`` row blocks."""
+    import torch.distributed as dist
+
+    size, r = dist.get_world_size(grp), dist.get_rank(grp)
+    out = {}
+    for k, v in batch.items():
+        whole = collectives.allgather(v, grp)
+        m = v.shape[0] // accum_steps
+        out[k] = torch.cat([whole[(i * size + r) * m:(i * size + r + 1) * m]
+                            for i in range(accum_steps)])
+    return out
+
+
 def make_eval_step(metric_fn: Callable[[nn.Module, dict], dict], *,
-                   distributed: bool = True):
+                   distributed: bool = True, group=WORLD):
     """``eval_step(state, batch) -> metrics``: forward only, in eval
-    mode, each metric averaged over the world (unless not
-    ``distributed``)."""
+    mode, each metric averaged over the world, or over ``group`` (unless
+    not ``distributed``)."""
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: dict) -> dict:
         out = metric_fn(state.model, batch)
         if distributed:
-            collectives.mean_(list(out.values()), collectives.group())
+            collectives.mean_(list(out.values()),
+                              collectives.group() if group is WORLD
+                              else group)
         return out
 
     return eval_step

@@ -32,7 +32,8 @@ import torch
 
 from tpuframe_torch import _device
 from tpuframe_torch.models.bert import BertForSequenceClassification
-from tpuframe_torch.models.transformer_lm import Dense, TransformerLM
+from tpuframe_torch.models.transformer_lm import (Dense, MoEMLP,
+                                                  TransformerLM)
 from tpuframe_torch.serve import kv_cache as kv
 
 
@@ -166,7 +167,9 @@ class LMEngine:
     @torch.no_grad()
     def decode_step(self) -> np.ndarray:
         """One decode step over every slot.  Returns the new token per
-        slot (host numpy ``[slots]``; inactive slots carry garbage)."""
+        slot (host numpy ``[slots]``; inactive slots carry garbage, and
+        an MoE layer routes them with the others: the capacity is that of
+        ``slots`` tokens, as a prefill's is that of its bucket's)."""
         logits, _ = self.model(self._tokens, kv_cache=self._layers,
                                cache_length=self._lengths, decode=True)
         self._tokens = logits[:, 0].argmax(dim=-1, keepdim=True)
@@ -190,6 +193,10 @@ def _freeze_for_serving(model) -> None:
             mod.weight.data = mod.weight.data.to(mod.dtype)
             if mod.bias is not None:
                 mod.bias.data = mod.bias.data.to(mod.dtype)
+        elif isinstance(mod, MoEMLP):
+            # the expert einsums cast to the compute dtype too
+            for w in (mod.up_experts, mod.down_experts):
+                w.data = w.data.to(mod.cfg.torch_dtype)
 
 
 class BertClassifier:

@@ -36,7 +36,21 @@ hands each rank's seq ring to the model's attention
 (``TransformerLM.seq``, ``ops/seq_parallel.py``), hands each rank its data rows and its block of
 the sequence, and keeps the loss's valid-token mean and the gradient mean
 over the whole world, as the JAX step's ``('data', 'fsdp', 'seq')``
-axes.  A config with ``distributed=False``
+axes.  An expert or model degree above 1 (an LM) is the JAX harness's
+sharded-state mode: rank = ((data index x seq + seq index) x expert +
+expert index) x model + model index, each rank holds its blocks of the
+parameters and their moments by the tensor-parallel rules
+(``parallel/tp.py``: Megatron placement over model, the experts over
+expert), the model runs the collectives over its model and shard groups,
+its MoE layers route the global batch, the gradients, the loss's mean
+and the metrics are averaged over the data group, dropout is seeded by
+the data index, the gradient norm counts every element once, and the
+fusion knob is ignored, as the JAX jit step ignores it, and
+``accum_steps`` splits the global batch's rows into microbatches, as the
+JAX jit step does; zero1, the int8 wire, Adasum and a seq degree above 1
+are refused there.  An MoE LM (``moe_experts > 0``) adds
+``moe_aux_weight`` times its layers' mean load-balance loss and reports
+it as ``moe_aux``.  A config with ``distributed=False``
 (``mnist_single``) trains on one device with no collective, even in a
 process group, as the JAX harness's config-1 path does.  f32 means f32:
 the harness turns TF32 off for cuDNN's convolutions and for matmuls.
@@ -51,7 +65,7 @@ workloads (``lm_text`` data, ``transformer-lm``) and the GLUE tasks
 and Matthews correlation at eval) train here.  What the JAX harness has and
 the port does not yet refuses loudly, naming its ROADMAP.md item: the
 profiler server (item 11), named remat policies (item 14), pipeline, fsdp,
-tensor and expert parallelism, hierarchical collectives and their DCN wire
+BERT's tensor parallelism, hierarchical collectives and their DCN wire
 (``TPUFRAME_HIER``, ``TPUFRAME_WIRE_FORMAT_DCN``) and elastic resizing.
 ``grad_reduce="adasum"`` reduces the gradients by Adasum.
 ``TPUFRAME_FUSION_THRESHOLD`` (bytes) reduces the mean in fusion buckets
@@ -149,6 +163,7 @@ from tpuframe_torch.parallel import hvd
 from tpuframe_torch.parallel import mesh as mesh_lib
 from tpuframe_torch.parallel import quantwire
 from tpuframe_torch.parallel import step as step_lib
+from tpuframe_torch.parallel import tp
 from tpuframe_torch.parallel import zero1
 from tpuframe_torch.resilience import faults
 from tpuframe_torch.resilience.preempt import RC_PREEMPTED, PreemptionGuard
@@ -194,11 +209,13 @@ def _refuse_unported(cfg: TrainConfig, world: int) -> dict:
     if sizes["pipe"] > 1 or cfg.model == "transformer-lm-pp":
         raise NotImplementedError(f"pipeline parallelism is not ported yet "
                                   f"({ITEM_12})")
-    for axis in ("fsdp", "model", "expert", "slices"):
+    for axis in ("fsdp", "slices"):
         if sizes[axis] > 1:
-            raise NotImplementedError(f"mesh {axis}={sizes[axis]}: sharded "
-                                      f"state and multi-slice meshes are not"
-                                      f" ported yet ({ITEM_12})")
+            raise NotImplementedError(f"mesh {axis}={sizes[axis]}: fsdp's "
+                                      f"sharded state and multi-slice meshes"
+                                      f" are not ported yet ({ITEM_12})")
+    if sizes["model"] > 1 or sizes["expert"] > 1:
+        _refuse_sharded(cfg, sizes)
     if sizes["seq"] > 1 and not cfg.shard_seq:
         raise ValueError(f"mesh seq={sizes['seq']} needs shard_seq=True: "
                          f"the batch's sequence dimension is what the seq "
@@ -209,6 +226,35 @@ def _refuse_unported(cfg: TrainConfig, world: int) -> dict:
                          f"seq_mode 'ring' or 'ulysses': seq_mode 'none' "
                          f"would attend within each rank's chunk only")
     return sizes
+
+
+def _refuse_sharded(cfg: TrainConfig, sizes: dict) -> None:
+    """The sharded-state mode (an expert or model degree above 1: the JAX
+    trainer's auto-SPMD step) serves the LM only, and refuses what the
+    JAX harness refuses there."""
+    shape = f"mesh expert={sizes['expert']} x model={sizes['model']}"
+    if cfg.model == "bert-base":
+        raise NotImplementedError(f"{shape}: BERT's tensor parallelism "
+                                  f"comes with fsdp ({ITEM_12})")
+    if cfg.model != "transformer-lm":
+        raise ValueError(f"{shape}: no tensor-parallel rules for model "
+                         f"{cfg.model!r} (the JAX package has them for "
+                         f"transformer-lm and bert-base)")
+    if not cfg.distributed:
+        raise ValueError(f"{shape} with distributed=False: the sharded "
+                         f"state needs its ranks")
+    if cfg.grad_reduce == "adasum":
+        raise ValueError("grad_reduce='adasum' needs shard_map mode — "
+                         "auto-SPMD has no per-replica grads to combine")
+    if sizes["seq"] > 1:
+        raise ValueError(f"{shape} with mesh seq={sizes['seq']}: the port "
+                         f"runs sequence parallelism on the replicated "
+                         f"(shard_map) path only; the JAX sharded-state "
+                         f"step runs whole-sequence attention there")
+    kw = dict(cfg.model_kwargs)
+    lm_cfg = (models.LMConfig.tiny if kw.pop("tiny", False)
+              else models.LMConfig)(**kw)
+    tp.check_degrees(lm_cfg, sizes)
 
 
 @dataclass
@@ -262,6 +308,17 @@ def _resolved_update(sizes: dict) -> tuple:
     threshold) or, for zero1 with a seq degree above 1, this one."""
     update = zero1.resolve()
     wire, _ = quantwire.resolve_legs()
+    if sizes.get("model", 1) > 1 or sizes.get("expert", 1) > 1:
+        # the JAX make_train_step's refusals with state_shardings
+        if update[0] == "zero1":
+            raise ValueError(
+                "weight_update='zero1' is the shard_map DP path; "
+                "state_shardings (auto-SPMD ZeRO-3) already shards the "
+                "update")
+        if wire[0] != "fp":
+            raise ValueError(
+                f"wire_format={wire[0]!r} needs shard_map mode — auto-SPMD "
+                f"programs have no explicit collectives to quantize")
     if update[0] == "zero1" and sizes["seq"] > 1:
         raise ValueError(
             f"{zero1.ENV_VAR}=zero1 with mesh seq={sizes['seq']}: the seq "
@@ -271,7 +328,7 @@ def _resolved_update(sizes: dict) -> tuple:
     return update, wire
 
 
-def _lm_reduce(cfg: TrainConfig):
+def _lm_reduce(cfg: TrainConfig, layout: mesh_lib.Layout | None = None):
     """The group of the global valid-token mean (``losses.masked_mean``):
     the world, which spans the data and seq ranks alike (the JAX
     ``_lm_reduce_axis``'s ``('data', 'fsdp', 'seq')``).  Gradient
@@ -280,7 +337,12 @@ def _lm_reduce(cfg: TrainConfig):
     themselves (a collective inside the loss would run in the backward
     before the buckets), so all three take a local loss, as the JAX
     harness's explicit step modes do; a per-rank valid-token mean would be
-    biased by unequal padding, so ``padded_docs`` is refused with them."""
+    biased by unequal padding, so ``padded_docs`` is refused with them.
+    In the sharded-state mode (``layout.sharded``) the group is the data
+    group (the ranks with other rows), as the JAX jit step's global mean,
+    which ignores the fusion knob."""
+    if layout is not None and layout.sharded:
+        return _data_group(layout)
     if (cfg.accum_steps > 1 or cfg.grad_reduce == "adasum"
             or _resolved_fusion(cfg)[0] is not None):
         if cfg.distributed and cfg.dataset_kwargs.get("padded_docs"):
@@ -291,6 +353,13 @@ def _lm_reduce(cfg: TrainConfig):
                 "padding across ranks")
         return None
     return _group(cfg)
+
+
+def _data_group(layout: mesh_lib.Layout | None):
+    """The sharded-state mode's data group as a ``torch.distributed``
+    group (None for a data degree of 1)."""
+    return None if layout is None or layout.data is None \
+        else layout.data.group
 
 
 def _is_lm_task(cfg: TrainConfig) -> bool:
@@ -344,15 +413,19 @@ def _check_labels(cfg: TrainConfig, splits) -> None:
                 f"must match (check model_kwargs/dataset)")
 
 
-def make_loss_fn(cfg: TrainConfig):
+def make_loss_fn(cfg: TrainConfig, layout: mesh_lib.Layout | None = None):
     """``loss_fn(model, batch, seed) -> (loss, {"accuracy"})``.
 
     LM: next-token cross-entropy over valid tokens (labels -100 ignored),
     through the fused chunked head when ``cfg.fused_xent``; ``seed``
-    seeds dropout.  Images: ``cfg.augment`` on the device from a generator
-    seeded with ``seed``, normalisation, the training forward (BN batch
-    statistics, running statistics updated; the ConvNet's dropout masks
-    from the same generator, after the augmentation's draws) and
+    seeds dropout.  An MoE LM adds ``moe_aux_weight`` (``model_kwargs``,
+    default 0.01) times the mean of its layers' load-balance losses and
+    reports that mean as ``moe_aux``, as the JAX harness does.
+    ``layout``: the rank's layout (the sharded-state mode's groups).
+    Images: ``cfg.augment`` on the device from a generator seeded with
+    ``seed``, normalisation, the training forward (BN batch statistics,
+    running statistics updated; the ConvNet's dropout masks from the same
+    generator, after the augmentation's draws) and
     cross-entropy with ``cfg.label_smoothing``.  GLUE: the training
     forward with dropout masks drawn from ``seed``, then cross-entropy and
     accuracy, or, for a regression (``num_classes`` 1), the MSE of the
@@ -390,29 +463,38 @@ def make_loss_fn(cfg: TrainConfig):
             return loss, {"accuracy": acc}
 
         return image_loss_fn
-    reduce = _lm_reduce(cfg)
+    reduce = _lm_reduce(cfg, layout)
+    aux_w = float(cfg.model_kwargs.get("moe_aux_weight", 0.01))
 
     def loss_fn(model, batch, dropout_seed):
         ids, labels = batch["input_ids"], batch["labels"]
+        aux = []
         if cfg.fused_xent:
             hidden = model(ids, train=True, hidden_only=True,
-                           dropout_seed=dropout_seed)
+                           dropout_seed=dropout_seed, aux_out=aux)
             loss, acc = fx.mean_xent_and_accuracy(
-                hidden, model.lm_head.weight.T, labels, ignore_index=-100,
+                hidden, model.head_weight().T, labels, ignore_index=-100,
                 reduce=reduce)
         else:
-            logits = model(ids, train=True, dropout_seed=dropout_seed)
+            logits = model(ids, train=True, dropout_seed=dropout_seed,
+                           aux_out=aux)
             loss = losses.softmax_cross_entropy(logits, labels,
                                                 ignore_index=-100,
                                                 reduce=reduce)
             acc = losses.accuracy(logits.detach(), labels,
                                   ignore_index=-100, reduce=reduce)
-        return loss, {"accuracy": acc.detach()}
+        metrics = {"accuracy": acc.detach()}
+        if aux:
+            # the MoE load-balance penalty (ops/moe.py)
+            mean_aux = sum(aux) / len(aux)
+            loss = loss + aux_w * mean_aux
+            metrics["moe_aux"] = mean_aux.detach()
+        return loss, metrics
 
     return loss_fn
 
 
-def make_metric_fn(cfg: TrainConfig):
+def make_metric_fn(cfg: TrainConfig, layout: mesh_lib.Layout | None = None):
     """Eval metrics.  LM: loss, perplexity and token accuracy over valid
     tokens, global over the world.  Images: accuracy and cross-entropy
     (no smoothing) with running statistics, plus ``top5`` for ImageNet;
@@ -465,11 +547,12 @@ def make_metric_fn(cfg: TrainConfig):
 
     def metric_fn(model, batch):
         ids, labels = batch["input_ids"], batch["labels"]
-        reduce = _group(cfg)
+        reduce = (_data_group(layout) if layout is not None
+                  and layout.sharded else _group(cfg))
         if cfg.fused_xent:
             hidden = model(ids, hidden_only=True)
             loss, acc = fx.mean_xent_and_accuracy(
-                hidden, model.lm_head.weight.T, labels, ignore_index=-100,
+                hidden, model.head_weight().T, labels, ignore_index=-100,
                 reduce=reduce)
         else:
             logits = model(ids)
@@ -502,6 +585,11 @@ def build_harness(cfg: TrainConfig, device="cuda") -> Harness:
     if cfg.distributed:
         # parameters and buffers (BatchNorm statistics), as the reference
         hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    if layout.sharded:
+        # tensor and expert parallelism: each rank keeps its blocks
+        model.shard_specs = tp.shard_(model, tp.rules_for_model(cfg.model),
+                                      layout)
+        model.layout = layout
     train_ds, eval_ds = datasets.build(cfg.dataset, cfg.data_dir,
                                        **cfg.dataset_kwargs)
     _check_labels(cfg, (("train", train_ds), ("eval", eval_ds)))
@@ -518,12 +606,17 @@ def build_harness(cfg: TrainConfig, device="cuda") -> Harness:
                                 shuffle=False, cast_floats=cast, **shard)
     threshold, source = _resolved_fusion(cfg)
     update, wire = _resolved_update(sizes)
+    # the sharded-state mode averages over the data group, seeds dropout
+    # by data index and ignores the fusion knob, as the JAX jit step does
+    # (and splits the global batch's rows into its microbatches)
+    sharded = dict(group=_data_group(layout), replica=layout.data_index,
+                   global_micro=True) if layout.sharded else {}
     # the step first: it refuses what the state could not serve
     train_step = step_lib.make_train_step(
-        make_loss_fn(cfg), accum_steps=cfg.accum_steps,
+        make_loss_fn(cfg, layout), accum_steps=cfg.accum_steps,
         grad_reduce=cfg.grad_reduce, distributed=cfg.distributed,
-        fusion_threshold=threshold, weight_update=update[0],
-        wire_format=wire[0])
+        fusion_threshold=None if layout.sharded else threshold,
+        weight_update=update[0], wire_format=wire[0], **sharded)
     if update[0] == "zero1":
         # the moments born as this rank's chunks of the flat layout
         state = zero1.make_state(cfg, model, _group(cfg), seed=cfg.seed + 1)
@@ -531,13 +624,17 @@ def build_harness(cfg: TrainConfig, device="cuda") -> Harness:
         state = step_lib.TrainState(model=model,
                                     opt=build_optimizer(cfg, model),
                                     seed=cfg.seed + 1)
+        if layout.sharded:
+            specs = [model.shard_specs.get(n) for n in state.opt.names]
+            state.opt.global_sq = lambda sq: tp.global_sq(sq, specs, layout)
     manager = _resume(cfg, state)
     return Harness(
         cfg=cfg, device=dev, state=state, manager=manager,
         start_step=state.step, fusion_threshold=(threshold, source),
         weight_update=update, wire_format=wire, train_step=train_step,
-        eval_step=step_lib.make_eval_step(make_metric_fn(cfg),
-                                          distributed=cfg.distributed),
+        eval_step=step_lib.make_eval_step(
+            make_metric_fn(cfg, layout), distributed=cfg.distributed,
+            **({"group": _data_group(layout)} if layout.sharded else {})),
         train_loader=train_loader, eval_loader=eval_loader, world=world,
         layout=layout)
 
@@ -762,7 +859,7 @@ def _train(cfg: TrainConfig, device, guard: PreemptionGuard,
         tel.generation = _generation(h.device)
         tel.step = h.start_step
         primary = bootstrap.is_primary()
-        n_params = sum(p.numel() for p in h.state.model.parameters())
+        n_params = obs_flops.param_count(h.state.model)
         if primary:
             print(f"[tpuframe] {cfg.name}: model={cfg.model} "
                   f"params={n_params / 1e6:.2f}M devices={h.world} "

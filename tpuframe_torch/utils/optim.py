@@ -98,7 +98,10 @@ class Optimizer:
 
     :meth:`step` reads each parameter's ``.grad`` (already reduced over
     the data-parallel world), updates the parameters and returns the
-    gradients' global norm before clipping."""
+    gradients' global norm before clipping.  ``global_sq``: None, or, for
+    a model whose parameters are this rank's blocks (``parallel/tp.py``),
+    a function from each parameter's local sum of squares to the whole
+    tree's, every element counted once (``tp.global_sq``)."""
 
     def __init__(self, cfg: TrainConfig, model: nn.Module, schedule,
                  shards: tuple | None = None):
@@ -125,6 +128,7 @@ class Optimizer:
                              for p in self.params]
         self.moments = ({"mu": zeros(), "nu": zeros()}
                         if cfg.optimizer == "adamw" else {"trace": zeros()})
+        self.global_sq = None
 
     def state_dict(self) -> dict:
         """``{"count": int, <moment>: {parameter name: tensor}}``; the
@@ -165,8 +169,9 @@ class Optimizer:
                              "through parallel.zero1.sharded_update")
         ps = self.params
         gs = [torch.zeros_like(p) if p.grad is None else p.grad for p in ps]
-        norm = torch.stack([g.float().square().sum() for g in gs]).sum() \
-            .sqrt()
+        sq = [g.float().square().sum() for g in gs]
+        norm = (torch.stack(sq).sum() if self.global_sq is None
+                else self.global_sq(sq)).sqrt()
         if cfg.grad_clip_norm is not None:
             # (g / norm) * max when norm >= max, else g unchanged, in
             # optax's arithmetic and without a host sync

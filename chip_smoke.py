@@ -727,7 +727,7 @@ SEQ_KERNEL_CASES = (("ring diagonal stage", SEQ_RING_SHAPE, True, True),
 # time limit).  (a) one process; (b) data=1 x expert=2 and (c) data=1 x
 # model=2 in turn in one world of two gloo processes on the card
 # (``--moe-worker``).
-MOE_STEPS = 3
+MOE_STEPS = 2
 MOE_EVAL_BATCHES = 1
 MOE_GLOBAL_BATCH = 2
 MOE_DATA = {"seq_len": 4096}

@@ -16,13 +16,14 @@ same recipe on each layout.
 
 Held: losses, ``moe_aux`` and gradient norms within 3e-5 (the TP
 tolerance of ``tests/test_fsdp.py``); the final parameters, each rank's
-blocks put back together, within 3e-5, or, where that is larger, within
-twice the largest distance between two JAX steps of the same head on
-different layouts (the unsharded step and the three sharded-state ones:
-one logical program, so summation order only, which three Adam steps
-amplify in gradients at the scale of Adam's epsilon; ~5e-5 in one
-element of ``moe.up_experts``, ``test_torch_moe_train.py``); every
-replicated leaf
+blocks put back together, every element within 3e-5, except the few
+elements (under 0.1% of a tensor, printed) where two JAX steps of the
+same head on different layouts (the unsharded step and the three
+sharded-state ones: one logical program, so summation order only) differ
+by more than that: three Adam steps amplify the summation order of a
+gradient at the scale of Adam's epsilon (~5e-5 in one element of
+``moe.up_experts``, ``test_torch_moe_train.py``), and such an element is
+held within twice its own spread; every replicated leaf
 bit-identical on every rank.  Checkpoints: the ``{expert 2, model 2}``
 run's state saved with the JAX shard table, restored bit for bit onto
 ``{data 2, model 2}`` (in the world) and onto one process, read by
@@ -275,14 +276,39 @@ def _full_params(ranks: list, run: str) -> dict:
 
 
 def _spread(want: dict, fused: bool) -> dict:
-    """Per tensor, the largest distance between two JAX steps of one head
-    on different layouts (accum_steps 1)."""
+    """Per tensor, each element's largest distance between two JAX steps
+    of one head on different layouts (accum_steps 1)."""
     steps = [want["unsharded"][fused]["params"]] + [
         want[name]["params"] for name, _, f, accum in RUNS
         if f == fused and accum == 1]
-    return {k: max(float((a[k] - b[k]).abs().max())
-                   for i, a in enumerate(steps) for b in steps[i + 1:])
-            for k in steps[0]}
+    out = {}
+    for k in steps[0]:
+        every = torch.stack([s[k] for s in steps])
+        out[k] = every.amax(dim=0) - every.amin(dim=0)
+    return out
+
+
+def _assert_params(got: dict, want: dict, spread: dict, what: str) -> None:
+    """Every element of ``got`` within TOL of ``want``, except the
+    elements where the JAX layouts themselves differ by more than TOL:
+    those within twice their own spread, and under 0.1% of the tensor."""
+    assert set(got) == set(want)
+    for k, w in want.items():
+        loose = spread[k] > TOL
+        assert int(loose.sum()) * 1000 < w.numel(), (
+            f"{what} {k}: {int(loose.sum())} of {w.numel()} elements "
+            f"differ by more than {TOL} between JAX layouts")
+        if loose.any():
+            print(f"{what} {k}: loosened at "
+                  f"{loose.nonzero().tolist()} to 2x "
+                  f"{spread[k][loose].tolist()}")
+        atol = torch.where(loose, 2 * spread[k], torch.full_like(w, TOL))
+        err = (got[k] - w).abs()
+        bad = err > atol
+        assert not bad.any(), (
+            f"{what} {k}: {int(bad.sum())} elements off, first at "
+            f"{bad.nonzero()[0].tolist()}: |{got[k][bad][0].item()} - "
+            f"{w[bad][0].item()}| > {atol[bad][0].item()}")
 
 
 @pytest.mark.parametrize("run", [r[0] for r in RUNS])
@@ -294,12 +320,7 @@ def test_layout_matches_the_jax_sharded_state_step(world, run):
         for k in ("loss", "moe_aux", "grad_norm"):
             np.testing.assert_allclose(r[run][k], jx[k], atol=TOL, rtol=0,
                                        err_msg=f"{run} {k}")
-    got = _full_params(ranks, run)
-    assert set(got) == set(jx["params"])
-    for k, w in jx["params"].items():
-        atol = max(TOL, 2 * spread[k])
-        np.testing.assert_allclose(got[k].numpy(), w.numpy(), atol=atol,
-                                   rtol=0, err_msg=f"{run} {k}")
+    _assert_params(_full_params(ranks, run), jx["params"], spread, run)
 
 
 @pytest.mark.parametrize("run", [r[0] for r in RUNS])

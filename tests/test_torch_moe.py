@@ -81,7 +81,8 @@ def test_offset_routing_of_two_halves_is_the_whole(k):
         torch.softmax(h, dim=-1), k)]) for h in halves]
     total = counts[0] + counts[1]
     parts = [torch_moe.route(halves[0], k=k, capacity=cap,
-                             prior=(torch.zeros_like(total), total)),
+                             prior=lambda own: (torch.zeros_like(total),
+                                                total)),
              torch_moe.route(halves[1], k=k, capacity=cap,
                              prior=lambda own: (counts[0], total))]
     torch.testing.assert_close(torch.cat([p.dispatch() for p in parts]),

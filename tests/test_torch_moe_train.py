@@ -17,13 +17,14 @@ with ``params_from_jax``:
 Losses, ``moe_aux``, gradient norms within 1e-5 and final parameters
 within 1e-5 absolute (``test_torch_train.py``'s f32 tolerances: summation
 order only), except where the JAX step itself moves further when only
-its layout changes: the one-process run's tensors are held within twice
-the distance between the JAX unsharded step and the JAX sharded-state
-step on ``data=1 x model=2`` (the same logical program), measured in the
-run, where that is larger.  Three Adam steps amplify the summation order
-of a gradient at the scale of Adam's epsilon: in ``moe.up_experts`` an
-element whose step-1 gradient is ~1e-9 moves by ~4e-5 between the JAX
-layouts alone.
+its layout changes: in the one-process run, an element where the JAX
+unsharded step and the JAX sharded-state step on ``data=1 x model=2``
+(the same logical program) differ by more than 1e-5 is held within twice
+that distance, measured in the run; such elements must be under 0.1% of
+their tensor, and the test prints them.  Three Adam steps amplify the
+summation order of a gradient at the scale of Adam's epsilon: in
+``moe.up_experts`` an element whose step-1 gradient is ~1e-9 moves by
+~4e-5 between the JAX layouts alone.
 """
 
 import json
@@ -205,18 +206,32 @@ def data2_world(tmp_path_factory):
 
 
 def _close(got: dict, want: dict, other: dict | None = None) -> None:
-    """``got`` against ``want`` within TOL; a tensor within twice its
-    distance from ``other`` (another JAX layout's step) where that is
-    larger."""
+    """``got`` against ``want`` within TOL; with ``other`` (another JAX
+    layout's step) an element where ``want`` and ``other`` differ by more
+    than TOL is held within twice that distance instead, and such
+    elements are under 0.1% of the tensor."""
     for k in ("loss", "moe_aux", "grad_norm"):
         np.testing.assert_allclose(got[k], want[k], atol=TOL, rtol=0,
                                    err_msg=k)
     for k, w in want["params"].items():
-        atol = TOL
+        w = w.numpy()
+        atol = np.full_like(w, TOL)
         if other is not None:
-            atol = max(atol, 2 * float((w - other["params"][k]).abs().max()))
-        np.testing.assert_allclose(np.asarray(got["params"][k]), w.numpy(),
-                                   atol=atol, rtol=0, err_msg=k)
+            spread = np.abs(w - other["params"][k].numpy())
+            loose = spread > TOL
+            assert int(loose.sum()) * 1000 < w.size, (
+                f"{k}: {int(loose.sum())} of {w.size} elements differ by "
+                f"more than {TOL} between JAX layouts")
+            if loose.any():
+                print(f"{k}: loosened at {np.argwhere(loose).tolist()} to "
+                      f"2x {spread[loose].tolist()}")
+            atol = np.where(loose, 2 * spread, atol)
+        err = np.abs(np.asarray(got["params"][k]) - w)
+        bad = err > atol
+        assert not bad.any(), (
+            f"{k}: {int(bad.sum())} elements off, first at "
+            f"{np.argwhere(bad)[0].tolist()}: {err[bad][0]} > "
+            f"{atol[bad][0]}")
 
 
 @pytest.mark.parametrize("fused", [True, False], ids=["fused", "dense"])

@@ -22,15 +22,13 @@ distinct block's per-dim ``index``, in sorted order, one file each), and
 each block's file is written by the lowest rank that holds it, as the
 JAX package writes a sharded array; :func:`restore` reads back only the
 files that overlap the block a :class:`Shard` target holds, so a save
-restores onto any layout of the same model.  A :class:`FlatShard` leaf
-(a ZeRO-1 optimizer moment, ``parallel/zero1.py``) is its global flat
-``[padded]`` vector on disk, one shard file a rank, each written by the
-rank that holds it, with the JAX package's shard table (``index``
-``[[lo, hi]]``), so that no rank gathers the whole moment;
-:func:`restore` reads back only the region a :class:`FlatShard` target
-holds, and reshards a flat ``opt`` leaf whose padded length changed with
-the world (a truncate or a zero-pad, as the JAX ``restore`` does: the
-pad region is zero forever).  A bf16 tensor is
+restores onto any layout of the same model.  :func:`FlatShard` makes
+the flat case (a ZeRO-1 optimizer moment, ``parallel/zero1.py``): the
+global flat ``[padded]`` vector split over ``data``, one shard file a
+rank, each written by the rank that holds it, so that no rank gathers the
+whole moment; :func:`restore` also reshards a flat ``opt`` leaf whose
+padded length changed with the world (a truncate or a zero-pad, as the
+JAX ``restore`` does: the pad region is zero forever).  A bf16 tensor is
 written in the JAX package's encoding (an ``np.save`` void record of 2 bytes, manifest dtype
 ``"bfloat16"``) through an int16 view, so that no numpy bfloat16 type is
 needed.  :func:`restore` returns CPU tensors.
@@ -70,43 +68,10 @@ _STEP_RE = re.compile(r"^step_(\d{8})$")
 _MANIFEST = "manifest.json"
 _COMMIT = "COMMIT"
 _BF16 = "bfloat16"
-# the manifest spec of a FlatShard leaf: its one dim split over the data axis
+# the spec of a FlatShard leaf, its one dim split over the data axis, and
+# its manifest form
+_FLAT = (("data",),)
 _FLAT_SPEC = [["data"]]
-
-
-@dataclass(frozen=True)
-class FlatShard:
-    """Chunk ``index`` of ``n`` equal chunks of a flat vector: a
-    checkpoint leaf whose global shape is ``(len(tensor) * n,)`` and of
-    which this rank holds and writes ``tensor`` (the live tensor)."""
-
-    tensor: torch.Tensor
-    index: int
-    n: int
-
-    @property
-    def shape(self) -> tuple:
-        return (self.tensor.numel() * self.n,)
-
-    @property
-    def offset(self) -> int:
-        return self.tensor.numel() * self.index
-
-    def table(self, base: str) -> list:
-        """The manifest's shard table: chunk ``i`` in file ``i``."""
-        c = self.tensor.numel()
-        return [{"id": i, "index": [[i * c, (i + 1) * c]],
-                 "file": f"{base}.shard_{i}.npy"} for i in range(self.n)]
-
-    def as_shard(self) -> "Shard":
-        """The general :class:`Shard` of this chunk (spec ``data``; every
-        rank writes its own)."""
-        c = self.tensor.numel()
-        return Shard(tensor=self.tensor, shape=self.shape,
-                     index=((self.offset, self.offset + c),),
-                     blocks=tuple(((i * c, (i + 1) * c),)
-                                  for i in range(self.n)),
-                     spec=(("data",),), writer=True)
 
 
 @dataclass(frozen=True)
@@ -133,6 +98,18 @@ class Shard:
     @property
     def file_id(self) -> int:
         return self.blocks.index(self.index)
+
+
+def FlatShard(tensor: torch.Tensor, index: int, n: int) -> Shard:
+    """Chunk ``index`` of ``n`` equal chunks of a flat vector as a
+    :class:`Shard` (spec ``data``): a leaf of global shape ``(len(tensor)
+    * n,)`` of which this rank holds and writes ``tensor`` (the live
+    tensor), chunk ``i`` in file ``i``."""
+    c = tensor.numel()
+    return Shard(tensor=tensor, shape=(c * n,),
+                 index=((index * c, (index + 1) * c),),
+                 blocks=tuple(((i * c, (i + 1) * c),) for i in range(n)),
+                 spec=_FLAT, writer=True)
 
 
 def _crc32(data: bytes, algo: str = "crc32c") -> int:
@@ -174,7 +151,7 @@ def _sanitize(name: str) -> str:
 
 
 def _dtype_str(leaf) -> str:
-    if isinstance(leaf, (FlatShard, Shard)):
+    if isinstance(leaf, Shard):
         leaf = leaf.tensor
     if isinstance(leaf, torch.Tensor):
         if leaf.dtype == torch.bfloat16:
@@ -278,8 +255,6 @@ def _prepare_save(directory: str, step: int, tree: Tree, *, sink=None):
     owned = []
     for name, leaf in pairs:
         dtype = _dtype_str(leaf)
-        if isinstance(leaf, FlatShard):
-            leaf = leaf.as_shard()
         if isinstance(leaf, Shard):
             # the block's file, written by the lowest rank that holds it
             table = leaf.table(_sanitize(name))
@@ -426,35 +401,17 @@ def _assemble(path: str, entry: dict, crcs: dict, verify_crc: bool,
     return out
 
 
-def _flat_region(path: str, entry: dict, lo: int, hi: int, crcs: dict,
-                 verify_crc: bool, algo: str) -> np.ndarray:
-    """Elements ``[lo, hi)`` of a flat 1-d leaf, read from the shard files
-    that overlap them only; elements past the leaf's length are zeros
-    (the zero-pad of a reshard)."""
-    if not entry["shards"]:
-        raise FileNotFoundError(f"manifest entry has no shard files: "
-                                f"{entry}")
-    length = entry["shape"][0]
-    out = np.zeros(hi - lo, "V2" if entry["dtype"] == _BF16
-                   else entry["dtype"])
-    for sh in entry["shards"]:
-        slo, shi = sh["index"][0] if sh["index"] is not None else (0, length)
-        a, b = max(lo, slo), min(hi, shi)
-        if a < b:
-            data = _load_shard(path, sh["file"], crcs, verify_crc, algo)
-            out[a - lo:b - lo] = data.reshape(-1)[a - slo:b - slo]
-    return out
-
-
 def _region(path: str, entry: dict, index: tuple, crcs: dict,
             verify_crc: bool, algo: str) -> np.ndarray:
     """The block ``index`` (``((lo, hi), ...)``) of a leaf, read from the
-    shard files that overlap it only."""
+    shard files that overlap it only; elements past the leaf's extent are
+    zeros (the zero-pad of a flat reshard)."""
     shape = tuple(entry["shape"])
     if not entry["shards"]:
         raise FileNotFoundError(f"manifest entry has no shard files: "
                                 f"{entry}")
-    out = None
+    out = np.zeros([hi - lo for lo, hi in index],
+                   "V2" if entry["dtype"] == _BF16 else entry["dtype"])
     for sh in entry["shards"]:
         idx = sh["index"] or [(0, d) for d in shape]
         over = [(max(lo, slo), min(hi, shi))
@@ -462,8 +419,6 @@ def _region(path: str, entry: dict, index: tuple, crcs: dict,
         if any(a >= b for a, b in over):
             continue
         data = _load_shard(path, sh["file"], crcs, verify_crc, algo)
-        if out is None:
-            out = np.empty([hi - lo for lo, hi in index], data.dtype)
         dst = tuple(slice(a - lo, b - lo)
                     for (a, b), (lo, _) in zip(over, index))
         src = tuple(slice(a - slo, b - slo)
@@ -489,10 +444,10 @@ def restore(directory: str, step: int, *, target: Tree | None = None,
     tensors.  With ``target`` (a tree of the same structure) the leaf
     names must match (else ValueError), each tensor's shape must match its
     target's, and a leaf whose target is a Python number comes back as
-    one.  A :class:`FlatShard` or :class:`Shard` target comes back as its
-    chunk or block alone, read from the files that overlap it (the leaf's
-    global shape must be the target's).  A flat ``opt/...`` ZeRO-1 moment
-    (saved as a :class:`FlatShard`, or restored into one) whose length
+    one.  A :class:`Shard` target comes back as its block alone, read
+    from the files that overlap it (the leaf's global shape must be the
+    target's).  A flat ``opt/...`` ZeRO-1 moment
+    (saved as a :func:`FlatShard`, or restored into one) whose length
     differs from its 1-d target's (a save at another world size) is
     resharded: truncated or zero-padded to the target's length; every
     other shape mismatch raises ValueError."""
@@ -519,35 +474,25 @@ def restore(directory: str, step: int, *, target: Tree | None = None,
     out = []
     for name, tgt in pairs:
         entry = manifest["leaves"][name]
-        if isinstance(tgt, Shard):
-            if tuple(entry["shape"]) != tuple(tgt.shape):
-                raise ValueError(f"checkpoint leaf {name!r} shape "
-                                 f"{tuple(entry['shape'])} does not match "
-                                 f"target shape {tuple(tgt.shape)}")
-            out.append((name, _to_torch(_region(
-                path, entry, tgt.index, manifest["crc"], verify_crc, algo),
-                entry["dtype"])))
-            continue
-        want = tuple(_shape(tgt))
+        shard = isinstance(tgt, Shard)
+        want = tuple(tgt.shape) if shard else tuple(_shape(tgt))
         got = tuple(entry["shape"])
         opt = name.split("/", 1)[0] == "opt"
         # a ZeRO-1 moment: saved as one (spec [["data"]]) or restored into
         # one; a replicated moment of another length is no such vector
         flat = (opt and len(got) == 1 and len(want) == 1
                 and (entry.get("spec") == _FLAT_SPEC
-                     or isinstance(tgt, FlatShard)))
+                     or (shard and tgt.spec == _FLAT)))
         if got != want and not flat:
             raise ValueError(f"checkpoint leaf {name!r} shape {got} does "
                              f"not match target shape {want}"
                              + (" and is not a flat ZeRO-1 optimizer "
                                 "vector: no resharding map applies"
                                 if opt else ""))
-        if isinstance(tgt, FlatShard) or got != want:
-            lo = tgt.offset if isinstance(tgt, FlatShard) else 0
-            hi = lo + (tgt.tensor.numel() if isinstance(tgt, FlatShard)
-                       else want[0])
-            t = _to_torch(_flat_region(path, entry, lo, hi, manifest["crc"],
-                                       verify_crc, algo), entry["dtype"])
+        if shard or got != want:
+            index = tgt.index if shard else ((0, want[0]),)
+            t = _to_torch(_region(path, entry, index, manifest["crc"],
+                                  verify_crc, algo), entry["dtype"])
         else:
             t = load(name)
         if isinstance(tgt, (bool, int, float)):

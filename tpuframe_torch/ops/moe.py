@@ -18,10 +18,11 @@ over rounds adds zeros to the one nonzero term).
 
 Global routing (the JAX trainer's sharded-state mode, where the logical
 program routes the whole batch at once): a rank whose tokens are rows
-``[t0, t0 + T_local)`` of the global token order passes ``prior``, the
-per-round, per-expert counts of the tokens that earlier ranks sent
-(``before``) and of all ranks (``total``), and the global capacity.  Its
-tokens then take the queue positions the whole batch would give them.
+``[t0, t0 + T_local)`` of the global token order passes ``prior``, a
+function from its own per-round, per-expert counts to those of the tokens
+that earlier ranks sent (``before``) and of all ranks (``total``), and
+the global capacity.  Its tokens then take the queue positions the whole
+batch would give them.
 """
 
 from __future__ import annotations
@@ -86,12 +87,12 @@ class Routing:
 
 
 def route(gate_logits: torch.Tensor, *, k: int, capacity: int,
-          prior: tuple | None = None) -> Routing:
-    """Route ``[T, E]`` gate logits (cast to f32).  ``prior``: ``(before,
-    total)``, ``[k, E]`` counts of the tokens that earlier ranks, and all
-    ranks, sent to each expert in each round (module docstring), or a
-    function from this rank's counts ``[k, E]`` to that pair (one
-    exchange among the ranks; a token's choices do not depend on the
+          prior=None) -> Routing:
+    """Route ``[T, E]`` gate logits (cast to f32).  ``prior``: a function
+    from this rank's counts ``[k, E]`` to ``(before, total)``, the
+    ``[k, E]`` counts of the tokens that earlier ranks, and all ranks,
+    sent to each expert in each round (module docstring; one exchange
+    among the ranks, since a token's choices do not depend on the
     capacity); None: these ``T`` tokens are the whole batch."""
     t, e = gate_logits.shape
     gates = torch.softmax(gate_logits.float(), dim=-1)
@@ -99,10 +100,8 @@ def route(gate_logits: torch.Tensor, *, k: int, capacity: int,
     counts = torch.stack([m.sum(dim=0) for m in masks])
     if prior is None:
         before, total = torch.zeros_like(counts), counts
-    elif callable(prior):
-        before, total = prior(counts)
     else:
-        before, total = prior
+        before, total = prior(counts)
     queued = torch.zeros(e, dtype=torch.float32, device=gates.device)
     kept = torch.zeros((t, e), dtype=torch.float32, device=gates.device)
     slot = torch.zeros((t, e), dtype=torch.float32, device=gates.device)
@@ -135,12 +134,10 @@ def aux_loss(me: torch.Tensor, ce: torch.Tensor) -> torch.Tensor:
     return me.shape[-1] * (me * ce).sum()
 
 
-def route_topk(gate_logits: torch.Tensor, *, k: int, capacity: int,
-               prior: tuple | None = None):
+def route_topk(gate_logits: torch.Tensor, *, k: int, capacity: int):
     """``(dispatch [T, E, C], combine [T, E, C], aux)`` as the JAX
     ``route_topk`` returns them: tokens past an expert's capacity are
     dropped for that expert (zero combine weight; the residual carries
-    them), and the kept tokens' k weights are renormalised to sum to 1.
-    ``prior``: see :func:`route` (the aux loss is then this rank's)."""
-    r = route(gate_logits, k=k, capacity=capacity, prior=prior)
+    them), and the kept tokens' k weights are renormalised to sum to 1."""
+    r = route(gate_logits, k=k, capacity=capacity)
     return r.dispatch(), r.combine(), aux_loss(r.me, r.ce)

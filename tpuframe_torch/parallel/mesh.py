@@ -93,6 +93,12 @@ class Layout:
         return self.coords()["data"]
 
     @property
+    def data_group(self):
+        """The data group as a ``torch.distributed`` group (None for a
+        data degree of 1)."""
+        return None if self.data is None else self.data.group
+
+    @property
     def seq_size(self) -> int:
         return self.sizes["seq"]
 

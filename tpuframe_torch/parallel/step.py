@@ -116,15 +116,11 @@ def dropout_seed(seed: int, step: int, rank: int, micro: int = 0) -> int:
                .generate_state(1, np.uint64)[0] >> 1)
 
 
-WORLD = "world"
-
-
 def make_train_step(loss_fn: LossFn, *, accum_steps: int = 1,
                     grad_reduce: str = "mean", distributed: bool = True,
                     fusion_threshold: int | None = None,
                     weight_update: str = "replicated",
-                    wire_format: str = "fp", group=WORLD,
-                    replica: int | None = None, global_micro: bool = False):
+                    wire_format: str = "fp", layout=None):
     """``train_step(state, batch) -> metrics``: forward, backward, the
     world's gradient reduction (none unless ``distributed``): the mean,
     or Adasum with ``grad_reduce="adasum"``, and the optimizer update, in
@@ -148,17 +144,16 @@ def make_train_step(loss_fn: LossFn, *, accum_steps: int = 1,
     ``"int8-block"``): see the module docstring.  The zero1 step has no
     ``reducer``.
 
-    ``group``: the group the gradients, statistics and metrics are
-    averaged over, by default the world; the sharded-state mode's data
-    group (``parallel/mesh.py``; None for a data degree of 1), whose
-    ranks hold the same block of every parameter.  ``replica``: the index
-    the dropout seeds take in place of the world rank (the data index
-    there, so that ranks holding other blocks of the same rows draw the
-    same masks).  ``global_micro``: with ``accum_steps``, microbatch ``i``
-    is rows ``[i B / a, (i + 1) B / a)`` of the global batch (the ranks'
-    batches of ``group``, in group order), each rank taking its block of
-    them, as the JAX jit step splits its logical batch; by default each
-    rank splits its own rows."""
+    ``layout``: the sharded-state mode's ``mesh.Layout`` (None: the
+    world is the data group).  The gradients, statistics and metrics are
+    then averaged over its data group, whose ranks hold the same block of
+    every parameter (no reduction for a data degree of 1); the dropout
+    seeds take the data index in place of the world rank, so that ranks
+    holding other blocks of the same rows draw the same masks; and with
+    ``accum_steps`` microbatch ``i`` is rows ``[i B / a, (i + 1) B / a)``
+    of the global batch (the data ranks' batches in order), each rank
+    taking its block of them, as the JAX jit step splits its logical
+    batch, where otherwise each rank splits its own rows."""
     wire_format = quantwire.validate_format(wire_format)
     weight_update = zero1.validate_mode(weight_update)
     if accum_steps < 1:
@@ -201,10 +196,12 @@ def make_train_step(loss_fn: LossFn, *, accum_steps: int = 1,
 
     def train_step(state: TrainState, batch: dict) -> dict:
         model = state.model
-        grp = (None if not distributed else
-               collectives.group() if group is WORLD else group)
-        rank = (0 if not distributed else
-                collectives.world()[1] if replica is None else replica)
+        if not distributed:
+            grp, rank = None, 0
+        elif layout is None:
+            grp, rank = collectives.group(), collectives.world()[1]
+        else:
+            grp, rank = layout.data_group, layout.data_index
         reducer = (staged(model, grp) if fusion_threshold is not None
                    and grp is not None and weight_update == "replicated"
                    else None)
@@ -215,7 +212,7 @@ def make_train_step(loss_fn: LossFn, *, accum_steps: int = 1,
             raise ValueError(f"accum_steps={accum_steps} does not divide "
                              f"the per-rank batch {n}")
         m = n // accum_steps
-        if global_micro and accum_steps > 1 and grp is not None:
+        if layout is not None and accum_steps > 1 and grp is not None:
             batch = _global_micro(batch, grp, accum_steps)
         loss_sum, metric_sums = 0.0, {}
         for i in range(accum_steps):
@@ -284,18 +281,18 @@ def _global_micro(batch: dict, grp, accum_steps: int) -> dict:
 
 
 def make_eval_step(metric_fn: Callable[[nn.Module, dict], dict], *,
-                   distributed: bool = True, group=WORLD):
+                   distributed: bool = True, layout=None):
     """``eval_step(state, batch) -> metrics``: forward only, in eval
-    mode, each metric averaged over the world, or over ``group`` (unless
-    not ``distributed``)."""
+    mode, each metric averaged over the world, or over the data group of
+    the sharded-state ``layout`` (unless not ``distributed``)."""
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: dict) -> dict:
         out = metric_fn(state.model, batch)
         if distributed:
             collectives.mean_(list(out.values()),
-                              collectives.group() if group is WORLD
-                              else group)
+                              collectives.group() if layout is None
+                              else layout.data_group)
         return out
 
     return eval_step

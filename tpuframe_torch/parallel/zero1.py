@@ -58,7 +58,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tpuframe_torch.ckpt import FlatShard
+from tpuframe_torch.ckpt import FlatShard, Shard
 from tpuframe_torch.parallel import collectives, fusion, quantwire
 
 MODES = ("replicated", "zero1")
@@ -105,8 +105,9 @@ def chunk_len(size: int, n: int) -> int:
 
 def opt_tree(opt) -> dict:
     """``opt.state_dict()`` for a checkpoint: in the ZeRO-1 layout each
-    moment as a ``ckpt.FlatShard`` (this rank's chunk of the global flat
-    ``[padded]`` vector, the JAX layout on disk)."""
+    moment as a ``ckpt.FlatShard`` leaf (a ``ckpt.Shard``: this rank's
+    chunk of the global flat ``[padded]`` vector, the JAX layout on
+    disk)."""
     tree = opt.state_dict()
     if opt.shards is None:
         return tree
@@ -117,10 +118,10 @@ def opt_tree(opt) -> dict:
 
 
 def load_opt_tree(tree: dict) -> dict:
-    """The inverse of :func:`opt_tree`: a ``FlatShard`` leaf by its
-    tensor, for ``Optimizer.load_state_dict``."""
+    """The inverse of :func:`opt_tree`: a ``Shard`` leaf by its tensor,
+    for ``Optimizer.load_state_dict``."""
     return {key: val if key == "count" else
-            {name: t.tensor if isinstance(t, FlatShard) else t
+            {name: t.tensor if isinstance(t, Shard) else t
              for name, t in val.items()}
             for key, val in tree.items()}
 

@@ -342,7 +342,7 @@ def _lm_reduce(cfg: TrainConfig, layout: mesh_lib.Layout | None = None):
     group (the ranks with other rows), as the JAX jit step's global mean,
     which ignores the fusion knob."""
     if layout is not None and layout.sharded:
-        return _data_group(layout)
+        return layout.data_group
     if (cfg.accum_steps > 1 or cfg.grad_reduce == "adasum"
             or _resolved_fusion(cfg)[0] is not None):
         if cfg.distributed and cfg.dataset_kwargs.get("padded_docs"):
@@ -353,13 +353,6 @@ def _lm_reduce(cfg: TrainConfig, layout: mesh_lib.Layout | None = None):
                 "padding across ranks")
         return None
     return _group(cfg)
-
-
-def _data_group(layout: mesh_lib.Layout | None):
-    """The sharded-state mode's data group as a ``torch.distributed``
-    group (None for a data degree of 1)."""
-    return None if layout is None or layout.data is None \
-        else layout.data.group
 
 
 def _is_lm_task(cfg: TrainConfig) -> bool:
@@ -547,7 +540,7 @@ def make_metric_fn(cfg: TrainConfig, layout: mesh_lib.Layout | None = None):
 
     def metric_fn(model, batch):
         ids, labels = batch["input_ids"], batch["labels"]
-        reduce = (_data_group(layout) if layout is not None
+        reduce = (layout.data_group if layout is not None
                   and layout.sharded else _group(cfg))
         if cfg.fused_xent:
             hidden = model(ids, hidden_only=True)
@@ -609,14 +602,13 @@ def build_harness(cfg: TrainConfig, device="cuda") -> Harness:
     # the sharded-state mode averages over the data group, seeds dropout
     # by data index and ignores the fusion knob, as the JAX jit step does
     # (and splits the global batch's rows into its microbatches)
-    sharded = dict(group=_data_group(layout), replica=layout.data_index,
-                   global_micro=True) if layout.sharded else {}
+    sharded = layout if layout.sharded else None
     # the step first: it refuses what the state could not serve
     train_step = step_lib.make_train_step(
         make_loss_fn(cfg, layout), accum_steps=cfg.accum_steps,
         grad_reduce=cfg.grad_reduce, distributed=cfg.distributed,
         fusion_threshold=None if layout.sharded else threshold,
-        weight_update=update[0], wire_format=wire[0], **sharded)
+        weight_update=update[0], wire_format=wire[0], layout=sharded)
     if update[0] == "zero1":
         # the moments born as this rank's chunks of the flat layout
         state = zero1.make_state(cfg, model, _group(cfg), seed=cfg.seed + 1)
@@ -634,7 +626,7 @@ def build_harness(cfg: TrainConfig, device="cuda") -> Harness:
         weight_update=update, wire_format=wire, train_step=train_step,
         eval_step=step_lib.make_eval_step(
             make_metric_fn(cfg, layout), distributed=cfg.distributed,
-            **({"group": _data_group(layout)} if layout.sharded else {})),
+            layout=sharded),
         train_loader=train_loader, eval_loader=eval_loader, world=world,
         layout=layout)
 

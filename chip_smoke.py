@@ -198,6 +198,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import traceback
 from pathlib import Path
@@ -648,7 +649,8 @@ ZERO1_DELTA_SLACK = 1.0 + 2.0 ** -12
 # card).  Cut for the time limit: the steps (2, with one eval batch at
 # the end; 3 before phase zero1 needed the time) and the global batch,
 # 8 -> 4, so each rank holds [2, 16384] tokens, and the depth, 12 -> 4
-# layers (phase moe needed the time; every check a layer stays).  At
+# -> 2 layers (phases moe and fsdp needed the time; every check a layer
+# stays).  At
 # batch 8 a step took 20.5 s (ring) and 18.5 s (Ulysses), bound by the
 # seq group's bytes through gloo's host copies, and the phase 334.5 s.
 SEQ_RANKS = 4
@@ -656,7 +658,7 @@ SEQ_MESH = {"data": 2, "seq": 2}
 SEQ_STEPS = 2
 SEQ_EVAL_BATCHES = 1
 SEQ_GLOBAL_BATCH = 4
-SEQ_LAYERS = 4
+SEQ_LAYERS = 2
 SEQ_CUTS = {"mesh": SEQ_MESH, "total_steps": SEQ_STEPS,
             "eval_every": SEQ_STEPS, "eval_batches": SEQ_EVAL_BATCHES,
             "log_every": 1, "global_batch": SEQ_GLOBAL_BATCH}
@@ -723,17 +725,52 @@ SEQ_KERNEL_CASES = (("ring diagonal stage", SEQ_RING_SHAPE, True, True),
 # weight 0.01 (the defaults), cut to S=4096 and a global batch of 2 (T =
 # 8192 tokens: the router's f32 [T, E, C] tensors are 672 MB each at C =
 # capacity_for(8192, 8, 2, 1.25) = 2564; lm_long's own batch would make
-# them 687 GB) and the depth to 8 layers (4 of them MoE layers; the
-# time limit).  (a) one process; (b) data=1 x expert=2 and (c) data=1 x
+# them 687 GB) and the depth to 4 layers (2 of them MoE layers; 8 until
+# phase fsdp needed the time).  (a) one process; (b) data=1 x expert=2
+# and (c) data=1 x
 # model=2 in turn in one world of two gloo processes on the card
 # (``--moe-worker``).
 MOE_STEPS = 2
 MOE_EVAL_BATCHES = 1
 MOE_GLOBAL_BATCH = 2
 MOE_DATA = {"seq_len": 4096}
-MOE_MODEL = {"moe_experts": 8, "moe_k": 2, "num_layers": 8}
+MOE_MODEL = {"moe_experts": 8, "moe_k": 2, "num_layers": 4}
 MOE_MESHES = {"b": {"data": 1, "expert": 2}, "c": {"data": 1, "model": 2}}
 MOE_TIMEOUT_S = 600
+
+# Phase fsdp: fsdp's sharded state (parallel/fsdp.py: each rank
+# holds its blocks of the parameters and of the Adam moments, gathers a
+# block before its use and reduce-scatters its gradient) and BERT's
+# tensor parallelism.  glue_bert at BERT-base width and recipe, but for
+# dropout 0 (the port seeds dropout by batch index, so a sharded run and
+# one process would draw other masks; the head-sliced masks are held on
+# the CPU, tests/test_torch_bert_tp.py), with TPUFRAME_ATTN_IMPL=pallas:
+# (a) as one process, (b) on fsdp=2, (c) on fsdp=2 x model=2 (6 heads a
+# rank); lm_long at its widths and depth (12 layers) on fsdp=2 with
+# seq=1, S=4096 and global batch 2, as phase moe's (a) is cut (d), beside
+# (d0), the same config as one process.  Three steps and one eval batch
+# each; gloo on CUDA tensors: (b) then (d) in one world of two and (c)
+# in a world of four, the two worlds at once (the time limit); rank 0's
+# idle share from one profiled step of (a), (c), (d0) and (d).  Step 1
+# of (b), (c) and (d) is held under
+# BF16_NOISE_FACTOR's rule against one-process steps on the same global
+# batch (each batch rank's first loader batch, stacked in batch order).
+FSDP_STEPS = 3
+FSDP_EVAL_BATCHES = 1
+FSDP_BERT_KW = {"dropout": 0.0}
+FSDP_LM_DATA = {"seq_len": 4096}
+FSDP_LM_BATCH = 2
+FSDP_ONE = {"bert": {"data": 1}, "lm": {"data": 1, "seq": 1}}
+FSDP_WORLDS = {2: (("b", "bert", {"data": 1, "fsdp": 2}),
+                   ("d", "lm", {"data": 1, "fsdp": 2, "seq": 1})),
+               4: (("c", "bert", {"data": 1, "fsdp": 2, "model": 2}),)}
+FSDP_TAGS = {"a": "(a) glue_bert one process",
+             "b": "(b) glue_bert fsdp=2",
+             "c": "(c) glue_bert fsdp=2 x model=2",
+             "d0": "(d0) lm_long one process",
+             "d": "(d) lm_long fsdp=2"}
+FSDP_TIMEOUT_S = 600
+
 
 # The serving fleet (phase ``fleet``): phase serve's engine in each of
 # FLEET_REPLICAS replica processes behind the port's router.  Seeded
@@ -6266,14 +6303,23 @@ def _whole(blocks_by_rank: list) -> dict:
 def _moe_run(tag: str, mesh: dict, rank: int, profile: bool,
              tries: int = 1) -> tuple:
     """One lm_long MoE run of this process (or world) through
-    ``train.main`` on ``mesh``: every step's launches, sharded-state
-    collectives and flash head counts, step 1's metrics, the final
-    replicated leaves' digests, peak memory and state bytes; then, with
-    ``profile``, one step timed outside the profiler and one more
-    profiled on rank 0 (up to ``tries`` times while the profiler's record
-    is not whole: one process only, since the other ranks of a world step
-    once beside it).  Returns that and step 1's reduced gradients as
-    blocks (:func:`_grad_blocks`)."""
+    ``train.main`` on ``mesh`` (:func:`_sharded_run`)."""
+    return _sharded_run(tag, _moe_args(mesh), rank, profile, tries,
+                        steps=MOE_STEPS,
+                        keys=("loss", "moe_aux", "grad_norm"))
+
+
+def _sharded_run(tag: str, args: list, rank: int, profile: bool,
+                 tries: int = 1, *, steps: int, keys: tuple) -> tuple:
+    """One run of this process (or world) through ``train.main`` with
+    ``args``: every step's launches, sharded-state collectives and flash
+    head counts, step 1's metrics ``keys``, the final replicated leaves'
+    digests, each parameter's and its moments' shapes, peak memory and
+    state bytes; then, with ``profile``, one step timed outside the
+    profiler and one more profiled on rank 0 (up to ``tries`` times while
+    the profiler's record is not whole: one process only, since the other
+    ranks of a world step once beside it).  Returns that and step 1's
+    reduced gradients as blocks (:func:`_grad_blocks`)."""
     build = train_lib.build_harness
     got = {"steps": [], "heads": set()}
     real_fwd, real_bwd = fa._launch, fa._launch_bwd
@@ -6304,8 +6350,7 @@ def _moe_run(tag: str, mesh: dict, rank: int, profile: bool,
                 "bytes": {k: collectives.SHARD_BYTES[k] - bytes0[k]
                           for k in bytes0}})
             if len(got["steps"]) == 1:
-                got["step1"] = {k: float(metrics[k])
-                                for k in ("loss", "moe_aux", "grad_norm")}
+                got["step1"] = {k: float(metrics[k]) for k in keys}
                 got["grads"] = _grad_blocks(state.model)
             return metrics
 
@@ -6322,7 +6367,7 @@ def _moe_run(tag: str, mesh: dict, rank: int, profile: bool,
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
     try:
-        metrics = train_lib.main(_moe_args(mesh))
+        metrics = train_lib.main(args)
     finally:
         train_lib.build_harness = build
         fa._launch, fa._launch_bwd = real_fwd, real_bwd
@@ -6341,6 +6386,10 @@ def _moe_run(tag: str, mesh: dict, rank: int, profile: bool,
                       for p in model.parameters()) + sum(
         t.numel() * t.element_size() for key, ts in h.state.opt.moments
         .items() for t in ts)
+    moments = h.state.opt.state_dict()
+    shapes = {n: [list(p.shape)] + [list(moments[k][n].shape)
+                                    for k in ("mu", "nu") if k in moments]
+              for n, p in model.named_parameters()}
     prof = {"wall_ms": None, "device_ms": None, "idle": None, "top": []}
     if profile:
         batch = next(iter(h.train_loader))
@@ -6372,10 +6421,10 @@ def _moe_run(tag: str, mesh: dict, rank: int, profile: bool,
             "wall_s": wall, "losses": metrics["losses"],
             "step_ms": metrics["step_ms"],
             "eval_loss": metrics.get("eval_loss"), "step1": got["step1"],
-            "steps": got["steps"][:MOE_STEPS], "heads": sorted(got["heads"]),
+            "steps": got["steps"][:steps], "heads": sorted(got["heads"]),
             "launches": launches, "routes": routes, "peak_bytes": peak,
             "state_bytes": state_bytes, "replicated": replicated,
-            "profile": prof}, grads
+            "shapes": shapes, "sizes": lay.sizes, "profile": prof}, grads
 
 
 def _moe_reference() -> dict:
@@ -6450,17 +6499,28 @@ def _moe_parity(step1: dict, grads: dict, ref: dict) -> tuple:
 
 
 def _moe_checks(tag: str, r: dict, want_heads: int, law: dict | None) -> list:
+    """:func:`_run_checks` of a phase moe run (remat: the forward twice a
+    layer and step)."""
+    return _run_checks(tag, r, want_heads, law, steps=MOE_STEPS,
+                       layers=_moe_cfg().num_layers, fwd_per_step=2,
+                       eval_batches=MOE_EVAL_BATCHES)
+
+
+def _run_checks(tag: str, r: dict, want_heads: int, law: dict | None, *,
+                steps: int, layers: int, fwd_per_step: int,
+                eval_batches: int) -> list:
     """A run's launches a step and in all (phase train's count: the
-    forward twice a layer and step under remat, once a layer and eval
-    batch; each backward kernel once a layer and step), every one on the
-    tensor cores, on ``want_heads`` heads; its collectives a step equal to
-    ``law``; finite losses and eval loss."""
+    forward ``fwd_per_step`` times a layer and step, twice under remat,
+    once a layer and eval batch; each backward kernel once a layer and
+    step), every one on the tensor cores, on ``want_heads`` heads; its
+    collectives a step equal to ``law``; finite losses and eval loss."""
     bad = []
-    steps, layers = MOE_STEPS, _moe_cfg().num_layers
-    want_step = {"flash_fwd": 2 * layers, "flash_bwd_delta": layers,
+    want_step = {"flash_fwd": fwd_per_step * layers,
+                 "flash_bwd_delta": layers,
                  "flash_bwd_dq": layers, "flash_bwd_dkv": layers,
                  "fused_conv_bn_bwd": 0, "precision_probe": 0}
-    want = dict(want_step, flash_fwd=(2 * steps + MOE_EVAL_BATCHES) * layers,
+    want = dict(want_step,
+                flash_fwd=(fwd_per_step * steps + eval_batches) * layers,
                 flash_bwd_delta=steps * layers, flash_bwd_dq=steps * layers,
                 flash_bwd_dkv=steps * layers)
     for i, st in enumerate(r["steps"]):
@@ -6490,7 +6550,7 @@ def _moe_checks(tag: str, r: dict, want_heads: int, law: dict | None) -> list:
     return [f"{tag} rank {r['rank']}: {b}" for b in bad]
 
 
-def _moe_line(tag: str, r: dict, card: str) -> str:
+def _moe_line(tag: str, r: dict, card: str, prefix: str = "[moe]") -> str:
     ms = r["step_ms"][1:] or r["step_ms"]
     q = statistics.quantiles(ms, n=10) if len(ms) > 1 else [ms[0]] * 9
     st = r["steps"][-1]
@@ -6501,7 +6561,7 @@ def _moe_line(tag: str, r: dict, card: str) -> str:
             f"{_dev(prof['idle'])}; top: "
             + "; ".join(f"{k} {ms_:.1f} ms x{c}"
                         for k, ms_, c in prof["top"][:4]))
-    return (f"[moe] {tag} rank {r['rank']} {r['coords']}: losses "
+    return (f"{prefix} {tag} rank {r['rank']} {r['coords']}: losses "
             f"{[round(x, 4) for x in r['losses']]}, eval "
             f"{r['eval_loss']:.4f}; step ms "
             f"{[round(x, 1) for x in r['step_ms']]} (p50 after the first "
@@ -6607,6 +6667,379 @@ def phase_moe() -> dict:
         f"(c) {world_s:.1f} s; {card}")
     if problems:
         raise RuntimeError("moe: " + "; ".join(problems[:12]))
+    return {"launches": total}
+
+
+_FSDP_CONFIGS = {"bert": "glue_bert", "lm": "lm_long"}
+
+
+def _fsdp_sets(family: str, mesh: dict) -> dict:
+    """Phase fsdp's overrides of ``family``'s config on ``mesh``."""
+    sets = {"mesh": mesh, "total_steps": FSDP_STEPS,
+            "eval_every": FSDP_STEPS, "eval_batches": FSDP_EVAL_BATCHES,
+            "log_every": 1}
+    if family == "bert":
+        return {**sets, "model_kwargs": FSDP_BERT_KW}
+    return {**sets, "dataset_kwargs": FSDP_LM_DATA,
+            "global_batch": FSDP_LM_BATCH}
+
+
+def _fsdp_cfg(family: str, mesh: dict):
+    return get_config(_FSDP_CONFIGS[family]).with_overrides(
+        **_fsdp_sets(family, mesh))
+
+
+def _fsdp_model_cfg(family: str):
+    """Phase fsdp's model config of ``family`` (``BertConfig`` or
+    ``LMConfig``)."""
+    kw = dict(_fsdp_cfg(family, FSDP_ONE[family]).model_kwargs)
+    return (BertConfig if family == "bert" else LMConfig)(**kw)
+
+
+def _fsdp_args(family: str, mesh: dict) -> list:
+    """``train.main`` arguments of phase fsdp's ``family`` run on
+    ``mesh``."""
+    return ["--config", _FSDP_CONFIGS[family]] + [
+        a for k, v in _fsdp_sets(family, mesh).items()
+        for a in ("--set", f"{k}={v!r}")]
+
+
+def _fsdp_reference(family: str) -> dict:
+    """Step 1 of ``family``'s config as one process on the sharded runs'
+    global batch (each of the two batch ranks' first loader batch, in
+    batch order) and weights, in bf16 (the run's own dtype) and in f32
+    (the noise floor's yardstick): loss, gradient norm and each
+    parameter's gradient on the host."""
+    cfg = _fsdp_cfg(family, FSDP_ONE[family])
+    ds, _ = datasets.build(cfg.dataset, None, **cfg.dataset_kwargs)
+    parts = [next(iter(ShardedLoader(ds, cfg.global_batch, device="cuda",
+                                     seed=cfg.seed, world=2, rank=r)))
+             for r in range(2)]
+    batch = {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
+    out = {}
+    for dtype in ("bfloat16", "float32"):
+        t0 = time.monotonic()
+        h = train_lib.build_harness(cfg.with_overrides(compute_dtype=dtype),
+                                    device="cuda")
+        m = h.train_step(h.state, batch)
+        out[dtype] = {"loss": float(m["loss"]),
+                      "grad_norm": float(m["grad_norm"]),
+                      "grads": _grads(h.state.model),
+                      "s": time.monotonic() - t0}
+        del h, m
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _fsdp_law(family: str, mesh: dict) -> tuple:
+    """The placement and the sharded-state collectives of one training
+    step of ``family`` on ``mesh``, from the whole model's
+    ``fsdp.state_shardings``: ``({parameter: (whole
+    shape, spec)}, {verb: (calls, bytes this rank sends)})``.  (The
+    whole model is built on the card only for its shapes: the host's
+    initialisation of BERT-base took seconds.)
+
+    Every parameter split over fsdp is gathered before each use, its
+    block's f32 bytes sent (twice a step inside lm_long's blocks, whose
+    remat recompute rebuilds every weight the block's backward saved;
+    once for the embedding, the head and every BERT parameter), and
+    reduce-scattered once a step, its whole f32 bytes over fsdp sent.
+    BERT on model=2: each layer's attention and FFN input cotangents and
+    their row-parallel output sums, four f32 all-reduces of the rank's
+    ``[B/2, S, H]``, and the word embedding's columns gathered once.  The
+    gradient norm sums seven numbers over the model group (when it has
+    one) and over the fsdp group."""
+    from tpuframe_torch.parallel import fsdp, tp
+
+    cfg = _fsdp_cfg(family, mesh)
+    model = get_model(cfg.model, device="cuda", seed=cfg.seed,
+                      **cfg.model_kwargs)
+    world = int(np.prod(list(mesh.values())))
+    sizes = cfg.mesh.sizes(world)
+    tp_axes = sizes["model"] > 1 or sizes["expert"] > 1
+    specs = fsdp.state_shardings(
+        model, sizes, tp.rules_for_model(cfg.model) if tp_axes else None)
+    place = {n: (tuple(p.shape), specs[n])
+             for n, p in model.named_parameters()}
+    law = {"fsdp_all_gather": [0, 0], "fsdp_reduce_scatter": [0, 0],
+           "all_reduce": [1, 28], "all_gather": [0, 0]}
+    remat = cfg.model_kwargs.get("remat", False)
+    for n, (shape, spec) in place.items():
+        if "fsdp" not in spec:
+            continue
+        local = int(np.prod(shape))
+        for a in spec:
+            if a is not None:
+                local //= sizes[a]
+        uses = 2 if remat and n.startswith("blocks.") else 1
+        law["fsdp_all_gather"][0] += uses
+        law["fsdp_all_gather"][1] += uses * local * 4
+        law["fsdp_reduce_scatter"][0] += 1
+        law["fsdp_reduce_scatter"][1] += local * sizes["fsdp"] * 4
+    m = sizes["model"]
+    if m > 1:
+        b = cfg.global_batch // (sizes["data"] * sizes["fsdp"])
+        rows = b * cfg.dataset_kwargs["seq_len"]
+        h, layers = model.cfg.hidden_size, model.cfg.num_layers
+        law["all_reduce"] = [4 * layers + 2, 4 * layers * rows * h * 4 + 56]
+        law["all_gather"] = [1, rows * (h // m) * 4]
+    del model
+    return place, {k: tuple(v) for k, v in law.items()}
+
+
+def _fsdp_blocks(r: dict, place: dict) -> list:
+    """A rank's parameters and Adam moments against the block law: each
+    of the shape of its block of ``place``'s spec (so no whole parameter
+    the placement splits stays resident)."""
+    from tpuframe_torch.parallel import tp
+
+    bad = []
+    if set(r["shapes"]) != set(place):
+        bad.append(f"parameters {sorted(set(r['shapes']) ^ set(place))} "
+                   f"on one side only")
+    for n, (shape, spec) in place.items():
+        idx = tp.index(shape, spec, r["sizes"], r["coords"])
+        want = [hi - lo for lo, hi in idx]
+        if r["shapes"].get(n) != [want] * 3:
+            bad.append(f"{n}: parameter, mu, nu {r['shapes'].get(n)}, want "
+                       f"the block {want} of {list(shape)} ({spec})")
+    return bad
+
+
+def fsdp_worker(out: str) -> None:
+    """A rank of one of phase fsdp's gloo worlds: each run the file
+    ``<out>.runs.json`` names (``[which, family, mesh]``) in turn through
+    :func:`_sharded_run`; each rank saves step 1's gradient blocks beside
+    ``out`` (``grads_<which>.<rank>.pt``), rank 0 writes every rank's
+    results to ``out`` (``{which: [rank 0's, ...]}``)."""
+    bootstrap.initialize(device="cuda")
+    rank = collectives.world()[1]
+    runs = {}
+    for which, family, mesh in json.loads(
+            Path(out + ".runs.json").read_text()):
+        # (b) shares its world with (d): one profiled step is (d)'s
+        run, grads = _sharded_run(FSDP_TAGS[which],
+                                  _fsdp_args(family, mesh), rank,
+                                  profile=which != "b", steps=FSDP_STEPS,
+                                  keys=("loss", "grad_norm"))
+        torch.save(grads, Path(out).with_name(f"grads_{which}.{rank}.pt"))
+        runs[which] = bootstrap.allgather_object(run)
+        del grads
+    if rank == 0:
+        Path(out).write_text(json.dumps(runs))
+    bootstrap.shutdown()
+
+
+def _fsdp_parity(family: str, step1: dict, grads: dict, ref: dict) -> tuple:
+    """Step 1 against the one-process steps on the same global batch
+    (phase seq's rule): loss, gradient norm and each parameter's gradient
+    within BF16_NOISE_FACTOR x the one-process bf16 step's own distance
+    from the f32 step (BERT's key biases, whose gradient is zero by
+    symmetry, measured against their key kernel's, ``_grad_rel_err``).
+    Returns (problems, the worst gradient's ratio to its floor and its
+    name)."""
+    bad = []
+    f32, b16 = ref["float32"], ref["bfloat16"]
+    for key in ("loss", "grad_norm"):
+        got = step1[key]
+        if abs(got - f32[key]) > max(
+                BF16_NOISE_FACTOR * abs(b16[key] - f32[key]),
+                SEQ_PARITY_RTOL * abs(f32[key])):
+            bad.append(f"step 1 {key} {got} vs one process f32 {f32[key]} "
+                       f"(bf16 {b16[key]})")
+    if set(grads) != set(f32["grads"]):
+        bad.append(f"step 1 gradients of "
+                   f"{sorted(set(grads) ^ set(f32['grads']))} on one side "
+                   f"only")
+        return bad, (float("inf"), "")
+    if family == "bert":
+        got, floor = (_grad_rel_err(grads, f32["grads"]),
+                      _grad_rel_err(b16["grads"], f32["grads"]))
+    else:
+        got = {n: _rel(grads[n], g) for n, g in f32["grads"].items()}
+        floor = {n: _rel(b16["grads"][n], g) for n, g in f32["grads"].items()}
+    worst, where = 0.0, ""
+    for n in sorted(got):
+        ratio = got[n] / max(floor[n], 1e-30)
+        if ratio > worst:
+            worst, where = ratio, n
+        if not got[n] <= BF16_NOISE_FACTOR * floor[n]:
+            bad.append(f"step 1 gradient {n}: {got[n]:.2e} from the one-"
+                       f"process f32 step (noise floor {floor[n]:.2e})")
+    return bad, (worst, where)
+
+
+def _fsdp_kernel_checks(gen) -> list:
+    """The flash kernels at a rank's shapes on phase fsdp's paths against
+    their plain versions: (c)'s BERT at 6 heads of the rank's 16 rows,
+    S=128, key masked, and (d)'s lm_long at one row of S=4096, causal,
+    bf16 (the tensor cores)."""
+    out = []
+    for name, (b, s, n), masked, causal in (
+            ("BERT fsdp=2 x model=2 rank", (16, BERT_SEQ, 6), True, False),
+            ("lm_long fsdp=2 rank", (1, FSDP_LM_DATA["seq_len"], 12), False,
+             True)):
+        q, k, v, mask = _flash_inputs(b, s, n, 64, torch.bfloat16, masked,
+                                      gen)
+        _, _, err, err_lse = _flash_check(name, q, k, v, mask, causal)
+        errs, route = _bwd_check(name, _bwd_inputs(
+            b, s, n, 64, torch.bfloat16, masked, causal, gen), causal)
+        out.append(f"{name} [{b}, {s}, {n}, 64]: forward err {err:.2e} "
+                   f"(lse {err_lse:.2e}), backward {route} "
+                   + ", ".join(f"{g} {e:.2e}" for g, e in errs.items()))
+    return out
+
+
+def phase_fsdp() -> dict:
+    """fsdp's sharded state and BERT's tensor parallelism
+    (``parallel/fsdp.py``, ``models/bert.py``, the batch and fsdp groups
+    of ``parallel/mesh.py``): the flash kernels at a rank's shapes, then
+    glue_bert (a) as one process, (b) on fsdp=2, (c) on fsdp=2 x model=2
+    and lm_long (d0) as one process, (d) on fsdp=2 through ``train.main``
+    (the constants' comment).  Held: step 1 of (b), (c), (d) against the
+    one-process f32 and bf16 steps on their global batch (loss, gradient
+    norm, every parameter's gradient, the ranks' blocks put together);
+    replicated leaves bit-identical across ranks (step-1 gradients and
+    final values); each rank's parameters and moments the blocks of
+    ``fsdp.state_shardings``; the sharded-state collectives of every step
+    equal to :func:`_fsdp_law`; every flash launch on the tensor cores,
+    the count a rank the path's, on 12 heads or (c)'s 6.  Prints each
+    run's step p50 and p10-p90, peak memory and state bytes a rank and
+    rank 0's idle share from one profiled step."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    card = _card_line()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.monotonic()
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    for line in _fsdp_kernel_checks(gen):
+        log(f"[fsdp] kernels at {line}")
+    problems, runs, parity = [], {}, {}
+    keys = ("loss", "grad_norm")
+    models = {f: _fsdp_model_cfg(f) for f in ("bert", "lm")}
+    layers = {f: c.num_layers for f, c in models.items()}
+    # BERT's attention follows TPUFRAME_ATTN_IMPL; the LM's config names
+    # pallas itself
+    with _attn_impl("pallas"):
+        ref = {f: _fsdp_reference(f) for f in ("bert", "lm")}
+        for which, family in (("a", "bert"), ("d0", "lm")):
+            run, _ = _sharded_run(FSDP_TAGS[which],
+                                  _fsdp_args(family, FSDP_ONE[family]), 0,
+                                  profile=True, tries=PROFILE_TRIES,
+                                  steps=FSDP_STEPS, keys=keys)
+            runs[which] = [run]
+        one_s = time.monotonic() - t0
+        root = tempfile.mkdtemp(prefix="tpuframe_fsdp_")
+        try:
+            # the two worlds at once, for the time limit (their step times
+            # are read with the other world on the card and the host)
+            failed = []
+
+            def world(n, spec):
+                out = os.path.join(root, f"fsdp{n}.json")
+                Path(out + ".runs.json").write_text(json.dumps(spec))
+                try:
+                    LocalCluster(n, timeout=FSDP_TIMEOUT_S, extra_env={
+                        "TPUFRAME_DIST_BACKEND": "gloo",
+                        "TPUFRAME_ATTN_IMPL": "pallas"}).launch(
+                        [sys.executable, str(Path(__file__).resolve()),
+                         "--fsdp-worker", out])
+                except Exception as exc:  # noqa: BLE001 — raised below
+                    failed.append(exc)
+
+            threads = [threading.Thread(target=world, args=item)
+                       for item in FSDP_WORLDS.items()]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            if failed:
+                raise failed[0]
+            for n, spec in FSDP_WORLDS.items():
+                runs.update(json.loads(Path(os.path.join(
+                    root, f"fsdp{n}.json")).read_text()))
+                for which, family, mesh in spec:
+                    tag = FSDP_TAGS[which]
+                    blocks = [torch.load(os.path.join(
+                        root, f"grads_{which}.{r}.pt")) for r in range(n)]
+                    for name, (idx, g) in blocks[0].items():
+                        if idx is None and any(not torch.equal(
+                                g, b[name][1]) for b in blocks[1:]):
+                            problems.append(f"{tag}: step-1 gradient of "
+                                            f"replicated {name} differs "
+                                            f"across ranks")
+                    place, law = _fsdp_law(family, mesh)
+                    heads = models[family].num_heads // mesh.get("model", 1)
+                    for r in runs[which]:
+                        problems += _run_checks(
+                            tag, r, heads, law, steps=FSDP_STEPS,
+                            layers=layers[family],
+                            fwd_per_step=2 if family == "lm" else 1,
+                            eval_batches=FSDP_EVAL_BATCHES)
+                        problems += [f"{tag} rank {r['rank']}: {b}"
+                                     for b in _fsdp_blocks(r, place)]
+                    r0 = runs[which][0]
+                    for r in runs[which][1:]:
+                        if r["replicated"] != r0["replicated"]:
+                            diff = [k for k in r0["replicated"]
+                                    if r0["replicated"][k]
+                                    != r["replicated"].get(k)]
+                            problems.append(f"{tag}: final replicated "
+                                            f"leaves differ across ranks: "
+                                            f"{diff[:6]}")
+                        if r["step1"] != r0["step1"]:
+                            problems.append(f"{tag}: ranks report other "
+                                            f"step-1 metrics {r0['step1']}, "
+                                            f"{r['step1']}")
+                    bad, parity[which] = _fsdp_parity(
+                        family, r0["step1"], _whole(blocks), ref[family])
+                    problems += [f"{tag}: {p}" for p in bad]
+                    runs[which + "_law"] = law
+                    del blocks
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+    world_s = time.monotonic() - t0 - one_s
+    for which, family in (("a", "bert"), ("d0", "lm")):
+        problems += _run_checks(FSDP_TAGS[which], runs[which][0],
+                                models[family].num_heads, None,
+                                steps=FSDP_STEPS, layers=layers[family],
+                                fwd_per_step=2 if family == "lm" else 1,
+                                eval_batches=FSDP_EVAL_BATCHES)
+    for family, what in (("bert", "glue_bert (BERT-base, dropout 0, batch "
+                                  "32, S=128)"),
+                         ("lm", f"lm_long (S={FSDP_LM_DATA['seq_len']}, "
+                                f"batch {FSDP_LM_BATCH})")):
+        f32, b16 = ref[family]["float32"], ref[family]["bfloat16"]
+        log(f"[fsdp] {what} one-process step 1 on the sharded runs' global "
+            f"batch: f32 loss {f32['loss']:.6f} grad norm "
+            f"{f32['grad_norm']:.6f} ({f32['s']:.1f} s), bf16 loss "
+            f"{b16['loss']:.6f} grad norm {b16['grad_norm']:.6f}")
+    total = {k: 0 for k in launch_counts()}
+    for which in ("a", "b", "c", "d0", "d"):
+        base = runs["a" if which in "abc" else "d0"][0]
+        for r in runs[which]:
+            log(_moe_line(FSDP_TAGS[which], r, card, prefix="[fsdp]")
+                + f"; state {r['state_bytes'] / base['state_bytes']:.3f} x "
+                  f"and peak memory "
+                  f"{r['peak_bytes'] / base['peak_bytes']:.3f} x one "
+                  f"process's"
+                + ("" if which in ("a", "d0") else
+                   "; times contended: the other world ran at once"))
+            for k in total:
+                total[k] += r["launches"][k]
+        if which in parity:
+            ratio, where = parity[which]
+            s1 = runs[which][0]["step1"]
+            log(f"[fsdp] {FSDP_TAGS[which]} step 1: loss {s1['loss']:.6f} "
+                f"grad norm {s1['grad_norm']:.6f}; per-parameter gradients "
+                f"against the one-process f32 step: worst {ratio:.2f} x the "
+                f"bf16 step's own distance ({where}; limit "
+                f"{BF16_NOISE_FACTOR}); law a step {runs[which + '_law']}")
+    log(f"[fsdp] kernel checks, references and the one-process runs "
+        f"{one_s:.1f} s, the worlds {world_s:.1f} s; {card}")
+    if problems:
+        raise RuntimeError("fsdp: " + "; ".join(problems[:12]))
     return {"launches": total}
 
 
@@ -6723,6 +7156,17 @@ def profile_window(name: str, fn, wall: float) -> None:
         f"top: {_top(kernels, 4)}")
 
 
+def _leave(rc: int) -> None:
+    """Exit with ``rc`` once the smoke's output is flushed, without the
+    interpreter's teardown: every phase has waited for its processes and
+    removed its files by then, and a library's thread can still abort
+    the process in the teardown ("terminate called without an active
+    exception", exit 134)."""
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(rc)
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv[:1] == ["--train-worker"]:
@@ -6748,6 +7192,9 @@ def main(argv=None) -> int:
     ap.add_argument("--moe-worker", metavar="OUT",
                     help="run one rank of phase moe's world (the phase "
                          "starts these)")
+    ap.add_argument("--fsdp-worker", metavar="OUT",
+                    help="run one rank of one of phase fsdp's worlds (the "
+                         "phase starts these)")
     ap.add_argument("--train-worker", metavar="OUT",
                     help="run one attempt of phase supervise (its "
                          "supervisor starts these; the trainer's arguments "
@@ -6766,6 +7213,9 @@ def main(argv=None) -> int:
     if args.moe_worker is not None:
         moe_worker(args.moe_worker)
         return 0
+    if args.fsdp_worker is not None:
+        fsdp_worker(args.fsdp_worker)
+        return 0
     phase_card()
     t0 = time.monotonic()
     phase_build()
@@ -6773,7 +7223,7 @@ def main(argv=None) -> int:
         for name in args.phases.split(","):
             PHASES[name]()
         log(f"[done] partial run in {time.monotonic() - t0:.1f} s")
-        return 0
+        _leave(0)
     walls = {}
 
     def timed(name, fn, *a):
@@ -6813,6 +7263,7 @@ def main(argv=None) -> int:
         shutil.rmtree(keep, ignore_errors=True)
     seq_run = timed("seq", phase_seq)
     moe_run = timed("moe", phase_moe)
+    fsdp_run = timed("fsdp", phase_fsdp)
     log(f"[done] phase wall s {walls}")
 
     by_path = {name: {"serve": serve_launches[name],
@@ -6834,7 +7285,8 @@ def main(argv=None) -> int:
                       "hvd_resnet50_x2": hvd_run["launches_2proc"][name],
                       "zero1": zero1_run["launches"][name],
                       "seq": seq_run["launches"][name],
-                      "moe": moe_run["launches"][name]}
+                      "moe": moe_run["launches"][name],
+                      "fsdp": fsdp_run["launches"][name]}
                for name in launch_counts()}
     attn = "B=8 S=4096 N=12 D=64 bf16 causal"
     ops = "tpuframe/ops/"
@@ -6920,7 +7372,7 @@ def main(argv=None) -> int:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
-    return 0
+    _leave(0)
 
 
 PHASES = {"kernels": phase_kernels, "backward": phase_backward,
@@ -6936,12 +7388,22 @@ PHASES = {"kernels": phase_kernels, "backward": phase_backward,
           "cifar_train": phase_cifar_train,
           "resnet_variants": phase_resnet_variants, "ckpt": phase_ckpt,
           "supervise": phase_supervise, "hvd": phase_hvd,
-          "zero1": phase_zero1, "seq": phase_seq, "moe": phase_moe}
+          "zero1": phase_zero1, "seq": phase_seq, "moe": phase_moe,
+          "fsdp": phase_fsdp}
 
 
 if __name__ == "__main__":
+    # Every way out goes through ``_leave``, the workers' too: a worker's
+    # code is part of its phase's checks (an attempt of phase supervise
+    # that is preempted must exit 14), and the teardown's abort would
+    # turn it into -6.
     try:
-        sys.exit(main())
+        code = main()
+    except SystemExit as exc:
+        code = exc.code
+        if code is not None and not isinstance(code, int):
+            print(code, file=sys.stderr)
+            code = 1
     except Exception as exc:
         # A failed check's message can end in a long tail of a child's
         # output; repeat its head as the last line of stderr, where the
@@ -6949,4 +7411,5 @@ if __name__ == "__main__":
         traceback.print_exc()
         print(f"chip_smoke: FAILED: {type(exc).__name__}: "
               f"{str(exc)[:2000]}", file=sys.stderr, flush=True)
-        sys.exit(1)
+        code = 1
+    _leave(code or 0)

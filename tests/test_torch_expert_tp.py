@@ -452,18 +452,22 @@ def _cfg(mesh, **kw):
 @pytest.mark.parametrize("mesh,kw,err,match", [
     ({"data": 1, "model": 3}, {}, ValueError, "does not divide"),
     ({"data": 1, "expert": 3}, {}, ValueError, "does not divide"),
-    ({"data": 1, "fsdp": 2, "model": 2}, {}, NotImplementedError,
-     "fsdp"),
+    # fsdp is ported for the LM and BERT; an image model under it is not
+    ({"data": 1, "fsdp": 2, "model": 2}, {"model": "convnet"},
+     NotImplementedError, "fsdp"),
     ({"data": 1, "seq": 2, "model": 2}, {"shard_seq": True}, ValueError,
      "sequence parallelism"),
     ({"data": 2, "expert": 2}, {"grad_reduce": "adasum"}, ValueError,
      "shard_map mode"),
-    ({"data": 1, "model": 2}, {"model": "bert-base"},
-     NotImplementedError, "fsdp"),
+    # BERT's tensor parallelism is ported; 12 heads do not split over 5
+    ({"data": 1, "model": 5}, {"config": "glue_bert"}, ValueError,
+     "does not divide"),
 ], ids=["model-indivisible", "expert-indivisible", "fsdp", "seq",
         "adasum", "bert"])
 def test_sharded_state_mode_refuses(mesh, kw, err, match):
-    cfg = _cfg(mesh, **kw)
+    kw = dict(kw)
+    cfg = (port_train.get_config(kw.pop("config")).with_overrides(mesh=mesh)
+           if "config" in kw else _cfg(mesh, **kw))
     with pytest.raises(err, match=match):
         port_train._refuse_unported(cfg, int(np.prod(list(mesh.values()))))
 

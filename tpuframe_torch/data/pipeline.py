@@ -12,10 +12,13 @@ model's first cast would do), and copied to the device one step ahead of
 the consumer on a background thread, through pinned host memory when the
 device is a GPU.
 
-A sequence-parallel run (``seq``: the seq ring's size and this rank's
-index) takes the JAX layout ``P(('data', 'fsdp'), 'seq')``: ``world`` and
-``rank`` are then the data degree and index, so the rows go over the
-data ranks, and each seq rank keeps its ``[i*S/n, (i+1)*S/n)`` columns of
+The trainer passes the batch degree and index as ``world`` and ``rank``
+(``parallel/mesh.py``: data x fsdp, the JAX ``BATCH_AXES``), so the rows
+go over the ranks that take other rows, and ranks that differ only in
+their expert, model or seq coordinate take the same ones.  A
+sequence-parallel run (``seq``: the seq ring's size and this rank's
+index) takes the JAX layout ``P(('data', 'fsdp'), 'seq')``: each seq
+rank keeps its ``[i*S/n, (i+1)*S/n)`` columns of
 every column with a sequence dimension (the LM's labels are shifted on
 the host, so no shift crosses ranks).  One-dimensional columns stay
 whole.

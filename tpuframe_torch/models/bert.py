@@ -25,7 +25,23 @@ attention probabilities, the attention output, the FFN output and the
 pooled vector.  Each site's mask is drawn from ``(dropout_seed, layer,
 site)``; the embeddings and the pooler use layer ``num_layers``.  The
 attention probabilities are dropped inside ``multihead_attention``, which
-for that reason runs the einsum, as the JAX package's does.
+for that reason runs the einsum, as the JAX package's does, with the
+mask of the whole layer drawn from the site's seed; a model rank takes
+its heads' block of that mask.
+
+Tensor parallelism (``parallel/tp.py``'s ``BERT_RULES``): with a layout
+set on the model (:attr:`BertForSequenceClassification.layout`, the
+sharded-state mode, whose parameters ``parallel/fsdp.shard_`` cut to the
+rank's blocks) each layer runs its rank's heads and intermediate
+columns, Megatron's pairs over the model group: ``query``/``key``/
+``value`` and ``intermediate`` column-parallel, ``attention.out`` and
+``output`` row-parallel with the bias added once after the f32 sum;
+``embeddings.word`` is split on hidden, its columns looked up and
+gathered.  A rank's attention-probability masks are those its heads have
+in the whole layer, and the hidden-state sites come after the
+row-parallel sums, the same on every model rank, so the sharded model
+trains the one-process model.  Every parameter is read through
+``parallel/fsdp.full``, which gathers an fsdp block before its use.
 """
 
 from __future__ import annotations
@@ -41,6 +57,8 @@ from tpuframe_torch import _device
 from tpuframe_torch.models.transformer_lm import (Dense, LayerNorm,
                                                   _seed_for, dropout)
 from tpuframe_torch.ops import attention as attn_ops
+from tpuframe_torch.parallel import collectives
+from tpuframe_torch.parallel.fsdp import full
 
 # Dropout sites inside a layer, and of the layer index num_layers.
 _ATTN_PROBS, _ATTN_OUT, _FFN_OUT = 0, 1, 2
@@ -101,11 +119,16 @@ class BertEmbeddings(nn.Module):
         self.ln = LayerNorm(h, eps=cfg.layer_norm_eps, bias=True,
                             device=device)
 
-    def forward(self, input_ids, token_type_ids, dropout_seed=None):
+    def forward(self, input_ids, token_type_ids, dropout_seed=None,
+                model=None):
+        """``model``: the model group whose ranks each hold a block of
+        the word table's hidden columns (None: all of them)."""
         c = self.cfg
         pos = torch.arange(input_ids.shape[-1], device=input_ids.device)
-        x = (self.word(input_ids) + self.position(pos)[None]
-             + self.token_type(token_type_ids))
+        word = collectives.gather_along(
+            F.embedding(input_ids, full(self.word.weight)), model, -1)
+        x = (word + F.embedding(pos, full(self.position.weight))[None]
+             + F.embedding(token_type_ids, full(self.token_type.weight)))
         x = _drop(self.ln(x), c, dropout_seed, c.num_layers, _EMBED)
         return x.to(c.torch_dtype)
 
@@ -122,21 +145,30 @@ class BertSelfAttention(nn.Module):
         self.value = Dense(h, h, **kw)
         self.out = Dense(h, h, **kw)
 
-    def forward(self, x, attention_mask, dropout_seed=None):
+    def forward(self, x, attention_mask, dropout_seed=None, model=None):
+        """``model``: the model group whose ranks each hold a block of
+        the heads (None: all of them)."""
         c = self.cfg
         b, s, _ = x.shape
 
         def heads(t):
-            return t.view(b, s, c.num_heads, c.head_dim)
+            return t.view(b, s, -1, c.head_dim)
 
+        # this rank's heads: query/key/value are column-parallel
+        x = collectives.copy_to(x, model)
+        q, k, v = (heads(self.query(x)), heads(self.key(x)),
+                   heads(self.value(x)))
         rate, seed = 0.0, None
         if dropout_seed is not None and c.dropout > 0.0:
             rate = c.dropout
             seed = _seed_for(dropout_seed, self.layer, _ATTN_PROBS)
         y = attn_ops.multihead_attention(
-            heads(self.query(x)), heads(self.key(x)), heads(self.value(x)),
-            mask=attention_mask, dropout_rate=rate, dropout_seed=seed)
-        return self.out(y.reshape(b, s, c.hidden_size))
+            q, k, v, mask=attention_mask, dropout_rate=rate,
+            dropout_seed=seed,
+            heads=(None if model is None
+                   else (model.index * q.shape[2], c.num_heads)))
+        # out is row-parallel: the partial products summed, then the bias
+        return self.out.row_parallel(y.reshape(b, s, -1), model)
 
 
 class BertLayer(nn.Module):
@@ -154,11 +186,13 @@ class BertLayer(nn.Module):
         self.output = Dense(cfg.intermediate_size, h, **kw)
         self.output_ln = LayerNorm(h, eps=eps, bias=True, device=device)
 
-    def forward(self, x, attention_mask, dropout_seed=None):
+    def forward(self, x, attention_mask, dropout_seed=None, model=None):
         c, i = self.cfg, self.layer
-        a = self.attention(x, attention_mask, dropout_seed)
+        a = self.attention(x, attention_mask, dropout_seed, model)
         x = self.attention_ln(x + _drop(a, c, dropout_seed, i, _ATTN_OUT))
-        h = self.output(F.gelu(self.intermediate(x), approximate="none"))
+        # intermediate column-parallel, output row-parallel
+        h = self.intermediate(collectives.copy_to(x, model))
+        h = self.output.row_parallel(F.gelu(h, approximate="none"), model)
         return self.output_ln(x + _drop(h, c, dropout_seed, i, _FFN_OUT))
 
 
@@ -168,9 +202,9 @@ class BertEncoder(nn.Module):
         self.layers = nn.ModuleList(BertLayer(cfg, layer=i, device=device)
                                     for i in range(cfg.num_layers))
 
-    def forward(self, x, attention_mask, dropout_seed=None):
+    def forward(self, x, attention_mask, dropout_seed=None, model=None):
         for layer in self.layers:
-            x = layer(x, attention_mask, dropout_seed)
+            x = layer(x, attention_mask, dropout_seed, model)
         return x
 
 
@@ -183,7 +217,15 @@ class BertForSequenceClassification(nn.Module):
     with masks drawn from ``dropout_seed`` (an int).  Weights are random,
     drawn from ``seed`` with flax's initialisers (lecun-normal kernels,
     embeddings of std ``hidden**-0.5``, zero biases, unit LayerNorm
-    scales); load converted or imported ones with ``load_state_dict``."""
+    scales); load converted or imported ones with ``load_state_dict``.
+
+    ``layout``: the ``parallel.mesh.Layout`` of the sharded-state mode,
+    set with ``shard_specs`` by whoever cut the parameters (the trainer;
+    the module docstring); None, the default, holds every parameter
+    whole."""
+
+    layout = None
+    shard_specs: dict = {}
 
     def __init__(self, cfg: BertConfig = BertConfig(), *, device="cuda",
                  seed: int = 0):
@@ -227,8 +269,9 @@ class BertForSequenceClassification(nn.Module):
             dropout_seed = None
         elif self.cfg.dropout > 0.0 and dropout_seed is None:
             raise ValueError("train=True with dropout needs a dropout_seed")
-        x = self.embeddings(input_ids, token_type_ids, dropout_seed)
-        x = self.encoder(x, attention_mask, dropout_seed)
+        model = None if self.layout is None else self.layout.model
+        x = self.embeddings(input_ids, token_type_ids, dropout_seed, model)
+        x = self.encoder(x, attention_mask, dropout_seed, model)
         return x, torch.tanh(self.pooler(x[:, 0]))
 
     def forward(self, input_ids, attention_mask=None, token_type_ids=None, *,

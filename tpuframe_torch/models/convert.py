@@ -4,7 +4,10 @@ MNIST ConvNet's parameters into the port's models, and whole JAX training
 states (a ``TrainState`` checkpoint: parameters, statistics, optimizer
 moments and step) into the port's model and optimizer
 (:func:`train_state_from_jax`), a JAX ZeRO-1 state's flat moments to each
-rank's chunks of the port's flat layout and back (:func:`flat_order`).
+rank's chunks of the port's flat layout and back (:func:`flat_order`),
+and a JAX leaf's partition spec to the port tensor's (:func:`jax_view`,
+:func:`spec_to_port`), so that both packages split the same logical
+blocks.
 
 The flax tree (``{"embed": {"embedding"}, "block_<i>": {...},
 "final_ln": {"scale"}, "lm_head": {"kernel"}}``) arrives as nested dicts of
@@ -19,9 +22,13 @@ numpy arrays, so this module needs no jax.  Layouts differ in two ways:
 
 from __future__ import annotations
 
+import re
+from dataclasses import dataclass
+
 import numpy as np
 import torch
 
+from tpuframe_torch.parallel import tp
 from tpuframe_torch.parallel.zero1 import chunk_len, flat_pad, padded_len
 
 
@@ -293,6 +300,84 @@ def bert_params_from_jax(params) -> dict:
             for k, v in sd.items()}
 
 
+@dataclass(frozen=True)
+class JaxView:
+    """How a port tensor of a ``transformer-lm`` or ``bert-base`` model
+    holds its JAX leaf: the leaf's ``shape`` and, for each of its dims,
+    ``(port dim, part)``: the port dim it lies along and whether it is
+    that dim ``"whole"``, or the ``"outer"`` or ``"inner"`` factor of a
+    flattened one (the head kernels' ``N*D``: heads outer, head dim
+    inner)."""
+
+    shape: tuple
+    dims: tuple
+
+    @property
+    def port_ndim(self) -> int:
+        return 1 + max((d for d, _ in self.dims), default=-1)
+
+
+# the port names whose JAX leaf has another layout
+_QKV = re.compile(r"(attn|attention)\.(query|key|value)\.weight$")
+_QKV_BIAS = re.compile(r"attention\.(query|key|value)\.bias$")
+_OUT = re.compile(r"(attn|attention)\.out\.weight$")
+_EMBEDDING = re.compile(r"(^embed|embeddings\.(word|position|token_type))"
+                        r"\.weight$")
+
+
+def jax_view(name: str, shape: tuple, num_heads: int) -> JaxView:
+    """The :class:`JaxView` of the port's whole tensor ``name`` of
+    ``shape`` (a ``transformer-lm`` or ``bert-base`` parameter, or its
+    moment) in a model of ``num_heads`` heads: query/key/value ``[N*D,
+    H]`` hold the JAX ``[H, N, D]``, their BERT biases ``[N*D]`` the
+    ``[N, D]``, out ``[H, N*D]`` the ``[N, D, H]``; every other 2-d
+    tensor but an embedding table is a transposed ``Dense`` kernel; the
+    rest (embeddings, LayerNorms, biases, the MoE experts) are as the
+    JAX leaf."""
+    shape = tuple(shape)
+    if _QKV.search(name):
+        return JaxView((shape[1], num_heads, shape[0] // num_heads),
+                       ((1, "whole"), (0, "outer"), (0, "inner")))
+    if _QKV_BIAS.search(name):
+        return JaxView((num_heads, shape[0] // num_heads),
+                       ((0, "outer"), (0, "inner")))
+    if _OUT.search(name):
+        return JaxView((num_heads, shape[1] // num_heads, shape[0]),
+                       ((1, "outer"), (1, "inner"), (0, "whole")))
+    if len(shape) == 2 and not _EMBEDDING.search(name):
+        return JaxView(shape[::-1], ((1, "whole"), (0, "whole")))
+    return JaxView(shape, tuple((d, "whole") for d in range(len(shape))))
+
+
+def spec_to_port(view: JaxView, spec, name: str = "") -> tuple:
+    """A JAX leaf's partition spec (an axis name or None a dim; shorter
+    specs pad with None) → the port tensor's.  A split of a flattened
+    dim's outer factor is a contiguous block of the port dim; a split of
+    its inner factor (the head dim under several heads) is a strided one,
+    which the port's blocks cannot hold: raises ValueError."""
+    out = [None] * view.port_ndim
+    for j, axis in enumerate(tuple(spec or ())[:len(view.dims)]):
+        if axis is None:
+            continue
+        d, part = view.dims[j]
+        if part == "inner" and view.shape[j - 1] > 1:
+            raise ValueError(
+                f"{name}: the JAX placement splits dim {j} of {view.shape} "
+                f"(the head dim, inside the port's flattened heads x head "
+                f"dim) over {axis!r}: a strided block the port cannot hold; "
+                f"the port refuses this mesh")
+        out[d] = axis
+    return tuple(out)
+
+
+def spec_to_jax(view: JaxView, spec) -> tuple:
+    """The port tensor's spec → the JAX leaf's (a split port dim that
+    holds flattened heads splits the heads)."""
+    spec = tuple(spec or ())
+    return tuple(spec[d] if part != "inner" and d < len(spec) else None
+                 for d, part in view.dims)
+
+
 _MOMENTS = ("mu", "nu", "trace")
 _JAX_STATE_KEYS = {"step", "params", "opt_state", "model_state", "rng"}
 
@@ -407,7 +492,8 @@ def zero1_moments_to_jax(moments: dict, order: dict, n: int) -> dict:
     return _build(pairs)
 
 
-def train_state_from_jax(tree, family: str, *, zero1: tuple | None = None):
+def train_state_from_jax(tree, family: str, *, zero1: tuple | None = None,
+                         blocks: tuple | None = None):
     """A JAX ``TrainState`` checkpoint, as ``tpuframe.ckpt.restore(dir,
     step)`` (or the port's ``ckpt.restore``) returns it without a target,
     → ``(model state_dict, optimizer state_dict, step)`` for the port's
@@ -429,7 +515,16 @@ def train_state_from_jax(tree, family: str, *, zero1: tuple | None = None):
     moments flat ``[padded]`` vectors, ``tpuframe.parallel.zero1``'s
     ``make_state``), and the moments come back as rank ``index``'s chunks
     of the port's layout over ``n`` ranks (:func:`flat_order`), for an
-    optimizer built with ``shards=(n, index)``."""
+    optimizer built with ``shards=(n, index)``.
+
+    ``blocks=(specs, sizes, coords)``: the state of a sharded-state run
+    (fsdp, tensor or expert parallelism; the JAX checkpoint's leaves come
+    back whole, however the JAX run placed them), cut to the blocks the
+    rank at ``coords`` of a mesh of ``sizes`` holds of each parameter
+    and moment named in ``specs`` (port specs, as
+    ``parallel/fsdp.state_shardings`` gives them)."""
+    if blocks is not None and zero1 is not None:
+        raise ValueError("zero1= and blocks= are two layouts of one state")
     params = tree["params"]
     extra = set(tree) - _JAX_STATE_KEYS
     model_state = dict(tree.get("model_state") or {})
@@ -473,5 +568,14 @@ def train_state_from_jax(tree, family: str, *, zero1: tuple | None = None):
                          f"neither adamw's mu/nu nor sgd's or lars' trace")
     model = (resnet_from_jax(params, stats) if family.startswith("resnet")
              else to_port(params))
+    if blocks is not None:
+        specs, sizes, coords = blocks
+
+        def cut(tensors):
+            return {k: tp.cut(v, specs[k], sizes, coords) if k in specs
+                    else v for k, v in tensors.items()}
+
+        model = cut(model)
+        moments = {k: cut(v) for k, v in moments.items()}
     return (model, {"count": counts[0], **moments},
             int(np.asarray(tree["step"])))

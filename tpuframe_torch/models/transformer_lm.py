@@ -35,7 +35,7 @@ values (the JAX model's ``sow``), and nothing outlives the call.
 
 Tensor and expert parallelism (``parallel/tp.py``): with a layout set on
 the model (:attr:`TransformerLM.layout`, a ``parallel.mesh.Layout`` in
-the sharded-state mode, whose parameters ``tp.shard_`` cut to the rank's
+the sharded-state mode, whose parameters ``fsdp.shard_`` cut to the rank's
 blocks) each block runs its rank's heads and intermediate columns and the
 experts of its expert index, with Megatron's collectives over the model
 group (the MoE layer's over the shard group), the embedding's columns
@@ -64,6 +64,7 @@ from tpuframe_torch.ops import attention as attn_ops
 from tpuframe_torch.ops import moe as moe_ops
 from tpuframe_torch.ops import seq_parallel
 from tpuframe_torch.parallel import collectives
+from tpuframe_torch.parallel.fsdp import full
 
 SEQ_MODES = ("none", "ring", "ulysses")
 
@@ -142,8 +143,8 @@ class LayerNorm(nn.Module):
         mean = xf.mean(dim=-1, keepdim=True)
         var = torch.clamp((xf * xf).mean(dim=-1, keepdim=True)
                           - mean * mean, min=0.0)
-        y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight)
-        return y if self.bias is None else y + self.bias
+        y = (xf - mean) * (torch.rsqrt(var + self.eps) * full(self.weight))
+        return y if self.bias is None else y + full(self.bias)
 
 
 class Dense(nn.Module):
@@ -164,8 +165,20 @@ class Dense(nn.Module):
                      if bias else None)
 
     def forward(self, x):
-        b = None if self.bias is None else self.bias.to(self.dtype)
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype), b)
+        b = None if self.bias is None else full(self.bias).to(self.dtype)
+        return F.linear(x.to(self.dtype), full(self.weight).to(self.dtype),
+                        b)
+
+    def row_parallel(self, x, grp):
+        """A row-parallel layer's output: this rank's partial product
+        summed over the model group ``grp`` (``collectives.reduce_from``,
+        in f32), then the bias added once (None or a group of one: the
+        plain call)."""
+        if grp is None or grp.size == 1:
+            return self(x)
+        y = collectives.reduce_from(F.linear(
+            x.to(self.dtype), full(self.weight).to(self.dtype)), grp)
+        return y if self.bias is None else y + full(self.bias).to(self.dtype)
 
 
 def _seed_for(*parts: int) -> int:
@@ -204,11 +217,10 @@ class CausalSelfAttention(nn.Module):
         c = self.cfg
         b, s, _ = x.shape
         # this rank's heads: query/key/value are column-parallel
-        n = self.query.weight.shape[0] // c.head_dim
         x = collectives.copy_to(x, model)
 
         def heads(t):
-            return t.view(b, s, n, c.head_dim)
+            return t.view(b, s, -1, c.head_dim)
 
         q = rope(heads(self.query(x)), positions, c.rope_theta)
         k = rope(heads(self.key(x)), positions, c.rope_theta)
@@ -253,8 +265,7 @@ class CausalSelfAttention(nn.Module):
                 y = attn_ops.multihead_attention(q, k, v, causal=True,
                                                  impl=c.attn_impl)
         # out is row-parallel: the ranks' partial products summed
-        return collectives.reduce_from(
-            self.out(y.reshape(b, s, n * c.head_dim)), model)
+        return self.out.row_parallel(y.reshape(b, s, -1), model)
 
 
 def _lecun_normal_(w, fan_in: int, gen) -> None:
@@ -284,7 +295,7 @@ class MoEMLP(nn.Module):
 
     def forward(self, x, par=None):
         """``(y, aux)`` of ``x`` ``[B, S, H]``.  ``par``: the model's
-        layout in the sharded-state mode (global routing over its data
+        layout in the sharded-state mode (global routing over its batch
         group; the experts of its expert index; partial results summed
         over its shard group), or None."""
         c = self.cfg
@@ -292,7 +303,7 @@ class MoEMLP(nn.Module):
         e = c.moe_experts
         tokens = x.reshape(b * s, h)
         logits = self.router(tokens.float())
-        route_grp = None if par is None else par.data
+        route_grp = None if par is None else par.batch
         shard_grp = None if par is None else par.shard
         n_route = 1 if route_grp is None else route_grp.size
         cap = moe_ops.capacity_for(b * s * n_route, e, c.moe_k,
@@ -300,14 +311,14 @@ class MoEMLP(nn.Module):
         prior = None
         if route_grp is not None:
             def prior(counts):
-                # every data rank's counts, in data order
+                # every batch rank's counts, in batch-index order
                 every = collectives.group_gather(counts, route_grp)
                 return (every[:route_grp.index].sum(dim=0),
                         every.sum(dim=0))
         r = moe_ops.route(logits, k=c.moe_k, capacity=cap, prior=prior)
         me, ce = r.me, r.ce
         if route_grp is not None:
-            # the global batch's means: the mean of the data ranks' means
+            # the global batch's means: the mean of the batch ranks' means
             me = collectives.group_sum(me, route_grp) / n_route
             ce = collectives.group_sum(ce, route_grp) / n_route
         aux = moe_ops.aux_loss(me, ce)
@@ -324,10 +335,10 @@ class MoEMLP(nn.Module):
         combine = r.combine(lo, hi, weight=weight).to(dtype)
         expert_in = torch.einsum("tec,th->ech", dispatch, tokens.to(dtype))
         hmid = F.gelu(torch.einsum("ech,ehi->eci", expert_in,
-                                   self.up_experts.to(dtype)),
+                                   full(self.up_experts).to(dtype)),
                       approximate="tanh")
         expert_out = torch.einsum("eci,eih->ech", hmid,
-                                  self.down_experts.to(dtype))
+                                  full(self.down_experts).to(dtype))
         y = torch.einsum("tec,ech->th", combine, expert_out)
         y = collectives.reduce_from(y, shard_grp)
         return y.reshape(b, s, h), aux
@@ -376,8 +387,7 @@ class Block(nn.Module):
         else:
             # up column-parallel, down row-parallel
             h = self.up(collectives.copy_to(self.mlp_ln(x), model))
-            h = collectives.reduce_from(
-                self.down(F.gelu(h, approximate="tanh")), model)
+            h = self.down.row_parallel(F.gelu(h, approximate="tanh"), model)
         return x + self._drop(h, dropout_seed, 1)
 
 
@@ -410,7 +420,8 @@ class TransformerLM(nn.Module):
     ``seq_mode="none"`` model, and the serving path, ignore it.
 
     ``layout``: the ``parallel.mesh.Layout`` of the sharded-state mode,
-    set with ``shard_specs`` by :func:`shard` (tensor and expert
+    set with ``shard_specs`` by whoever cut the parameters (the trainer,
+    ``parallel/fsdp.shard_``: fsdp, tensor and expert
     parallelism, global MoE routing; the module docstring); None, the
     default, holds every parameter whole.  ``aux_out`` (a list) collects
     the MoE layers' aux losses of the call.
@@ -457,7 +468,7 @@ class TransformerLM(nn.Module):
         every rank's rows gathered, each rank keeping its rows'
         gradient."""
         par = self.layout
-        return collectives.gather_along(self.lm_head.weight,
+        return collectives.gather_along(full(self.lm_head.weight),
                                         None if par is None else par.model,
                                         0)
 
@@ -493,8 +504,8 @@ class TransformerLM(nn.Module):
             raise ValueError("train=True with dropout needs a dropout_seed")
         # the embedding's columns are split over the model group
         x = collectives.gather_along(
-            self.embed(input_ids), None if par is None else par.model,
-            -1).to(c.torch_dtype)
+            F.embedding(input_ids, full(self.embed.weight)),
+            None if par is None else par.model, -1).to(c.torch_dtype)
         for i, block in enumerate(self.blocks):
             # a list a block: a remat recompute appends its value again
             aux = []

@@ -16,11 +16,14 @@ shapes and dtypes in the staged pass's plan order, ``grad_reduce`` and
 ``accum_steps``, the mesh's degrees and the model's ``seq_mode`` (which
 decide the seq rings' collectives in the forward and the backward), the
 fusion threshold with its bucket census, the weight update and the wire
-format (with zero1, the padded flat layout's census), and the
+format (with zero1, the padded flat layout's census), the
 statistics-and-metrics reduction (the float buffers and the metric names,
-with its census).  Two ranks whose descriptions agree issue the same
-collectives on tensors of the same sizes; everything else the step does
-is local.
+with its census), and in the sharded-state mode each split parameter's
+spec (which of its dims the fsdp, expert and model axes split: which
+blocks a rank gathers and reduce-scatters) and the batch degree (data x
+fsdp, the ranks the means run over).  Two ranks whose descriptions agree
+issue the same collectives on tensors of the same sizes; everything else
+the step does is local.
 """
 
 from __future__ import annotations
@@ -81,6 +84,12 @@ def step_program(model: nn.Module, *, grad_reduce: str, accum_steps: int,
                   for name, b in stats],
         "metrics": sorted(metric_names),
     }
+    specs = getattr(model, "shard_specs", {})
+    if specs:
+        out["shard_specs"] = {name: list(spec)
+                              for name, spec in sorted(specs.items())}
+        out["batch_degree"] = ((mesh or {}).get("data", 1)
+                               * (mesh or {}).get("fsdp", 1))
     if weight_update == "zero1":
         n = (mesh or {}).get("data", 1)
         out["zero1_census"] = {

@@ -43,13 +43,17 @@ def resolve_impl(impl=None) -> str:
 
 def multihead_attention(q, k, v, *, mask=None, causal=False,
                         dropout_rate: float = 0.0, dropout_seed=None,
-                        impl=None):
+                        impl=None, heads: tuple[int, int] | None = None):
     """q, k, v ``[B, S, N, D]``; mask ``[B, S_kv]`` (1 = keep) or, on the
     ``xla`` path, anything broadcastable to ``[B, N, S_q, S_kv]``.
 
     ``dropout_rate > 0`` drops attention probabilities with a mask drawn
     from a generator seeded with ``dropout_seed`` (an int), on the einsum
-    path whatever ``impl`` says, as in the JAX package."""
+    path whatever ``impl`` says, as in the JAX package.  ``heads =
+    (offset, total)`` says that ``q`` holds heads ``offset`` onwards of a
+    layer of ``total`` (tensor parallelism): the mask is drawn for all
+    ``total`` and this block's heads taken, so that the ranks together
+    draw the mask of the whole layer."""
     impl = resolve_impl(impl)
     if impl == "pallas" and dropout_rate == 0.0:
         if mask is not None and mask.ndim != 2:
@@ -70,8 +74,10 @@ def multihead_attention(q, k, v, *, mask=None, causal=False,
         gen = torch.Generator(device=q.device)
         gen.manual_seed(dropout_seed)
         b, s_q, n, _ = q.shape
-        keep = torch.rand((b, n, s_q, k.shape[1]), generator=gen,
-                          device=q.device) >= dropout_rate
+        offset, total = heads or (0, n)
+        keep = torch.rand((b, total, s_q, k.shape[1]), generator=gen,
+                          device=q.device)[:, offset:offset + n]
+        keep = keep >= dropout_rate
         IMPLS["xla_dropout"] += 1
     else:
         IMPLS["xla"] += 1

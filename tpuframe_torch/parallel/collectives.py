@@ -484,6 +484,25 @@ def _wire(kind: str, t: torch.Tensor) -> None:
     WIRE_CALLS[kind] += 1
 
 
+def _tiled_reduce_scatter(flat: torch.Tensor, grp, async_op: bool = False):
+    """The sum over ``grp`` of every member's 1-d contiguous ``flat``,
+    member ``i`` keeping chunk ``i`` of ``len(flat) / n`` elements (one
+    tiled reduce-scatter, uncounted).  Returns ``(shard, work)``."""
+    shard = flat.new_empty(flat.numel() // dist.get_world_size(grp))
+    # reduce_scatter_tensor's successor from torch 2.13 on
+    verb = (getattr(dist, "reduce_scatter_single", None)
+            or dist.reduce_scatter_tensor)
+    return shard, verb(shard, flat, group=grp, async_op=async_op)
+
+
+def _tiled_all_gather(t: torch.Tensor, grp, async_op: bool = False):
+    """Every member's contiguous ``t`` concatenated along dim 0 in group
+    order (one tiled all-gather, uncounted).  Returns ``(full, work)``."""
+    full = t.new_empty((dist.get_world_size(grp) * t.shape[0], *t.shape[1:]))
+    return full, dist.all_gather_into_tensor(full, t, group=grp,
+                                             async_op=async_op)
+
+
 def reduce_scatter_start(flat: torch.Tensor, grp):
     """Start the tiled reduce-scatter (sum) of the 1-d ``flat`` over
     ``grp``: rank ``i`` gets the sum of every rank's chunk ``i`` of
@@ -498,11 +517,7 @@ def reduce_scatter_start(flat: torch.Tensor, grp):
                          f"pad-to-multiple layout)")
     _check_device("reduce_scatter", flat, grp)
     flat = flat.contiguous()
-    shard = flat.new_empty(flat.numel() // n)
-    # reduce_scatter_tensor's successor from torch 2.13 on
-    verb = (getattr(dist, "reduce_scatter_single", None)
-            or dist.reduce_scatter_tensor)
-    work = verb(shard, flat, group=grp, async_op=True)
+    shard, work = _tiled_reduce_scatter(flat, grp, async_op=True)
     _wire("reduce_scatter", flat)
     return shard, work
 
@@ -512,10 +527,7 @@ def all_gather_start(t: torch.Tensor, grp):
     rank's ``t`` concatenated in rank order.  Returns ``(full, work)``.
     Counts the result's bytes."""
     _check_device("all_gather", t, grp)
-    n = dist.get_world_size(grp)
-    t = t.contiguous()
-    full = t.new_empty((n * t.shape[0], *t.shape[1:]))
-    work = dist.all_gather_into_tensor(full, t, group=grp, async_op=True)
+    full, work = _tiled_all_gather(t.contiguous(), grp, async_op=True)
     _wire("all_gather", full)
     return full, work
 
@@ -546,11 +558,15 @@ def wire_mean_(t: torch.Tensor, grp) -> torch.Tensor:
 
 
 # The verbs of tensor and expert parallelism (``parallel/tp.py``, the MoE
-# layer of ``models/transformer_lm.py``): calls and bytes this process
-# sent into them, by verb, the forward and the backward alike (what a run
-# reads as its sharded-state traffic).  A group of one runs and counts
-# nothing.
-SHARD_CALLS = {"all_reduce": 0, "all_gather": 0}
+# layer of ``models/transformer_lm.py``) and of fsdp (``parallel/fsdp.py``:
+# a parameter's blocks gathered before its use, its gradient
+# reduce-scattered back onto them): calls and bytes this process sent
+# into them, by verb, the forward and the backward alike (what a run
+# reads as its sharded-state traffic).  The all-gathers count the block
+# sent, the reduce-scatter the whole operand.  A group of one runs and
+# counts nothing.
+SHARD_CALLS = {"all_reduce": 0, "all_gather": 0, "fsdp_all_gather": 0,
+               "fsdp_reduce_scatter": 0}
 SHARD_BYTES = dict.fromkeys(SHARD_CALLS, 0)
 
 
@@ -674,3 +690,50 @@ def group_gather(x: torch.Tensor, grp) -> torch.Tensor:
     if grp is None or grp.size == 1:
         return x[None]
     return _shard_gather(x.detach()[None], grp, 0)
+
+
+def _fsdp_gather(t: torch.Tensor, grp, dim: int) -> torch.Tensor:
+    """Every member's block ``t`` concatenated along ``dim`` in group
+    order (one tiled all-gather), counted."""
+    moved = t.movedim(dim, 0).contiguous()
+    _check_device("all_gather", moved, grp.group)
+    full, _ = _tiled_all_gather(moved, grp.group)
+    SHARD_CALLS["fsdp_all_gather"] += 1
+    SHARD_BYTES["fsdp_all_gather"] += moved.numel() * moved.element_size()
+    return full.movedim(0, dim)
+
+
+def _fsdp_scatter(g: torch.Tensor, grp, dim: int) -> torch.Tensor:
+    """The sum over the group of every member's ``g``, each member
+    keeping its block along ``dim`` (one tiled reduce-scatter), counted."""
+    moved = g.movedim(dim, 0).contiguous()
+    _check_device("reduce_scatter", moved, grp.group)
+    block, _ = _tiled_reduce_scatter(moved.view(-1), grp.group)
+    SHARD_CALLS["fsdp_reduce_scatter"] += 1
+    SHARD_BYTES["fsdp_reduce_scatter"] += moved.numel() * moved.element_size()
+    return block.view(-1, *moved.shape[1:]).movedim(0, dim)
+
+
+class _FsdpGather(torch.autograd.Function):
+    """A parameter's fsdp block made whole on every member of the fsdp
+    group; the backward reduce-scatters the whole cotangent (the sum of
+    the members' partial gradients, each from its own rows) back onto
+    the block.  Nothing is saved: the whole tensor lives as long as the
+    operation that uses it keeps it."""
+
+    @staticmethod
+    def forward(ctx, x, grp, dim):
+        ctx.grp, ctx.dim = grp, dim
+        return _fsdp_gather(x, grp, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _fsdp_scatter(g, ctx.grp, ctx.dim), None, None
+
+
+def fsdp_gather(x: torch.Tensor, grp, dim: int) -> torch.Tensor:
+    """:class:`_FsdpGather` of the block ``x`` along ``dim`` over the
+    fsdp group ``grp`` (None or one member: identity)."""
+    if grp is None or grp.size == 1:
+        return x
+    return _FsdpGather.apply(x, grp, dim % x.dim())

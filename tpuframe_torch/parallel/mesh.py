@@ -1,29 +1,35 @@
-"""The rank layout of a data x seq x expert x model mesh and its
+"""The rank layout of a data x fsdp x seq x expert x model mesh and its
 sub-groups (the degrees -> groups part of ``tpuframe/parallel/mesh.py``).
 
 The JAX package lays its devices out row-major over its axes (``AXES``:
 data, fsdp, pipe, seq, expert, model), data outermost, and a collective
 over an axis runs among the devices that differ in that coordinate only.
 Here a rank plays a device: of the axes the port runs (the trainer
-refuses fsdp, pipe and slices), rank ``r`` is
-``((data_idx * seq + seq_idx) * expert + expert_idx) * model + model_idx``.
-Each sub-group gets its own ``torch.distributed`` group, made by
-:func:`build` on every rank in the same order:
+refuses pipe and slices), rank ``r`` is row-major over data, fsdp, seq,
+expert and model (:func:`rank_of`).  Each sub-group gets its own
+``torch.distributed`` group, made by :func:`build` on every rank in the
+same order:
 
   - a **seq ring** (the ranks that differ in their seq coordinate only)
     with a seq degree above 1, for ring attention and Ulysses;
-  - with an expert or model degree above 1 (the JAX trainer's
-    sharded-state mode): the **model** group (tensor parallelism), the
-    **expert** group (expert parallelism), the **shard** group (the
-    ranks that share a data index: expert x model, over which an MoE
-    layer's partial outputs are summed) and the **data** group (the
-    ranks that hold the same shard of every leaf and different batch
-    rows: the group each leaf's gradient is averaged over, and the one
-    global MoE routing counts tokens over).
+  - with an fsdp, expert or model degree above 1 (the JAX trainer's
+    sharded-state mode): the **fsdp** group (the ranks that hold the
+    other fsdp blocks of a leaf: its gathers and reduce-scatters,
+    ``parallel/fsdp.py``), the **model** group (tensor parallelism), the
+    **expert** group (expert parallelism), the **shard** group (expert x
+    model, over which an MoE layer's partial outputs are summed), the
+    **data** group (the ranks that hold the same block of every leaf and
+    other batch rows: an fsdp-split leaf's gradient is averaged over it)
+    and the **batch** group (data x fsdp: every rank that takes other
+    rows and holds the same expert and model blocks; the group a leaf
+    that is whole over fsdp is averaged over, the loss's and the
+    metrics' means run over, and global MoE routing counts tokens over).
 
-The batch's rows shard over data only (the JAX ``BATCH_AXES``): ranks
-that differ only in their expert or model coordinate take the same rows.
-A world of one, or a degree of 1, has no group for that axis.
+The batch's rows shard over data x fsdp (the JAX ``BATCH_AXES``): rank
+``(d, f)`` takes row block ``d * fsdp + f`` (:attr:`Layout.batch_index`),
+and ranks that differ only in their expert or model coordinate take the
+same rows.  A world of one, or a degree of 1, has no group for that axis;
+a batch group with the ranks of the data or the fsdp group is that group.
 """
 
 from __future__ import annotations
@@ -35,6 +41,9 @@ import torch.distributed as dist
 # the JAX package's axis order, data outermost
 AXES = ("data", "fsdp", "pipe", "seq", "expert", "model")
 SHARD_AXES = ("expert", "model")
+# the axes a leaf's blocks are split over in the sharded-state mode
+STATE_AXES = ("fsdp", "expert", "model")
+BATCH_AXES = ("data", "fsdp")
 
 
 @dataclass(frozen=True)
@@ -57,16 +66,18 @@ SeqGroup = Group
 class Layout:
     """A rank's place in the mesh: every axis's degree (``sizes``, as
     ``MeshSpec.sizes`` gives them), the rank, and its groups (None where
-    the axis has a degree of 1, and for expert, model, shard and data
-    outside the sharded-state mode)."""
+    the axis has a degree of 1, and for fsdp, expert, model, shard, data
+    and batch outside the sharded-state mode)."""
 
     sizes: dict
     rank: int
     seq: Group | None = None
+    fsdp: Group | None = None
     expert: Group | None = None
     model: Group | None = None
     shard: Group | None = None
     data: Group | None = None
+    batch: Group | None = None
 
     def coords(self) -> dict:
         """This rank's coordinate on every axis."""
@@ -79,13 +90,13 @@ class Layout:
 
     @property
     def sharded(self) -> bool:
-        """The JAX trainer's sharded-state mode: an expert or model degree
-        above 1."""
-        return any(self.sizes.get(a, 1) > 1 for a in SHARD_AXES)
+        """The JAX trainer's sharded-state mode: an fsdp, expert or model
+        degree above 1."""
+        return any(self.sizes.get(a, 1) > 1 for a in STATE_AXES)
 
     @property
     def data_size(self) -> int:
-        """The degree the batch's rows are split over."""
+        """The data degree (the ranks that hold the same blocks)."""
         return self.sizes["data"]
 
     @property
@@ -97,6 +108,23 @@ class Layout:
         """The data group as a ``torch.distributed`` group (None for a
         data degree of 1)."""
         return None if self.data is None else self.data.group
+
+    @property
+    def batch_size(self) -> int:
+        """The degree the batch's rows are split over: data x fsdp."""
+        return self.sizes["data"] * self.sizes.get("fsdp", 1)
+
+    @property
+    def batch_index(self) -> int:
+        """This rank's row block: data index x fsdp + fsdp index."""
+        c = self.coords()
+        return c["data"] * self.sizes.get("fsdp", 1) + c["fsdp"]
+
+    @property
+    def batch_group(self):
+        """The batch group as a ``torch.distributed`` group (None for a
+        batch degree of 1)."""
+        return None if self.batch is None else self.batch.group
 
     @property
     def seq_size(self) -> int:
@@ -158,14 +186,14 @@ def _groups(sizes: dict, axes: tuple, rank: int) -> Group:
 def build(sizes: dict, rank: int) -> Layout:
     """``rank``'s layout on a mesh of ``sizes`` (every axis's degree, the
     world their product).  Makes the seq rings with a seq degree above 1,
-    and, in the sharded-state mode, the expert, model, shard and data
-    groups of the axes whose degree (or, for data and shard, whose
-    group's size) is above 1."""
+    and, in the sharded-state mode, the fsdp, expert, model, shard, data
+    and batch groups whose size is above 1 (a batch group with the
+    ranks of the data or the fsdp group is that group)."""
     other = {a: n for a, n in sizes.items()
-             if a not in ("data", "seq", *SHARD_AXES) and n != 1}
+             if a not in ("data", "fsdp", "seq", *SHARD_AXES) and n != 1}
     if other:
-        raise ValueError(f"the port lays out data x seq meshes only, with "
-                         f"their expert and model axes; got {other}")
+        raise ValueError(f"the port lays out data x fsdp x seq x expert x "
+                         f"model meshes only; got {other}")
     world = 1
     for a in AXES:
         world *= sizes.get(a, 1)
@@ -174,12 +202,19 @@ def build(sizes: dict, rank: int) -> Layout:
     groups = {}
     if sizes["seq"] > 1:
         groups["seq"] = _groups(sizes, ("seq",), rank)
-    if any(sizes.get(a, 1) > 1 for a in SHARD_AXES):
-        for name, axes in (("expert", ("expert",)), ("model", ("model",)),
-                           ("shard", SHARD_AXES), ("data", ("data",))):
+    if any(sizes.get(a, 1) > 1 for a in STATE_AXES):
+        for name, axes in (("fsdp", ("fsdp",)), ("expert", ("expert",)),
+                           ("model", ("model",)), ("shard", SHARD_AXES),
+                           ("data", ("data",))):
             n = 1
             for a in axes:
                 n *= sizes.get(a, 1)
             if n > 1:
                 groups[name] = _groups(sizes, axes, rank)
+        if sizes.get("fsdp", 1) == 1:
+            groups["batch"] = groups.get("data")
+        elif sizes["data"] == 1:
+            groups["batch"] = groups["fsdp"]
+        else:
+            groups["batch"] = _groups(sizes, BATCH_AXES, rank)
     return Layout(sizes=dict(sizes), rank=rank, **groups)

@@ -84,15 +84,15 @@ class TrainState:
         ``step`` and ``seed``.  The tensors are the live ones, not
         copies.  An optimizer in the ZeRO-1 layout gives its moments as
         ``ckpt.FlatShard`` leaves (``zero1.opt_tree``); a model cut by
-        ``tp.shard_`` gives its split parameters and their moments as
+        ``fsdp.shard_`` gives its split parameters and their moments as
         ``ckpt.Shard`` leaves."""
         model = dict(self.model.state_dict())
         opt = zero1.opt_tree(self.opt)
         specs = getattr(self.model, "shard_specs", {})
         layout = getattr(self.model, "layout", None)
         if specs and layout is not None:
-            # tensor and expert parallelism: each split parameter and its
-            # moments are this rank's block (``ckpt.Shard``)
+            # fsdp, tensor and expert parallelism: each split parameter
+            # and its moments are this rank's block (``ckpt.Shard``)
             model = tp.ckpt_tree(model, specs, layout)
             opt = {k: v if k == "count" else tp.ckpt_tree(v, specs, layout)
                    for k, v in opt.items()}
@@ -145,15 +145,20 @@ def make_train_step(loss_fn: LossFn, *, accum_steps: int = 1,
     ``reducer``.
 
     ``layout``: the sharded-state mode's ``mesh.Layout`` (None: the
-    world is the data group).  The gradients, statistics and metrics are
-    then averaged over its data group, whose ranks hold the same block of
-    every parameter (no reduction for a data degree of 1); the dropout
-    seeds take the data index in place of the world rank, so that ranks
-    holding other blocks of the same rows draw the same masks; and with
-    ``accum_steps`` microbatch ``i`` is rows ``[i B / a, (i + 1) B / a)``
-    of the global batch (the data ranks' batches in order), each rank
-    taking its block of them, as the JAX jit step splits its logical
-    batch, where otherwise each rank splits its own rows."""
+    world is the data group).  The statistics and metrics are then
+    averaged over its batch group (data x fsdp: the ranks that take other
+    rows), and so is each parameter's gradient that is whole over fsdp;
+    a parameter split over fsdp (``parallel/fsdp.py``) has had its
+    gradient reduce-scattered, summed over the fsdp ranks, in the
+    backward, so its block is averaged over the data group and divided by
+    the fsdp degree: either way the gradient of the global batch's mean
+    (no reduction for a degree of 1).  The dropout seeds take the batch
+    index in place of the world rank, so that ranks holding other blocks
+    of the same rows draw the same masks; and with ``accum_steps``
+    microbatch ``i`` is rows ``[i B / a, (i + 1) B / a)`` of the global
+    batch (the batch ranks' batches in order), each rank taking its block
+    of them, as the JAX jit step splits its logical batch, where
+    otherwise each rank splits its own rows."""
     wire_format = quantwire.validate_format(wire_format)
     weight_update = zero1.validate_mode(weight_update)
     if accum_steps < 1:
@@ -201,7 +206,7 @@ def make_train_step(loss_fn: LossFn, *, accum_steps: int = 1,
         elif layout is None:
             grp, rank = collectives.group(), collectives.world()[1]
         else:
-            grp, rank = layout.data_group, layout.data_index
+            grp, rank = layout.batch_group, layout.batch_index
         reducer = (staged(model, grp) if fusion_threshold is not None
                    and grp is not None and weight_update == "replicated"
                    else None)
@@ -254,6 +259,16 @@ def make_train_step(loss_fn: LossFn, *, accum_steps: int = 1,
                 for g, m in zip(grads, quantwire.all_reduce_mean(grads, grp)):
                     g.copy_(m)
             collectives.mean_(stats + list(out.values()), grp)
+        elif layout is not None and layout.fsdp is not None:
+            split = [p.grad for p in model.parameters()
+                     if p.grad is not None and hasattr(p, "fsdp")]
+            whole = [p.grad for p in model.parameters()
+                     if p.grad is not None and not hasattr(p, "fsdp")]
+            # the reduce-scatter summed the fsdp ranks' gradients
+            collectives.mean_(split, layout.data_group)
+            for g in split:
+                g.div_(layout.fsdp.size)
+            collectives.mean_(whole + stats + list(out.values()), grp)
         else:
             collectives.mean_(grads + stats + list(out.values()), grp)
         out["grad_norm"] = state.opt.step()
@@ -283,8 +298,8 @@ def _global_micro(batch: dict, grp, accum_steps: int) -> dict:
 def make_eval_step(metric_fn: Callable[[nn.Module, dict], dict], *,
                    distributed: bool = True, layout=None):
     """``eval_step(state, batch) -> metrics``: forward only, in eval
-    mode, each metric averaged over the world, or over the data group of
-    the sharded-state ``layout`` (unless not ``distributed``)."""
+    mode, each metric averaged over the world, or over the batch group
+    of the sharded-state ``layout`` (unless not ``distributed``)."""
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: dict) -> dict:
@@ -292,7 +307,7 @@ def make_eval_step(metric_fn: Callable[[nn.Module, dict], dict], *,
         if distributed:
             collectives.mean_(list(out.values()),
                               collectives.group() if layout is None
-                              else layout.data_group)
+                              else layout.batch_group)
         return out
 
     return eval_step

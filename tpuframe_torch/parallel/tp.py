@@ -18,14 +18,23 @@ the Megatron collectives by hand (``models/transformer_lm.py``):
     loss, each rank keeping its rows' gradient);
   - the LayerNorms and the MoE router replicated.
 
+BERT (``models/bert.py``) runs the same pairs: ``query``/``key``/
+``value`` and ``intermediate`` (weights and biases) column-parallel,
+``attention.out`` and ``output`` row-parallel with the bias added once
+after the sum, ``embeddings.word`` split on hidden and gathered; its
+LayerNorms, position and type embeddings, pooler and classifier
+replicated.
+
 Where the JAX ``match_spec`` replicates a leaf whose dims the degrees do
 not divide, the port refuses the mesh (:func:`check_degrees`): a
-Megatron pair cannot mix a split half with a replicated one.  BERT's
-rules are here as data; the trainer refuses BERT's tensor parallelism
-until fsdp is ported.
+Megatron pair cannot mix a split half with a replicated one.
 
-:func:`cut` takes a rank's block of a full tensor and :func:`paste` puts
-blocks back together; :func:`shard_` cuts a model's parameters in place.
+fsdp (``parallel/fsdp.py``) overlays its axis on these specs, so a spec
+can split two dims over two axes (say ``("model", "fsdp")``), and
+``fsdp.shard_`` cuts a model's parameters by them.  :func:`cut` takes a
+rank's block of a full tensor, :func:`cut_` a model's parameters in
+place, and :func:`paste` puts blocks back together; :func:`global_sq`
+counts each element of such blocks once.
 """
 
 from __future__ import annotations
@@ -71,40 +80,50 @@ def rules_for_model(name: str) -> tuple:
     return RULES_BY_MODEL[name]
 
 
+def rule_for(name: str, rules: tuple):
+    """The spec of the first rule whose pattern ``name`` matches, or
+    None."""
+    for pattern, spec in rules:
+        if re.search(pattern, name):
+            return spec
+    return None
+
+
 def match_spec(name: str, shape: tuple, sizes: dict, rules: tuple):
     """The spec of parameter ``name`` (a tuple with an axis or None a
     dim), or None when no rule applies or no named axis has a degree
     above 1.  Raises ValueError where a degree does not divide the dim it
     splits (the JAX function replicates there; see the module
     docstring)."""
-    for pattern, spec in rules:
-        if not re.search(pattern, name):
-            continue
-        if len(spec) > len(shape):
-            return None
-        if not any(a is not None and sizes.get(a, 1) > 1 for a in spec):
-            return None
-        for dim, axis in zip(shape, spec):
-            n = 1 if axis is None else sizes.get(axis, 1)
-            if dim % n:
-                raise ValueError(
-                    f"mesh {axis}={n} does not divide dim {dim} of {name} "
-                    f"{tuple(shape)}: the port refuses a mesh whose expert "
-                    f"or model degree does not divide the dims its rules "
-                    f"split")
-        return tuple(spec) + (None,) * (len(shape) - len(spec))
-    return None
+    spec = rule_for(name, rules)
+    if spec is None or len(spec) > len(shape):
+        return None
+    if not any(a is not None and sizes.get(a, 1) > 1 for a in spec):
+        return None
+    for dim, axis in zip(shape, spec):
+        n = 1 if axis is None else sizes.get(axis, 1)
+        if dim % n:
+            raise ValueError(
+                f"mesh {axis}={n} does not divide dim {dim} of {name} "
+                f"{tuple(shape)}: the port refuses a mesh whose expert or "
+                f"model degree does not divide the dims its rules split")
+    return tuple(spec) + (None,) * (len(shape) - len(spec))
 
 
 def check_degrees(cfg, sizes: dict) -> None:
-    """Refuse a ``transformer-lm`` config (``LMConfig``) whose model or
-    expert degree does not divide the dims the rules split: heads,
-    intermediate, hidden and vocab over model; experts over expert."""
+    """Refuse a ``transformer-lm`` config (``LMConfig``) or a BERT one
+    (``BertConfig``, which has no experts and no vocab split) whose model
+    or expert degree does not divide the dims the rules split: heads,
+    intermediate, hidden (and the LM's vocab) over model; experts over
+    expert."""
     m, e = sizes.get("model", 1), sizes.get("expert", 1)
     dims = {"num_heads": (cfg.num_heads, m),
             "intermediate_size": (cfg.intermediate_size, m),
-            "hidden_size": (cfg.hidden_size, m),
-            "vocab_size": (cfg.vocab_size, m)}
+            "hidden_size": (cfg.hidden_size, m)}
+    if hasattr(cfg, "moe_experts"):
+        dims["vocab_size"] = (cfg.vocab_size, m)
+    elif e > 1:
+        raise ValueError(f"mesh expert={e}: BERT has no experts to shard")
     if e > 1:
         if cfg.moe_experts <= 0:
             raise ValueError(f"mesh expert={e} needs an MoE model "
@@ -168,11 +187,10 @@ def specs_for(model: nn.Module, rules: tuple, sizes: dict) -> dict:
 
 
 @torch.no_grad()
-def shard_(model: nn.Module, rules: tuple, layout) -> dict:
-    """Cut each split parameter of ``model`` (full-size, the same on
-    every rank) to this rank's block in place, and return ``{name:
-    spec}``.  The optimizer must be built after."""
-    specs = specs_for(model, rules, layout.sizes)
+def cut_(model: nn.Module, specs: dict, layout) -> None:
+    """Cut each parameter of ``model`` named in ``specs`` (full-size, the
+    same on every rank) to this rank's block in place, as a new
+    ``nn.Parameter``."""
     coords = layout.coords()
     params = dict(model.named_parameters())
     for name, spec in specs.items():
@@ -182,7 +200,6 @@ def shard_(model: nn.Module, rules: tuple, layout) -> dict:
         setattr(mod, attr, nn.Parameter(block.contiguous(),
                                         requires_grad=params[name]
                                         .requires_grad))
-    return specs
 
 
 def split_axes(spec, sizes: dict) -> frozenset:
@@ -191,34 +208,43 @@ def split_axes(spec, sizes: dict) -> frozenset:
                      and sizes.get(a, 1) > 1)
 
 
+# The kinds of split leaf whose squares the norm sums across ranks, in
+# the order of the numbers one all-reduce carries: a mesh with no fsdp
+# degree sums the first three over the shard group; with one, all seven,
+# over the shard group and then over the fsdp group.
+_KINDS = tuple(frozenset(k) for k in (
+    {"model"}, {"expert"}, {"expert", "model"}, {"fsdp"},
+    {"fsdp", "model"}, {"fsdp", "expert"}, {"fsdp", "expert", "model"}))
+
+
 def global_sq(sq: list, specs: list, layout) -> torch.Tensor:
     """The global sum of squares of a sharded tree: ``sq`` holds each
     local tensor's sum of squares (f32 0-d), ``specs`` its spec (None:
     replicated).  Every element counts once: a split tensor's squares are
-    summed over the ranks that hold its other blocks (one all-reduce of
-    three numbers over the shard group), a replicated one's taken
-    once."""
+    summed over the ranks that hold its other blocks, taken on the ranks
+    whose coordinate is 0 on each of fsdp, expert and model that it is
+    not split over (one all-reduce of a number a kind over the shard
+    group, and one over the fsdp group), a replicated one's taken once
+    on every rank."""
     from tpuframe_torch.parallel import collectives
 
     sizes = layout.sizes
     zero = sq[0].new_zeros(()) if sq else torch.zeros(())
-    kinds = {frozenset(): zero, frozenset({"model"}): zero,
-             frozenset({"expert"}): zero,
-             frozenset({"expert", "model"}): zero}
+    kinds = dict.fromkeys((frozenset(),) + _KINDS, zero)
     for s, spec in zip(sq, specs):
         key = split_axes(spec, sizes)
         kinds[key] = kinds[key] + s
-    if layout.shard is None:
+    if layout.shard is None and layout.fsdp is None:
         return sum(kinds.values(), zero)
     c = layout.coords()
-    # a model-split tensor is replicated over expert: count it on the
-    # expert index 0 ranks only, and an expert-split one on model index 0
+    n = 7 if layout.fsdp is not None else 3
     part = torch.stack([
-        kinds[frozenset({"model"})] * float(c["expert"] == 0),
-        kinds[frozenset({"expert"})] * float(c["model"] == 0),
-        kinds[frozenset({"expert", "model"})]])
-    return kinds[frozenset()] + collectives.group_sum(part,
-                                                      layout.shard).sum()
+        kinds[k] * float(all(c[a] == 0 for a in ("fsdp", "expert", "model")
+                             if a not in k))
+        for k in _KINDS[:n]])
+    part = collectives.group_sum(part, layout.shard)
+    part = collectives.group_sum(part, layout.fsdp)
+    return kinds[frozenset()] + part.sum()
 
 
 def shard_leaf(local: torch.Tensor, spec, layout):

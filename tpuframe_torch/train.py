@@ -12,6 +12,9 @@ CIFAR-10 and ImageNet image workloads, the LM and BERT/GLUE.
         --set 'model_kwargs={"bn": "fused"}' --set 'mesh={"data": 1}' \\
         --set global_batch=256
     python -m tpuframe_torch.train --config glue_bert
+    TPUFRAME_DIST_BACKEND=gloo python -m tpuframe_torch.launch local \\
+        --nprocs 4 -- python -m tpuframe_torch.train --config glue_bert \\
+        --set 'mesh={"data": 1, "fsdp": 2, "model": 2}'
     python -m tpuframe_torch.train --config mnist_single --device cpu \\
         --set total_steps=20
 
@@ -36,21 +39,27 @@ hands each rank's seq ring to the model's attention
 (``TransformerLM.seq``, ``ops/seq_parallel.py``), hands each rank its data rows and its block of
 the sequence, and keeps the loss's valid-token mean and the gradient mean
 over the whole world, as the JAX step's ``('data', 'fsdp', 'seq')``
-axes.  An expert or model degree above 1 (an LM) is the JAX harness's
-sharded-state mode: rank = ((data index x seq + seq index) x expert +
-expert index) x model + model index, each rank holds its blocks of the
-parameters and their moments by the tensor-parallel rules
-(``parallel/tp.py``: Megatron placement over model, the experts over
-expert), the model runs the collectives over its model and shard groups,
-its MoE layers route the global batch, the gradients, the loss's mean
-and the metrics are averaged over the data group, dropout is seeded by
-the data index, the gradient norm counts every element once, and the
-fusion knob is ignored, as the JAX jit step ignores it, and
-``accum_steps`` splits the global batch's rows into microbatches, as the
-JAX jit step does; zero1, the int8 wire, Adasum and a seq degree above 1
-are refused there.  An MoE LM (``moe_experts > 0``) adds
-``moe_aux_weight`` times its layers' mean load-balance loss and reports
-it as ``moe_aux``.  A config with ``distributed=False``
+axes.  An fsdp, expert or model degree above 1 (the LM or BERT) is the
+JAX harness's sharded-state mode: rank = row-major over data, fsdp, seq,
+expert and model (``parallel/mesh.py``), each rank holds its blocks of
+the parameters and their moments by the JAX placement
+(``parallel/fsdp.py``: the tensor-parallel rules of ``parallel/tp.py``,
+Megatron placement over model and the experts over expert, with the
+fsdp axis on the largest dim they leave whole), the model gathers each
+fsdp block before its use and reduce-scatters its gradient, runs the
+collectives over its model and shard groups, and its MoE layers route
+the global batch; the batch's rows split over data x fsdp, the loss's
+mean and the metrics are averaged over the batch group (data x fsdp),
+each gradient over the batch group or, split over fsdp, over the data
+group after its reduce-scatter, dropout is seeded by the batch index,
+the gradient norm counts every element once, the fusion knob is
+ignored, as the JAX jit step ignores it, and ``accum_steps`` splits the
+global batch's rows into microbatches, as the JAX jit step does; zero1,
+the int8 wire, Adasum and a seq degree above 1 are refused there, and so
+are the image models under fsdp (their BatchNorm statistics would have
+to be batch-group means, ROADMAP.md item 12).  An MoE LM
+(``moe_experts > 0``) adds ``moe_aux_weight`` times its layers' mean
+load-balance loss and reports it as ``moe_aux``.  A config with ``distributed=False``
 (``mnist_single``) trains on one device with no collective, even in a
 process group, as the JAX harness's config-1 path does.  f32 means f32:
 the harness turns TF32 off for cuDNN's convolutions and for matmuls.
@@ -64,8 +73,9 @@ workloads (``lm_text`` data, ``transformer-lm``) and the GLUE tasks
 ``bert-base``; cross-entropy, or MSE when ``num_classes`` is 1; Pearson
 and Matthews correlation at eval) train here.  What the JAX harness has and
 the port does not yet refuses loudly, naming its ROADMAP.md item: the
-profiler server (item 11), named remat policies (item 14), pipeline, fsdp,
-BERT's tensor parallelism, hierarchical collectives and their DCN wire
+profiler server (item 11), named remat policies (item 14), pipeline,
+multi-slice meshes, the image models under fsdp, hierarchical
+collectives and their DCN wire
 (``TPUFRAME_HIER``, ``TPUFRAME_WIRE_FORMAT_DCN``) and elastic resizing.
 ``grad_reduce="adasum"`` reduces the gradients by Adasum.
 ``TPUFRAME_FUSION_THRESHOLD`` (bytes) reduces the mean in fusion buckets
@@ -158,6 +168,7 @@ from tpuframe_torch.obs.timeline import (StepTimeline, parse_trace_steps,
 from tpuframe_torch.ops import fused_xent as fx
 from tpuframe_torch.parallel import bootstrap
 from tpuframe_torch.parallel import collectives
+from tpuframe_torch.parallel import fsdp
 from tpuframe_torch.parallel import fusion
 from tpuframe_torch.parallel import hvd
 from tpuframe_torch.parallel import mesh as mesh_lib
@@ -209,12 +220,16 @@ def _refuse_unported(cfg: TrainConfig, world: int) -> dict:
     if sizes["pipe"] > 1 or cfg.model == "transformer-lm-pp":
         raise NotImplementedError(f"pipeline parallelism is not ported yet "
                                   f"({ITEM_12})")
-    for axis in ("fsdp", "slices"):
-        if sizes[axis] > 1:
-            raise NotImplementedError(f"mesh {axis}={sizes[axis]}: fsdp's "
-                                      f"sharded state and multi-slice meshes"
-                                      f" are not ported yet ({ITEM_12})")
-    if sizes["model"] > 1 or sizes["expert"] > 1:
+    if sizes["slices"] > 1:
+        raise NotImplementedError(f"mesh slices={sizes['slices']}: "
+                                  f"multi-slice meshes are not ported yet "
+                                  f"({ITEM_12})")
+    if sizes["fsdp"] > 1 and sizes["seq"] > 1:
+        raise NotImplementedError(
+            f"mesh fsdp={sizes['fsdp']} x seq={sizes['seq']}: sequence "
+            f"parallelism in fsdp's sharded state is not ported yet "
+            f"({ITEM_12})")
+    if any(sizes[a] > 1 for a in mesh_lib.STATE_AXES):
         _refuse_sharded(cfg, sizes)
     if sizes["seq"] > 1 and not cfg.shard_seq:
         raise ValueError(f"mesh seq={sizes['seq']} needs shard_seq=True: "
@@ -229,14 +244,18 @@ def _refuse_unported(cfg: TrainConfig, world: int) -> dict:
 
 
 def _refuse_sharded(cfg: TrainConfig, sizes: dict) -> None:
-    """The sharded-state mode (an expert or model degree above 1: the JAX
-    trainer's auto-SPMD step) serves the LM only, and refuses what the
-    JAX harness refuses there."""
-    shape = f"mesh expert={sizes['expert']} x model={sizes['model']}"
-    if cfg.model == "bert-base":
-        raise NotImplementedError(f"{shape}: BERT's tensor parallelism "
-                                  f"comes with fsdp ({ITEM_12})")
-    if cfg.model != "transformer-lm":
+    """The sharded-state mode (an fsdp, expert or model degree above 1:
+    the JAX trainer's auto-SPMD step) serves the LM and BERT, and refuses
+    what the JAX harness refuses there."""
+    shape = (f"mesh fsdp={sizes['fsdp']} x expert={sizes['expert']} x "
+             f"model={sizes['model']}")
+    if cfg.model not in ("transformer-lm", "bert-base"):
+        if sizes["fsdp"] > 1:
+            raise NotImplementedError(
+                f"{shape}: model {cfg.model!r} under fsdp's sharded state "
+                f"is not ported yet ({ITEM_12}: the image models under "
+                f"fsdp, whose BatchNorm statistics are means over the "
+                f"batch group)")
         raise ValueError(f"{shape}: no tensor-parallel rules for model "
                          f"{cfg.model!r} (the JAX package has them for "
                          f"transformer-lm and bert-base)")
@@ -252,9 +271,13 @@ def _refuse_sharded(cfg: TrainConfig, sizes: dict) -> None:
                          f"(shard_map) path only; the JAX sharded-state "
                          f"step runs whole-sequence attention there")
     kw = dict(cfg.model_kwargs)
-    lm_cfg = (models.LMConfig.tiny if kw.pop("tiny", False)
-              else models.LMConfig)(**kw)
-    tp.check_degrees(lm_cfg, sizes)
+    tiny = kw.pop("tiny", False)
+    # models.get_model's configs (BERT takes no ``tiny``)
+    if cfg.model == "bert-base":
+        model_cfg = models.BertConfig.base(**kw)
+    else:
+        model_cfg = (models.LMConfig.tiny if tiny else models.LMConfig)(**kw)
+    tp.check_degrees(model_cfg, sizes)
 
 
 @dataclass
@@ -308,7 +331,7 @@ def _resolved_update(sizes: dict) -> tuple:
     threshold) or, for zero1 with a seq degree above 1, this one."""
     update = zero1.resolve()
     wire, _ = quantwire.resolve_legs()
-    if sizes.get("model", 1) > 1 or sizes.get("expert", 1) > 1:
+    if any(sizes.get(a, 1) > 1 for a in mesh_lib.STATE_AXES):
         # the JAX make_train_step's refusals with state_shardings
         if update[0] == "zero1":
             raise ValueError(
@@ -340,9 +363,9 @@ def _lm_reduce(cfg: TrainConfig, layout: mesh_lib.Layout | None = None):
     biased by unequal padding, so ``padded_docs`` is refused with them.
     In the sharded-state mode (``layout.sharded``) the group is the data
     group (the ranks with other rows), as the JAX jit step's global mean,
-    which ignores the fusion knob."""
+    which ignores the fusion knob: over the batch group."""
     if layout is not None and layout.sharded:
-        return layout.data_group
+        return layout.batch_group
     if (cfg.accum_steps > 1 or cfg.grad_reduce == "adasum"
             or _resolved_fusion(cfg)[0] is not None):
         if cfg.distributed and cfg.dataset_kwargs.get("padded_docs"):
@@ -540,7 +563,7 @@ def make_metric_fn(cfg: TrainConfig, layout: mesh_lib.Layout | None = None):
 
     def metric_fn(model, batch):
         ids, labels = batch["input_ids"], batch["labels"]
-        reduce = (layout.data_group if layout is not None
+        reduce = (layout.batch_group if layout is not None
                   and layout.sharded else _group(cfg))
         if cfg.fused_xent:
             hidden = model(ids, hidden_only=True)
@@ -579,9 +602,12 @@ def build_harness(cfg: TrainConfig, device="cuda") -> Harness:
         # parameters and buffers (BatchNorm statistics), as the reference
         hvd.broadcast_parameters(model.state_dict(), root_rank=0)
     if layout.sharded:
-        # tensor and expert parallelism: each rank keeps its blocks
-        model.shard_specs = tp.shard_(model, tp.rules_for_model(cfg.model),
-                                      layout)
+        # fsdp, tensor and expert parallelism: each rank keeps its blocks
+        # of the JAX placement
+        tp_axes = sizes["model"] > 1 or sizes["expert"] > 1
+        model.shard_specs = fsdp.shard_(
+            model, layout,
+            tp.rules_for_model(cfg.model) if tp_axes else None)
         model.layout = layout
     train_ds, eval_ds = datasets.build(cfg.dataset, cfg.data_dir,
                                        **cfg.dataset_kwargs)
@@ -590,8 +616,9 @@ def build_harness(cfg: TrainConfig, device="cuda") -> Harness:
     # loader does.
     cast = (None if cfg.compute_dtype == "float32"
             else getattr(torch, cfg.compute_dtype))
-    # rows over the data ranks, sequence blocks over the seq ranks
-    shard = dict(world=layout.data_size, rank=layout.data_index,
+    # rows over the batch ranks (data x fsdp), sequence blocks over the
+    # seq ranks
+    shard = dict(world=layout.batch_size, rank=layout.batch_index,
                  seq=(layout.seq_size, layout.seq_index))
     train_loader = ShardedLoader(train_ds, cfg.global_batch, device=dev,
                                  seed=cfg.seed, cast_floats=cast, **shard)
@@ -599,9 +626,10 @@ def build_harness(cfg: TrainConfig, device="cuda") -> Harness:
                                 shuffle=False, cast_floats=cast, **shard)
     threshold, source = _resolved_fusion(cfg)
     update, wire = _resolved_update(sizes)
-    # the sharded-state mode averages over the data group, seeds dropout
-    # by data index and ignores the fusion knob, as the JAX jit step does
-    # (and splits the global batch's rows into its microbatches)
+    # the sharded-state mode averages over the batch group (an fsdp-split
+    # gradient over the data group), seeds dropout by batch index and
+    # ignores the fusion knob, as the JAX jit step does (and splits the
+    # global batch's rows into its microbatches)
     sharded = layout if layout.sharded else None
     # the step first: it refuses what the state could not serve
     train_step = step_lib.make_train_step(
@@ -949,7 +977,7 @@ def _run_start(cfg: TrainConfig, h: Harness, tel: _Telemetry,
                     predicted_bytes_per_step=None)
         events.emit("weight_update", mode=h.weight_update[0],
                     source=h.weight_update[1],
-                    n_shards=h.layout.data_size if cfg.distributed else 1)
+                    n_shards=h.layout.batch_size if cfg.distributed else 1)
         events.emit("wire_format", format=h.wire_format[0],
                     source=h.wire_format[1], format_dcn="fp",
                     source_dcn="default", hier="flat",
@@ -1250,6 +1278,24 @@ def main(argv: list[str] | None = None) -> dict:
     return metrics
 
 
+def _leave(rc: int) -> None:
+    """Exit with ``rc`` once the output is flushed, without the
+    interpreter's teardown.  By then the run has closed its sinks, drained
+    its saves and stopped its threads; the teardown can still abort the
+    process ("terminate called without an active exception", -6) when a
+    library's thread is torn down mid-call, and a supervisor must see the
+    preempted run's 14, not a crash."""
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(rc)
+
+
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    except SystemExit as exc:          # preemption (rc 14), argparse
+        if exc.code is not None and not isinstance(exc.code, int):
+            raise
+        _leave(exc.code or 0)
     bootstrap.shutdown()
+    _leave(0)

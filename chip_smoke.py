@@ -161,7 +161,7 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
      cores (path ``zero1``); step p50, peak memory, idle share;
  22. mixture of experts, expert and tensor parallelism (``moe``):
      lm_long at its widths with 8 experts, top-2, on every second block
-     (8 layers, S=4096, global batch 2) through ``train.main``, (a) as one
+     (4 layers, S=4096, global batch 2) through ``train.main``, (a) as one
      process, then (b) on data=1 x expert=2 and (c) on data=1 x model=2 in
      one world of two gloo processes: step 1 of (b) and (c) against (a) and a
      one-process f32 step by phase seq's noise rule (loss, aux, gradient
@@ -169,7 +169,26 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
      blocks), replicated leaves bit-identical across ranks, every flash
      launch on the tensor cores ((c)'s on 6 heads), the collectives of
      every step equal to their law (path ``moe``); step p50 and p10-p90,
-     peak memory and state bytes a rank, bytes a step, idle share.
+     peak memory and state bytes a rank, bytes a step, idle share;
+ 23. pipeline parallelism (``pp``): lm_long at its widths and depth as
+     transformer-lm-pp, S=4096, global batch 8 in 4 microbatches, (a) as
+     one process beside a one-process f32 step, (b) on pipe=2 as two gloo
+     processes, both worlds at once (beside phase fsdp's worlds in a
+     whole run): step 1 of (b) against the f32 step by phase seq's noise
+     rule with (a) the bf16 yardstick, replicated leaves bit-identical
+     across the stages, each rank's parameters and moments its stage's
+     layers, the pipe traffic of every step equal to its law, every flash
+     launch on the tensor cores (path ``pp``), and the kernels at a
+     microbatch's attention against their plain versions and timed;
+     step p50, peak memory, state bytes a rank, idle share.
+
+For the time limit a whole run takes phase 23's kernel checks after phase
+19, then runs phases 20-21 in a process of their own (``--hvd-chain``)
+beside phases 22, fsdp, 23 and seq, in that order, and phase 23's worlds
+beside phase fsdp's; the step times of those phases are read with other
+worlds on the card and the host.  Its processes share the large
+synthetic datasets through files (DATA_SHARE_ENV) instead of each
+building them.
 
 Phases 13-15 run with ``TPUFRAME_ATTN_IMPL=pallas`` and restore it after.
 The harness turns TF32 off (f32 convolutions and matmuls run in f32), and
@@ -198,9 +217,9 @@ import statistics
 import subprocess
 import sys
 import tempfile
-import threading
 import time
 import traceback
+from concurrent.futures import Future, ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -250,14 +269,23 @@ from tpuframe_torch.utils.config import get_config  # noqa: E402
 from tpuframe_torch.utils.optim import build_optimizer  # noqa: E402
 
 
+# A whole or partial run shares the large synthetic datasets between its
+# processes through files in this directory (:func:`_shared_build`).
+DATA_SHARE_ENV = "TPUFRAME_SMOKE_DATA_DIR"
+DATA_SHARE_BYTES = 64 << 20
+_DATA_SHARE = None      # the directory, in the process that made it
+
+
 def _reuse_synthetic_datasets() -> None:
-    """Build each synthetic dataset once a process.  With no data directory
+    """Build each synthetic dataset once a process, and a large one once a
+    run (:func:`_shared_build`).  With no data directory
     ``datasets.build`` is a pure function of its arguments (seeded
     templates, the JAX package's bits), and ``train.main`` builds the
     whole split again at every call: ImageNet's 2048 f32 images at 224 x
     224 (1.2 GB) took 26 s of host CPU a build, and the ResNet-50 phases
-    call the trainer a dozen times.  The datasets are only read (a rank's
-    shard is a new view), so every call gets the same data as before."""
+    call the trainer a dozen times, in a dozen processes.  The datasets
+    are only read (a rank's shard is a new view), so every call gets the
+    same data as before."""
     build, cache = datasets.build, {}
 
     def cached(name, data_dir=None, **kwargs):
@@ -267,10 +295,45 @@ def _reuse_synthetic_datasets() -> None:
         if key not in cache:
             if len(cache) >= 2:             # the latest two configs
                 cache.pop(next(iter(cache)))
-            cache[key] = build(name, None, **kwargs)
+            cache[key] = _shared_build(build, name, kwargs)
         return cache[key]
 
     datasets.build = cached
+
+
+def _shared_build(build, name: str, kwargs: dict):
+    """``build(name, None, **kwargs)``, read from the run's share
+    (DATA_SHARE_ENV) when a process has written it there; a result of
+    DATA_SHARE_BYTES or more that this process built is written there
+    (each column a ``.npy``, the directory renamed into place whole)."""
+    root = os.environ.get(DATA_SHARE_ENV)
+    if not root or not os.path.isdir(root):
+        return build(name, None, **kwargs)
+    key = hashlib.sha256(json.dumps([name, kwargs], sort_keys=True)
+                         .encode()).hexdigest()[:16]
+    where = Path(root, key)
+    if where.is_dir():
+        splits = json.loads((where / "splits.json").read_text())
+        return tuple(datasets.ArrayDataset(
+            {c: np.load(where / f"{i}.{c}.npy") for c in cols})
+            for i, cols in enumerate(splits))
+    out = build(name, None, **kwargs)
+    if not (isinstance(out, tuple) and all(
+            isinstance(d, datasets.ArrayDataset) for d in out)):
+        return out
+    if sum(v.nbytes for d in out for v in d.columns.values()) \
+            >= DATA_SHARE_BYTES:
+        tmp = Path(tempfile.mkdtemp(dir=root))
+        for i, d in enumerate(out):
+            for c, v in d.columns.items():
+                np.save(tmp / f"{i}.{c}.npy", v)
+        (tmp / "splits.json").write_text(
+            json.dumps([list(d.columns) for d in out]))
+        try:
+            os.rename(tmp, where)
+        except OSError:                  # another process was first
+            shutil.rmtree(tmp, ignore_errors=True)
+    return out
 
 
 _reuse_synthetic_datasets()
@@ -554,6 +617,9 @@ SUPERVISE_BUDGET_S = 100.0
 # A world's ranks must end within this (a hung probe is killed and
 # reported).
 HVD_TIMEOUT_S = 300
+# Phases hvd and zero1, run beside the others in a process of their own,
+# are stopped past this (~200 s in a whole run).
+HVD_CHAIN_TIMEOUT_S = 900
 HVD_PROBE_TIMEOUT_S = 90
 # (b) the reference's workload 2, cifar10_resnet18 at its own widths,
 # batch (256 global, 128 a rank) and recipe, as two processes on the one
@@ -770,6 +836,28 @@ FSDP_TAGS = {"a": "(a) glue_bert one process",
              "d0": "(d0) lm_long one process",
              "d": "(d) lm_long fsdp=2"}
 FSDP_TIMEOUT_S = 600
+
+# Phase pp: pipeline parallelism (parallel/pp.py, parallel/pp_lm.py: GPipe
+# over the pipe axis, each stage holding its layers of the layer-stacked
+# blocks and their moments).  lm_long at its widths and depth (12 layers,
+# 134.1 M parameters) as transformer-lm-pp (ScanBlockLM; seq_mode none,
+# no shard_seq), bf16, remat, fused xent, flash on the tensor cores,
+# S=4096, global batch 8 in PP_MICRO microbatches of 2 rows, 2 steps and
+# one eval batch: (a) one process (no pipe), beside a one-process f32
+# step 1 on the same batch; (b) pipe=2, two gloo processes on the card.
+# (a) and (b) run as worlds of their own at once, beside phase fsdp's
+# worlds in a whole run (the time limit), so their times are contended.
+# Step 1 of (b) is held under BF16_NOISE_FACTOR's rule against the f32
+# step, with (a) the bf16 yardstick.
+PP_STEPS = 2
+PP_EVAL_BATCHES = 1
+PP_DATA = {"seq_len": 4096}
+PP_BATCH = 8
+PP_MICRO = 4
+PP_WORLDS = {"a": {"data": 1}, "b": {"data": 1, "pipe": 2}}
+PP_TAGS = {"a": "(a) lm_long transformer-lm-pp one process",
+           "b": "(b) lm_long transformer-lm-pp pipe=2"}
+PP_TIMEOUT_S = 600
 
 
 # The serving fleet (phase ``fleet``): phase serve's engine in each of
@@ -1199,6 +1287,15 @@ def _bwd_check(name, args, causal):
     return errs, route
 
 
+def _delta_bytes(do) -> int:
+    """What bounds the delta pass: the bytes of the function it stands
+    for, ``rowsum(dO * O)``: dO and O read once, one f32 a row written.
+    Its multiply-adds, one an element, take far less time; the kernel's
+    recompute of p and dp is its design's work, not the function's."""
+    b, s, n, _ = do.shape
+    return 2 * do.numel() * do.element_size() + b * s * n * 4
+
+
 def _sdpa_backward_ms(tensors, causal):
     """The yardstick: the backward of PyTorch's fused attention on the same
     tensors, timed alone (the graph is kept, so each call is only the
@@ -1230,7 +1327,9 @@ def _bwd_train_shape(dtype, gen) -> dict:
     lib, lib_dev = _sdpa_backward_ms(tensors, True)
     res = {}
     # (which, FLOPs a kept pair, output bytes, plain version, its inputs);
-    # the delta pass reads lse and writes delta, the rows term below.
+    # dq and dkv read q, k, v, dO, lse and delta.  The delta pass is bound
+    # by its bytes alone (:func:`_delta_bytes`); its FLOPs, the recompute's
+    # matmuls, give its rate.
     for which, flops_per_pair, out_bytes, fn, ins in (
             ("delta", 4 * d, 0, fa.flash_bwd_delta_reference, tensors[:5]),
             ("dq", 6 * d, b * s * n * d * elt, fa.flash_bwd_dq_reference,
@@ -1242,8 +1341,11 @@ def _bwd_train_shape(dtype, gen) -> dict:
         dev = device_ms(launch, 3)
         plain = cuda_ms(lambda f=fn, a=ins: _by_row(f, a, mask, True), 1)
         ops = flops_per_pair * pairs
-        nbytes = qkvo + rows + out_bytes
-        t_ops, t_bytes = ops / PEAK_OPS_S[dtype], nbytes / PEAK_BYTES_S
+        if which == "delta":
+            t_ops, nbytes = 0.0, _delta_bytes(tensors[3])
+        else:
+            t_ops, nbytes = ops / PEAK_OPS_S[dtype], qkvo + rows + out_bytes
+        t_bytes = nbytes / PEAK_BYTES_S
         smem, blocks = fa.bwd_kernel_info(which, dtype, d, route)
         res[which] = {"route": route, "ms": ms, "device_ms": dev,
                       "plain_ms": plain, "library_ms": lib,
@@ -2848,13 +2950,11 @@ def _bert_delta_case(b, glue, split, gen) -> dict:
     plain = cuda_ms(lambda: _by_row(fa.flash_bwd_delta_reference, args,
                                     mask, False), 3)
     ops = 4 * d * _pairs(BERT_SEQ, BERT_SEQ, b, n, mask, False)
-    nbytes = 4 * q.numel() * 2 + 2 * lse.numel() * 4 + mask.numel() * 4
-    t_ops, t_bytes = ops / PEAK_OPS_S[torch.bfloat16], nbytes / PEAK_BYTES_S
+    nbytes = _delta_bytes(do)
     case = {"case": name, "route": fa.bwd_route(q.dtype, d),
             "max_abs_err": err, "ms": ms, "device_ms": dev,
             "plain_ms": plain, "library_ms": None,
-            "bound_ms": 1e3 * max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_ms": 1e3 * nbytes / PEAK_BYTES_S, "bound_by": "bytes",
             "ops": ops, "bytes": nbytes}
     share = ("" if dev is None
              else f"; {case['bound_ms'] / dev:.3f} of it by device time")
@@ -4879,6 +4979,9 @@ def phase_hvd(resnet_losses: list | None = None,
           thresholds HVD_SPMD_THRESHOLDS: both ranks exit non-zero with
           the divergence message before step 1, within HVD_TIMEOUT_S.
 
+    (a), (b), (d) and (f) run at once, then (e): every step time here is
+    read with other worlds on the card and the host.
+
     ``resnet_losses`` None: phase 12 runs first for its losses.  ``keep``
     (a directory): (e)'s first unfused run's final state is moved there,
     ``resnet2_final.pt``, for phase zero1 (the returned ``resnet2``)."""
@@ -4890,39 +4993,48 @@ def phase_hvd(resnet_losses: list | None = None,
     root = tempfile.mkdtemp(prefix="tpuframe_hvd_")
     gloo = {"TPUFRAME_DIST_BACKEND": "gloo"}
     try:
-        t0 = time.monotonic()
-        _hvd_launch("nccl", 1, os.path.join(root, "nccl.json"))
+        def world(name, n, env=None):
+            t = time.monotonic()
+            _hvd_launch(name, n, os.path.join(root, f"{name}.json"), env)
+            return time.monotonic() - t
+
+        def spmd_world():
+            t = time.monotonic()
+            try:
+                _hvd_launch("spmd", 2, spmd_out, gloo)
+                found = "both ranks exited 0"
+            except RuntimeError as err:
+                found = str(err)
+            return found, time.monotonic() - t
+
+        # (a), (b), (d) and (f) at once, then (e), for the time limit:
+        # their step times are read with the other worlds on the card and
+        # the host (two ResNet-50 worlds at once would not leave phase
+        # seq's world room on the card)
+        spmd_out = os.path.join(root, "spmd")
+        with ThreadPoolExecutor(3) as pool:
+            a_run = pool.submit(world, "nccl", 1)
+            b_run = pool.submit(world, "cifar", 2, gloo)
+            f_run = pool.submit(spmd_world)
+            probes = _hvd_probes(root)
+            a_wall, b_wall = a_run.result(), b_run.result()
+            spmd, f_wall = f_run.result()
         a = json.loads(Path(root, "nccl.json").read_text())
-        a_wall = time.monotonic() - t0
-        t0 = time.monotonic()
-        _hvd_launch("cifar", 2, os.path.join(root, "cifar.json"), gloo)
         b = json.loads(Path(root, "cifar.json").read_text())
         ranks = [torch.load(os.path.join(root, f"cifar.json.{r}.pt"))
                  for r in range(2)]
-        b_wall = time.monotonic() - t0
         plain = _hvd_plain_dp_step([rk["batch"] for rk in ranks],
                                    ranks[0]["init"])
         step1s = ranks[0]["step1"]
         del ranks
         combine = _adasum_combine_check()
-        probes = _hvd_probes(root)
-        t0 = time.monotonic()
-        _hvd_launch("resnet2", 2, os.path.join(root, "resnet2.json"), gloo)
+        e_wall = world("resnet2", 2, gloo)
         e = json.loads(Path(root, "resnet2.json").read_text())
-        e_wall = time.monotonic() - t0
         e_final = None
         if keep is not None:
             e_final = os.path.join(keep, "resnet2_final.pt")
             shutil.move(os.path.join(root, "resnet2.json.final.0.pt"),
                         e_final)
-        t0 = time.monotonic()
-        spmd_out = os.path.join(root, "spmd")
-        try:
-            _hvd_launch("spmd", 2, spmd_out, gloo)
-            spmd = "both ranks exited 0"
-        except RuntimeError as err:
-            spmd = str(err)
-        f_wall = time.monotonic() - t0
         stepped = [r for r in range(2)
                    if os.path.exists(f"{spmd_out}.{r}.stepped")]
     finally:
@@ -5704,8 +5816,6 @@ def phase_zero1(baseline: dict | None = None) -> dict:
 def _hvd_probes(root: str) -> dict:
     """(d) The two probes, at once: what a failed or hung probe shows is
     its finding."""
-    from concurrent.futures import ThreadPoolExecutor
-
     def probe(name, env):
         out = os.path.join(root, f"{name}.json")
         try:
@@ -6312,13 +6422,13 @@ def _moe_run(tag: str, mesh: dict, rank: int, profile: bool,
 def _sharded_run(tag: str, args: list, rank: int, profile: bool,
                  tries: int = 1, *, steps: int, keys: tuple) -> tuple:
     """One run of this process (or world) through ``train.main`` with
-    ``args``: every step's launches, sharded-state collectives and flash
-    head counts, step 1's metrics ``keys``, the final replicated leaves'
-    digests, each parameter's and its moments' shapes, peak memory and
-    state bytes; then, with ``profile``, one step timed outside the
-    profiler and one more profiled on rank 0 (up to ``tries`` times while
-    the profiler's record is not whole: one process only, since the other
-    ranks of a world step once beside it).  Returns that and step 1's
+    ``args``: every step's launches, sharded-state and pipe collectives
+    and flash head counts, step 1's metrics ``keys``, the final
+    replicated leaves' digests, each parameter's and its moments' shapes,
+    peak memory and state bytes; then, with ``profile``, one step timed
+    outside the profiler and one more profiled on rank 0 (up to ``tries``
+    times while the profiler's record is not whole: one process only,
+    since the other ranks of a world step once beside it).  Returns that and step 1's
     reduced gradients as blocks (:func:`_grad_blocks`)."""
     build = train_lib.build_harness
     got = {"steps": [], "heads": set()}
@@ -6338,17 +6448,19 @@ def _sharded_run(tag: str, args: list, rank: int, profile: bool,
 
         def train_step(state, batch):
             launches0 = launch_counts()
-            calls0, bytes0 = (dict(collectives.SHARD_CALLS),
-                              dict(collectives.SHARD_BYTES))
+            counters = (collectives.SHARD_CALLS, collectives.SHARD_BYTES,
+                        collectives.PIPE_CALLS, collectives.PIPE_BYTES)
+            before = [dict(c) for c in counters]
             metrics = step(state, batch)
             launches = launch_counts()
+            calls, nbytes, pipe_calls, pipe_bytes = (
+                {k: c[k] - c0[k] for k in c0}
+                for c, c0 in zip(counters, before))
             got["steps"].append({
                 "launches": {k: launches[k] - launches0[k]
                              for k in launches},
-                "calls": {k: collectives.SHARD_CALLS[k] - calls0[k]
-                          for k in calls0},
-                "bytes": {k: collectives.SHARD_BYTES[k] - bytes0[k]
-                          for k in bytes0}})
+                "calls": calls, "bytes": nbytes, "pipe_calls": pipe_calls,
+                "pipe_bytes": pipe_bytes})
             if len(got["steps"]) == 1:
                 got["step1"] = {k: float(metrics[k]) for k in keys}
                 got["grads"] = _grad_blocks(state.model)
@@ -6362,6 +6474,7 @@ def _sharded_run(tag: str, args: list, rank: int, profile: bool,
     fa._launch, fa._launch_bwd = fwd, bwd
     reset_launches()
     collectives.reset_shard()
+    collectives.reset_pipe()
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -6891,7 +7004,7 @@ def _fsdp_kernel_checks(gen) -> list:
     return out
 
 
-def phase_fsdp() -> dict:
+def phase_fsdp(beside=None) -> dict:
     """fsdp's sharded state and BERT's tensor parallelism
     (``parallel/fsdp.py``, ``models/bert.py``, the batch and fsdp groups
     of ``parallel/mesh.py``): the flash kernels at a rank's shapes, then
@@ -6906,7 +7019,9 @@ def phase_fsdp() -> dict:
     equal to :func:`_fsdp_law`; every flash launch on the tensor cores,
     the count a rank the path's, on 12 heads or (c)'s 6.  Prints each
     run's step p50 and p10-p90, peak memory and state bytes a rank and
-    rank 0's idle share from one profiled step."""
+    rank 0's idle share from one profiled step.  ``beside``: a function
+    run beside the worlds (:func:`pp_worlds` in a whole run); its Future
+    is returned under ``"beside"``."""
     gc.collect()
     torch.cuda.empty_cache()
     card = _card_line()
@@ -6934,28 +7049,22 @@ def phase_fsdp() -> dict:
         try:
             # the two worlds at once, for the time limit (their step times
             # are read with the other world on the card and the host)
-            failed = []
-
             def world(n, spec):
                 out = os.path.join(root, f"fsdp{n}.json")
                 Path(out + ".runs.json").write_text(json.dumps(spec))
-                try:
-                    LocalCluster(n, timeout=FSDP_TIMEOUT_S, extra_env={
-                        "TPUFRAME_DIST_BACKEND": "gloo",
-                        "TPUFRAME_ATTN_IMPL": "pallas"}).launch(
-                        [sys.executable, str(Path(__file__).resolve()),
-                         "--fsdp-worker", out])
-                except Exception as exc:  # noqa: BLE001 — raised below
-                    failed.append(exc)
+                LocalCluster(n, timeout=FSDP_TIMEOUT_S, extra_env={
+                    "TPUFRAME_DIST_BACKEND": "gloo",
+                    "TPUFRAME_ATTN_IMPL": "pallas"}).launch(
+                    [sys.executable, str(Path(__file__).resolve()),
+                     "--fsdp-worker", out])
 
-            threads = [threading.Thread(target=world, args=item)
-                       for item in FSDP_WORLDS.items()]
-            for t in threads:
-                t.start()
-            for t in threads:
-                t.join()
-            if failed:
-                raise failed[0]
+            with ThreadPoolExecutor(len(FSDP_WORLDS) + 1) as pool:
+                worlds = [pool.submit(world, *item)
+                          for item in FSDP_WORLDS.items()]
+                if beside is not None:
+                    beside = pool.submit(beside)
+                for f in worlds:
+                    f.result()
             for n, spec in FSDP_WORLDS.items():
                 runs.update(json.loads(Path(os.path.join(
                     root, f"fsdp{n}.json")).read_text()))
@@ -7040,7 +7149,321 @@ def phase_fsdp() -> dict:
         f"{one_s:.1f} s, the worlds {world_s:.1f} s; {card}")
     if problems:
         raise RuntimeError("fsdp: " + "; ".join(problems[:12]))
-    return {"launches": total}
+    return {"launches": total, "beside": beside}
+
+
+def _pp_sets(mesh: dict) -> dict:
+    """Phase pp's overrides of lm_long on ``mesh``."""
+    kw = dict(get_config("lm_long").model_kwargs, seq_mode="none")
+    return {"model": "transformer-lm-pp", "model_kwargs": kw,
+            "shard_seq": False, "mesh": mesh, "dataset_kwargs": PP_DATA,
+            "global_batch": PP_BATCH, "pp_microbatches": PP_MICRO,
+            "total_steps": PP_STEPS, "eval_every": PP_STEPS,
+            "eval_batches": PP_EVAL_BATCHES, "log_every": 1}
+
+
+def _pp_args(mesh: dict) -> list:
+    return ["--config", "lm_long"] + [
+        a for k, v in _pp_sets(mesh).items()
+        for a in ("--set", f"{k}={v!r}")]
+
+
+def _pp_reference() -> dict:
+    """Step 1 of phase pp's config as one process in f32 on the runs'
+    global batch (the first loader batch, which every rank of (a) and (b)
+    takes): loss, gradient norm and each parameter's gradient on the
+    host, the noise floor's yardstick."""
+    cfg = get_config("lm_long").with_overrides(
+        **_pp_sets(PP_WORLDS["a"])).with_overrides(compute_dtype="float32")
+    t0 = time.monotonic()
+    h = train_lib.build_harness(cfg, device="cuda")
+    m = h.train_step(h.state, next(iter(h.train_loader)))
+    out = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+           "grads": _grads(h.state.model), "s": time.monotonic() - t0}
+    del h, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _pp_law(hidden: int, vocab: int) -> dict:
+    """The pipe group's traffic of one training step of (b), by verb,
+    ``{stage: {verb: (calls, bytes the stage sends)}}``
+    (``collectives.PIPE_CALLS``/``PIPE_BYTES``).  Each of the M + S - 2
+    ticks that hand on a value rotates once in the forward and once in
+    the backward; stage s < S - 1 sends its M outputs forward, stage s >
+    0 its M input cotangents back, a microbatch ``[B / M, S, H]`` in bf16
+    each (the blocks' output dtype).  Stage 0 broadcasts the embedding's
+    f32 gradient, the last stage the final LayerNorm's and the head's;
+    the last stage hands on the step's loss and accuracy (two f32); the
+    gradient norm sums one f32 over the stages."""
+    stages = PP_WORLDS["b"]["pipe"]
+    micro = PP_BATCH // PP_MICRO * PP_DATA["seq_len"] * hidden * 2
+    table = vocab * hidden * 4
+    law = {}
+    for s in range(stages):
+        law[s] = {
+            "pipe_rotate": (2 * (PP_MICRO + stages - 2),
+                            PP_MICRO * micro * ((s < stages - 1) + (s > 0))),
+            "pipe_broadcast": (3, table if s == 0 else 0 if s < stages - 1
+                               else table + hidden * 4),
+            "last_stage_value": (1, 8 if s == stages - 1 else 0),
+            "pipe_all_reduce": (1, 4)}
+    return law
+
+
+def pp_worker(out: str) -> None:
+    """A rank of one of phase pp's worlds (``<out>.which`` names it): (a)
+    the f32 reference step, then the one-process run; (b) the pipe=2
+    run.  Each rank saves step 1's gradient blocks beside ``out``
+    (``grads_<which>.<rank>.pt``, and ``ref.pt`` in (a)); rank 0 writes
+    every rank's results to ``out``."""
+    which = Path(out + ".which").read_text().strip()
+    bootstrap.initialize(device="cuda")
+    rank = collectives.world()[1]
+    root = Path(out).parent
+    if which == "a":
+        torch.save(_pp_reference(), root / "ref.pt")
+    run, grads = _sharded_run(PP_TAGS[which], _pp_args(PP_WORLDS[which]),
+                              rank, profile=True, steps=PP_STEPS,
+                              keys=("loss", "grad_norm"))
+    torch.save(grads, root / f"grads_{which}.{rank}.pt")
+    runs = bootstrap.allgather_object(run)
+    del grads
+    if rank == 0:
+        Path(out).write_text(json.dumps(runs))
+    bootstrap.shutdown()
+
+
+def pp_worlds() -> dict:
+    """Phase pp's two worlds at once, each ``chip_smoke.py --pp-worker``
+    processes through ``LocalCluster`` with gloo; returns ``{"root":
+    the directory of their files, "a": (a)'s results, "b": (b)'s}`` (the
+    caller removes the directory), or raises the first world's error."""
+    root = tempfile.mkdtemp(prefix="tpuframe_pp_")
+
+    def world(which):
+        out = os.path.join(root, f"{which}.json")
+        Path(out + ".which").write_text(which)
+        n = int(np.prod(list(PP_WORLDS[which].values())))
+        LocalCluster(n, timeout=PP_TIMEOUT_S, extra_env={
+            "TPUFRAME_DIST_BACKEND": "gloo"}).launch(
+            [sys.executable, str(Path(__file__).resolve()), "--pp-worker",
+             out])
+
+    t0 = time.monotonic()
+    try:
+        with ThreadPoolExecutor(len(PP_WORLDS)) as pool:
+            for f in [pool.submit(world, w) for w in PP_WORLDS]:
+                f.result()
+    except BaseException:
+        shutil.rmtree(root, ignore_errors=True)
+        raise
+    out = {"root": root, "s": time.monotonic() - t0}
+    for which in PP_WORLDS:
+        out[which] = json.loads(Path(root, f"{which}.json").read_text())
+    return out
+
+
+def _pp_kernel_checks(gen) -> tuple:
+    """The flash kernels at a microbatch's attention, [B / M, S, N, D] =
+    [2, 4096, 12, 64] bf16 causal, against their plain versions; then each
+    kernel's time (CUDA events over 20 launches) beside its bound, its
+    plain version (a batch row at a time) and SDPA's forward or whole
+    backward on the same tensors (none for the delta pass).  Bounds: 4, 6
+    and 8 x D x the causal pairs in FLOPs for the forward, dq and dk/dv
+    (their matmuls), or the bytes each reads once and writes once,
+    whichever takes longer; the delta pass by :func:`_delta_bytes`.
+    Returns the log line and ``{kernel: {"ms", "plain_ms", "library_ms",
+    "bound_ms", "bound_by", "max_abs_err", "shape"}}``."""
+    b, s, n = PP_BATCH // PP_MICRO, PP_DATA["seq_len"], _pp_cfg().num_heads
+    d, dtype = 64, torch.bfloat16
+    name = "lm_long pipe microbatch"
+    q, k, v, mask = _flash_inputs(b, s, n, d, dtype, False, gen)
+    _, _, err, err_lse = _flash_check(name, q, k, v, mask, True)
+    args = _bwd_inputs(b, s, n, d, dtype, False, True, gen)
+    errs, route = _bwd_check(name, args, True)
+    tensors = args[:6]
+    q, k, v, do, lse, delta = tensors
+    pairs = _pairs(s, s, b, n, None, True)
+    io, rows = q.numel() * q.element_size(), lse.numel() * 4
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    sdpa = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True), 20)
+    sdpa_bwd, _ = _sdpa_backward_ms(tensors, True)
+
+    def plain(fn, ins):
+        return lambda: _by_row(fn, ins, None, True)
+
+    # kernel: (launch, FLOPs, bytes, plain version, library ms, error)
+    cases = {
+        "flash_fwd": (lambda: fa._launch(q, k, v, None, True), 4 * d * pairs,
+                      4 * io + rows, plain(fa.flash_mha_reference, (q, k, v)),
+                      sdpa, err),
+        "flash_bwd_delta": (lambda: fa._launch_bwd(
+            "delta", q, k, v, do, lse, None, None, True), 0,
+            _delta_bytes(do), plain(fa.flash_bwd_delta_reference,
+                                    tensors[:5]), None, errs["delta"]),
+        "flash_bwd_dq": (lambda: fa._launch_bwd(
+            "dq", *tensors, None, True), 6 * d * pairs, 5 * io + 2 * rows,
+            plain(fa.flash_bwd_dq_reference, tensors), sdpa_bwd, errs["dq"]),
+        "flash_bwd_dkv": (lambda: fa._launch_bwd(
+            "dkv", *tensors, None, True), 8 * d * pairs, 6 * io + 2 * rows,
+            plain(fa.flash_bwd_dkv_reference, tensors), sdpa_bwd,
+            max(errs["dk"], errs["dv"]))}
+    out, times = {}, []
+    for kernel, (fn, flops, nbytes, ref, lib, e) in cases.items():
+        t_ops, t_bytes = flops / PEAK_OPS_S[dtype], nbytes / PEAK_BYTES_S
+        r = out[kernel] = {
+            "ms": cuda_ms(fn, 20), "plain_ms": cuda_ms(ref, 1),
+            "library_ms": lib, "bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "max_abs_err": e, "shape": f"B={b} S={s} N={n} D={d} bf16 causal"}
+        times.append(f"{kernel} {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} "
+                     f"ms, {r['bound_by']}; plain {r['plain_ms']:.2f} ms; "
+                     f"sdpa {'none' if lib is None else f'{lib:.4f} ms'})")
+    line = (f"{name} [{b}, {s}, {n}, {d}]: forward err {err:.2e} (lse "
+            f"{err_lse:.2e}), backward {route} "
+            + ", ".join(f"{g} {x:.2e}" for g, x in errs.items())
+            + "; " + ", ".join(times) + f"; sdpa forward {sdpa:.4f} ms, "
+            f"its whole backward {sdpa_bwd:.4f} ms")
+    return line, out
+
+
+def _pp_cfg() -> LMConfig:
+    """Phase pp's model."""
+    return LMConfig(**_pp_sets(PP_WORLDS["a"])["model_kwargs"])
+
+
+def _pp_checks(tag: str, r: dict, law: dict | None) -> list:
+    """A run's flash launches a step and in all (:func:`_run_checks`: a
+    stage's layers once a microbatch, twice in the forward under remat;
+    (a) runs all its layers on the whole batch at once) and its pipe
+    traffic a step equal to ``law`` (none in (a))."""
+    cfg = _pp_cfg()
+    stages = r["sizes"].get("pipe", 1)
+    layers = cfg.num_layers // stages * (PP_MICRO if stages > 1 else 1)
+    bad = _run_checks(tag, r, cfg.num_heads, None, steps=PP_STEPS,
+                      layers=layers, fwd_per_step=2,
+                      eval_batches=PP_EVAL_BATCHES)
+    stage = r["coords"]["pipe"]
+    for i, st in enumerate(r["steps"]):
+        got = {k: (st["pipe_calls"][k], st["pipe_bytes"][k])
+               for k in st["pipe_calls"]}
+        want = (law[stage] if law is not None
+                else {k: (0, 0) for k in got})
+        if got != want:
+            bad.append(f"{tag} rank {r['rank']}: step {i + 1} pipe traffic "
+                       f"{got}, want the law {want}")
+    return bad
+
+
+def pp_kernels() -> dict:
+    """Phase pp's kernel checks (:func:`_pp_kernel_checks`), logged;
+    returns ``{"kernels": the timed rows, "s": their seconds}``."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.monotonic()
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    line, kernels = _pp_kernel_checks(gen)
+    log(f"[pp] kernels at {line}; {_card_line()}")
+    return {"kernels": kernels, "s": time.monotonic() - t0}
+
+
+def phase_pp(done: Future | None = None,
+             checked: dict | None = None) -> dict:
+    """Pipeline parallelism (``parallel/pp.py``, ``parallel/pp_lm.py``,
+    the pipe groups of ``parallel/mesh.py``): the flash kernels at a
+    microbatch's shapes, then (a) and (b) (the constants' comment), run
+    by :func:`pp_worlds` (or read from ``done``, its Future, when phase
+    fsdp ran it beside its own worlds).  Held: step 1 of (b) against
+    the one-process f32 step by the bf16 noise rule, with (a) the bf16
+    yardstick (loss, gradient norm, every parameter's gradient, the
+    stages' blocks put together); replicated leaves bit-identical across
+    the stages (step-1 gradients and final values); each rank's
+    parameters and moments its stage's layers; the pipe traffic of
+    every step equal to :func:`_pp_law`; every flash launch on the tensor
+    cores, the count a rank the path's.  Prints each run's step p50 and
+    p10-p90, peak memory, state bytes a rank against (a)'s, and rank 0's
+    idle share from one profiled step.  ``checked``: :func:`pp_kernels`'s
+    result, when the whole run took it before other phases shared the
+    card (None: the checks run here first)."""
+    checked = pp_kernels() if checked is None else checked
+    card = _card_line()
+    done = pp_worlds() if done is None else done.result()
+    t1 = time.monotonic()
+    root = done["root"]
+    problems = []
+    try:
+        ref = {"float32": torch.load(os.path.join(root, "ref.pt"))}
+        a, b = done["a"][0], done["b"]
+        ref["bfloat16"] = {
+            "loss": a["step1"]["loss"], "grad_norm": a["step1"]["grad_norm"],
+            "grads": {n: g for n, (_, g) in torch.load(
+                os.path.join(root, "grads_a.0.pt")).items()}}
+        blocks = [torch.load(os.path.join(root, f"grads_b.{r}.pt"))
+                  for r in range(len(b))]
+        for name, (idx, g) in blocks[0].items():
+            if idx is None and any(not torch.equal(g, x[name][1])
+                                   for x in blocks[1:]):
+                problems.append(f"{PP_TAGS['b']}: step-1 gradient of "
+                                f"replicated {name} differs across stages")
+        bad, parity = _fsdp_parity("lm", b[0]["step1"], _whole(blocks), ref)
+        problems += [f"{PP_TAGS['b']}: {p}" for p in bad]
+        del blocks
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    cfg = _pp_cfg()
+    law = _pp_law(cfg.hidden_size, cfg.vocab_size)
+    place = {n: (tuple(shape[0]), ("pipe",) + (None,) * (len(shape[0]) - 1)
+                 if n.startswith("blocks.") else ())
+             for n, shape in a["shapes"].items()}
+    problems += _pp_checks(PP_TAGS["a"], a, None)
+    for r in b:
+        problems += _pp_checks(PP_TAGS["b"], r, law)
+        problems += [f"{PP_TAGS['b']} rank {r['rank']}: {x}"
+                     for x in _fsdp_blocks(r, place)]
+    for r in b[1:]:
+        if r["replicated"] != b[0]["replicated"]:
+            diff = [k for k in b[0]["replicated"]
+                    if b[0]["replicated"][k] != r["replicated"].get(k)]
+            problems.append(f"{PP_TAGS['b']}: final replicated leaves "
+                            f"differ across stages: {diff[:6]}")
+        if r["step1"] != b[0]["step1"] or r["losses"] != b[0]["losses"]:
+            problems.append(f"{PP_TAGS['b']}: stages report other metrics "
+                            f"{b[0]['losses']}, {r['losses']}")
+    f32 = ref["float32"]
+    log(f"[pp] one-process f32 step 1 on the runs' global batch: loss "
+        f"{f32['loss']:.6f} grad norm {f32['grad_norm']:.6f} "
+        f"({f32['s']:.1f} s); (a) bf16 loss {a['step1']['loss']:.6f} grad "
+        f"norm {a['step1']['grad_norm']:.6f}")
+    for r in [a] + b:
+        st = r["steps"][-1]
+        log(_moe_line(PP_TAGS["a" if r is a else "b"], r, card,
+                      prefix="[pp]")
+            + f"; pipe traffic a step {st['pipe_calls']} calls, "
+              f"{st['pipe_bytes']} bytes; state "
+              f"{r['state_bytes'] / a['state_bytes']:.3f} x and peak memory "
+              f"{r['peak_bytes'] / a['peak_bytes']:.3f} x (a)'s; times "
+              f"contended: the other worlds ran at once")
+    ratio, where = parity
+    s1 = b[0]["step1"]
+    log(f"[pp] {PP_TAGS['b']} step 1: loss {s1['loss']:.6f} grad norm "
+        f"{s1['grad_norm']:.6f}; per-parameter gradients against the "
+        f"one-process f32 step: worst {ratio:.2f} x the bf16 step's own "
+        f"distance ({where}; limit {BF16_NOISE_FACTOR}); pipe law a step "
+        f"{law}")
+    log(f"[pp] the kernel checks {checked['s']:.1f} s, the worlds "
+        f"{done['s']:.1f} s, the checks after them "
+        f"{time.monotonic() - t1:.1f} s; {card}")
+    if problems:
+        raise RuntimeError("pp: " + "; ".join(problems[:12]))
+    total = {k: 0 for k in launch_counts()}
+    for r in [a] + b:
+        for k in total:
+            total[k] += r["launches"][k]
+    return {"launches": total, "kernels": checked["kernels"]}
 
 
 HVD_WORKERS = {"nccl": hvd_worker_nccl, "probe": hvd_worker_probe,
@@ -7156,12 +7579,83 @@ def profile_window(name: str, fn, wall: float) -> None:
         f"top: {_top(kernels, 4)}")
 
 
+def hvd_chain(out: str) -> None:
+    """Phases hvd and zero1, one after the other, in a process of their
+    own (``--hvd-chain OUT``; :func:`start_hvd_chain` starts it): phase
+    12's losses and phase ckpt's ResNet noise are read from ``OUT.in``,
+    each phase's launches and seconds written to ``OUT``.  A process,
+    not a thread, so that its launch counts and random streams stay
+    apart from the phases that run beside it."""
+    given = json.loads(Path(out + ".in").read_text())
+    walls = {}
+    keep = tempfile.mkdtemp(prefix="tpuframe_keep_")
+    try:
+        t = time.monotonic()
+        hvd_run = phase_hvd(given["resnet_losses"], given["resnet_noise"],
+                            keep)
+        walls["hvd"] = round(time.monotonic() - t, 1)
+        t = time.monotonic()
+        zero1_run = phase_zero1(hvd_run["resnet2"])
+        walls["zero1"] = round(time.monotonic() - t, 1)
+    finally:
+        shutil.rmtree(keep, ignore_errors=True)
+    Path(out).write_text(json.dumps({
+        "walls": walls,
+        "hvd": {k: hvd_run[k] for k in ("launches", "launches_2proc")},
+        "zero1": {"launches": zero1_run["launches"]}}))
+
+
+def start_hvd_chain(root: str, resnet_losses: list,
+                    resnet_noise: float) -> tuple:
+    """Start :func:`hvd_chain` in a session of its own, its output to a
+    file under ``root``; returns ``(process, out)``."""
+    out = os.path.join(root, "hvd_chain.json")
+    Path(out + ".in").write_text(json.dumps(
+        {"resnet_losses": resnet_losses, "resnet_noise": resnet_noise}))
+    with open(out + ".log", "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--hvd-chain",
+             out], stdout=f, stderr=subprocess.STDOUT,
+            start_new_session=True)
+    return proc, out
+
+
+def end_hvd_chain(proc, out: str) -> dict:
+    """Wait for the chain (HVD_CHAIN_TIMEOUT_S), print its output and
+    return its results; raises with the end of its output if it failed.
+    No process of its session outlives the call."""
+    try:
+        rc = proc.wait(timeout=HVD_CHAIN_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        rc = f"still running after {HVD_CHAIN_TIMEOUT_S} s"
+    finally:
+        stop_hvd_chain(proc)
+    text = Path(out + ".log").read_text(errors="replace")
+    sys.stdout.write(text)
+    sys.stdout.flush()
+    if rc != 0:
+        raise RuntimeError(f"phases hvd and zero1 (their process: {rc}): "
+                           f"{text[-3000:]}")
+    return json.loads(Path(out).read_text())
+
+
+def stop_hvd_chain(proc) -> None:
+    """Kill the chain's session (its worlds too) if anything is left."""
+    try:
+        os.killpg(proc.pid, signal.SIGKILL)
+    except ProcessLookupError:
+        pass
+    proc.wait()
+
+
 def _leave(rc: int) -> None:
     """Exit with ``rc`` once the smoke's output is flushed, without the
     interpreter's teardown: every phase has waited for its processes and
     removed its files by then, and a library's thread can still abort
     the process in the teardown ("terminate called without an active
     exception", exit 134)."""
+    if _DATA_SHARE is not None:
+        shutil.rmtree(_DATA_SHARE, ignore_errors=True)
     sys.stdout.flush()
     sys.stderr.flush()
     os._exit(rc)
@@ -7195,6 +7689,12 @@ def main(argv=None) -> int:
     ap.add_argument("--fsdp-worker", metavar="OUT",
                     help="run one rank of one of phase fsdp's worlds (the "
                          "phase starts these)")
+    ap.add_argument("--pp-worker", metavar="OUT",
+                    help="run one rank of one of phase pp's worlds (the "
+                         "phase starts these)")
+    ap.add_argument("--hvd-chain", metavar="OUT",
+                    help="run phases hvd and zero1 in a process of their "
+                         "own (the whole run starts this)")
     ap.add_argument("--train-worker", metavar="OUT",
                     help="run one attempt of phase supervise (its "
                          "supervisor starts these; the trainer's arguments "
@@ -7216,9 +7716,18 @@ def main(argv=None) -> int:
     if args.fsdp_worker is not None:
         fsdp_worker(args.fsdp_worker)
         return 0
+    if args.pp_worker is not None:
+        pp_worker(args.pp_worker)
+        return 0
+    if args.hvd_chain is not None:
+        hvd_chain(args.hvd_chain)
+        return 0
     phase_card()
     t0 = time.monotonic()
     phase_build()
+    global _DATA_SHARE
+    _DATA_SHARE = tempfile.mkdtemp(prefix="tpuframe_data_")
+    os.environ[DATA_SHARE_ENV] = _DATA_SHARE
     if args.phases is not None:
         for name in args.phases.split(","):
             PHASES[name]()
@@ -7228,6 +7737,9 @@ def main(argv=None) -> int:
 
     def timed(name, fn, *a):
         t = time.monotonic()
+        # on stderr too, whose end is what a cut run shows
+        print(f"[chip_smoke] phase {name} from {t - t0:.1f} s",
+              file=sys.stderr, flush=True)
         out = fn(*a)
         walls[name] = round(time.monotonic() - t, 1)
         return out
@@ -7254,16 +7766,27 @@ def main(argv=None) -> int:
     ckpt_run = timed("ckpt", phase_ckpt, resnet["losses"])
     supervise = timed("supervise", phase_supervise,
                       ckpt_run["lm"]["straight"], train["mfu"])
-    keep = tempfile.mkdtemp(prefix="tpuframe_keep_")
+    # For the time limit, phases hvd and zero1 run in a process of their
+    # own beside phases moe, fsdp, pp and seq, and phase pp's worlds
+    # beside phase fsdp's; phase pp's kernels are timed first, with the
+    # card to themselves.
+    pp_checked = timed("pp_kernels", pp_kernels)
+    chain_root = tempfile.mkdtemp(prefix="tpuframe_chain_")
+    t = time.monotonic()
+    chain = start_hvd_chain(chain_root, resnet["losses"],
+                            ckpt_run["resnet"]["noise"])
     try:
-        hvd_run = timed("hvd", phase_hvd, resnet["losses"],
-                        ckpt_run["resnet"]["noise"], keep)
-        zero1_run = timed("zero1", phase_zero1, hvd_run["resnet2"])
+        moe_run = timed("moe", phase_moe)
+        fsdp_run = timed("fsdp", phase_fsdp, pp_worlds)
+        pp_run = timed("pp", phase_pp, fsdp_run["beside"], pp_checked)
+        seq_run = timed("seq", phase_seq)
+        side = timed("hvd_chain_wait", end_hvd_chain, *chain)
     finally:
-        shutil.rmtree(keep, ignore_errors=True)
-    seq_run = timed("seq", phase_seq)
-    moe_run = timed("moe", phase_moe)
-    fsdp_run = timed("fsdp", phase_fsdp)
+        stop_hvd_chain(chain[0])
+        shutil.rmtree(chain_root, ignore_errors=True)
+    hvd_run, zero1_run = side["hvd"], side["zero1"]
+    walls.update(side["walls"])
+    walls["hvd_chain"] = round(time.monotonic() - t, 1)
     log(f"[done] phase wall s {walls}")
 
     by_path = {name: {"serve": serve_launches[name],
@@ -7286,7 +7809,8 @@ def main(argv=None) -> int:
                       "zero1": zero1_run["launches"][name],
                       "seq": seq_run["launches"][name],
                       "moe": moe_run["launches"][name],
-                      "fsdp": fsdp_run["launches"][name]}
+                      "fsdp": fsdp_run["launches"][name],
+                      "pp": pp_run["launches"][name]}
                for name in launch_counts()}
     attn = "B=8 S=4096 N=12 D=64 bf16 causal"
     ops = "tpuframe/ops/"
@@ -7319,6 +7843,8 @@ def main(argv=None) -> int:
     sub = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
            "library_ms", "max_abs_err")
     for row in kernels:
+        if row["name"].startswith("flash_"):
+            row["pp_microbatch"] = pp_run["kernels"][row["name"]]
         if row["name"] == "flash_fwd":
             row["cores"] = ("tensor cores (wgmma bf16) at this shape and on "
                             "every path's launch; f32, and bf16 at D "
@@ -7389,7 +7915,7 @@ PHASES = {"kernels": phase_kernels, "backward": phase_backward,
           "resnet_variants": phase_resnet_variants, "ckpt": phase_ckpt,
           "supervise": phase_supervise, "hvd": phase_hvd,
           "zero1": phase_zero1, "seq": phase_seq, "moe": phase_moe,
-          "fsdp": phase_fsdp}
+          "fsdp": phase_fsdp, "pp": phase_pp}
 
 
 if __name__ == "__main__":

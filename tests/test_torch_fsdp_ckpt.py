@@ -233,10 +233,8 @@ def test_save_restores_onto_other_layouts_bit_for_bit(world):
 @pytest.mark.parametrize("model,mesh,overrides", [
     ("resnet18", {"data": 1, "fsdp": 2}, {}),
     ("convnet", {"data": 1, "fsdp": 2}, {}),
-    ("transformer-lm", {"data": 1, "pipe": 2}, {}),
-    ("transformer-lm-pp", {"data": 1}, {}),
     ("transformer-lm", {"data": 1, "fsdp": 2, "slices": 2}, {}),
-], ids=["resnet-fsdp", "convnet-fsdp", "pipe", "pp-model", "slices"])
+], ids=["resnet-fsdp", "convnet-fsdp", "slices"])
 def test_unported_meshes_refuse_with_their_roadmap_item(model, mesh,
                                                         overrides):
     cfg = TrainConfig(**common(LM_KW)).with_overrides(

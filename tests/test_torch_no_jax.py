@@ -84,6 +84,8 @@ FUSION_SLICE = {"tpuframe_torch.parallel.fusion",
 # Ulysses.
 SEQ_SLICE = {"tpuframe_torch.parallel.mesh", "tpuframe_torch.ops.seq_parallel",
              "tpuframe_torch.parallel.collectives"}
+# Pipeline parallelism: the GPipe schedule and the LM's pipeline step.
+PP_SLICE = {"tpuframe_torch.parallel.pp", "tpuframe_torch.parallel.pp_lm"}
 
 
 def test_port_and_chip_smoke_import_without_jax():
@@ -102,6 +104,7 @@ def test_port_and_chip_smoke_import_without_jax():
     assert RUN_SLICE <= names, RUN_SLICE - names
     assert FUSION_SLICE <= names, FUSION_SLICE - names
     assert SEQ_SLICE <= names, SEQ_SLICE - names
+    assert PP_SLICE <= names, PP_SLICE - names
 
 
 def _sources():

@@ -270,5 +270,5 @@ def test_rank_layout_is_the_jax_meshs():
     assert rings == [tuple(ids[0, 0, 0, :, 0, 0]),
                      tuple(ids[1, 0, 0, :, 0, 0])] == [(0, 1, 2, 3),
                                                        (4, 5, 6, 7)]
-    with pytest.raises(ValueError, match="model meshes only"):
+    with pytest.raises(ValueError, match="composes with data parallelism"):
         mesh_lib.build(dict(sizes, pipe=2, data=1), 0)

@@ -411,7 +411,6 @@ def test_distributed_false_trains_with_no_collective(tmp_path):
                  "DCN leg.*hierarchical", id="dcn-wire-leg"),
     ({}, {"TPUFRAME_HIER": "hier"}, 1, "hierarchical"),
     ({}, {"HOROVOD_FUSION_THRESHOLD": "67108864"}, 1, "bucketed fusion"),
-    ({"model": "transformer-lm-pp"}, {}, 1, "pipeline"),
     # fsdp is ported for the LM and BERT; an image model under it is not
     ({"mesh": {"data": 1, "fsdp": 2}, "model": "convnet"}, {}, 2,
      "sharded state"),
@@ -480,12 +479,16 @@ def test_the_program_check_and_the_fusion_knob_are_ported(env, monkeypatch):
 
 
 def test_model_registry_names_are_the_jax_registrys():
-    """``transformer-lm``, the ResNets, ``convnet`` and ``bert-base``
-    build as the JAX harness calls them; every other name the JAX registry
-    has refuses, naming its ROADMAP.md item."""
+    """``transformer-lm`` (and its layer-stacked ``transformer-lm-pp``),
+    the ResNets, ``convnet`` and ``bert-base`` build as the JAX harness
+    calls them: every name of the JAX registry is built; an unknown name
+    refuses."""
     lm = port_models.get_model("transformer-lm", dtype="bfloat16", tiny=True,
                                device="cpu", vocab_size=64)
     assert lm.cfg == torch_lm.LMConfig.tiny(vocab_size=64, dtype="bfloat16")
+    pp = port_models.get_model("transformer-lm-pp", dtype="bfloat16",
+                               tiny=True, device="cpu", vocab_size=64)
+    assert isinstance(pp, torch_lm.ScanBlockLM) and pp.cfg == lm.cfg
     r18 = port_models.get_model("resnet18", dtype="bfloat16", device="cpu")
     assert r18.dtype == torch.bfloat16 and r18.fc.out_features == 10
     assert r18.cifar_stem
@@ -497,12 +500,9 @@ def test_model_registry_names_are_the_jax_registrys():
                                 dropout=0.0)
     assert net.dtype == torch.bfloat16 and net.fc2.out_features == 10
     assert net.rates == (0.0, 0.0)
-    built = {"transformer-lm", "bert-base", "convnet", *port_models._RESNETS}
-    others = set(jax_models._REGISTRY) - built
-    assert others == set(port_models._LATER)
-    for name in others:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            port_models.get_model(name, device="cpu")
+    built = {"transformer-lm", "transformer-lm-pp", "bert-base", "convnet",
+             *port_models._RESNETS}
+    assert set(jax_models._REGISTRY) - built == set()
     with pytest.raises(ValueError, match="unknown model"):
         port_models.get_model("nope", device="cpu")
 

@@ -15,7 +15,9 @@ device is a GPU.
 The trainer passes the batch degree and index as ``world`` and ``rank``
 (``parallel/mesh.py``: data x fsdp, the JAX ``BATCH_AXES``), so the rows
 go over the ranks that take other rows, and ranks that differ only in
-their expert, model or seq coordinate take the same ones.  A
+their pipe, expert, model or seq coordinate take the same ones (a
+pipeline's stages all take their data index's rows: stage 0 embeds
+them, the last stage's loss reads their labels).  A
 sequence-parallel run (``seq``: the seq ring's size and this rank's
 index) takes the JAX layout ``P(('data', 'fsdp'), 'seq')``: each seq
 rank keeps its ``[i*S/n, (i+1)*S/n)`` columns of

@@ -1,5 +1,5 @@
-"""Carry flax ``TransformerLM`` parameters (and optax Adam moments), flax
-ResNet parameters and batch statistics, flax BERT parameters and the flax
+"""Carry flax ``TransformerLM`` and ``ScanBlockLM`` parameters (and optax
+Adam moments), flax ResNet parameters and batch statistics, flax BERT parameters and the flax
 MNIST ConvNet's parameters into the port's models, and whole JAX training
 states (a ``TrainState`` checkpoint: parameters, statistics, optimizer
 moments and step) into the port's model and optimizer
@@ -18,6 +18,14 @@ numpy arrays, so this module needs no jax.  Layouts differ in two ways:
   - ``DenseGeneral`` kernels keep the head axes: query/key/value are
     ``[H, N, D]`` and out is ``[N, D, H]``: flattened to ``[H, N*D]`` /
     ``[N*D, H]``, then transposed.
+
+``ScanBlockLM``'s blocks are layer-stacked on both sides
+(``blocks/block/...`` ``[L, ...]`` there, ``blocks.<name>`` ``[L, ...]``
+here): each layer maps as a ``TransformerLM`` block does
+(:func:`scan_params_from_jax`, :func:`scan_params_to_jax`), and a
+pipeline stage's slice of a leaf is its block on dim 0 (the
+``blocks=`` argument of :func:`train_state_from_jax` with
+``parallel/pp_lm.state_partition``'s specs).
 """
 
 from __future__ import annotations
@@ -120,6 +128,68 @@ def lm_params_to_jax(sd: dict, num_heads: int) -> dict:
         raise ValueError(f"unmapped TransformerLM leaves: "
                          f"{sorted(set(sd) - used)}")
     return out
+
+
+def _unstack(params) -> dict:
+    """A ``ScanBlockLM`` flax tree with its ``blocks/block`` leaves
+    (``[L, ...]``) cut into ``block_<i>`` subtrees: a ``TransformerLM``
+    tree."""
+    if set(params.get("blocks", {})) != {"block"}:
+        raise ValueError("not a ScanBlockLM tree: want blocks/block")
+    stacked = list(_paths(params["blocks"]["block"]))
+    n = {np.asarray(leaf).shape[0] for _, leaf in stacked}
+    if len(n) != 1:
+        raise ValueError(f"blocks/block leaves hold {sorted(n)} layers")
+    out = {k: v for k, v in params.items() if k != "blocks"}
+    for i in range(n.pop()):
+        out[f"block_{i}"] = _build((path, np.asarray(leaf)[i])
+                                   for path, leaf in stacked)
+    return out
+
+
+_LAYER = re.compile(r"^blocks\.(\d+)\.(.+)$")
+
+
+def scan_params_from_jax(params) -> dict:
+    """A flax ``ScanBlockLM``'s ``params`` (its blocks stacked as
+    ``params/blocks/block/...`` ``[L, ...]``) → the port ``ScanBlockLM``'s
+    ``state_dict``: each layer mapped as :func:`params_from_jax` maps a
+    ``TransformerLM`` block, then stacked again as ``blocks.<name>``
+    ``[L, ...]``."""
+    sd = params_from_jax(_unstack(params))
+    out, layers = {}, {}
+    for k, v in sd.items():
+        m = _LAYER.match(k)
+        if m is None:
+            out[k] = v
+        else:
+            layers.setdefault(m.group(2), {})[int(m.group(1))] = v
+    for name, by_layer in layers.items():
+        out[f"blocks.{name}"] = torch.stack(
+            [by_layer[i] for i in range(len(by_layer))])
+    return out
+
+
+def scan_params_to_jax(sd: dict, num_heads: int) -> dict:
+    """The inverse of :func:`scan_params_from_jax`: a whole port
+    ``ScanBlockLM`` ``state_dict`` → flax ``params`` with the blocks
+    stacked under ``blocks/block``."""
+    flat, n = {}, None
+    for k, v in sd.items():
+        if not k.startswith("blocks."):
+            flat[k] = v
+            continue
+        v = v.detach().cpu() if isinstance(v, torch.Tensor) else \
+            torch.from_numpy(np.asarray(v))
+        n = v.shape[0]
+        for i in range(n):
+            flat[f"blocks.{i}.{k[len('blocks.'):]}"] = v[i]
+    tree = lm_params_to_jax(flat, num_heads)
+    blocks = [tree.pop(f"block_{i}") for i in range(n or 0)]
+    tree["blocks"] = {"block": _build(
+        (path, np.stack([_at(b, path) for b in blocks]))
+        for path, _ in _paths(blocks[0]))}
+    return tree
 
 
 def _leaves(tree):
@@ -321,6 +391,8 @@ class JaxView:
 _QKV = re.compile(r"(attn|attention)\.(query|key|value)\.weight$")
 _QKV_BIAS = re.compile(r"attention\.(query|key|value)\.bias$")
 _OUT = re.compile(r"(attn|attention)\.out\.weight$")
+# a ScanBlockLM block leaf: ``blocks.<name>`` with no layer index
+_STACKED = re.compile(r"^blocks\.(?!\d+\.)")
 _EMBEDDING = re.compile(r"(^embed|embeddings\.(word|position|token_type))"
                         r"\.weight$")
 
@@ -335,6 +407,13 @@ def jax_view(name: str, shape: tuple, num_heads: int) -> JaxView:
     rest (embeddings, LayerNorms, biases, the MoE experts) are as the
     JAX leaf."""
     shape = tuple(shape)
+    if _STACKED.match(name):
+        # a ScanBlockLM leaf: the per-layer view behind the layer dim
+        inner = jax_view("blocks.0." + name[len("blocks."):], shape[1:],
+                         num_heads)
+        return JaxView((shape[0], *inner.shape),
+                       ((0, "whole"), *((d + 1, part)
+                                        for d, part in inner.dims)))
     if _QKV.search(name):
         return JaxView((shape[1], num_heads, shape[0] // num_heads),
                        ((1, "whole"), (0, "outer"), (0, "inner")))
@@ -387,6 +466,8 @@ def _param_map(family: str, stats):
     to the port's parameters, by name."""
     if family == "transformer-lm":
         return params_from_jax
+    if family == "transformer-lm-pp":
+        return scan_params_from_jax
     if family.startswith("resnet"):
         if stats is None:
             raise ValueError("a ResNet TrainState needs "
@@ -497,7 +578,8 @@ def train_state_from_jax(tree, family: str, *, zero1: tuple | None = None,
     """A JAX ``TrainState`` checkpoint, as ``tpuframe.ckpt.restore(dir,
     step)`` (or the port's ``ckpt.restore``) returns it without a target,
     → ``(model state_dict, optimizer state_dict, step)`` for the port's
-    model of ``family`` (``transformer-lm``, ``resnet*``, ``bert-base``,
+    model of ``family`` (``transformer-lm``, ``transformer-lm-pp``,
+    ``resnet*``, ``bert-base``,
     ``convnet``) and its :class:`~tpuframe_torch.utils.optim.Optimizer`.
 
     The optax chain's state is a nest of tuples whose indices depend on

@@ -57,6 +57,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
 from torch.utils import checkpoint
 
 from tpuframe_torch import _device
@@ -529,3 +530,125 @@ class TransformerLM(nn.Module):
         if kv_cache is not None:
             return logits, kv_cache
         return logits
+
+
+class ScanBlockLM(nn.Module):
+    """The LM with its block stack layer-stacked (``ScanBlockLM`` of the
+    JAX model, whose ``nn.scan`` over the layers is the parameterization
+    pipeline parallelism shards): each block weight is one parameter
+    ``blocks.<name>`` of shape ``[L, ...]`` (the per-layer tensor of
+    :class:`TransformerLM`'s ``blocks.<i>.<name>`` stacked), and layer
+    ``i`` runs the one :class:`Block` on slice ``i``
+    (``torch.func.functional_call``), so the dense architecture cannot
+    drift from :class:`TransformerLM`'s.  ``remat`` recomputes each block
+    in the backward.  A seed draws the same weights as
+    :class:`TransformerLM`'s of the same config and seed.
+
+    Apply modes, as the JAX model's: the full forward (``TransformerLM``'s
+    training contract: ``train``, ``hidden_only``, ``dropout_seed``);
+    ``stage=True``, the blocks this model holds on hidden states ``[B, S,
+    H]`` (after ``parallel/pp_lm.py`` has cut them to a stage's layers);
+    ``embed_only=True``; ``head_only=True``, the final LayerNorm and the
+    head on hidden states (with ``hidden_only``, the normed states for
+    the fused loss).  Sequence parallelism and MoE are refused, as in
+    JAX; so is the KV-cache path, which the JAX model lacks."""
+
+    layout = None
+    shard_specs: dict = {}
+
+    def __init__(self, cfg: LMConfig = LMConfig(), *, device="cuda",
+                 seed: int = 0):
+        super().__init__()
+        if cfg.seq_mode != "none" or cfg.moe_experts > 0:
+            raise ValueError("ScanBlockLM composes with pipeline parallelism"
+                             " only; seq_mode must be 'none' and moe off")
+        device = _device.resolve(device)
+        self.cfg = cfg
+        self.embed = nn.Embedding(cfg.vocab_size, cfg.hidden_size,
+                                  device=device)
+        # the one Block, its parameters replaced by their layer stacks
+        self.blocks = Block(cfg, device="meta")
+        for name, p in list(self.blocks.named_parameters()):
+            mod_name, _, attr = name.rpartition(".")
+            setattr(self.blocks.get_submodule(mod_name), attr,
+                    nn.Parameter(torch.empty((cfg.num_layers, *p.shape),
+                                             device=device)))
+        with torch.no_grad():
+            for mod in self.blocks.modules():
+                if isinstance(mod, LayerNorm):
+                    mod.weight.fill_(1.0)
+        self.final_ln = LayerNorm(cfg.hidden_size, device=device)
+        self.lm_head = Dense(cfg.hidden_size, cfg.vocab_size, device=device)
+        self._init_weights(seed)
+
+    @torch.no_grad()
+    def _init_weights(self, seed: int) -> None:
+        """:class:`TransformerLM`'s draws in its order: the embedding,
+        then each layer's query, key, value, out, up and down, then the
+        head."""
+        gen = torch.Generator(device=self.embed.weight.device)
+        gen.manual_seed(seed)
+        h = self.cfg.hidden_size
+        self.embed.weight.normal_(0.0, 1.0 / math.sqrt(h), generator=gen)
+        dense = [m for m in self.blocks.modules() if isinstance(m, Dense)]
+        for i in range(self.cfg.num_layers):
+            for mod in dense:
+                _lecun_normal_(mod.weight[i], mod.in_features, gen)
+        _lecun_normal_(self.lm_head.weight, h, gen)
+
+    @property
+    def num_stacked(self) -> int:
+        """The layers this model holds (a stage's, once cut)."""
+        return int(self.blocks.attn_ln.weight.shape[0])
+
+    def head_weight(self) -> torch.Tensor:
+        """``lm_head``'s ``[V, H]`` weight (the fused loss's)."""
+        return self.lm_head.weight
+
+    def _stack(self, x, train: bool, dropout_seed):
+        positions = torch.arange(x.shape[1], device=x.device)
+        names = [n for n, _ in self.blocks.named_parameters()]
+        layers = zip(*(p.unbind(0) for p in self.blocks.parameters()))
+        for i, weights in enumerate(layers):
+            params = dict(zip(names, weights))
+            # a seed a layer (the JAX scan splits its dropout rng a layer)
+            seed = (None if dropout_seed is None
+                    else _seed_for(dropout_seed, i))
+
+            def run(h, params=params, seed=seed):
+                return functional_call(self.blocks, params,
+                                       (h, positions, seed))
+
+            if self.cfg.remat and train and torch.is_grad_enabled():
+                x = checkpoint.checkpoint(run, x, use_reentrant=False)
+            else:
+                x = run(x)
+        return x
+
+    def _head(self, x, hidden_only: bool):
+        x = self.final_ln(x)
+        if hidden_only:
+            return x
+        return F.linear(x.float(), self.lm_head.weight.float())
+
+    def forward(self, inputs, *, train: bool = False,
+                hidden_only: bool = False, dropout_seed: int | None = None,
+                aux_out: list | None = None, stage: bool = False,
+                embed_only: bool = False, head_only: bool = False):
+        c = self.cfg
+        if not train:
+            dropout_seed = None
+        elif c.dropout > 0.0 and dropout_seed is None:
+            raise ValueError("train=True with dropout needs a dropout_seed")
+        if stage:
+            return self._stack(inputs, train, dropout_seed)
+        if head_only:
+            return self._head(inputs, hidden_only)
+        x = F.embedding(inputs, self.embed.weight).to(c.torch_dtype)
+        if embed_only:
+            return x
+        if self.num_stacked != c.num_layers:
+            raise ValueError(f"the full forward needs all {c.num_layers} "
+                             f"layers; this model holds a stage's "
+                             f"{self.num_stacked}")
+        return self._head(self._stack(x, train, dropout_seed), hidden_only)

@@ -85,9 +85,12 @@ def step_flops(cfg, model: nn.Module, batch: dict,
     counts the whole sequence's tokens and causal pairs once, not a
     rank's block a rank."""
     from tpuframe_torch.models.bert import BertForSequenceClassification
-    from tpuframe_torch.models.transformer_lm import TransformerLM
+    from tpuframe_torch.models.transformer_lm import (ScanBlockLM,
+                                                      TransformerLM)
 
-    if isinstance(model, TransformerLM):
+    # ScanBlockLM (transformer-lm-pp) is the LM with its layers stacked:
+    # the same step (the pipeline's bubbles are idle time, not work)
+    if isinstance(model, (TransformerLM, ScanBlockLM)):
         if model.cfg.moe_experts:
             return None, None
         seq = int(batch["input_ids"].shape[-1]) * seq_shards
@@ -109,7 +112,8 @@ def step_flops(cfg, model: nn.Module, batch: dict,
 
 def param_count(model: nn.Module) -> int:
     """The model's parameters, each counted whole where this rank holds a
-    block of it (tensor and expert parallelism: ``shard_specs``)."""
+    block of it (tensor, expert and pipeline parallelism:
+    ``shard_specs``)."""
     specs = getattr(model, "shard_specs", {})
     layout = getattr(model, "layout", None)
     total = 0

@@ -21,7 +21,10 @@ statistics-and-metrics reduction (the float buffers and the metric names,
 with its census), and in the sharded-state mode each split parameter's
 spec (which of its dims the fsdp, expert and model axes split: which
 blocks a rank gathers and reduce-scatters) and the batch degree (data x
-fsdp, the ranks the means run over).  Two ranks whose descriptions agree
+fsdp, the ranks the means run over); with a pipe degree (in the mesh's
+degrees), the microbatch count, which with it decides the pipeline's
+ticks and rotations, and the stage split of every block leaf (its
+spec).  Two ranks whose descriptions agree
 issue the same collectives on tensors of the same sizes; everything else
 the step does is local.
 """
@@ -63,7 +66,8 @@ def step_program(model: nn.Module, *, grad_reduce: str, accum_steps: int,
                  fusion_threshold: int | None,
                  metric_names: tuple, mesh: dict | None = None,
                  seq_mode: str = "none", weight_update: str = "replicated",
-                 wire_format: str = "fp") -> dict:
+                 wire_format: str = "fp",
+                 pp_microbatches: int | None = None) -> dict:
     """What decides the train step's collective sequence (module
     docstring).  The metrics are named, not shaped: they are 0-d, and
     their dtypes follow from the config, which is checked beside this."""
@@ -90,6 +94,9 @@ def step_program(model: nn.Module, *, grad_reduce: str, accum_steps: int,
                               for name, spec in sorted(specs.items())}
         out["batch_degree"] = ((mesh or {}).get("data", 1)
                                * (mesh or {}).get("fsdp", 1))
+    if (mesh or {}).get("pipe", 1) > 1:
+        # the pipeline's schedule: its ticks and their rotations
+        out["pp_microbatches"] = int(pp_microbatches or 0)
     if weight_update == "zero1":
         n = (mesh or {}).get("data", 1)
         out["zero1_census"] = {

@@ -27,6 +27,13 @@ CUDA, so one code path serves gloo and NCCL: the ring rotation, JAX's
 chunk to the next rank and take the whole of the previous rank's.
 :data:`SEQ_BYTES` counts the bytes each verb sent to other ranks.
 
+The pipeline's verbs (:func:`pipe_rotate`, JAX's ``ppermute`` over the
+``pipe`` axis; :func:`last_stage_value`; :func:`pipe_broadcast_`;
+:func:`pipe_sum`) run over a pipe group and are built the same way, the
+rotation as an ``all_to_all_single`` whose splits carry the whole tensor
+on the one leg that is used; :data:`PIPE_CALLS` and :data:`PIPE_BYTES`
+count them.
+
 The gradient wire of the ZeRO-1 and int8-block paths (``parallel/zero1.py``,
 ``parallel/quantwire.py``) runs on :func:`reduce_scatter_start` (the tiled
 reduce-scatter, JAX's ``psum_scatter(tiled=True)``),
@@ -37,6 +44,7 @@ reduce-scatter, JAX's ``psum_scatter(tiled=True)``),
 
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import torch
@@ -459,6 +467,145 @@ def gather_seq(x: torch.Tensor, seq) -> torch.Tensor:
     if seq.size == 1:
         return x
     return _GatherSeq.apply(x, seq)
+
+
+# Calls and bytes this process sent to other ranks of its pipe group
+# (``parallel/mesh.py``), by verb, the forward and the backward alike:
+# what a pipeline run reads as its traffic between stages.  A rotation
+# counts the payload it sent (0 on a leg it only receives on), a
+# broadcast its payload on the root, an all-reduce its operand.
+PIPE_CALLS = {"pipe_rotate": 0, "last_stage_value": 0, "pipe_broadcast": 0,
+              "pipe_all_reduce": 0}
+PIPE_BYTES = dict.fromkeys(PIPE_CALLS, 0)
+
+
+def reset_pipe() -> None:
+    for d in (PIPE_CALLS, PIPE_BYTES):
+        for k in d:
+            d[k] = 0
+
+
+def _pipe_shift(x: torch.Tensor, pipe, shift: int, send: bool, recv: bool,
+                shape: tuple) -> torch.Tensor:
+    """``x`` sent whole to the stage ``shift`` places on, when ``send`` and
+    that stage exists; returns what the stage ``shift`` places back sent
+    (a tensor of ``shape``) when ``recv`` and that stage exists, else an
+    empty tensor.  One ``all_to_all_single`` over the pipe group, with
+    0-element splits on the legs that carry nothing (no wrap from the
+    last stage to stage 0)."""
+    n, i = pipe.size, pipe.index
+    dst, src = i + shift, i - shift
+    send = send and 0 <= dst < n
+    recv = recv and 0 <= src < n
+    flat = x.reshape(-1).contiguous() if send else x.new_empty(0)
+    out = x.new_empty(math.prod(shape) if recv else 0)
+    _check_device("all_to_all", flat, pipe.group)
+    dist.all_to_all_single(out, flat,
+                           [out.numel() if j == src else 0 for j in range(n)],
+                           [flat.numel() if j == dst else 0
+                            for j in range(n)],
+                           group=pipe.group)
+    PIPE_CALLS["pipe_rotate"] += 1
+    PIPE_BYTES["pipe_rotate"] += flat.numel() * flat.element_size()
+    return out.view(shape) if recv else out
+
+
+class _PipeRotate(torch.autograd.Function):
+    """One tick's rotation of the pipeline: the stage's output to the next
+    stage, the previous stage's output in; the backward sends the
+    cotangent of what came in back to the previous stage and takes the
+    one of what went out from the next (the transpose of
+    ``lax.ppermute``)."""
+
+    @staticmethod
+    def forward(ctx, y, pipe, send, recv, shape):
+        ctx.pipe, ctx.send, ctx.recv = pipe, send, recv
+        ctx.y_shape = tuple(y.shape)
+        return _pipe_shift(y, pipe, 1, send, recv, shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        got = _pipe_shift(g, ctx.pipe, -1, ctx.recv, ctx.send, ctx.y_shape)
+        if got.numel() != math.prod(ctx.y_shape):
+            # nothing came back: the output went nowhere (the last stage,
+            # or a bubble's empty output)
+            got = g.new_zeros(ctx.y_shape)
+        return got, None, None, None, None
+
+
+def pipe_rotate(y: torch.Tensor, pipe, *, send: bool, recv: bool,
+                shape: tuple):
+    """JAX's ``lax.ppermute(y, "pipe", [(i, i + 1)])``, differentiably:
+    ``y`` goes to the next stage (when ``send``), and the previous
+    stage's output, of ``shape``, comes back (when ``recv``; else an
+    empty tensor).  The last stage sends nothing and
+    stage 0 receives nothing: the JAX wrap from the last stage to stage
+    0, whose value stage 0 discards, costs 0 bytes here, and so does a
+    leg whose sender and receiver both know it carries a bubble.  The
+    backward is the reverse shift.  Every stage calls it once a tick, in
+    the same order, as a collective of the pipe group ``pipe`` (a
+    ``mesh.Group``; None or one stage: nothing comes in)."""
+    if pipe is None or pipe.size == 1:
+        return y.new_empty(0)
+    return _PipeRotate.apply(y, pipe, bool(send), bool(recv), tuple(shape))
+
+
+class _LastStage(torch.autograd.Function):
+    """The last stage's value on every stage; the backward keeps the last
+    stage's own cotangent and gives the others zeros (the masked
+    ``psum``'s transpose for a cotangent that is the same on every stage,
+    as JAX's is: no communication)."""
+
+    @staticmethod
+    def forward(ctx, x, pipe):
+        ctx.last = pipe.index == pipe.size - 1
+        out = _dense(x)
+        _check_device("broadcast", out, pipe.group)
+        dist.broadcast(out, pipe.ranks[-1], group=pipe.group)
+        PIPE_CALLS["last_stage_value"] += 1
+        if ctx.last:
+            PIPE_BYTES["last_stage_value"] += out.numel() * out.element_size()
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g if ctx.last else torch.zeros_like(g)), None
+
+
+def last_stage_value(x: torch.Tensor, pipe) -> torch.Tensor:
+    """The last stage's ``x`` on every stage of ``pipe`` (JAX's
+    ``pp.last_stage_value``, a masked ``psum``; here a broadcast from the
+    last stage, so every stage holds its bits), differentiably (None or
+    one stage: ``x``)."""
+    if pipe is None or pipe.size == 1:
+        return x
+    return _LastStage.apply(x, pipe)
+
+
+def pipe_broadcast_(t: torch.Tensor, pipe, stage: int) -> torch.Tensor:
+    """``stage``'s ``t`` onto every stage of ``pipe``, in place (a
+    contiguous tensor), counted; None or one stage: nothing."""
+    if pipe is None or pipe.size == 1:
+        return t
+    _check_device("broadcast", t, pipe.group)
+    dist.broadcast(t, pipe.ranks[stage], group=pipe.group)
+    PIPE_CALLS["pipe_broadcast"] += 1
+    if pipe.index == stage:
+        PIPE_BYTES["pipe_broadcast"] += t.numel() * t.element_size()
+    return t
+
+
+def pipe_sum(t: torch.Tensor, pipe) -> torch.Tensor:
+    """The sum of ``t`` over the stages of ``pipe`` (no gradient), counted;
+    None or one stage: ``t``."""
+    if pipe is None or pipe.size == 1:
+        return t
+    out = _dense(t)
+    _check_device("all_reduce", out, pipe.group)
+    dist.all_reduce(out, group=pipe.group)
+    PIPE_CALLS["pipe_all_reduce"] += 1
+    PIPE_BYTES["pipe_all_reduce"] += out.numel() * out.element_size()
+    return out
 
 
 # Bytes and calls of the gradient wire of the zero1 and int8-block paths,

@@ -1,14 +1,13 @@
-"""The rank layout of a data x fsdp x seq x expert x model mesh and its
-sub-groups (the degrees -> groups part of ``tpuframe/parallel/mesh.py``).
+"""The rank layout of a data x fsdp x pipe x seq x expert x model mesh and
+its sub-groups (the degrees -> groups part of ``tpuframe/parallel/mesh.py``).
 
 The JAX package lays its devices out row-major over its axes (``AXES``:
 data, fsdp, pipe, seq, expert, model), data outermost, and a collective
 over an axis runs among the devices that differ in that coordinate only.
-Here a rank plays a device: of the axes the port runs (the trainer
-refuses pipe and slices), rank ``r`` is row-major over data, fsdp, seq,
-expert and model (:func:`rank_of`).  Each sub-group gets its own
-``torch.distributed`` group, made by :func:`build` on every rank in the
-same order:
+Here a rank plays a device: rank ``r`` is row-major over the same axes
+(:func:`rank_of`; the trainer refuses slices).  Each sub-group gets its
+own ``torch.distributed`` group, made by :func:`build` on every rank in
+the same order:
 
   - a **seq ring** (the ranks that differ in their seq coordinate only)
     with a seq degree above 1, for ring attention and Ulysses;
@@ -27,8 +26,8 @@ same order:
 
 The batch's rows shard over data x fsdp (the JAX ``BATCH_AXES``): rank
 ``(d, f)`` takes row block ``d * fsdp + f`` (:attr:`Layout.batch_index`),
-and ranks that differ only in their expert or model coordinate take the
-same rows.  A world of one, or a degree of 1, has no group for that axis;
+and ranks that differ only in their pipe, seq, expert or model coordinate
+take the same rows (a seq rank its block of their columns).  A world of one, or a degree of 1, has no group for that axis;
 a batch group with the ranks of the data or the fsdp group is that group.
 """
 
@@ -67,11 +66,12 @@ class Layout:
     """A rank's place in the mesh: every axis's degree (``sizes``, as
     ``MeshSpec.sizes`` gives them), the rank, and its groups (None where
     the axis has a degree of 1, and for fsdp, expert, model, shard, data
-    and batch outside the sharded-state mode)."""
+    and batch outside the sharded-state and pipeline modes)."""
 
     sizes: dict
     rank: int
     seq: Group | None = None
+    pipe: Group | None = None
     fsdp: Group | None = None
     expert: Group | None = None
     model: Group | None = None
@@ -125,6 +125,16 @@ class Layout:
         """The batch group as a ``torch.distributed`` group (None for a
         batch degree of 1)."""
         return None if self.batch is None else self.batch.group
+
+    @property
+    def pipe_size(self) -> int:
+        """The pipe degree: the pipeline's stages."""
+        return self.sizes.get("pipe", 1)
+
+    @property
+    def pipe_index(self) -> int:
+        """This rank's stage."""
+        return self.coords()["pipe"]
 
     @property
     def seq_size(self) -> int:
@@ -185,23 +195,37 @@ def _groups(sizes: dict, axes: tuple, rank: int) -> Group:
 
 def build(sizes: dict, rank: int) -> Layout:
     """``rank``'s layout on a mesh of ``sizes`` (every axis's degree, the
-    world their product).  Makes the seq rings with a seq degree above 1,
-    and, in the sharded-state mode, the fsdp, expert, model, shard, data
-    and batch groups whose size is above 1 (a batch group with the
-    ranks of the data or the fsdp group is that group)."""
-    other = {a: n for a, n in sizes.items()
-             if a not in ("data", "fsdp", "seq", *SHARD_AXES) and n != 1}
+    world their product).  Makes the seq rings with a seq degree above 1;
+    in the sharded-state mode, the fsdp, expert, model, shard, data and
+    batch groups whose size is above 1 (a batch group with the ranks of
+    the data or the fsdp group is that group); with a pipe degree above
+    1, the pipe groups and the data groups (each also the batch group).
+    A pipe degree composes with data alone, as the JAX trainer's
+    pipeline step does."""
+    other = {a: n for a, n in sizes.items() if a not in AXES and n != 1}
     if other:
-        raise ValueError(f"the port lays out data x fsdp x seq x expert x "
-                         f"model meshes only; got {other}")
+        raise ValueError(f"the port lays out data x fsdp x pipe x seq x "
+                         f"expert x model meshes only; got {other}")
+    if sizes.get("pipe", 1) > 1:
+        mixed = {a: sizes[a] for a in ("seq", *STATE_AXES)
+                 if sizes.get(a, 1) > 1}
+        if mixed:
+            raise ValueError(f"mesh pipe={sizes['pipe']} with {mixed}: the "
+                             f"pipeline composes with data parallelism "
+                             f"only")
     world = 1
     for a in AXES:
         world *= sizes.get(a, 1)
     if not 0 <= rank < world:
         raise ValueError(f"rank {rank} lies outside the mesh {sizes}")
     groups = {}
-    if sizes["seq"] > 1:
+    if sizes.get("seq", 1) > 1:
         groups["seq"] = _groups(sizes, ("seq",), rank)
+    if sizes.get("pipe", 1) > 1:
+        groups["pipe"] = _groups(sizes, ("pipe",), rank)
+        if sizes["data"] > 1:
+            groups["data"] = _groups(sizes, ("data",), rank)
+        groups["batch"] = groups.get("data")
     if any(sizes.get(a, 1) > 1 for a in STATE_AXES):
         for name, axes in (("fsdp", ("fsdp",)), ("expert", ("expert",)),
                            ("model", ("model",)), ("shard", SHARD_AXES),

@@ -84,8 +84,9 @@ class TrainState:
         ``step`` and ``seed``.  The tensors are the live ones, not
         copies.  An optimizer in the ZeRO-1 layout gives its moments as
         ``ckpt.FlatShard`` leaves (``zero1.opt_tree``); a model cut by
-        ``fsdp.shard_`` gives its split parameters and their moments as
-        ``ckpt.Shard`` leaves."""
+        ``fsdp.shard_`` (or to a pipeline stage's layers by
+        ``pp_lm.shard_``) gives its split parameters and their moments
+        as ``ckpt.Shard`` leaves."""
         model = dict(self.model.state_dict())
         opt = zero1.opt_tree(self.opt)
         specs = getattr(self.model, "shard_specs", {})

@@ -57,7 +57,15 @@ ignored, as the JAX jit step ignores it, and ``accum_steps`` splits the
 global batch's rows into microbatches, as the JAX jit step does; zero1,
 the int8 wire, Adasum and a seq degree above 1 are refused there, and so
 are the image models under fsdp (their BatchNorm statistics would have
-to be batch-group means, ROADMAP.md item 12).  An MoE LM
+to be batch-group means, ROADMAP.md item 12).  A pipe degree
+above 1 with ``model="transformer-lm-pp"`` is pipeline parallelism
+(``parallel/pp_lm.py``): each stage holds its layers of the
+layer-stacked blocks and their moments, the GPipe schedule runs
+``pp_microbatches`` through the stages, the loss and the gradients are
+averaged over the data group, the fusion knob is ignored, and what the
+JAX harness refuses under pp is refused with its reason (another model,
+the sharded-state axes, seq, ``accum_steps``, Adasum, ``shard_seq``,
+zero1, the int8 wire, hier).  An MoE LM
 (``moe_experts > 0``) adds ``moe_aux_weight`` times its layers' mean
 load-balance loss and reports it as ``moe_aux``.  A config with ``distributed=False``
 (``mnist_single``) trains on one device with no collective, even in a
@@ -73,7 +81,7 @@ workloads (``lm_text`` data, ``transformer-lm``) and the GLUE tasks
 ``bert-base``; cross-entropy, or MSE when ``num_classes`` is 1; Pearson
 and Matthews correlation at eval) train here.  What the JAX harness has and
 the port does not yet refuses loudly, naming its ROADMAP.md item: the
-profiler server (item 11), named remat policies (item 14), pipeline,
+profiler server (item 11), named remat policies (item 14),
 multi-slice meshes, the image models under fsdp, hierarchical
 collectives and their DCN wire
 (``TPUFRAME_HIER``, ``TPUFRAME_WIRE_FORMAT_DCN``) and elastic resizing.
@@ -172,6 +180,7 @@ from tpuframe_torch.parallel import fsdp
 from tpuframe_torch.parallel import fusion
 from tpuframe_torch.parallel import hvd
 from tpuframe_torch.parallel import mesh as mesh_lib
+from tpuframe_torch.parallel import pp_lm
 from tpuframe_torch.parallel import quantwire
 from tpuframe_torch.parallel import step as step_lib
 from tpuframe_torch.parallel import tp
@@ -210,16 +219,15 @@ def _refuse_unported(cfg: TrainConfig, world: int) -> dict:
     """Raise ``NotImplementedError`` for anything the port cannot run;
     returns the mesh degrees on ``world`` ranks."""
     bootstrap.check_fusion_env()
+    sizes = cfg.mesh.sizes(world)
+    if sizes["pipe"] > 1:
+        _refuse_pp(cfg, sizes)
     for var, (off, what) in _UNPORTED_ENV.items():
         val = os.environ.get(var, "").strip()
         if val and val != off:
             raise NotImplementedError(f"{var}={val!r}: {what} is not "
                                       f"ported yet")
     datasets.check(cfg.dataset)
-    sizes = cfg.mesh.sizes(world)
-    if sizes["pipe"] > 1 or cfg.model == "transformer-lm-pp":
-        raise NotImplementedError(f"pipeline parallelism is not ported yet "
-                                  f"({ITEM_12})")
     if sizes["slices"] > 1:
         raise NotImplementedError(f"mesh slices={sizes['slices']}: "
                                   f"multi-slice meshes are not ported yet "
@@ -241,6 +249,44 @@ def _refuse_unported(cfg: TrainConfig, world: int) -> dict:
                          f"seq_mode 'ring' or 'ulysses': seq_mode 'none' "
                          f"would attend within each rank's chunk only")
     return sizes
+
+
+def _refuse_pp(cfg: TrainConfig, sizes: dict) -> None:
+    """What the JAX harness refuses with a pipe degree above 1, with its
+    messages (the pipeline step owns its microbatching, its reduction and
+    its communication), and a run with no ranks."""
+    if cfg.model != "transformer-lm-pp":
+        raise ValueError(f"mesh pipe={sizes['pipe']} needs model="
+                         f"'transformer-lm-pp' (layer-stacked blocks); got "
+                         f"{cfg.model!r}")
+    if any(sizes[a] > 1 for a in mesh_lib.STATE_AXES):
+        raise ValueError("pipe parallelism does not compose with "
+                         "fsdp/model/expert sharded-state axes yet")
+    if cfg.accum_steps != 1:
+        raise ValueError("pipe parallelism has its own microbatching "
+                         "(pp_microbatches); accum_steps must be 1")
+    if cfg.grad_reduce != "mean":
+        raise ValueError("pipe parallelism supports grad_reduce='mean' "
+                         "only (the pp step has its own cross-stage "
+                         "reduction)")
+    if cfg.shard_seq:
+        raise ValueError("pipe parallelism does not compose with "
+                         "shard_seq sequence parallelism yet")
+    if not cfg.distributed:
+        raise ValueError(f"mesh pipe={sizes['pipe']} with distributed="
+                         f"False: the pipeline's stages are ranks")
+    if zero1.resolve()[0] == "zero1":
+        raise ValueError("TPUFRAME_WEIGHT_UPDATE=zero1 is the plain-DP "
+                         "shard_map path; the pipeline step owns its "
+                         "own stage-sharded update")
+    if quantwire.resolve_legs()[0][0] != "fp":
+        raise ValueError("TPUFRAME_WIRE_FORMAT=int8-block is the "
+                         "plain-DP shard_map path; the pipeline step "
+                         "owns its own cross-stage communication")
+    if os.environ.get("TPUFRAME_HIER", "").strip() not in ("", "flat"):
+        raise ValueError("TPUFRAME_HIER=hier is the plain-DP "
+                         "shard_map path; the pipeline step owns its "
+                         "own cross-stage communication")
 
 
 def _refuse_sharded(cfg: TrainConfig, sizes: dict) -> None:
@@ -609,6 +655,9 @@ def build_harness(cfg: TrainConfig, device="cuda") -> Harness:
             model, layout,
             tp.rules_for_model(cfg.model) if tp_axes else None)
         model.layout = layout
+    elif layout.pipe is not None:
+        # pipeline parallelism: each stage keeps its layers
+        pp_lm.shard_(model, layout)
     train_ds, eval_ds = datasets.build(cfg.dataset, cfg.data_dir,
                                        **cfg.dataset_kwargs)
     _check_labels(cfg, (("train", train_ds), ("eval", eval_ds)))
@@ -624,8 +673,11 @@ def build_harness(cfg: TrainConfig, device="cuda") -> Harness:
                                  seed=cfg.seed, cast_floats=cast, **shard)
     eval_loader = ShardedLoader(eval_ds, cfg.global_batch, device=dev,
                                 shuffle=False, cast_floats=cast, **shard)
-    threshold, source = _resolved_fusion(cfg)
     update, wire = _resolved_update(sizes)
+    if layout.pipe is not None:
+        return _pp_harness(cfg, dev, model, layout, world, train_loader,
+                           eval_loader, update, wire)
+    threshold, source = _resolved_fusion(cfg)
     # the sharded-state mode averages over the batch group (an fsdp-split
     # gradient over the data group), seeds dropout by batch index and
     # ignores the fusion knob, as the JAX jit step does (and splits the
@@ -655,6 +707,28 @@ def build_harness(cfg: TrainConfig, device="cuda") -> Harness:
         eval_step=step_lib.make_eval_step(
             make_metric_fn(cfg, layout), distributed=cfg.distributed,
             layout=sharded),
+        train_loader=train_loader, eval_loader=eval_loader, world=world,
+        layout=layout)
+
+
+def _pp_harness(cfg: TrainConfig, dev, model, layout, world, train_loader,
+                eval_loader, update, wire) -> Harness:
+    """The harness of a pipeline run (``parallel/pp_lm.py``): the stage's
+    model, its optimizer with the cross-stage gradient norm, the pipeline
+    train and eval steps.  The fusion knob is ignored, as the JAX
+    pipeline step takes none."""
+    kw = dict(n_micro=cfg.pp_microbatches, fused_xent=cfg.fused_xent)
+    train_step = pp_lm.make_pp_lm_step(model.cfg, layout, **kw)
+    state = step_lib.TrainState(model=model, opt=build_optimizer(cfg, model),
+                                seed=cfg.seed + 1)
+    specs = [model.shard_specs.get(n) for n in state.opt.names]
+    state.opt.global_sq = lambda sq: pp_lm.global_sq(sq, specs, layout)
+    manager = _resume(cfg, state)
+    return Harness(
+        cfg=cfg, device=dev, state=state, manager=manager,
+        start_step=state.step, fusion_threshold=(None, "default"),
+        weight_update=update, wire_format=wire, train_step=train_step,
+        eval_step=pp_lm.make_pp_lm_eval(model.cfg, layout, **kw),
         train_loader=train_loader, eval_loader=eval_loader, world=world,
         layout=layout)
 
@@ -938,7 +1012,8 @@ def _check_spmd(cfg: TrainConfig, h: Harness) -> None:
         fusion_threshold=h.fusion_threshold[0],
         metric_names=(metric, "loss"), mesh=h.layout.sizes,
         seq_mode=cfg.model_kwargs.get("seq_mode", "none"),
-        weight_update=h.weight_update[0], wire_format=h.wire_format[0])
+        weight_update=h.weight_update[0], wire_format=h.wire_format[0],
+        pp_microbatches=cfg.pp_microbatches)
 
 
 def _run_start(cfg: TrainConfig, h: Harness, tel: _Telemetry,

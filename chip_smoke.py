@@ -170,6 +170,16 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
      launch on the tensor cores ((c)'s on 6 heads), the collectives of
      every step equal to their law (path ``moe``); step p50 and p10-p90,
      peak memory and state bytes a rank, bytes a step, idle share;
+ 22b. fsdp's sharded state (``fsdp``): glue_bert (a) one process, (b)
+     fsdp=2, (c) fsdp=2 x model=2; lm_long (d0) one process, (d) fsdp=2;
+     imagenet_resnet50 bn="fused" (e0) one process, (e) fsdp=2 from
+     ``TPUFRAME_SPEC="dp=1,fsdp=2"`` (BatchNorm statistics over the
+     batch group); the worlds at once: step 1 against one-process f32
+     and bf16 steps ((e)'s running statistics too), replicated leaves
+     bit-identical, each rank's blocks, the collectives of every step
+     equal to their law, every kernel launch a rank exact and on the
+     tensor cores, (e)'s log naming its spec; the flash and fused
+     conv+BN kernels at a rank's shapes against their plain versions;
  23. pipeline parallelism (``pp``): lm_long at its widths and depth as
      transformer-lm-pp, S=4096, global batch 8 in 4 microbatches, (a) as
      one process beside a one-process f32 step, (b) on pipe=2 as two gloo
@@ -821,20 +831,51 @@ MOE_TIMEOUT_S = 600
 # of (b), (c) and (d) is held under
 # BF16_NOISE_FACTOR's rule against one-process steps on the same global
 # batch (each batch rank's first loader batch, stacked in batch order).
+# (e0) and (e): imagenet_resnet50 with bn="fused" (the fused conv+BN
+# kernel's path), bf16, at full width (ResNet-50, 1000 classes, 224 x
+# 224): (e0) as one process, (e) on fsdp=2 as two gloo processes whose
+# mesh comes from TPUFRAME_SPEC="dp=1,fsdp=2" (no mesh override), a third
+# world beside the other two; each BatchNorm's statistics are the global
+# batch's (parallel/fsdp.py).  Step 1 of (e) is held as (b)'s is, and so
+# are its BatchNorm running statistics after step 1.  The cuts of
+# FSDP_RESNET_CUTS and their reasons are beside them.
 FSDP_STEPS = 3
 FSDP_EVAL_BATCHES = 1
 FSDP_BERT_KW = {"dropout": 0.0}
 FSDP_LM_DATA = {"seq_len": 4096}
 FSDP_LM_BATCH = 2
-FSDP_ONE = {"bert": {"data": 1}, "lm": {"data": 1, "seq": 1}}
-FSDP_WORLDS = {2: (("b", "bert", {"data": 1, "fsdp": 2}),
-                   ("d", "lm", {"data": 1, "fsdp": 2, "seq": 1})),
-               4: (("c", "bert", {"data": 1, "fsdp": 2, "model": 2}),)}
+FSDP_RESNET_SPEC = "dp=1,fsdp=2"
+FSDP_RESNET_CUTS = {
+    # the config's model with the fused conv+BN op
+    "model_kwargs": {"bn": "fused"},
+    # 2048 in the recipe (8 chips): 64, 32 images a rank, for the time
+    # limit; the LR follows the config's rule (base_lr x batch / 256)
+    "global_batch": 64,
+    # no ImageNet on the machine: phase resnet_train's synthetic images
+    "dataset_kwargs": {"synthetic_size": 2048},
+    # the port seeds augmentation by batch index, as it seeds dropout, so
+    # a sharded run's flips would not be one process's on the same batch
+    "augment": "none",
+}
+FSDP_ONE = {"bert": {"data": 1}, "lm": {"data": 1, "seq": 1},
+            "resnet": {"data": 1}}
+# world: (ranks, its runs (which, family, mesh; None: TPUFRAME_SPEC's),
+# extra environment)
+FSDP_WORLDS = {"bd": (2, (("b", "bert", {"data": 1, "fsdp": 2}),
+                          ("d", "lm", {"data": 1, "fsdp": 2, "seq": 1})),
+                      {}),
+               "c": (4, (("c", "bert", {"data": 1, "fsdp": 2, "model": 2}),),
+                     {}),
+               "e": (2, (("e", "resnet", None),),
+                     {"TPUFRAME_SPEC": FSDP_RESNET_SPEC})}
 FSDP_TAGS = {"a": "(a) glue_bert one process",
              "b": "(b) glue_bert fsdp=2",
              "c": "(c) glue_bert fsdp=2 x model=2",
              "d0": "(d0) lm_long one process",
-             "d": "(d) lm_long fsdp=2"}
+             "d": "(d) lm_long fsdp=2",
+             "e0": "(e0) imagenet_resnet50 bn=fused one process",
+             "e": f"(e) imagenet_resnet50 bn=fused TPUFRAME_SPEC="
+                  f"{FSDP_RESNET_SPEC}"}
 FSDP_TIMEOUT_S = 600
 
 # Phase pp: pipeline parallelism (parallel/pp.py, parallel/pp_lm.py: GPipe
@@ -1296,6 +1337,18 @@ def _delta_bytes(do) -> int:
     return 2 * do.numel() * do.element_size() + b * s * n * 4
 
 
+def _delta_library_ms(q, k, v, do, mask, causal, iters: int = 10):
+    """The delta pass's yardstick: one PyTorch call of the function it
+    stands for, ``rowsum(dO * O)`` (``torch.linalg.vecdot``, f32, [B, S,
+    N]), on f32 copies of the same dO and of the forward's O (made before
+    the timing), by CUDA events and by profiler device time.  The port
+    never calls it."""
+    out, _ = fa.flash_fwd(q, k, v, mask=mask, causal=causal)
+    dof, of = do.float(), out.float()
+    call = lambda: torch.linalg.vecdot(dof, of)  # noqa: E731
+    return cuda_ms(call, iters), device_ms(call, 3)
+
+
 def _sdpa_backward_ms(tensors, causal):
     """The yardstick: the backward of PyTorch's fused attention on the same
     tensors, timed alone (the graph is kept, so each call is only the
@@ -1356,7 +1409,9 @@ def _bwd_train_shape(dtype, gen) -> dict:
                       "tflops": ops / ms / 1e9, "smem_bytes": smem,
                       "blocks_per_sm": blocks}
     res["delta"]["max_abs_err"] = errs["delta"]
-    res["delta"]["library_ms"] = res["delta"]["library_device_ms"] = None
+    (res["delta"]["library_ms"],
+     res["delta"]["library_device_ms"]) = _delta_library_ms(
+        *tensors[:4], mask, True)
     res["dq"]["max_abs_err"] = errs["dq"]
     res["dkv"]["max_abs_err"] = max(errs["dk"], errs["dv"])
     pair = res["dq"]["ms"] + res["dkv"]["ms"]
@@ -1371,6 +1426,9 @@ def _bwd_train_shape(dtype, gen) -> dict:
                     f"{r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms "
                     f"({r['bound_by']}; {r['bound_ms'] / r['ms']:.3f} of it)"
                     for w, r in res.items())
+        + f"; delta's rowsum(dO*O) by torch.linalg.vecdot "
+          f"{res['delta']['library_ms']:.4f} ms (device "
+          f"{_dev(res['delta']['library_device_ms'], '.4f')})"
         + f"; pair {pair:.3f} ms, with the delta pass {whole:.3f} ms; sdpa "
           f"backward {lib:.3f} ms (device {_dev(lib_dev)}), pair / sdpa "
           f"{pair / lib:.2f}, with the delta pass {whole / lib:.2f}")
@@ -2949,19 +3007,22 @@ def _bert_delta_case(b, glue, split, gen) -> dict:
     dev = device_ms(call, 10)
     plain = cuda_ms(lambda: _by_row(fa.flash_bwd_delta_reference, args,
                                     mask, False), 3)
+    lib, lib_dev = _delta_library_ms(q, k, v, do, mask, False, 100)
     ops = 4 * d * _pairs(BERT_SEQ, BERT_SEQ, b, n, mask, False)
     nbytes = _delta_bytes(do)
     case = {"case": name, "route": fa.bwd_route(q.dtype, d),
             "max_abs_err": err, "ms": ms, "device_ms": dev,
-            "plain_ms": plain, "library_ms": None,
+            "plain_ms": plain, "library_ms": lib,
+            "library_device_ms": lib_dev,
             "bound_ms": 1e3 * nbytes / PEAK_BYTES_S, "bound_by": "bytes",
             "ops": ops, "bytes": nbytes}
     share = ("" if dev is None
              else f"; {case['bound_ms'] / dev:.3f} of it by device time")
     log(f"[bert-delta] {name}, route {case['route']}: err {err:.2e} (tol "
         f"{DELTA_TOL} x max|plain| {scale:.2e}); kernel {ms:.4f} ms (device "
-        f"{_dev(dev, '.4f')}), plain {plain:.4f} ms, bound "
-        f"{case['bound_ms']:.5f} ms ({case['bound_by']}{share})")
+        f"{_dev(dev, '.4f')}), plain {plain:.4f} ms, rowsum(dO*O) by "
+        f"torch.linalg.vecdot {lib:.4f} ms (device {_dev(lib_dev, '.4f')}), "
+        f"bound {case['bound_ms']:.5f} ms ({case['bound_by']}{share})")
     return case
 
 
@@ -6420,7 +6481,8 @@ def _moe_run(tag: str, mesh: dict, rank: int, profile: bool,
 
 
 def _sharded_run(tag: str, args: list, rank: int, profile: bool,
-                 tries: int = 1, *, steps: int, keys: tuple) -> tuple:
+                 tries: int = 1, *, steps: int, keys: tuple,
+                 stats_out: dict | None = None) -> tuple:
     """One run of this process (or world) through ``train.main`` with
     ``args``: every step's launches, sharded-state and pipe collectives
     and flash head counts, step 1's metrics ``keys``, the final
@@ -6429,7 +6491,8 @@ def _sharded_run(tag: str, args: list, rank: int, profile: bool,
     outside the profiler and one more profiled on rank 0 (up to ``tries``
     times while the profiler's record is not whole: one process only,
     since the other ranks of a world step once beside it).  Returns that and step 1's
-    reduced gradients as blocks (:func:`_grad_blocks`)."""
+    reduced gradients as blocks (:func:`_grad_blocks`); ``stats_out``
+    gets the running statistics after step 1 (f32, on the host)."""
     build = train_lib.build_harness
     got = {"steps": [], "heads": set()}
     real_fwd, real_bwd = fa._launch, fa._launch_bwd
@@ -6464,6 +6527,8 @@ def _sharded_run(tag: str, args: list, rank: int, profile: bool,
             if len(got["steps"]) == 1:
                 got["step1"] = {k: float(metrics[k]) for k in keys}
                 got["grads"] = _grad_blocks(state.model)
+                if stats_out is not None:
+                    stats_out.update(_running_stats(state.model))
             return metrics
 
         h.train_step = train_step
@@ -6487,7 +6552,8 @@ def _sharded_run(tag: str, args: list, rank: int, profile: bool,
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     launches = launch_counts()
-    routes = {"fwd": dict(fa.FWD_ROUTES), "bwd": dict(fa.BWD_ROUTES)}
+    routes = {"fwd": dict(fa.FWD_ROUTES), "bwd": dict(fa.BWD_ROUTES),
+              "conv_bn": dict(fcb.ROUTES)}
     peak = torch.cuda.max_memory_allocated()
     h = got.pop("harness")
     model = h.state.model
@@ -6501,7 +6567,8 @@ def _sharded_run(tag: str, args: list, rank: int, profile: bool,
         .items() for t in ts)
     moments = h.state.opt.state_dict()
     shapes = {n: [list(p.shape)] + [list(moments[k][n].shape)
-                                    for k in ("mu", "nu") if k in moments]
+                                    for k in ("mu", "nu", "trace")
+                                    if k in moments]
               for n, p in model.named_parameters()}
     prof = {"wall_ms": None, "device_ms": None, "idle": None, "top": []}
     if profile:
@@ -6783,23 +6850,39 @@ def phase_moe() -> dict:
     return {"launches": total}
 
 
-_FSDP_CONFIGS = {"bert": "glue_bert", "lm": "lm_long"}
+_FSDP_CONFIGS = {"bert": "glue_bert", "lm": "lm_long",
+                 "resnet": "imagenet_resnet50"}
 
 
-def _fsdp_sets(family: str, mesh: dict) -> dict:
-    """Phase fsdp's overrides of ``family``'s config on ``mesh``."""
-    sets = {"mesh": mesh, "total_steps": FSDP_STEPS,
-            "eval_every": FSDP_STEPS, "eval_batches": FSDP_EVAL_BATCHES,
-            "log_every": 1}
+def _fsdp_sets(family: str, mesh: dict | None) -> dict:
+    """Phase fsdp's overrides of ``family``'s config on ``mesh`` (None:
+    no mesh override, the run's TPUFRAME_SPEC declares it)."""
+    sets = {"total_steps": FSDP_STEPS, "eval_every": FSDP_STEPS,
+            "eval_batches": FSDP_EVAL_BATCHES, "log_every": 1}
+    if mesh is not None:
+        sets["mesh"] = mesh
     if family == "bert":
         return {**sets, "model_kwargs": FSDP_BERT_KW}
+    if family == "resnet":
+        return {**sets, **FSDP_RESNET_CUTS}
     return {**sets, "dataset_kwargs": FSDP_LM_DATA,
             "global_batch": FSDP_LM_BATCH}
 
 
-def _fsdp_cfg(family: str, mesh: dict):
+def _fsdp_mesh(mesh: dict | None) -> dict:
+    """The mesh of a run: ``mesh``, or (None) the one FSDP_RESNET_SPEC
+    declares on its two ranks."""
+    if mesh is not None:
+        return mesh
+    from tpuframe_torch.parallel import pspec
+
+    sizes = pspec.parse_spec(FSDP_RESNET_SPEC).sizes(2)
+    return {a: n for a, n in sizes.items() if n > 1 or a == "data"}
+
+
+def _fsdp_cfg(family: str, mesh: dict | None):
     return get_config(_FSDP_CONFIGS[family]).with_overrides(
-        **_fsdp_sets(family, mesh))
+        **_fsdp_sets(family, _fsdp_mesh(mesh)))
 
 
 def _fsdp_model_cfg(family: str):
@@ -6809,9 +6892,9 @@ def _fsdp_model_cfg(family: str):
     return (BertConfig if family == "bert" else LMConfig)(**kw)
 
 
-def _fsdp_args(family: str, mesh: dict) -> list:
+def _fsdp_args(family: str, mesh: dict | None) -> list:
     """``train.main`` arguments of phase fsdp's ``family`` run on
-    ``mesh``."""
+    ``mesh`` (None: TPUFRAME_SPEC's)."""
     return ["--config", _FSDP_CONFIGS[family]] + [
         a for k, v in _fsdp_sets(family, mesh).items()
         for a in ("--set", f"{k}={v!r}")]
@@ -6821,8 +6904,8 @@ def _fsdp_reference(family: str) -> dict:
     """Step 1 of ``family``'s config as one process on the sharded runs'
     global batch (each of the two batch ranks' first loader batch, in
     batch order) and weights, in bf16 (the run's own dtype) and in f32
-    (the noise floor's yardstick): loss, gradient norm and each
-    parameter's gradient on the host."""
+    (the noise floor's yardstick): loss, gradient norm, each parameter's
+    gradient and the running statistics after the step, on the host."""
     cfg = _fsdp_cfg(family, FSDP_ONE[family])
     ds, _ = datasets.build(cfg.dataset, None, **cfg.dataset_kwargs)
     parts = [next(iter(ShardedLoader(ds, cfg.global_batch, device="cuda",
@@ -6838,11 +6921,19 @@ def _fsdp_reference(family: str) -> dict:
         out[dtype] = {"loss": float(m["loss"]),
                       "grad_norm": float(m["grad_norm"]),
                       "grads": _grads(h.state.model),
+                      "stats": _running_stats(h.state.model),
                       "s": time.monotonic() - t0}
         del h, m
         gc.collect()
         torch.cuda.empty_cache()
     return out
+
+
+def _running_stats(model) -> dict:
+    """The model's float buffers (the BatchNorm running statistics), f32
+    on the host."""
+    return {n: b.detach().float().cpu() for n, b in model.named_buffers()
+            if b.is_floating_point()}
 
 
 def _fsdp_law(family: str, mesh: dict) -> tuple:
@@ -6862,7 +6953,9 @@ def _fsdp_law(family: str, mesh: dict) -> tuple:
     their row-parallel output sums, four f32 all-reduces of the rank's
     ``[B/2, S, H]``, and the word embedding's columns gathered once.  The
     gradient norm sums seven numbers over the model group (when it has
-    one) and over the fsdp group."""
+    one) and over the fsdp group.  ResNet-50: each BatchNorm's two f32
+    sums a channel over the batch group once in the forward and once in
+    the backward (``bn_stats``; no remat)."""
     from tpuframe_torch.parallel import fsdp, tp
 
     cfg = _fsdp_cfg(family, mesh)
@@ -6897,6 +6990,12 @@ def _fsdp_law(family: str, mesh: dict) -> tuple:
         h, layers = model.cfg.hidden_size, model.cfg.num_layers
         law["all_reduce"] = [4 * layers + 2, 4 * layers * rows * h * 4 + 56]
         law["all_gather"] = [1, rows * (h // m) * 4]
+    if family == "resnet":
+        law["bn_stats"] = [0, 0]
+        for mod in model.modules():
+            if hasattr(mod, "stats_group"):
+                law["bn_stats"][0] += 2
+                law["bn_stats"][1] += 2 * 2 * mod.weight.numel() * 4
     del model
     return place, {k: tuple(v) for k, v in law.items()}
 
@@ -6914,9 +7013,10 @@ def _fsdp_blocks(r: dict, place: dict) -> list:
     for n, (shape, spec) in place.items():
         idx = tp.index(shape, spec, r["sizes"], r["coords"])
         want = [hi - lo for lo, hi in idx]
-        if r["shapes"].get(n) != [want] * 3:
-            bad.append(f"{n}: parameter, mu, nu {r['shapes'].get(n)}, want "
-                       f"the block {want} of {list(shape)} ({spec})")
+        got = r["shapes"].get(n) or []
+        if len(got) < 2 or any(sh != want for sh in got):
+            bad.append(f"{n}: parameter and moments {got}, want the block "
+                       f"{want} of {list(shape)} ({spec}) each")
     return bad
 
 
@@ -6931,14 +7031,26 @@ def fsdp_worker(out: str) -> None:
     runs = {}
     for which, family, mesh in json.loads(
             Path(out + ".runs.json").read_text()):
+        args, stats = _fsdp_args(family, mesh), {}
+        logs = Path(out).with_name(f"events_{which}.{rank}")
+        if mesh is None:
+            # the spec's run: its log must name the spec
+            args += ["--events-dir", str(logs)]
         # (b) shares its world with (d): one profiled step is (d)'s
-        run, grads = _sharded_run(FSDP_TAGS[which],
-                                  _fsdp_args(family, mesh), rank,
+        run, grads = _sharded_run(FSDP_TAGS[which], args, rank,
                                   profile=which != "b", steps=FSDP_STEPS,
-                                  keys=("loss", "grad_norm"))
+                                  keys=("loss", "grad_norm"),
+                                  stats_out=stats)
+        if mesh is None:
+            run["pspec"] = [
+                [rec.get("spec"), rec.get("source")]
+                for f in sorted(logs.glob("*.jsonl"))
+                for rec in map(json.loads, f.read_text().splitlines())
+                if rec.get("type") == "pspec"]
         torch.save(grads, Path(out).with_name(f"grads_{which}.{rank}.pt"))
+        torch.save(stats, Path(out).with_name(f"stats_{which}.{rank}.pt"))
         runs[which] = bootstrap.allgather_object(run)
-        del grads
+        del grads, stats
     if rank == 0:
         Path(out).write_text(json.dumps(runs))
     bootstrap.shutdown()
@@ -7004,41 +7116,154 @@ def _fsdp_kernel_checks(gen) -> list:
     return out
 
 
+def _fsdp_conv_bn_checks(gen) -> dict:
+    """The fused conv+BN backward kernel at (e)'s 15 shapes (a rank's 32
+    images: every M half of a batch of 64's), bf16 on the tensor cores,
+    each through the public wrapper against its plain version, then timed
+    beside its plain version, the cuDNN yardstick and its bound (phase
+    conv_bn's), the 36 calls of a rank's step summed."""
+    dtype, batch = torch.bfloat16, FSDP_RESNET_CUTS["global_batch"] // 2
+    tot = dict.fromkeys(("ms", "plain_ms", "library_ms", "ops_ms",
+                         "bytes_ms", "bound_ms"), 0.0)
+    worst, calls_all = {"da": 0.0, "dw": 0.0}, 0
+    shapes = resnet_conv_bn_shapes(batch=batch)
+    for (n, h, w, k, c), calls in shapes.items():
+        m = n * h * w
+        if fcb.conv_bn_route(dtype, k, c) != "tensor_core":
+            raise RuntimeError(f"fsdp rank M={m} K={k} C={c} is not on the "
+                               f"tensor-core route")
+        args = _conv_bn_inputs(m, k, c, dtype, gen)
+        errs = _conv_bn_check(f"fsdp rank M={m} K={k} C={c}", args)
+        for g in worst:
+            worst[g] = max(worst[g], errs[g])
+        flops = 4 * m * k * c
+        nbytes = (2 * (m * k + 2 * m * c + k * c + m * k) + 4 * 3 * c
+                  + 4 * k * c)
+        t_ops = 1e3 * flops / PEAK_OPS_S[dtype]
+        t_bytes = 1e3 * nbytes / PEAK_BYTES_S
+        lib, _ = _conv_bn_library_ms(n, h, w, args, 10)
+        for key, val in (
+                ("ms", cuda_ms(lambda: fcb._launch(*args), 10)),
+                ("plain_ms", cuda_ms(
+                    lambda: fcb.fused_bwd_reference(*args), 3)),
+                ("library_ms", lib), ("ops_ms", t_ops), ("bytes_ms", t_bytes),
+                ("bound_ms", max(t_ops, t_bytes))):
+            tot[key] += calls * val
+        calls_all += calls
+        del args
+    tot.update(bound_by="operations" if tot["ops_ms"] >= tot["bytes_ms"]
+               else "bytes", max_abs_err=max(worst.values()),
+               shape=f"ResNet-50 {batch} images a rank (fsdp=2 of 64) bf16: "
+                     f"the {calls_all} calls of a rank's step over "
+                     f"{len(shapes)} shapes, times summed")
+    log(f"[fsdp] kernels at (e)'s {len(shapes)} fused conv+BN shapes "
+        f"({batch} images a rank), bf16 on the tensor cores against the "
+        f"plain version: worst max abs err {worst}; the {calls_all} calls "
+        f"of a rank's step: kernel {tot['ms']:.3f} ms, plain "
+        f"{tot['plain_ms']:.3f} ms, cuDNN conv+BN backward "
+        f"{tot['library_ms']:.3f} ms, bound {tot['bound_ms']:.4f} ms "
+        f"({tot['bound_by']}; {tot['bound_ms'] / tot['ms']:.3f} of it)")
+    return tot
+
+
+def _resnet_checks(tag: str, r: dict, law: dict | None) -> list:
+    """An (e0)/(e) run's launches: the fused conv+BN kernel 36 times a
+    step (conv1, conv3 and the downsample of every Bottleneck, in the
+    backward), nothing else, every launch on the tensor cores; its
+    collectives a step equal to ``law``; finite losses and eval loss."""
+    bad = []
+    per = sum(resnet_conv_bn_shapes().values())
+    want_step = {k: int(k == "fused_conv_bn_bwd") * per
+                 for k in launch_counts()}
+    for i, st in enumerate(r["steps"]):
+        if st["launches"] != want_step:
+            bad.append(f"step {i + 1} launches {st['launches']}, want "
+                       f"{want_step}")
+        if law is not None:
+            got = {k: (st["calls"][k], st["bytes"][k]) for k in law}
+            if got != law:
+                bad.append(f"step {i + 1} collectives {got}, want the law "
+                           f"{law}")
+    want = {k: v * FSDP_STEPS for k, v in want_step.items()}
+    if r["launches"] != want:
+        bad.append(f"run launches {r['launches']}, want {want}")
+    if r["routes"]["conv_bn"] != {"tensor_core": per * FSDP_STEPS,
+                                  "cuda_core": 0}:
+        bad.append(f"fused conv+BN routes {r['routes']['conv_bn']}, want "
+                   f"every launch on the tensor cores")
+    if (len(r["losses"]) != FSDP_STEPS
+            or not all(math.isfinite(x) for x in r["losses"])
+            or not math.isfinite(r["eval_loss"] or float("nan"))):
+        bad.append(f"losses {r['losses']}, eval {r['eval_loss']}")
+    return [f"{tag} rank {r['rank']}: {b}" for b in bad]
+
+
+def _stats_parity(stats: dict, ref: dict) -> tuple:
+    """The running statistics after step 1 against the one-process f32
+    step's: each tensor within BF16_NOISE_FACTOR x the one-process bf16
+    step's own distance from it, or SEQ_PARITY_RTOL of its norm.  Returns
+    (problems, the worst ratio to the limit and its name)."""
+    bad, worst, where = [], 0.0, ""
+    want, noise = ref["float32"]["stats"], ref["bfloat16"]["stats"]
+    if set(stats) != set(want):
+        return [f"running statistics of {sorted(set(stats) ^ set(want))} on "
+                f"one side only"], (float("inf"), "")
+    for n in sorted(want):
+        got = _rel(stats[n], want[n])
+        limit = max(BF16_NOISE_FACTOR * _rel(noise[n], want[n]),
+                    SEQ_PARITY_RTOL)
+        if got / limit > worst:
+            worst, where = got / limit, n
+        if not got <= limit:
+            bad.append(f"step 1 running statistic {n}: {got:.2e} from the "
+                       f"one-process f32 step (limit {limit:.2e})")
+    return bad, (worst, where)
+
+
 def phase_fsdp(beside=None) -> dict:
     """fsdp's sharded state and BERT's tensor parallelism
     (``parallel/fsdp.py``, ``models/bert.py``, the batch and fsdp groups
-    of ``parallel/mesh.py``): the flash kernels at a rank's shapes, then
-    glue_bert (a) as one process, (b) on fsdp=2, (c) on fsdp=2 x model=2
-    and lm_long (d0) as one process, (d) on fsdp=2 through ``train.main``
-    (the constants' comment).  Held: step 1 of (b), (c), (d) against the
+    of ``parallel/mesh.py``), and the image models under fsdp
+    (``models/resnet.py``'s BatchNorms over the batch group, the fused
+    conv+BN op at a rank's rows, ``parallel/pspec.py``): the flash kernels
+    and the fused conv+BN kernel at a rank's shapes, then glue_bert (a)
+    as one process, (b) on fsdp=2, (c) on fsdp=2 x model=2, lm_long (d0)
+    as one process, (d) on fsdp=2, and imagenet_resnet50 (e0) as one
+    process, (e) on TPUFRAME_SPEC's fsdp=2 through ``train.main`` (the
+    constants' comment).  Held: step 1 of (b), (c), (d), (e) against the
     one-process f32 and bf16 steps on their global batch (loss, gradient
-    norm, every parameter's gradient, the ranks' blocks put together);
-    replicated leaves bit-identical across ranks (step-1 gradients and
-    final values); each rank's parameters and moments the blocks of
+    norm, every parameter's gradient, the ranks' blocks put together; for
+    (e) the running statistics too); replicated leaves bit-identical
+    across ranks (step-1 gradients, (e)'s running statistics and final
+    values); each rank's parameters and moments the blocks of
     ``fsdp.state_shardings``; the sharded-state collectives of every step
     equal to :func:`_fsdp_law`; every flash launch on the tensor cores,
-    the count a rank the path's, on 12 heads or (c)'s 6.  Prints each
-    run's step p50 and p10-p90, peak memory and state bytes a rank and
-    rank 0's idle share from one profiled step.  ``beside``: a function
-    run beside the worlds (:func:`pp_worlds` in a whole run); its Future
-    is returned under ``"beside"``."""
+    the count a rank the path's, on 12 heads or (c)'s 6; (e0)'s and (e)'s
+    36 fused conv+BN launches a step on the tensor cores; (e)'s run log
+    naming its spec.  Prints each run's step p50 and p10-p90, peak memory
+    and state bytes a rank and rank 0's idle share from one profiled
+    step.  ``beside``: a function run beside the worlds (:func:`pp_worlds`
+    in a whole run); its Future is returned under ``"beside"``."""
     gc.collect()
     torch.cuda.empty_cache()
     card = _card_line()
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     t0 = time.monotonic()
     gen = torch.Generator(device="cuda").manual_seed(19)
     for line in _fsdp_kernel_checks(gen):
         log(f"[fsdp] kernels at {line}")
+    conv_bn = _fsdp_conv_bn_checks(gen)
     problems, runs, parity = [], {}, {}
     keys = ("loss", "grad_norm")
     models = {f: _fsdp_model_cfg(f) for f in ("bert", "lm")}
     layers = {f: c.num_layers for f, c in models.items()}
+    one = (("a", "bert"), ("d0", "lm"), ("e0", "resnet"))
     # BERT's attention follows TPUFRAME_ATTN_IMPL; the LM's config names
     # pallas itself
     with _attn_impl("pallas"):
-        ref = {f: _fsdp_reference(f) for f in ("bert", "lm")}
-        for which, family in (("a", "bert"), ("d0", "lm")):
+        ref = {f: _fsdp_reference(f) for f in ("bert", "lm", "resnet")}
+        for which, family in one:
             run, _ = _sharded_run(FSDP_TAGS[which],
                                   _fsdp_args(family, FSDP_ONE[family]), 0,
                                   profile=True, tries=PROFILE_TRIES,
@@ -7047,45 +7272,64 @@ def phase_fsdp(beside=None) -> dict:
         one_s = time.monotonic() - t0
         root = tempfile.mkdtemp(prefix="tpuframe_fsdp_")
         try:
-            # the two worlds at once, for the time limit (their step times
-            # are read with the other world on the card and the host)
-            def world(n, spec):
-                out = os.path.join(root, f"fsdp{n}.json")
+            # the worlds at once, for the time limit (their step times
+            # are read with the other worlds on the card and the host)
+            def world(name, n, spec, env):
+                out = os.path.join(root, f"fsdp_{name}.json")
                 Path(out + ".runs.json").write_text(json.dumps(spec))
                 LocalCluster(n, timeout=FSDP_TIMEOUT_S, extra_env={
                     "TPUFRAME_DIST_BACKEND": "gloo",
-                    "TPUFRAME_ATTN_IMPL": "pallas"}).launch(
+                    "TPUFRAME_ATTN_IMPL": "pallas", **env}).launch(
                     [sys.executable, str(Path(__file__).resolve()),
                      "--fsdp-worker", out])
 
             with ThreadPoolExecutor(len(FSDP_WORLDS) + 1) as pool:
-                worlds = [pool.submit(world, *item)
-                          for item in FSDP_WORLDS.items()]
+                worlds = [pool.submit(world, name, *item)
+                          for name, item in FSDP_WORLDS.items()]
                 if beside is not None:
                     beside = pool.submit(beside)
                 for f in worlds:
                     f.result()
-            for n, spec in FSDP_WORLDS.items():
+            for name, (n, spec, _) in FSDP_WORLDS.items():
                 runs.update(json.loads(Path(os.path.join(
-                    root, f"fsdp{n}.json")).read_text()))
+                    root, f"fsdp_{name}.json")).read_text()))
                 for which, family, mesh in spec:
                     tag = FSDP_TAGS[which]
+                    mesh = _fsdp_mesh(mesh)
                     blocks = [torch.load(os.path.join(
                         root, f"grads_{which}.{r}.pt")) for r in range(n)]
-                    for name, (idx, g) in blocks[0].items():
+                    stats = [torch.load(os.path.join(
+                        root, f"stats_{which}.{r}.pt")) for r in range(n)]
+                    for name_, (idx, g) in blocks[0].items():
                         if idx is None and any(not torch.equal(
-                                g, b[name][1]) for b in blocks[1:]):
+                                g, b[name_][1]) for b in blocks[1:]):
                             problems.append(f"{tag}: step-1 gradient of "
-                                            f"replicated {name} differs "
+                                            f"replicated {name_} differs "
+                                            f"across ranks")
+                    for name_, t in stats[0].items():
+                        if any(not torch.equal(t, st[name_])
+                               for st in stats[1:]):
+                            problems.append(f"{tag}: step-1 running "
+                                            f"statistic {name_} differs "
                                             f"across ranks")
                     place, law = _fsdp_law(family, mesh)
-                    heads = models[family].num_heads // mesh.get("model", 1)
                     for r in runs[which]:
-                        problems += _run_checks(
-                            tag, r, heads, law, steps=FSDP_STEPS,
-                            layers=layers[family],
-                            fwd_per_step=2 if family == "lm" else 1,
-                            eval_batches=FSDP_EVAL_BATCHES)
+                        if family == "resnet":
+                            problems += _resnet_checks(tag, r, law)
+                            if r.get("pspec") != [[FSDP_RESNET_SPEC,
+                                                   "env"]]:
+                                problems.append(
+                                    f"{tag} rank {r['rank']}: run log's "
+                                    f"pspec events {r.get('pspec')}, want "
+                                    f"one naming {FSDP_RESNET_SPEC} (env)")
+                        else:
+                            heads = (models[family].num_heads
+                                     // mesh.get("model", 1))
+                            problems += _run_checks(
+                                tag, r, heads, law, steps=FSDP_STEPS,
+                                layers=layers[family],
+                                fwd_per_step=2 if family == "lm" else 1,
+                                eval_batches=FSDP_EVAL_BATCHES)
                         problems += [f"{tag} rank {r['rank']}: {b}"
                                      for b in _fsdp_blocks(r, place)]
                     r0 = runs[which][0]
@@ -7104,12 +7348,20 @@ def phase_fsdp(beside=None) -> dict:
                     bad, parity[which] = _fsdp_parity(
                         family, r0["step1"], _whole(blocks), ref[family])
                     problems += [f"{tag}: {p}" for p in bad]
+                    if family == "resnet":
+                        bad, parity[which + "_stats"] = _stats_parity(
+                            stats[0], ref[family])
+                        problems += [f"{tag}: {p}" for p in bad]
                     runs[which + "_law"] = law
-                    del blocks
+                    del blocks, stats
         finally:
             shutil.rmtree(root, ignore_errors=True)
     world_s = time.monotonic() - t0 - one_s
-    for which, family in (("a", "bert"), ("d0", "lm")):
+    for which, family in one:
+        if family == "resnet":
+            problems += _resnet_checks(FSDP_TAGS[which], runs[which][0],
+                                       None)
+            continue
         problems += _run_checks(FSDP_TAGS[which], runs[which][0],
                                 models[family].num_heads, None,
                                 steps=FSDP_STEPS, layers=layers[family],
@@ -7118,38 +7370,46 @@ def phase_fsdp(beside=None) -> dict:
     for family, what in (("bert", "glue_bert (BERT-base, dropout 0, batch "
                                   "32, S=128)"),
                          ("lm", f"lm_long (S={FSDP_LM_DATA['seq_len']}, "
-                                f"batch {FSDP_LM_BATCH})")):
+                                f"batch {FSDP_LM_BATCH})"),
+                         ("resnet", f"imagenet_resnet50 (bn=fused, batch "
+                                    f"{FSDP_RESNET_CUTS['global_batch']})")):
         f32, b16 = ref[family]["float32"], ref[family]["bfloat16"]
         log(f"[fsdp] {what} one-process step 1 on the sharded runs' global "
             f"batch: f32 loss {f32['loss']:.6f} grad norm "
             f"{f32['grad_norm']:.6f} ({f32['s']:.1f} s), bf16 loss "
             f"{b16['loss']:.6f} grad norm {b16['grad_norm']:.6f}")
     total = {k: 0 for k in launch_counts()}
-    for which in ("a", "b", "c", "d0", "d"):
-        base = runs["a" if which in "abc" else "d0"][0]
+    bases = {"a": "a", "b": "a", "c": "a", "d0": "d0", "d": "d0",
+             "e0": "e0", "e": "e0"}
+    for which, base_of in bases.items():
+        base = runs[base_of][0]
         for r in runs[which]:
             log(_moe_line(FSDP_TAGS[which], r, card, prefix="[fsdp]")
                 + f"; state {r['state_bytes'] / base['state_bytes']:.3f} x "
                   f"and peak memory "
                   f"{r['peak_bytes'] / base['peak_bytes']:.3f} x one "
                   f"process's"
-                + ("" if which in ("a", "d0") else
-                   "; times contended: the other world ran at once"))
+                + ("" if which == base_of else
+                   "; times contended: the other worlds ran at once"))
             for k in total:
                 total[k] += r["launches"][k]
         if which in parity:
             ratio, where = parity[which]
             s1 = runs[which][0]["step1"]
+            stats = ("" if which + "_stats" not in parity else
+                     "; running statistics: worst {:.2f} x their limit "
+                     "({})".format(*parity[which + "_stats"]))
             log(f"[fsdp] {FSDP_TAGS[which]} step 1: loss {s1['loss']:.6f} "
                 f"grad norm {s1['grad_norm']:.6f}; per-parameter gradients "
                 f"against the one-process f32 step: worst {ratio:.2f} x the "
                 f"bf16 step's own distance ({where}; limit "
-                f"{BF16_NOISE_FACTOR}); law a step {runs[which + '_law']}")
+                f"{BF16_NOISE_FACTOR}){stats}; law a step "
+                f"{runs[which + '_law']}")
     log(f"[fsdp] kernel checks, references and the one-process runs "
         f"{one_s:.1f} s, the worlds {world_s:.1f} s; {card}")
     if problems:
         raise RuntimeError("fsdp: " + "; ".join(problems[:12]))
-    return {"launches": total, "beside": beside}
+    return {"launches": total, "beside": beside, "conv_bn_rank": conv_bn}
 
 
 def _pp_sets(mesh: dict) -> dict:
@@ -7270,7 +7530,8 @@ def _pp_kernel_checks(gen) -> tuple:
     [2, 4096, 12, 64] bf16 causal, against their plain versions; then each
     kernel's time (CUDA events over 20 launches) beside its bound, its
     plain version (a batch row at a time) and SDPA's forward or whole
-    backward on the same tensors (none for the delta pass).  Bounds: 4, 6
+    backward on the same tensors (the delta pass: ``rowsum(dO * O)`` by
+    :func:`_delta_library_ms`).  Bounds: 4, 6
     and 8 x D x the causal pairs in FLOPs for the forward, dq and dk/dv
     (their matmuls), or the bytes each reads once and writes once,
     whichever takes longer; the delta pass by :func:`_delta_bytes`.
@@ -7291,6 +7552,7 @@ def _pp_kernel_checks(gen) -> tuple:
     sdpa = cuda_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True), 20)
     sdpa_bwd, _ = _sdpa_backward_ms(tensors, True)
+    delta_lib, _ = _delta_library_ms(q, k, v, do, None, True, 20)
 
     def plain(fn, ins):
         return lambda: _by_row(fn, ins, None, True)
@@ -7303,7 +7565,7 @@ def _pp_kernel_checks(gen) -> tuple:
         "flash_bwd_delta": (lambda: fa._launch_bwd(
             "delta", q, k, v, do, lse, None, None, True), 0,
             _delta_bytes(do), plain(fa.flash_bwd_delta_reference,
-                                    tensors[:5]), None, errs["delta"]),
+                                    tensors[:5]), delta_lib, errs["delta"]),
         "flash_bwd_dq": (lambda: fa._launch_bwd(
             "dq", *tensors, None, True), 6 * d * pairs, 5 * io + 2 * rows,
             plain(fa.flash_bwd_dq_reference, tensors), sdpa_bwd, errs["dq"]),
@@ -7321,7 +7583,7 @@ def _pp_kernel_checks(gen) -> tuple:
             "max_abs_err": e, "shape": f"B={b} S={s} N={n} D={d} bf16 causal"}
         times.append(f"{kernel} {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} "
                      f"ms, {r['bound_by']}; plain {r['plain_ms']:.2f} ms; "
-                     f"sdpa {'none' if lib is None else f'{lib:.4f} ms'})")
+                     f"library {'none' if lib is None else f'{lib:.4f} ms'})")
     line = (f"{name} [{b}, {s}, {n}, {d}]: forward err {err:.2e} (lse "
             f"{err_lse:.2e}), backward {route} "
             + ", ".join(f"{g} {x:.2e}" for g, x in errs.items())
@@ -7863,6 +8125,7 @@ def main(argv=None) -> int:
             row["cores"] = ("tensor cores (wgmma bf16) at all 15 shapes and "
                             "on every path's launch; f32 and K or C not a "
                             "multiple of 64 on the CUDA cores")
+            row["fsdp_rank"] = fsdp_run["conv_bn_rank"]
             row["device_ms"] = conv_bn["device_ms"]
             row["routes_by_path"] = {"resnet_train": resnet["routes"],
                                      "resnet_variants": variants["routes"]}

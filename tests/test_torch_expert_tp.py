@@ -452,9 +452,10 @@ def _cfg(mesh, **kw):
 @pytest.mark.parametrize("mesh,kw,err,match", [
     ({"data": 1, "model": 3}, {}, ValueError, "does not divide"),
     ({"data": 1, "expert": 3}, {}, ValueError, "does not divide"),
-    # fsdp is ported for the LM and BERT; an image model under it is not
+    # fsdp is ported for every model; the image models have no
+    # tensor-parallel rules (the case keeps its id)
     ({"data": 1, "fsdp": 2, "model": 2}, {"model": "convnet"},
-     NotImplementedError, "fsdp"),
+     ValueError, "fsdp.*no tensor-parallel rules"),
     ({"data": 1, "seq": 2, "model": 2}, {"shard_seq": True}, ValueError,
      "sequence parallelism"),
     ({"data": 2, "expert": 2}, {"grad_reduce": "adasum"}, ValueError,

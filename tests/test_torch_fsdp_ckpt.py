@@ -19,6 +19,13 @@ and 3.  One gloo world of four CPU processes then:
   - restores it onto ``data=2 x fsdp=2``, bit for bit (parameters and
     both Adam moments), and this process restores it onto one process,
     bit for bit.
+
+An fsdp image run resumes bit for bit: a gloo world of two trains the
+narrow Bottleneck ResNet of ``test_torch_fsdp_image.py`` (``bn="fused"``)
+on ``fsdp=2`` three steps straight, and again two steps, a save (its
+split conv, Dense and BatchNorm leaves ``ckpt.Shard`` blocks, the running
+statistics whole), a restore into a new harness and one step: the
+parameters, the running statistics and the SGD momenta are equal.
 """
 
 import json
@@ -231,10 +238,10 @@ def test_save_restores_onto_other_layouts_bit_for_bit(world):
 
 
 @pytest.mark.parametrize("model,mesh,overrides", [
-    ("resnet18", {"data": 1, "fsdp": 2}, {}),
-    ("convnet", {"data": 1, "fsdp": 2}, {}),
+    ("resnet18", {"data": 1, "fsdp": 2, "seq": 2}, {"shard_seq": True}),
+    ("transformer-lm-pp", {"data": 1, "fsdp": 2}, {}),
     ("transformer-lm", {"data": 1, "fsdp": 2, "slices": 2}, {}),
-], ids=["resnet-fsdp", "convnet-fsdp", "slices"])
+], ids=["resnet-fsdp-seq", "pp-lm-fsdp", "slices"])
 def test_unported_meshes_refuse_with_their_roadmap_item(model, mesh,
                                                         overrides):
     cfg = TrainConfig(**common(LM_KW)).with_overrides(
@@ -242,3 +249,94 @@ def test_unported_meshes_refuse_with_their_roadmap_item(model, mesh,
     world = int(np.prod([v for k, v in mesh.items()]))
     with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 12"):
         port_train._refuse_unported(cfg, world)
+
+
+# One rank of the world of two: the narrow ResNet on fsdp=2, three steps
+# straight, then two, a save, a restore into a new harness and one more.
+_RESNET_WORKER = r"""
+import json, os, sys
+import numpy as np
+import torch
+import torch.distributed as dist
+from tpuframe_torch import ckpt
+from tpuframe_torch import models as port_models
+from tpuframe_torch import train as port_train
+from tpuframe_torch.models import resnet
+from tpuframe_torch.parallel import tp
+from tpuframe_torch.utils.config import TrainConfig
+
+rank, port, root = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                        world_size=2, rank=rank)
+spec = json.load(open(f"{root}/spec.json"))
+stages, block, width = spec["arch"]
+port_models._RESNETS["resnet50"] = lambda **kw: resnet.ResNet(
+    tuple(stages), getattr(resnet, block), width=width, **kw)
+data = np.load(f"{root}/batches.npz")
+cfg = TrainConfig(**spec["cfg"]).with_overrides(mesh=spec["mesh"])
+
+
+def step(h, i):
+    lay = h.layout
+    n = data[f"label{i}"].shape[0] // lay.batch_size
+    j = lay.batch_index
+    h.train_step(h.state, {k: torch.from_numpy(np.ascontiguousarray(
+        data[f"{k}{i}"][j * n:(j + 1) * n])) for k in ("image", "label")})
+
+
+def state(h):
+    return {"model": {k: v.clone() for k, v in
+                      h.state.model.state_dict().items()},
+            "trace": {k: v.clone() for k, v in
+                      h.state.opt.state_dict()["trace"].items()},
+            "step": h.state.step}
+
+
+h = port_train.build_harness(cfg, device="cpu")
+for i in range(3):
+    step(h, i)
+straight = state(h)
+h = port_train.build_harness(cfg, device="cpu")
+for i in range(2):
+    step(h, i)
+ckpt.save(f"{root}/ckpt", 2, h.state.to_tree())
+h = port_train.build_harness(cfg, device="cpu")
+h.state.load_tree(ckpt.restore(f"{root}/ckpt", 2,
+                               target=h.state.to_tree()))
+step(h, 2)
+torch.save({"straight": straight, "resumed": state(h),
+            "specs": {k: list(v) for k, v in
+                      h.state.model.shard_specs.items()}},
+           f"{root}/rank{rank}.pt")
+os._exit(0)
+"""
+
+
+def test_fsdp_resnet_resumes_bit_for_bit(tmp_path):
+    import test_torch_fsdp_image as image
+
+    name = "bottleneck-fused"
+    (tmp_path / "spec.json").write_text(json.dumps(
+        {"cfg": image.common(name), "mesh": {"data": 1, "fsdp": 2},
+         "arch": image.ARCH["bottleneck"]}))
+    np.savez(tmp_path / "batches.npz",
+             **{f"{k}{i}": v for i, b in enumerate(image.batches(name))
+                for k, v in b.items()})
+    ranks = start_world(tmp_path, _RESNET_WORKER, n=2, timeout=300)()
+    for r in ranks:
+        want, got = r["straight"], r["resumed"]
+        assert got["step"] == want["step"] == 3
+        for part in ("model", "trace"):
+            assert set(got[part]) == set(want[part])
+            for k, t in want[part].items():
+                assert torch.equal(got[part][k], t), (part, k)
+    leaves = json.loads((tmp_path / "ckpt" / "step_00000002"
+                         / "manifest.json").read_text())["leaves"]
+    specs = ranks[0]["specs"]
+    for name in ("layer4.0.conv2.weight", "fc.weight", "layer4.0.bn3.weight",
+                 "layer4.0.bn3.bias"):
+        assert "fsdp" in specs[name], name
+        assert len(leaves[f"model/{name}"]["shards"]) == 2, name
+        assert len(leaves[f"opt/trace/{name}"]["shards"]) == 2, name
+    for name in ("layer4.0.bn3.running_mean", "layer4.0.bn3.running_var"):
+        assert leaves[f"model/{name}"]["shards"][0]["index"] is None, name

@@ -411,9 +411,11 @@ def test_distributed_false_trains_with_no_collective(tmp_path):
                  "DCN leg.*hierarchical", id="dcn-wire-leg"),
     ({}, {"TPUFRAME_HIER": "hier"}, 1, "hierarchical"),
     ({}, {"HOROVOD_FUSION_THRESHOLD": "67108864"}, 1, "bucketed fusion"),
-    # fsdp is ported for the LM and BERT; an image model under it is not
-    ({"mesh": {"data": 1, "fsdp": 2}, "model": "convnet"}, {}, 2,
-     "sharded state"),
+    # fsdp is ported for the LM, BERT and the image models; the
+    # layer-stacked LM under it is not (the case keeps its id)
+    pytest.param({"mesh": {"data": 1, "fsdp": 2},
+                  "model": "transformer-lm-pp"}, {}, 2, "sharded state",
+                 id="overrides4-env4-2-sharded state"),
     # sequence parallelism is ported; a seq mesh with sharded state is not
     # (the case keeps its id)
     pytest.param({"mesh": {"data": 1, "seq": 2, "fsdp": 2}}, {}, 4,

@@ -372,8 +372,8 @@ def bert_params_from_jax(params) -> dict:
 
 @dataclass(frozen=True)
 class JaxView:
-    """How a port tensor of a ``transformer-lm`` or ``bert-base`` model
-    holds its JAX leaf: the leaf's ``shape`` and, for each of its dims,
+    """How a port tensor (of any model the port maps) holds its JAX
+    leaf: the leaf's ``shape`` and, for each of its dims,
     ``(port dim, part)``: the port dim it lies along and whether it is
     that dim ``"whole"``, or the ``"outer"`` or ``"inner"`` factor of a
     flattened one (the head kernels' ``N*D``: heads outer, head dim
@@ -399,13 +399,15 @@ _EMBEDDING = re.compile(r"(^embed|embeddings\.(word|position|token_type))"
 
 def jax_view(name: str, shape: tuple, num_heads: int) -> JaxView:
     """The :class:`JaxView` of the port's whole tensor ``name`` of
-    ``shape`` (a ``transformer-lm`` or ``bert-base`` parameter, or its
-    moment) in a model of ``num_heads`` heads: query/key/value ``[N*D,
-    H]`` hold the JAX ``[H, N, D]``, their BERT biases ``[N*D]`` the
-    ``[N, D]``, out ``[H, N*D]`` the ``[N, D, H]``; every other 2-d
-    tensor but an embedding table is a transposed ``Dense`` kernel; the
-    rest (embeddings, LayerNorms, biases, the MoE experts) are as the
-    JAX leaf."""
+    ``shape`` (a parameter, or its moment) in a model of ``num_heads``
+    heads (1 for the image models): query/key/value ``[N*D, H]`` hold
+    the JAX ``[H, N, D]``, their BERT biases ``[N*D]`` the ``[N, D]``,
+    out ``[H, N*D]`` the ``[N, D, H]``; a 4-d tensor is a convolution's
+    ``[O, I, kh, kw]`` kernel, flax's ``HWIO``; every other 2-d tensor
+    but an embedding table is a transposed ``Dense`` kernel (the image
+    models' classifiers among them); the rest (embeddings, LayerNorms,
+    BatchNorm scales and biases, biases, the MoE experts) are as the JAX
+    leaf."""
     shape = tuple(shape)
     if _STACKED.match(name):
         # a ScanBlockLM leaf: the per-layer view behind the layer dim
@@ -423,6 +425,10 @@ def jax_view(name: str, shape: tuple, num_heads: int) -> JaxView:
     if _OUT.search(name):
         return JaxView((num_heads, shape[1] // num_heads, shape[0]),
                        ((1, "outer"), (1, "inner"), (0, "whole")))
+    if len(shape) == 4:
+        return JaxView((shape[2], shape[3], shape[1], shape[0]),
+                       ((2, "whole"), (3, "whole"), (1, "whole"),
+                        (0, "whole")))
     if len(shape) == 2 and not _EMBEDDING.search(name):
         return JaxView(shape[::-1], ((1, "whole"), (0, "whole")))
     return JaxView(shape, tuple((d, "whole") for d in range(len(shape))))

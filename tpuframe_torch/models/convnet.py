@@ -21,6 +21,12 @@ head.  It follows flax where the torch MNIST example differs:
   - init: flax's ``lecun_normal`` kernels (a normal truncated at 2 sigma,
     variance ``1 / fan_in``) and zero biases.
 
+Under fsdp's sharded state every parameter is read through ``fsdp.full``;
+the step seeds each rank's dropout generator by its batch index
+(``parallel/step.py``), so ranks that take other rows draw other masks
+and a sharded run draws other masks than one process on the same global
+batch.
+
 Parameter names: ``conv1``, ``conv2``, ``fc1``, ``fc2`` for flax's
 ``Conv_0``, ``Conv_1``, ``Dense_0``, ``Dense_1``
 (``models.convert.convnet_from_jax``).
@@ -35,6 +41,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tpuframe_torch import _device
+from tpuframe_torch.parallel.fsdp import full
 
 
 def dropout(x, p: float, generator: torch.Generator):
@@ -86,17 +93,18 @@ class ConvNet(nn.Module):
         if drop and generator is None:
             raise ValueError("a training forward with dropout needs a "
                              "generator")
+        w = {n: full(p).to(dt) for n, p in self.named_parameters()}
         x = x.to(dt).permute(0, 3, 1, 2)
-        x = F.relu(F.conv2d(x, self.conv1.weight.to(dt),
-                            self.conv1.bias.to(dt), padding=1))
-        x = F.relu(F.conv2d(x, self.conv2.weight.to(dt),
-                            self.conv2.bias.to(dt), padding=1))
+        x = F.relu(F.conv2d(x, w["conv1.weight"], w["conv1.bias"],
+                            padding=1))
+        x = F.relu(F.conv2d(x, w["conv2.weight"], w["conv2.bias"],
+                            padding=1))
         x = F.max_pool2d(x, 2, 2)
         if drop:
             x = dropout(x, self.rates[0], generator)
         x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)   # (H, W, C)
-        x = F.relu(F.linear(x, self.fc1.weight.to(dt), self.fc1.bias.to(dt)))
+        x = F.relu(F.linear(x, w["fc1.weight"], w["fc1.bias"]))
         if drop:
             x = dropout(x, self.rates[1], generator)
-        x = F.linear(x, self.fc2.weight.to(dt), self.fc2.bias.to(dt))
+        x = F.linear(x, w["fc2.weight"], w["fc2.bias"])
         return x.float()

@@ -16,6 +16,10 @@ catastrophically for a channel with ``|mean| >> std``.  ``var = max(E[x^2]
 :class:`~tpuframe_torch.models.resnet.BatchNorm`'s up to rounding; in bf16
 ``a`` and ``b`` are rounded once before the activation math.
 
+Under fsdp's sharded state the statistics are the batch group's, as
+:class:`BatchNorm`'s are (its ``stats``), and the scale and bias are read
+through ``fsdp.full``.
+
 The parameters and buffers are :class:`BatchNorm`'s (``weight``/``bias``
 for flax's scale/bias, ``running_mean``/``running_var`` for its
 batch_stats), so both modes share one ``state_dict`` layout.
@@ -26,6 +30,7 @@ from __future__ import annotations
 import torch
 
 from tpuframe_torch.models.resnet import EPS, BatchNorm
+from tpuframe_torch.parallel.fsdp import full
 
 
 class FoldedBatchNorm(BatchNorm):
@@ -34,7 +39,7 @@ class FoldedBatchNorm(BatchNorm):
 
     def forward(self, x, train: bool, update: bool = True):
         mean, var = self.stats(x.float(), train, update)
-        a = self.weight.float() * torch.rsqrt(var + EPS)
-        b = self.bias.float() - mean * a
+        a = full(self.weight).float() * torch.rsqrt(var + EPS)
+        b = full(self.bias).float() - mean * a
         x = x.to(self.dtype)
         return x * a.to(self.dtype) + b.to(self.dtype)

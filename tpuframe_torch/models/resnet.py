@@ -42,6 +42,14 @@ numerics follow flax where the two could drift:
     (``torch.utils.checkpoint``, non-reentrant), as flax's ``nn.remat``
     does; the recomputed forward leaves the running statistics alone, so
     they move once a step, as in flax.
+
+Under fsdp's sharded state (``parallel/fsdp.py``) every parameter is read
+through ``fsdp.full``, and each BatchNorm (fused or not) takes its batch
+statistics over its ``stats_group``, the batch group (data x fsdp) that
+``fsdp.shard_`` hands it: the global batch's, as GSPMD computes flax's
+``jnp.mean`` over a batch split over those axes.  One all-reduce a
+BatchNorm a pass (``collectives.bn_stats_sum``); a ``remat`` recompute
+issues its forward's again, in the same order on every rank.
 """
 
 from __future__ import annotations
@@ -55,6 +63,7 @@ from torch.utils.checkpoint import checkpoint
 
 from tpuframe_torch import _device
 from tpuframe_torch.ops import fused_conv_bn as fcb
+from tpuframe_torch.parallel.fsdp import full
 
 MOMENTUM = 0.9
 EPS = 1e-5
@@ -92,7 +101,7 @@ class Conv(nn.Module):
             pad = hl
         else:
             x = F.pad(x, (wl, wh, hl, hh))
-        y = F.conv2d(x, self.weight.to(self.dtype), stride=stride,
+        y = F.conv2d(x, full(self.weight).to(self.dtype), stride=stride,
                      padding=pad)
         return y.permute(0, 2, 3, 1)
 
@@ -100,7 +109,11 @@ class Conv(nn.Module):
 class BatchNorm(nn.Module):
     """``flax.linen.BatchNorm(momentum=0.9, epsilon=1e-5, dtype=dtype)`` on
     ``[B, H, W, C]``: ``weight``/``bias`` are flax's scale/bias,
-    ``running_mean``/``running_var`` its batch_stats."""
+    ``running_mean``/``running_var`` its batch_stats.  ``stats_group``:
+    the ``mesh.Group`` the batch statistics are taken over (None: this
+    rank's rows alone)."""
+
+    stats_group = None
 
     def __init__(self, features: int, *, zero_init: bool = False,
                  dtype=torch.float32, device=None):
@@ -127,9 +140,7 @@ class BatchNorm(nn.Module):
         as in a recomputed forward), else the running ones."""
         if not train:
             return self.running_mean, self.running_var
-        mean = xf.mean(dim=(0, 1, 2))
-        var = torch.clamp((xf * xf).mean(dim=(0, 1, 2)) - mean * mean,
-                          min=0.0)
+        mean, var = fcb.batch_moments(xf, (0, 1, 2), self.stats_group)
         if update:
             self.update_running(mean.detach(), var.detach())
         return mean, var
@@ -137,7 +148,8 @@ class BatchNorm(nn.Module):
     def forward(self, x, train: bool, update: bool = True):
         xf = x.float()
         mean, var = self.stats(xf, train, update)
-        y = (xf - mean) * (torch.rsqrt(var + EPS) * self.weight) + self.bias
+        y = (xf - mean) * (torch.rsqrt(var + EPS) * full(self.weight)) \
+            + full(self.bias)
         return y.to(self.dtype)
 
 
@@ -150,11 +162,13 @@ def conv_bn(conv: Conv, bn: BatchNorm, x, train: bool, fused: bool,
     x = x.to(conv.dtype)
     if s > 1:
         x = x[:, ::s, ::s, :].contiguous()
-    w = conv.weight[:, :, 0, 0].T          # [K, C]
+    w = full(conv.weight)[:, :, 0, 0].T    # [K, C]
+    gamma, beta = full(bn.weight), full(bn.bias)
     if not train:
-        return fcb.conv1x1_bn_eval(x, w, bn.weight, bn.bias, bn.running_mean,
+        return fcb.conv1x1_bn_eval(x, w, gamma, beta, bn.running_mean,
                                    bn.running_var, eps=EPS)
-    y, mean, var = fcb.conv1x1_bn_train(x, w, bn.weight, bn.bias, eps=EPS)
+    y, mean, var = fcb.conv1x1_bn_train(x, w, gamma, beta, eps=EPS,
+                                        group=bn.stats_group)
     if update:
         bn.update_running(mean, var)
     return y
@@ -348,8 +362,8 @@ class ResNet(nn.Module):
             for block in getattr(self, f"layer{i + 1}"):
                 x = _remat_block(block, x) if remat else block(x, train)
         x = x.mean(dim=(1, 2))                  # global average pool
-        x = F.linear(x, self.fc.weight.to(self.dtype),
-                     self.fc.bias.to(self.dtype))
+        x = F.linear(x, full(self.fc.weight).to(self.dtype),
+                     full(self.fc.bias).to(self.dtype))
         return x.float()
 
 

@@ -19,9 +19,19 @@ BatchNorm, as a :class:`torch.autograd.Function`:
     CUDA cores; :data:`ROUTES` counts the launches of each.
 
 The gradients of the returned ``mean`` and ``var`` are ignored: they exist
-for the running-statistics update, as in the JAX package.  A tensor on the
-CPU goes to :func:`fused_bwd_reference`; a CUDA tensor launches the kernel
-or raises.  The TPU kernel's VMEM gate (``_pick_tiles``) does not carry
+for the running-statistics update, as in the JAX package.
+
+With a ``group`` (fsdp's sharded state: the batch group, data x fsdp) the
+statistics are the global batch's: the forward sums ``[sum x, sum x^2]``
+and backward pass 1 sums ``[sum dy, sum dy x_hat]`` over the group (one
+all-reduce each, ``collectives.bn_stats_sum``) and divides by the global
+row count, so the kernel runs at the rank's rows with coefficients from
+global sums.  The gamma and beta gradients stay the rank's own sums: the
+step's mean over the batch group (or fsdp's reduce-scatter and the data
+group's mean) adds the ranks' up, as it does every other gradient.
+
+A tensor on the CPU goes to :func:`fused_bwd_reference`; a CUDA tensor
+launches the kernel or raises.  The TPU kernel's VMEM gate (``_pick_tiles``) does not carry
 over: the CUDA kernel masks its ragged edges, so every shape runs it.
 """
 
@@ -30,6 +40,8 @@ from __future__ import annotations
 import ctypes
 
 import torch
+
+from tpuframe_torch.parallel import collectives
 
 DTYPES = (torch.float32, torch.bfloat16)
 
@@ -222,34 +234,58 @@ def _affine(x, gamma, beta, mean, var, eps):
     return x * aa.to(x.dtype) + bb.to(x.dtype)
 
 
-def _fwd_math(a, w, gamma, beta, eps):
+def _rows(t, dims, group) -> int:
+    """The rows a statistic over ``dims`` of ``t`` counts: this rank's
+    times the group's size (every rank of the group holds as many)."""
+    n = 1
+    for d in dims:
+        n *= t.shape[d]
+    return n * (1 if group is None else group.size)
+
+
+def batch_moments(xf, dims, group=None):
+    """``(mean, var)`` of the f32 ``xf`` over ``dims``: flax's batch
+    statistics, the biased ``var = max(E[x^2] - mu^2, 0)``.  With a
+    ``group`` (a ``mesh.Group`` of more than one rank) the means are the
+    group's: ``[sum x, sum x^2]`` summed over it in one all-reduce,
+    differentiable, over the global row count."""
+    if group is None or group.size == 1:
+        mean = xf.mean(dim=dims)
+        return mean, torch.clamp((xf * xf).mean(dim=dims) - mean * mean,
+                                 min=0.0)
+    sums = collectives.bn_stats_sum(
+        torch.stack([xf.sum(dim=dims), (xf * xf).sum(dim=dims)]), group)
+    m = _rows(xf, dims, group)
+    mean = sums[0] / m
+    return mean, torch.clamp(sums[1] / m - mean * mean, min=0.0)
+
+
+def _fwd_math(a, w, gamma, beta, eps, group=None):
     """``tpuframe/ops/fused_conv_bn.py:_fwd_math`` on the ``[M, K]`` view:
     ``(y, mean, var, x)``; f32 batch statistics with the biased ``var =
-    max(E[x^2] - mu^2, 0)``."""
+    max(E[x^2] - mu^2, 0)``, over ``group``'s rows (:func:`batch_moments`)."""
     x = a @ w.to(a.dtype)
-    xf = x.float()
-    mean = xf.mean(dim=0)
-    var = torch.clamp((xf * xf).mean(dim=0) - mean * mean, min=0.0)
+    mean, var = batch_moments(x.float(), (0,), group)
     return _affine(x, gamma, beta, mean, var, eps), mean, var, x
 
 
 class _ConvBN(torch.autograd.Function):
     """``(y, mean, var)`` of ``a [M, K]``, ``w [K, C]`` (f32), gamma and
     beta, with the JAX package's custom VJP (``_core_fwd`` /
-    ``_core_bwd``)."""
+    ``_core_bwd``); the statistics over ``group``'s rows."""
 
     @staticmethod
-    def forward(ctx, a, w, gamma, beta, eps):
-        y, mean, var, x = _fwd_math(a, w, gamma, beta, eps)
+    def forward(ctx, a, w, gamma, beta, eps, group):
+        y, mean, var, x = _fwd_math(a, w, gamma, beta, eps, group)
         ctx.save_for_backward(a, w, x, mean, var, gamma)
-        ctx.eps = eps
+        ctx.eps, ctx.group = eps, group
         ctx.mark_non_differentiable(mean, var)
         return y, mean, var
 
     @staticmethod
     def backward(ctx, dy, _dmean, _dvar):
         a, w, x, mean, var, gamma = ctx.saved_tensors
-        m = x.shape[0]
+        m = _rows(x, (0,), ctx.group)
         dy = dy.to(x.dtype).contiguous()
         # Pass 1: both BN reductions over (x, dy).
         r = torch.rsqrt(var + ctx.eps)
@@ -257,10 +293,14 @@ class _ConvBN(torch.autograd.Function):
         xhat = (x.float() - mean) * r
         sum_dy = dyf.sum(dim=0)
         sum_dyxhat = (dyf * xhat).sum(dim=0)
+        # the global sums fold the coefficients; gamma and beta keep the
+        # rank's own (the module docstring)
+        glob = collectives.bn_stats_sum(torch.stack([sum_dy, sum_dyxhat]),
+                                        ctx.group)
         # Folded per-channel coefficients for g = s*dy - u*x + c.
         gf = gamma.float()
-        c1 = sum_dy / m
-        c2 = sum_dyxhat / m
+        c1 = glob[0] / m
+        c2 = glob[1] / m
         s = gf * r
         u = gf * r * r * c2
         cc = u * mean - s * c1
@@ -271,22 +311,23 @@ class _ConvBN(torch.autograd.Function):
         # w is stored f32 and cast to the compute dtype in the forward; the
         # f32 dW already is the gradient through that cast.
         return (da, dw.to(w.dtype), sum_dyxhat.to(gamma.dtype),
-                sum_dy.to(gamma.dtype), None)
+                sum_dy.to(gamma.dtype), None, None)
 
 
-def conv1x1_bn_train(a4, w, gamma, beta, *, eps: float = 1e-5):
+def conv1x1_bn_train(a4, w, gamma, beta, *, eps: float = 1e-5, group=None):
     """1x1 conv (stride 1, no bias) + training-mode BatchNorm.
 
     ``a4 [N, H, W, K]`` activations in the compute dtype, ``w [K, C]`` f32
     (any strides), ``gamma``/``beta [C]`` f32.  Returns ``(y [N, H, W, C]``
     in a4's dtype, ``mean [C]`` f32, ``var [C]`` f32, biased``)``; ``y`` is
     differentiable in a4, w, gamma and beta, ``mean`` and ``var`` are
-    not."""
+    not.  ``group``: the ``mesh.Group`` whose rows the statistics are
+    taken over (the module docstring; None: this rank's)."""
     n, h, w_sp, k = a4.shape
     if w.shape[0] != k:
         raise ValueError(f"w {tuple(w.shape)} does not take {k} channels")
     y, mean, var = _ConvBN.apply(a4.reshape(n * h * w_sp, k), w, gamma,
-                                 beta, float(eps))
+                                 beta, float(eps), group)
     return y.view(n, h, w_sp, -1), mean, var
 
 

@@ -711,9 +711,10 @@ def wire_mean_(t: torch.Tensor, grp) -> torch.Tensor:
 # into them, by verb, the forward and the backward alike (what a run
 # reads as its sharded-state traffic).  The all-gathers count the block
 # sent, the reduce-scatter the whole operand.  A group of one runs and
-# counts nothing.
+# counts nothing.  ``bn_stats`` counts a BatchNorm's per-channel sums over
+# the batch group (:func:`bn_stats_sum`), forward and backward.
 SHARD_CALLS = {"all_reduce": 0, "all_gather": 0, "fsdp_all_gather": 0,
-               "fsdp_reduce_scatter": 0}
+               "fsdp_reduce_scatter": 0, "bn_stats": 0}
 SHARD_BYTES = dict.fromkeys(SHARD_CALLS, 0)
 
 
@@ -730,6 +731,45 @@ def _shard_sum_(t: torch.Tensor, grp) -> torch.Tensor:
     SHARD_CALLS["all_reduce"] += 1
     SHARD_BYTES["all_reduce"] += t.numel() * t.element_size()
     return t
+
+
+def _bn_sum_(t: torch.Tensor, grp) -> torch.Tensor:
+    """In-place sum of a BatchNorm's packed statistics ``t`` (contiguous)
+    over the batch group, counted as ``bn_stats``."""
+    _check_device("all_reduce", t, grp.group)
+    dist.all_reduce(t, group=grp.group)
+    SHARD_CALLS["bn_stats"] += 1
+    SHARD_BYTES["bn_stats"] += t.numel() * t.element_size()
+    return t
+
+
+class _BnStatsSum(torch.autograd.Function):
+    """``psum`` of packed statistics over the batch group: the sum
+    forward and, as its transpose, backward."""
+
+    @staticmethod
+    def forward(ctx, x, grp):
+        ctx.grp = grp
+        return _bn_sum_(x.contiguous().clone(), grp)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _bn_sum_(g.contiguous().clone(), ctx.grp), None
+
+
+def bn_stats_sum(x: torch.Tensor, grp) -> torch.Tensor:
+    """The sum over the batch group ``grp`` (a ``mesh.Group``; None or one
+    member: the identity) of a BatchNorm's per-channel statistics, packed
+    into one tensor so that a BatchNorm sends one all-reduce a pass:
+    ``[sum x, sum x^2]`` in the forward (differentiable; its backward is
+    one all-reduce of their cotangents), or the fused op's backward sums
+    ``[sum dy, sum dy x_hat]``.  The sharded-state mode's BatchNorm
+    statistics are the global batch's, as GSPMD computes them."""
+    if grp is None or grp.size == 1:
+        return x
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _BnStatsSum.apply(x, grp)
+    return _bn_sum_(x.contiguous().clone(), grp)
 
 
 def _shard_gather(t: torch.Tensor, grp, dim: int) -> torch.Tensor:

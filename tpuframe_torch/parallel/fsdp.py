@@ -29,6 +29,13 @@ The runtime GSPMD gave the JAX package is written out:
     ``remat`` recompute gathers it again;
   - the optimizer is built after the cut, so its moments are born on the
     blocks;
+  - a module with a ``stats_group`` (the image models' BatchNorms) takes
+    its batch statistics over the batch group (data x fsdp), which
+    :func:`shard_` hands it: GSPMD keeps the logical program, so the JAX
+    step's BatchNorm normalises with the global batch's statistics.  Its
+    running statistics are then the same on every rank, and they stay
+    whole (the JAX placement splits a ``batch_stats`` leaf of 1024
+    elements or more; a difference of placement, not of value);
   - the train step (``parallel/step.py``) averages an fsdp-split leaf's
     reduce-scattered gradient over the data group and divides it by the
     fsdp degree (the reduce-scatter summed over fsdp), and every other
@@ -81,15 +88,15 @@ def _rule_spec(name: str, shape: tuple, rules: tuple):
 def state_shardings(model: nn.Module, sizes: dict, rules: tuple | None = None,
                     axis: str = "fsdp") -> dict:
     """``{parameter name: port spec}`` of every parameter of a whole
-    ``model`` (``TransformerLM`` or BERT) on a mesh of ``sizes``: the
-    spec the JAX ``state_shardings`` gives the parameter's leaf (with the
-    tensor-parallel ``rules`` where a model or expert degree is above 1,
-    as the JAX trainer passes them), mapped onto the port's tensor
-    (``()``: whole).  The optimizer's moments take their parameter's
-    spec.  Raises ValueError where the JAX placement would split a head
-    dim inside the port's flattened heads, and, through
-    ``tp.specs_for``, where a model or expert degree does not divide the
-    dims its rules split."""
+    ``model`` (``TransformerLM``, BERT, a ResNet or the ConvNet) on a
+    mesh of ``sizes``: the spec the JAX ``state_shardings`` gives the
+    parameter's leaf (with the tensor-parallel ``rules`` where a model or
+    expert degree is above 1, as the JAX trainer passes them), mapped
+    onto the port's tensor (``()``: whole).  The optimizer's moments
+    take their parameter's spec.  Raises ValueError where the JAX
+    placement would split a head dim inside the port's flattened heads,
+    and, through ``tp.specs_for``, where a model or expert degree does
+    not divide the dims its rules split."""
     from tpuframe_torch.models import convert
 
     if sizes.get("model", 1) == 1 and sizes.get("expert", 1) == 1:
@@ -97,8 +104,9 @@ def state_shardings(model: nn.Module, sizes: dict, rules: tuple | None = None,
     if rules is not None:
         tp.specs_for(model, rules, sizes)
     out = {}
+    heads = getattr(getattr(model, "cfg", None), "num_heads", 1)
     for name, p in model.named_parameters():
-        view = convert.jax_view(name, tuple(p.shape), model.cfg.num_heads)
+        view = convert.jax_view(name, tuple(p.shape), heads)
         base = None
         if rules is not None:
             port_base = _rule_spec(name, tuple(p.shape), rules)
@@ -141,7 +149,8 @@ def shard_(model: nn.Module, layout, rules: tuple | None = None) -> dict:
     to this rank's block under :func:`state_shardings` in place, mark the
     ones split over fsdp for :func:`full`, and return ``{name: spec}`` of
     the split ones (every axis of degree 1 aside, a spec that splits
-    nothing is left out).  The optimizer must be built after."""
+    nothing is left out).  Every module with a ``stats_group`` gets the
+    batch group.  The optimizer must be built after."""
     sizes = layout.sizes
     specs = {name: spec for name, spec in
              state_shardings(model, sizes, rules).items()
@@ -151,6 +160,9 @@ def shard_(model: nn.Module, layout, rules: tuple | None = None) -> dict:
         d = split_dim(specs.get(name))
         if d is not None and layout.fsdp is not None:
             p.fsdp = (layout.fsdp, d)
+    for mod in model.modules():
+        if hasattr(mod, "stats_group"):
+            mod.stats_group = layout.batch
     return specs
 
 

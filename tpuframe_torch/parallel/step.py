@@ -22,7 +22,10 @@ of one.  The same contract holds:
     each replica's forward from its own batch, once per microbatch in
     order, and are then averaged over the world, which keeps them
     single-valued as the JAX step's ``pmean`` of ``model_state`` does
-    (under Adasum too).
+    (under Adasum too).  In the sharded-state mode (``layout``) the
+    statistics are the batch group's (``parallel/fsdp.py``), the same on
+    every rank, and are not averaged, as the JAX jit step keeps its
+    logical ``model_state``.
 
 With ``distributed=False`` the steps run no collective even in a process
 group: each process trains alone, as the JAX package's unmapped step on
@@ -269,7 +272,8 @@ def make_train_step(loss_fn: LossFn, *, accum_steps: int = 1,
             collectives.mean_(split, layout.data_group)
             for g in split:
                 g.div_(layout.fsdp.size)
-            collectives.mean_(whole + stats + list(out.values()), grp)
+            # the running statistics are the batch group's already
+            collectives.mean_(whole + list(out.values()), grp)
         else:
             collectives.mean_(grads + stats + list(out.values()), grp)
         out["grad_norm"] = state.opt.step()

@@ -12,6 +12,10 @@ CIFAR-10 and ImageNet image workloads, the LM and BERT/GLUE.
         --set 'model_kwargs={"bn": "fused"}' --set 'mesh={"data": 1}' \\
         --set global_batch=256
     python -m tpuframe_torch.train --config glue_bert
+    TPUFRAME_DIST_BACKEND=gloo TPUFRAME_SPEC="dp=1,fsdp=2" \\
+        python -m tpuframe_torch.launch local --nprocs 2 -- \\
+        python -m tpuframe_torch.train --config imagenet_resnet50 \\
+        --set 'model_kwargs={"bn": "fused"}' --set global_batch=64
     TPUFRAME_DIST_BACKEND=gloo python -m tpuframe_torch.launch local \\
         --nprocs 4 -- python -m tpuframe_torch.train --config glue_bert \\
         --set 'mesh={"data": 1, "fsdp": 2, "model": 2}'
@@ -55,9 +59,12 @@ group after its reduce-scatter, dropout is seeded by the batch index,
 the gradient norm counts every element once, the fusion knob is
 ignored, as the JAX jit step ignores it, and ``accum_steps`` splits the
 global batch's rows into microbatches, as the JAX jit step does; zero1,
-the int8 wire, Adasum and a seq degree above 1 are refused there, and so
-are the image models under fsdp (their BatchNorm statistics would have
-to be batch-group means, ROADMAP.md item 12).  A pipe degree
+the int8 wire, Adasum and a seq degree above 1 are refused there.  The
+image models (``resnet*``, ``convnet``) take fsdp with a data degree, not
+the model or expert axes (the JAX package has no tensor-parallel rules
+for them): their BatchNorms take the batch group's statistics, as the
+JAX jit step's global batch does, and their running statistics are then
+the same on every rank and are not averaged.  A pipe degree
 above 1 with ``model="transformer-lm-pp"`` is pipeline parallelism
 (``parallel/pp_lm.py``): each stage holds its layers of the
 layer-stacked blocks and their moments, the GPipe schedule runs
@@ -82,7 +89,7 @@ workloads (``lm_text`` data, ``transformer-lm``) and the GLUE tasks
 and Matthews correlation at eval) train here.  What the JAX harness has and
 the port does not yet refuses loudly, naming its ROADMAP.md item: the
 profiler server (item 11), named remat policies (item 14),
-multi-slice meshes, the image models under fsdp, hierarchical
+multi-slice meshes (a ``TPUFRAME_SPEC`` with ``;slices=N``), hierarchical
 collectives and their DCN wire
 (``TPUFRAME_HIER``, ``TPUFRAME_WIRE_FORMAT_DCN``) and elastic resizing.
 ``grad_reduce="adasum"`` reduces the gradients by Adasum.
@@ -97,7 +104,10 @@ gradients over the block-quantized wire (``parallel/quantwire.py``): an
 env ask that the run cannot serve raises the step's own error, as in the
 JAX harness.  ``TPUFRAME_CHECK_SPMD=1`` checks, before the first step,
 that every rank built the same config and step program
-(``obs/spmd_check.py``).
+(``obs/spmd_check.py``).  ``TPUFRAME_SPEC`` (``"dp=1,fsdp=2"``, the JAX
+grammar, ``parallel/pspec.py``) declares the mesh and wins over the
+config's, as in the JAX harness: the run prints the spec and the mesh it
+lowers to and writes a ``pspec`` event.
 
 Run telemetry, as in the JAX harness: with ``TPUFRAME_EVENTS_DIR`` (or
 ``--events-dir``) the run writes ``run_start`` (with the step's model
@@ -181,6 +191,7 @@ from tpuframe_torch.parallel import fusion
 from tpuframe_torch.parallel import hvd
 from tpuframe_torch.parallel import mesh as mesh_lib
 from tpuframe_torch.parallel import pp_lm
+from tpuframe_torch.parallel import pspec as pspec_lib
 from tpuframe_torch.parallel import quantwire
 from tpuframe_torch.parallel import step as step_lib
 from tpuframe_torch.parallel import tp
@@ -199,7 +210,6 @@ RC_STALLED = 13
 # Environment knobs of the JAX harness that select what the port lacks,
 # with the value that means "off".
 _UNPORTED_ENV = {
-    "TPUFRAME_SPEC": (None, f"declarative parallelism specs, {ITEM_12}"),
     "TPUFRAME_WIRE_FORMAT_DCN": ("fp", f"the DCN leg's wire of the "
                                        f"hierarchical collectives, "
                                        f"{ITEM_12}"),
@@ -219,6 +229,11 @@ def _refuse_unported(cfg: TrainConfig, world: int) -> dict:
     """Raise ``NotImplementedError`` for anything the port cannot run;
     returns the mesh degrees on ``world`` ranks."""
     bootstrap.check_fusion_env()
+    if cfg.mesh.slices > 1:
+        # before the degrees: a spec's slices may not fit this world
+        raise NotImplementedError(f"mesh slices={cfg.mesh.slices}: "
+                                  f"multi-slice meshes are not ported yet "
+                                  f"({ITEM_12})")
     sizes = cfg.mesh.sizes(world)
     if sizes["pipe"] > 1:
         _refuse_pp(cfg, sizes)
@@ -228,10 +243,6 @@ def _refuse_unported(cfg: TrainConfig, world: int) -> dict:
             raise NotImplementedError(f"{var}={val!r}: {what} is not "
                                       f"ported yet")
     datasets.check(cfg.dataset)
-    if sizes["slices"] > 1:
-        raise NotImplementedError(f"mesh slices={sizes['slices']}: "
-                                  f"multi-slice meshes are not ported yet "
-                                  f"({ITEM_12})")
     if sizes["fsdp"] > 1 and sizes["seq"] > 1:
         raise NotImplementedError(
             f"mesh fsdp={sizes['fsdp']} x seq={sizes['seq']}: sequence "
@@ -291,17 +302,17 @@ def _refuse_pp(cfg: TrainConfig, sizes: dict) -> None:
 
 def _refuse_sharded(cfg: TrainConfig, sizes: dict) -> None:
     """The sharded-state mode (an fsdp, expert or model degree above 1:
-    the JAX trainer's auto-SPMD step) serves the LM and BERT, and refuses
-    what the JAX harness refuses there."""
+    the JAX trainer's auto-SPMD step) serves the LM and BERT on every
+    such axis and the image models on fsdp, and refuses what the JAX
+    harness refuses there."""
     shape = (f"mesh fsdp={sizes['fsdp']} x expert={sizes['expert']} x "
              f"model={sizes['model']}")
-    if cfg.model not in ("transformer-lm", "bert-base"):
-        if sizes["fsdp"] > 1:
-            raise NotImplementedError(
-                f"{shape}: model {cfg.model!r} under fsdp's sharded state "
-                f"is not ported yet ({ITEM_12}: the image models under "
-                f"fsdp, whose BatchNorm statistics are means over the "
-                f"batch group)")
+    image = cfg.model.startswith("resnet") or cfg.model == "convnet"
+    if cfg.model not in ("transformer-lm", "bert-base") and not image:
+        raise NotImplementedError(
+            f"{shape}: model {cfg.model!r} in fsdp's sharded state is "
+            f"not ported yet ({ITEM_12})")
+    if image and (sizes["model"] > 1 or sizes["expert"] > 1):
         raise ValueError(f"{shape}: no tensor-parallel rules for model "
                          f"{cfg.model!r} (the JAX package has them for "
                          f"transformer-lm and bert-base)")
@@ -316,6 +327,8 @@ def _refuse_sharded(cfg: TrainConfig, sizes: dict) -> None:
                          f"runs sequence parallelism on the replicated "
                          f"(shard_map) path only; the JAX sharded-state "
                          f"step runs whole-sequence attention there")
+    if image:
+        return
     kw = dict(cfg.model_kwargs)
     tiny = kw.pop("tiny", False)
     # models.get_model's configs (BERT takes no ``tiny``)
@@ -343,6 +356,9 @@ class Harness:
     start_step: int = 0
     # the step's fusion threshold and its source (``_resolved_fusion``)
     fusion_threshold: tuple = (None, "default")
+    # the parallelism spec the mesh came from and its source
+    # (``pspec.resolve``): (None, "default") when the config's mesh stands
+    pspec: tuple = (None, "default")
     # the weight update and the wire format with their sources
     # (``_resolved_update``)
     weight_update: tuple = ("replicated", "default")
@@ -628,8 +644,27 @@ def make_metric_fn(cfg: TrainConfig, layout: mesh_lib.Layout | None = None):
     return metric_fn
 
 
+def _resolved_spec(cfg: TrainConfig) -> tuple:
+    """``(cfg, (canonical spec | None, source))``: a ``TPUFRAME_SPEC``
+    declaration (``parallel/pspec.py``) wins over the config's mesh, as
+    in the JAX harness, which prints it; a spec that does not parse
+    raises.  The JAX harness's tuning-DB leg has no counterpart: env >
+    config."""
+    spec, source = pspec_lib.resolve()
+    if spec is None:
+        return cfg, (None, source)
+    cfg = cfg.with_overrides(mesh=spec.mesh_spec())
+    if bootstrap.is_primary():
+        print(f"[tpuframe] parallelism spec '{spec.canonical()}' "
+              f"({source}) -> mesh {cfg.mesh}", flush=True)
+    return cfg, (spec.canonical(), source)
+
+
 def build_harness(cfg: TrainConfig, device="cuda") -> Harness:
+    """Everything a run needs from ``cfg`` (its mesh replaced by a
+    ``TPUFRAME_SPEC`` declaration's, ``Harness.cfg``)."""
     bootstrap.initialize(device=device)
+    cfg, spec = _resolved_spec(cfg)
     world, rank = collectives.world() if cfg.distributed else (1, 0)
     sizes = _refuse_unported(cfg, world)
     # every rank makes every seq ring's group, in the same order
@@ -676,7 +711,7 @@ def build_harness(cfg: TrainConfig, device="cuda") -> Harness:
     update, wire = _resolved_update(sizes)
     if layout.pipe is not None:
         return _pp_harness(cfg, dev, model, layout, world, train_loader,
-                           eval_loader, update, wire)
+                           eval_loader, update, wire, spec)
     threshold, source = _resolved_fusion(cfg)
     # the sharded-state mode averages over the batch group (an fsdp-split
     # gradient over the data group), seeds dropout by batch index and
@@ -703,6 +738,7 @@ def build_harness(cfg: TrainConfig, device="cuda") -> Harness:
     return Harness(
         cfg=cfg, device=dev, state=state, manager=manager,
         start_step=state.step, fusion_threshold=(threshold, source),
+        pspec=spec,
         weight_update=update, wire_format=wire, train_step=train_step,
         eval_step=step_lib.make_eval_step(
             make_metric_fn(cfg, layout), distributed=cfg.distributed,
@@ -712,7 +748,7 @@ def build_harness(cfg: TrainConfig, device="cuda") -> Harness:
 
 
 def _pp_harness(cfg: TrainConfig, dev, model, layout, world, train_loader,
-                eval_loader, update, wire) -> Harness:
+                eval_loader, update, wire, spec) -> Harness:
     """The harness of a pipeline run (``parallel/pp_lm.py``): the stage's
     model, its optimizer with the cross-stage gradient norm, the pipeline
     train and eval steps.  The fusion knob is ignored, as the JAX
@@ -727,6 +763,7 @@ def _pp_harness(cfg: TrainConfig, dev, model, layout, world, train_loader,
     return Harness(
         cfg=cfg, device=dev, state=state, manager=manager,
         start_step=state.step, fusion_threshold=(None, "default"),
+        pspec=spec,
         weight_update=update, wire_format=wire, train_step=train_step,
         eval_step=pp_lm.make_pp_lm_eval(model.cfg, layout, **kw),
         train_loader=train_loader, eval_loader=eval_loader, world=world,
@@ -949,6 +986,7 @@ def _train(cfg: TrainConfig, device, guard: PreemptionGuard,
         # in-process callers train repeatedly under different environments
         faults.reset_from_env()
         h = build_harness(cfg, device)
+        cfg = h.cfg             # the mesh a TPUFRAME_SPEC declared
         tel.world = h.world
         tel.generation = _generation(h.device)
         tel.step = h.start_step
@@ -1059,6 +1097,8 @@ def _run_start(cfg: TrainConfig, h: Harness, tel: _Telemetry,
                     hier_source="default")
         events.emit("fusion_threshold", threshold=h.fusion_threshold[0],
                     source=h.fusion_threshold[1])
+        if h.pspec[0] is not None:
+            events.emit("pspec", spec=h.pspec[0], source=h.pspec[1])
         tel.devmem = devmem_lib.DevmemSampler(
             interval_s=float(os.environ.get("TPUFRAME_DEVMEM_INTERVAL_S",
                                             "30")),
